@@ -1,0 +1,96 @@
+"""Model configuration for the PyTorch port (standard library only).
+
+Counterpart of `mulan_tpu/models/config.py`, which needs flax and jax, and of
+the `ml_collections` files under `mulan_tpu/configs/`; neither can be imported
+where only PyTorch is installed. The fields are the ones the evaluation and
+sampling slice reads, with the JAX package's names and defaults.
+`use_kernels` is the counterpart of `use_pallas`: it routes attention and the
+decoder log-likelihood through the hand-written CUDA kernels in `ops/`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+  # data / decoder
+  vocab_size: int = 256
+  sample_softmax: bool = False
+  image_size: int = 32
+  image_channels: int = 3
+
+  # time sampling & ELBO
+  antithetic_time_sampling: bool = True
+  sm_n_timesteps: int = 0  # 0 => continuous time
+
+  # noise schedule
+  gamma_type: str = 'poly_fixedend'
+  gamma_min: float = -13.3
+  gamma_max: float = 5.0
+
+  # score model
+  unet_type: str = 'vdm'
+  sm_n_embd: int = 128
+  sm_n_layer: int = 32
+  with_fourier_features: bool = True
+  with_attention: bool = False
+
+  # auxiliary latent encoder q(z_x | x)
+  encoder: str = 'unet'
+  forward_n_layer: int = 4
+  latent_size: int = 50
+  latent_k: int = 15
+  latent_type: str = 'topk'
+  topk_noise_type: str = 'gamma'
+  reparam_type: str = 'true'
+  z_conditioning: bool = True
+
+  # velocity parameterization
+  velocity_from_epsilon: bool = False
+
+  # execution policy
+  compute_dtype: str = 'float32'  # 'float32' | 'bfloat16' (UNet compute only)
+  use_kernels: bool = False
+
+  @property
+  def n_pixels(self) -> int:
+    return self.image_size * self.image_size * self.image_channels
+
+  @property
+  def image_shape(self):
+    return (self.image_size, self.image_size, self.image_channels)
+
+  @property
+  def dtype(self) -> torch.dtype:
+    return {'float32': torch.float32, 'bfloat16': torch.bfloat16}[
+        self.compute_dtype]
+
+
+def flagship_config(**overrides) -> ModelConfig:
+  """MuLAN-velocity on CIFAR-10 (`mulan_tpu/configs/cifar10_conditioned.py`):
+  bf16 UNet compute, 128 channels, 32 layers, top-15-of-50 latents,
+  `poly_fixedend` schedule, kernels on."""
+  cfg = ModelConfig(
+      vocab_size=256, image_size=32, image_channels=3, sample_softmax=False,
+      antithetic_time_sampling=True, sm_n_timesteps=0,
+      gamma_type='poly_fixedend', gamma_min=-13.3, gamma_max=5.0,
+      unet_type='vdm', sm_n_embd=128, sm_n_layer=32,
+      with_fourier_features=True, with_attention=False, encoder='unet',
+      forward_n_layer=4, latent_size=50, latent_k=15, latent_type='topk',
+      topk_noise_type='gamma', reparam_type='true', z_conditioning=True,
+      velocity_from_epsilon=False, compute_dtype='bfloat16',
+      use_kernels=True)
+  return dataclasses.replace(cfg, **overrides)
+
+
+def tiny_config(**overrides) -> ModelConfig:
+  """The flagship cut to 8x8 images, 32 channels and 2 layers in fp32
+  (`__graft_entry__._flagship_config(tiny=True)`)."""
+  cfg = flagship_config(
+      image_size=8, sm_n_embd=32, sm_n_layer=2, forward_n_layer=1,
+      latent_size=10, latent_k=3, compute_dtype='float32', use_kernels=False)
+  return dataclasses.replace(cfg, **overrides)

@@ -1,0 +1,79 @@
+"""Latent-logit encoder q(z_x | x), counterpart of
+`mulan_tpu/models/encoder.py:UnetEncoder`.
+
+The trunk embeds a constant t = 0 / conditioning = 0 vector through learned
+Dense layers, as the score UNet embeds its time, then runs conv_in,
+`forward_n_layer` ResNet blocks, a ResNet-Attn-ResNet middle and a 1-channel
+head, flattened in NHWC order before the final Dense layer.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from mulan_tpu_torch.models.config import ModelConfig
+from mulan_tpu_torch.models.layers import (FOURIER_MULT, AttnBlock,
+                                           GroupNormF32, ResnetBlock,
+                                           base2_fourier_features,
+                                           timestep_embedding)
+
+
+class UnetTrunk(nn.Module):
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    cfg = self.config = config
+    n_embd = cfg.sm_n_embd
+    c = cfg.image_channels
+    cond_dim = 4 * n_embd
+    self.dense0 = nn.Linear(n_embd + 1, cond_dim)
+    self.dense1 = nn.Linear(cond_dim, cond_dim)
+    in_ch = c * FOURIER_MULT if cfg.with_fourier_features else c
+    self.conv_in = nn.Conv2d(in_ch, n_embd, 3, padding=1)
+    for i in range(cfg.forward_n_layer):
+      self.add_module(f'down_block_{i}', ResnetBlock(n_embd, n_embd,
+                                                     cond_dim))
+    self.mid_block_1 = ResnetBlock(n_embd, n_embd, cond_dim)
+    self.mid_attn_1 = AttnBlock(n_embd, cfg.use_kernels)
+    self.mid_block_2 = ResnetBlock(n_embd, n_embd, cond_dim)
+    self.GroupNormF32_0 = GroupNormF32(n_embd)
+    self.conv_out = nn.Conv2d(n_embd, 1, 3, padding=1)
+
+  def forward(self, z):
+    """z (B, C, H, W) float32 -> (B, H * W) float32."""
+    cfg = self.config
+    dtype = self.conv_in.weight.dtype
+    b = z.shape[0]
+    t = torch.zeros((b,), device=z.device)
+    cond = torch.cat([timestep_embedding(t, cfg.sm_n_embd),
+                      torch.zeros((b, 1), device=z.device)], dim=1)
+    cond = F.silu(self.dense0(cond.to(dtype)))
+    cond = F.silu(self.dense1(cond))
+
+    h = z
+    if cfg.with_fourier_features:
+      h = torch.cat([z, base2_fourier_features(z)], dim=1)
+    h = self.conv_in(h.to(dtype))
+    for i in range(cfg.forward_n_layer):
+      h = getattr(self, f'down_block_{i}')(h, cond)
+    h = self.mid_block_1(h, cond)
+    h = self.mid_attn_1(h)
+    h = self.mid_block_2(h, cond)
+    h = self.conv_out(F.silu(self.GroupNormF32_0(h)))
+    # NHWC flatten, as the JAX trunk does (the same order for one channel).
+    return F.silu(h.permute(0, 2, 3, 1).reshape(b, -1).float())
+
+
+class UnetEncoder(nn.Module):
+  """Trunk in the compute type, then a float32 Dense to the latent logits."""
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    self.trunk = UnetTrunk(config)
+    self.dense_layer_final = nn.Linear(config.image_size ** 2,
+                                       config.latent_size)
+
+  def forward(self, z):
+    return self.dense_layer_final(self.trunk(z))

@@ -1,0 +1,119 @@
+"""Shared neural blocks, counterpart of `mulan_tpu/models/layers.py`.
+
+Blocks run NCHW. Submodules carry the flax module names (`GroupNormF32_0`,
+`conv1`, `cond_proj`, ...) so that `params.from_flax` maps a flax tree leaf
+by leaf. Only the deterministic (evaluation) path exists: there is no dropout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from mulan_tpu_torch.ops.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+  """Sinusoidal embedding of t scaled by 1000; (B,) -> (B, dim) float32,
+  dim even."""
+  assert t.dim() == 1 and dim % 2 == 0
+  t = t.float() * 1000.0
+  half = dim // 2
+  freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
+                    * (-math.log(10000.0) / (half - 1)))
+  args = t[:, None] * freqs[None, :]
+  return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+# Fourier features at 2^6 and 2^7 (the JAX UNets' start=6, stop=8): a
+# network input of C channels becomes C * FOURIER_MULT channels.
+_FOURIER_EXPONENTS = (6, 7)
+FOURIER_MULT = 1 + 2 * len(_FOURIER_EXPONENTS)
+
+
+def base2_fourier_features(x: torch.Tensor) -> torch.Tensor:
+  """sin/cos of x * 2^k * 2 pi for k in _FOURIER_EXPONENTS, NCHW.
+
+  Channel order as in the JAX package: each input channel is repeated once
+  per frequency against the frequencies tiled over channels, then all sines
+  followed by all cosines.
+  """
+  n_freq = len(_FOURIER_EXPONENTS)
+  w = 2.0 ** torch.tensor(_FOURIER_EXPONENTS, dtype=x.dtype,
+                          device=x.device) * 2 * math.pi
+  w = w.repeat(x.shape[1])[None, :, None, None]
+  h = w * torch.repeat_interleave(x, n_freq, dim=1)
+  return torch.cat([torch.sin(h), torch.cos(h)], dim=1)
+
+
+class GroupNormF32(nn.Module):
+  """GroupNorm with float32 statistics, eps 1e-6 (flax's) and gcd(C, 32)
+  groups; the output has the input's type.
+
+  PyTorch's group_norm accumulates the statistics of bf16 input in float32,
+  so the activation is not copied to float32 (as flax does, the affine
+  parameters are applied in the input's type).
+  """
+
+  def __init__(self, channels: int):
+    super().__init__()
+    self.num_groups = math.gcd(channels, 32)
+    self.weight = nn.Parameter(torch.ones(channels))
+    self.bias = nn.Parameter(torch.zeros(channels))
+
+  def forward(self, x):
+    return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                        self.bias.to(x.dtype), 1e-6)
+
+
+class ResnetBlock(nn.Module):
+  """GN-swish-conv3x3 (+ projected conditioning) GN-swish-conv3x3, plus a
+  1x1 `nin_shortcut` when the channel count changes."""
+
+  def __init__(self, in_ch: int, out_ch: int, cond_dim: int):
+    super().__init__()
+    self.GroupNormF32_0 = GroupNormF32(in_ch)
+    self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+    self.cond_proj = nn.Linear(cond_dim, out_ch, bias=False)
+    self.GroupNormF32_1 = GroupNormF32(out_ch)
+    self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+    self.nin_shortcut = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+                         else None)
+
+  def forward(self, x, cond):
+    h = self.conv1(F.silu(self.GroupNormF32_0(x)))
+    h = h + self.cond_proj(cond)[:, :, None, None]
+    h = self.conv2(F.silu(self.GroupNormF32_1(h)))
+    shortcut = x if self.nin_shortcut is None else self.nin_shortcut(x)
+    return shortcut + h
+
+
+class AttnBlock(nn.Module):
+  """Single-head self-attention over the H x W tokens, residual (the
+  shipped configs use one head).
+
+  `use_kernels` routes the attention itself through the CUDA flash kernel
+  (`ops/flash_attention.py`); otherwise it runs the plain einsum version.
+  """
+
+  def __init__(self, channels: int, use_kernels: bool):
+    super().__init__()
+    self.use_kernels = use_kernels
+    self.GroupNormF32_0 = GroupNormF32(channels)
+    self.q = nn.Linear(channels, channels)
+    self.k = nn.Linear(channels, channels)
+    self.v = nn.Linear(channels, channels)
+    self.proj_out = nn.Linear(channels, channels)
+
+  def forward(self, x):
+    b, c, hgt, wid = x.shape
+    tokens = self.GroupNormF32_0(x).flatten(2).transpose(1, 2)  # (B, T, C)
+    # (B, T, C) -> (B, 1, T, C): the attention ops' (B, heads, T, D) layout.
+    q, k, v = (proj(tokens).unsqueeze(1) for proj in (self.q, self.k, self.v))
+    attend = flash_attention if self.use_kernels else flash_attention_plain
+    out = self.proj_out(attend(q, k, v, 1.0 / math.sqrt(c)).squeeze(1))
+    return x + out.transpose(1, 2).reshape(b, c, hgt, wid)

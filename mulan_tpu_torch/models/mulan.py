@@ -1,0 +1,186 @@
+"""MuLAN-velocity: evaluation (ELBO) and ancestral sampling, counterpart of
+`mulan_tpu/models/mulan.py:MuLAN(parameterization='velocity')`.
+
+Public methods take and return the JAX package's NHWC layout; the networks
+run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
+`topk_noise`); what is not passed is drawn from `generator`, which must live
+on the model's device. Gamma maps come out of the schedule as (B, n_pixels)
+in NHWC order and are reshaped to the NHWC image shape.
+
+Only the flagship path is ported. The epsilon parameterization,
+`velocity_from_epsilon`, the `ldm` UNet, gumbel/gaussian latents, the other
+schedules and encoders and `with_attention` raise NotImplementedError at
+construction (ROADMAP.md Queue A, model variants); the SDE/ODE methods raise
+it when called (Queue A, ODE NLL).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mulan_tpu_torch.models import encdec as encdec_lib
+from mulan_tpu_torch.models import latents
+from mulan_tpu_torch.models.config import ModelConfig
+from mulan_tpu_torch.models.encoder import UnetEncoder
+from mulan_tpu_torch.models.outputs import ELBOOutput
+from mulan_tpu_torch.models.schedules import NoiseSchedulePolynomialFixedend
+from mulan_tpu_torch.models.unet import UNet
+from mulan_tpu_torch.models.vdm import sample_times
+
+# Fields whose flagship value is the only one ported, with that value.
+_PORTED = {
+    'unet_type': 'vdm', 'encoder': 'unet', 'latent_type': 'topk',
+    'topk_noise_type': 'gamma', 'gamma_type': 'poly_fixedend',
+    'reparam_type': 'true', 'z_conditioning': True,
+    'velocity_from_epsilon': False, 'sm_n_timesteps': 0,
+    'sample_softmax': False, 'with_attention': False,
+    'antithetic_time_sampling': True,
+}
+
+
+class MuLAN(nn.Module):
+
+  def __init__(self, config: ModelConfig,
+               parameterization: str = 'velocity'):
+    super().__init__()
+    if parameterization != 'velocity':
+      raise NotImplementedError(
+          f'parameterization={parameterization!r} is not ported yet; see '
+          'ROADMAP.md Queue A, model variants')
+    for field, value in _PORTED.items():
+      if getattr(config, field) != value:
+        raise NotImplementedError(
+            f'{field}={getattr(config, field)!r} is not ported yet (only '
+            f'{value!r}); see ROADMAP.md Queue A, model variants')
+    self.config = config
+    self.encdec = encdec_lib.EncDec(config)
+    self.score_model = UNet(config).to(config.dtype)
+    self.encoder_model = UnetEncoder(config)
+    self.encoder_model.trunk.to(config.dtype)
+    self.gamma = NoiseSchedulePolynomialFixedend(config)
+
+  @property
+  def device(self) -> torch.device:
+    return self.gamma.dense_1.weight.device
+
+  def _randn(self, shape, generator):
+    return torch.randn(shape, generator=generator, device=self.device)
+
+  def _score(self, z_t, g_t, embedding):
+    """Score UNet on NHWC z_t, conditioned on mean(g_t); NHWC out."""
+    out = self.score_model(z_t.permute(0, 3, 1, 2),
+                           g_t.mean(dim=(1, 2, 3)), embedding)
+    return out.permute(0, 2, 3, 1)
+
+  # -- ELBO -------------------------------------------------------------------
+
+  def forward(self, images, *, generator: Optional[torch.Generator] = None):
+    """ELBO at antithetic times drawn from `generator`."""
+    t = sample_times(images.shape[0], generator=generator,
+                     device=self.device)
+    return self.elbo(images, t, generator=generator)
+
+  def elbo(self, images, t, *, eps0=None, eps=None, topk_noise=None,
+           generator: Optional[torch.Generator] = None) -> ELBOOutput:
+    """ELBO terms at explicit times t (B,) for uint8 NHWC images.
+
+    eps0, eps: (B, H, W, C) standard normals for the reconstruction and
+    diffusion terms. topk_noise: (latents.N_GAMMA_TERMS, B, latent_size)
+    Gamma(1/latent_k) variates for the top-k perturbation.
+    """
+    cfg = self.config
+    x = torch.as_tensor(images, device=self.device).reshape(
+        -1, *cfg.image_shape)
+    img = x.shape
+    t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+
+    orig_f = self.encdec.encode(x)
+    logits = self.encoder_model(orig_f.permute(0, 3, 1, 2))
+    if topk_noise is None:
+      topk_noise = latents.gamma_variates(cfg.latent_k, logits.shape,
+                                          generator=generator,
+                                          device=self.device)
+    embedding, kl_z = latents.topk_embedding(
+        logits, cfg.latent_k, latents.gamma_noise(cfg.latent_k, topk_noise))
+
+    g_0, g_1, g_t, g_t_grad = (
+        g.reshape(img) for g in self.gamma.elbo_gammas(embedding, t))
+    var_t = torch.sigmoid(g_t)
+    var_0 = torch.sigmoid(g_0)
+    var_1 = torch.sigmoid(g_1)
+
+    # 1. reconstruction.
+    if eps0 is None:
+      eps0 = self._randn(img, generator)
+    z_0_rescaled = orig_f + torch.exp(0.5 * g_0) * eps0
+    loss_recon = -self.encdec.logprob(x, z_0_rescaled, g_0)
+
+    # 2. prior KL at t = 1.
+    mean1_sqr = (1.0 - var_1) * torch.square(orig_f)
+    loss_klz = 0.5 * torch.sum(mean1_sqr + var_1 - torch.log(var_1) - 1.0,
+                               dim=(1, 2, 3))
+
+    # 3. diffusion loss, velocity parameterization.
+    if eps is None:
+      eps = self._randn(img, generator)
+    z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
+    v_hat = self._score(z_t, g_t, embedding)
+    v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
+    loss_diff = 0.5 * torch.sum(
+        (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),
+        dim=(1, 2, 3))
+
+    return ELBOOutput(loss_recon=loss_recon, loss_klz=kl_z + loss_klz,
+                      loss_diff=loss_diff, var_0=var_0.mean(),
+                      var_1=var_1.mean())
+
+  # -- ancestral sampling -----------------------------------------------------
+
+  def deterministic_embedding(self, batch_size: int) -> torch.Tensor:
+    cfg = self.config
+    return latents.deterministic_embedding(batch_size, cfg.latent_size,
+                                           cfg.latent_k, device=self.device)
+
+  def conditional_sample(self, i: int, T: int, z_t, embedding, *, eps=None,
+                         generator: Optional[torch.Generator] = None):
+    """One ancestral step from t = (T - i) / T to s = (T - i - 1) / T given a
+    fixed latent embedding; z_t is NHWC float32."""
+    if eps is None:
+      eps = self._randn(z_t.shape, generator)
+    bsz = z_t.shape[0]
+    t = torch.full((bsz,), (T - i) / T, device=self.device)
+    s = torch.full((bsz,), (T - i - 1) / T, device=self.device)
+    g_t = self.gamma(embedding, t).reshape(z_t.shape)
+    g_s = self.gamma(embedding, s).reshape(z_t.shape)
+    v_hat = self._score(z_t, g_t, embedding)
+    eps_hat = (v_hat * torch.sqrt(torch.sigmoid(-g_t))
+               + torch.sqrt(torch.sigmoid(g_t)) * z_t)
+
+    a = torch.sigmoid(-g_s)
+    b = torch.sigmoid(-g_t)
+    c = -torch.expm1(g_s - g_t)
+    sigma_t = torch.sqrt(torch.sigmoid(g_t))
+    z_s_mean = torch.sqrt(a / b) * (z_t - sigma_t * c * eps_hat)
+    return z_s_mean + torch.sqrt((1.0 - a) * c) * eps
+
+  def generate_x(self, z_0) -> torch.Tensor:
+    """z_0 (B, H, W, C) -> argmax pixel values (B, H, W, C) int64."""
+    bsz = z_0.shape[0]
+    g_0 = self.gamma(self.deterministic_embedding(bsz),
+                     torch.zeros((bsz,), device=self.device)).reshape(
+                         z_0.shape)
+    z_0_rescaled = z_0 / torch.sqrt(1.0 - torch.sigmoid(g_0))
+    return self.encdec.decode_logits(z_0_rescaled, g_0).argmax(dim=-1)
+
+  # -- SDE / probability-flow ODE ---------------------------------------------
+
+  def _ode_not_ported(self, *args, **kwargs):
+    raise NotImplementedError(
+        'the SDE / probability-flow ODE methods are not ported yet; see '
+        'ROADMAP.md Queue A, ODE NLL')
+
+  sde = score_fn = score_jvp = reverse_ode = _ode_not_ported
+

@@ -1,0 +1,77 @@
+"""Parameters for the port: transplanted from a flax tree, or made fresh.
+
+Both functions return a float32 `state_dict` for `MuLAN.load_state_dict`,
+which casts each tensor to the type of its parameter (the UNet and encoder
+trunk hold `config.dtype`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mulan_tpu_torch.models.config import ModelConfig
+from mulan_tpu_torch.models.mulan import MuLAN
+
+# Layers the JAX package zero-initializes (so a fresh block is the identity).
+ZERO_INIT = ('cond_proj', 'conv2', 'proj_out', 'conv_out', 'dense_out_a')
+
+
+def _convert(path: str, value: np.ndarray):
+  *mods, leaf = path.split('/')
+  if mods[-1] == 'GroupNorm_0':  # GroupNormF32_k/GroupNorm_0/{scale,bias}
+    mods = mods[:-1]
+    leaf = {'scale': 'weight', 'bias': 'bias'}[leaf]
+  elif leaf == 'kernel':
+    leaf = 'weight'
+    if value.ndim == 4:                      # conv HWIO -> OIHW
+      value = value.transpose(3, 2, 0, 1)
+    elif mods[-1] == 'nin_shortcut':         # Dense on channels -> 1x1 conv
+      value = value.T[:, :, None, None]
+    elif mods[-1] == 'proj_out':             # (heads, hd, C) -> (C, heads*hd)
+      value = value.reshape(-1, value.shape[-1]).T
+    elif value.ndim == 3:                    # q/k/v (C, heads, hd)
+      value = value.reshape(value.shape[0], -1).T
+    else:                                    # Dense (in, out) -> (out, in)
+      value = value.T
+  elif leaf == 'bias' and value.ndim == 2:   # q/k/v (heads, hd)
+    value = value.reshape(-1)
+  return '.'.join([*mods, leaf]), torch.tensor(
+      np.ascontiguousarray(value), dtype=torch.float32)
+
+
+def from_flax(flat: Mapping[str, np.ndarray]) -> dict:
+  """Flattened flax params (`flatten_dict(params, sep='/')`, top keys
+  score_model / encoder_model / gamma) -> the port's state_dict."""
+  return dict(_convert(path, np.asarray(value))
+              for path, value in flat.items())
+
+
+def init_params(config: ModelConfig, generator: torch.Generator,
+                perturb_zero_init: float = 0.0) -> dict:
+  """A seeded fresh model: normal(0, 1/fan_in) weights (the variance of
+  flax's lecun_normal), zero biases, unit GroupNorm scales, and the layers
+  in ZERO_INIT at zero. With perturb_zero_init > 0, every all-zero tensor
+  then gets normal(0, perturb_zero_init) noise, so that no block is the
+  identity and a wrong kernel shows in the output.
+  """
+  with torch.device('meta'):
+    shapes = {name: p.shape for name, p in MuLAN(config).named_parameters()}
+  state = {}
+  for name, shape in sorted(shapes.items()):
+    module, leaf = name.rsplit('.', 1)
+    if leaf == 'bias' or module.rsplit('.', 1)[-1] in ZERO_INIT:
+      value = torch.zeros(shape)
+    elif 'GroupNormF32' in module:
+      value = torch.ones(shape)
+    else:
+      fan_in = math.prod(shape[1:])
+      value = torch.randn(shape, generator=generator) / math.sqrt(fan_in)
+    if perturb_zero_init > 0 and not value.any():
+      value = value + perturb_zero_init * torch.randn(shape,
+                                                      generator=generator)
+    state[name] = value
+  return state

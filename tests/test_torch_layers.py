@@ -1,0 +1,93 @@
+"""The port's blocks (mulan_tpu_torch/models/layers.py) against their flax
+counterparts, float32, with the same parameters and inputs.
+
+The flax side runs NHWC, the port NCHW; inputs and outputs are permuted at
+the boundary. Zero-initialized leaves are perturbed so that every branch of a
+block reaches its output.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mulan_tpu.models import layers as jax_layers
+from mulan_tpu_torch.models import layers
+from torch_port_helpers import (init_flax_module, load_torch_module, nchw,
+                                nhwc, to_torch)
+
+# Float32 on both sides; convolutions and reductions sum in other orders.
+RTOL, ATOL = 1e-5, 1e-5
+
+
+def _x(shape, seed=0):
+  return np.random.RandomState(seed).standard_normal(shape).astype(
+      np.float32)
+
+
+@pytest.mark.parametrize('dim', [32, 128])
+def test_timestep_embedding_matches_jax(dim):
+  """The arguments reach 1000 rad, where one float32 ulp is 6e-5, so the
+  sines agree to ~1e-4 absolute."""
+  t = np.linspace(0.0, 1.0, 7).astype(np.float32)
+  np.testing.assert_allclose(
+      layers.timestep_embedding(to_torch(t), dim).numpy(),
+      np.asarray(jax_layers.timestep_embedding(jnp.asarray(t), dim)),
+      rtol=0, atol=1e-4)
+
+
+def test_base2_fourier_features_match_jax():
+  """The channel interleave: repeat per channel against tiled frequencies."""
+  x = _x((2, 4, 4, 3))
+  want = jax_layers.base2_fourier_features(jnp.asarray(x), start=6, stop=8)
+  got = layers.base2_fourier_features(nchw(x))
+  np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=RTOL,
+                             atol=ATOL)
+
+
+@pytest.mark.parametrize('channels', [32, 48])
+def test_groupnorm_matches_flax(channels):
+  """gcd(C, 32) groups (32 and 16 here) and eps 1e-6."""
+  x = _x((2, 4, 4, channels)) * 3 + 1
+  module = jax_layers.GroupNormF32()
+  params, flat = init_flax_module(module, jnp.asarray(x))
+  want = module.apply({'params': params}, jnp.asarray(x))
+  port = load_torch_module(layers.GroupNormF32(channels), flat)
+  np.testing.assert_allclose(nhwc(port(nchw(x))), np.asarray(want),
+                             rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('in_ch,out_ch', [(32, 32), (64, 32)])
+def test_resnet_block_matches_flax(in_ch, out_ch):
+  """(64 -> 32) goes through the 1x1 nin_shortcut."""
+  x = _x((2, 4, 4, in_ch))
+  cond = _x((2, 24), seed=1)
+  module = jax_layers.ResnetBlock(out_ch=out_ch)
+  params, flat = init_flax_module(module, jnp.asarray(x), jnp.asarray(cond))
+  want = module.apply({'params': params}, jnp.asarray(x), jnp.asarray(cond))
+  port = load_torch_module(layers.ResnetBlock(in_ch, out_ch, 24), flat)
+  got = port(nchw(x), to_torch(cond))
+  np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=RTOL,
+                             atol=ATOL)
+
+
+@pytest.mark.parametrize('use_kernels', [False, True])
+def test_attn_block_matches_flax(use_kernels):
+  """use_pallas=True takes flax's einsum path on the CPU; use_kernels=True
+  takes the kernel wrapper, which runs its plain version for CPU tensors."""
+  x = _x((2, 6, 5, 32))  # T = 30 tokens
+  module = jax_layers.AttnBlock(use_pallas=True)
+  params, flat = init_flax_module(module, jnp.asarray(x))
+  want = module.apply({'params': params}, jnp.asarray(x))
+  port = load_torch_module(layers.AttnBlock(32, use_kernels), flat)
+  np.testing.assert_allclose(nhwc(port(nchw(x))), np.asarray(want),
+                             rtol=RTOL, atol=ATOL)
+
+
+def test_attn_block_kernel_path_never_falls_back():
+  """With use_kernels the block hands non-CPU tensors to the kernel
+  wrapper, which raises where it has no kernel instead of running the plain
+  version."""
+  block = layers.AttnBlock(32, use_kernels=True).to('meta')
+  with pytest.raises(ValueError, match='unsupported device'):
+    block(torch.empty((1, 32, 4, 4), device='meta'))
