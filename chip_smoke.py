@@ -1,36 +1,60 @@
-"""Drive the PyTorch port's evaluation and sampling path once on one GPU.
+"""Drive the PyTorch port's paths once on one GPU: evaluation, sampling
+and the train step.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit (`nvcc`) and PyTorch built for CUDA; JAX is not needed. The
 script builds the CUDA kernels from `mulan_tpu_torch/csrc/`, checks each
-against its plain PyTorch version at the shapes the main path gives it, runs
-the flagship MuLAN-velocity model (full width and depth, random weights from
-a seed) through the sparse-VLB evaluation and the ancestral sampler, and
-checks that both went through the kernels. Every check raises on failure.
+against its plain PyTorch version at the shapes the main paths give it, then
+drives the flagship MuLAN-velocity model (full width and depth, random
+weights from a seed) through the sparse-VLB evaluation, the ancestral
+sampler and a dozen steps of `Experiment.train` at batch 128 with dropout,
+and checks from the kernels' launch counts that each path went through its
+kernels; one train step with the kernels is held against one with the plain
+versions. Every check raises on failure.
 
-Output, one line per phase; the line before the last is a JSON summary of
-the kernels, and the last line is
+With `--profile` it also profiles one ELBO and one train step by kernel
+category with `torch.profiler` and prints the tables as `[profile]` lines.
+
+Output, one line per phase; the line before the last is the card's name and
+power limit, the one before that a JSON summary of the kernels, and the last
+line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 EVAL_BATCH = 128
 EVAL_BATCHES = 4
 SAMPLE_BATCH = 16
 SAMPLE_STEPS = 50
+TRAIN_STEPS = 12
+FLAGSHIP_ATTN = (EVAL_BATCH, 1, 1024, 128)
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
+# limit): a kernel's bound is the larger of its operations over the
+# rate for its inputs' type and its bytes over the memory rate.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# The special-function units of compute capability 9.0 return 16 results of
+# exp2, log2, rcp, sin or cos a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput); the rate is that times the SM count
+# times the card's maximum SM clock, read at run time.
+SFU_PER_CLOCK_PER_SM = 16
 
 # K1 tolerances. bf16: the plain version rounds the normalized softmax
 # weights to bf16 before the product with v, the tensor-core kernel the
@@ -39,13 +63,45 @@ SAMPLE_STEPS = 50
 # differs.
 ATTN_TOL_BF16 = 2e-2
 ATTN_TOL_F32 = 1e-5
+# K1's row log-sum-exp, relative to max(1, |lse|): float32 both ways; the
+# tensor-core kernel keeps the running max in log2 units.
+LSE_RTOL = 1e-5
+# K2/K3 against the plain backward on the same (q, k, v, o, lse, dO), as a
+# fraction of each gradient's max-abs. Both compute in float32 from the same
+# inputs, so only the order of the T-long sums differs (f32: 1e-5); in bf16
+# both round their outputs to bf16 (2^-9 relative), hence 2e-2.
+ATTN_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # K4: f32 both ways; the kernel runs the recurrence one vocab value at a time,
 # the plain version in chunks of 64, and the pixel sums differ in order.
 DECODER_RTOL = 1e-5
+# K5: f32 both ways, the same closed form, max |kernel - plain| over the
+# gradient's max-abs. The kernel runs the moments one vocab value at a time,
+# the plain version in chunks of 64, so E_p[e] differs by f32 rounding
+# (~1e-7 of |e| < 1); dz = e^-g0 (e_x - E_p[e]) cancels and multiplies that
+# by e^-g0, up to e^13.3 = 6e5 at gamma_min: ~0.04 absolute against a
+# max |dz| of ~2e3, 2e-5 relative (measured 1.7e-5 at the flagship shape).
+DECODER_BWD_RTOL = 1e-4
 # |bpd(kernels) - bpd(plain)| on one batch with the same noise: the two runs
 # differ only in the attention weights' bf16 rounding (two blocks) and in the
 # decoder's summation order, each far below 1e-3 of a bpd near 10.
 BPD_TOL = 1e-2
+# One train step, kernels against plain, same batch, noise and dropout masks
+# (K6 and the plain Philox give the same bits): the losses within 1e-2 bpd,
+# the gradient norms within 1e-2, and a cosine per leaf of the attention
+# blocks, which K1-K3 alone touch directly. In the step, the UNet block's
+# leaves must reach 0.999: the paths differ only in the attention's bf16
+# rounding, and the blocks downstream round on from there (>= 0.9998 on an
+# H100). The encoder block's gradient arrives through the top-k latent and
+# the gamma network, where that rounding moves its leaves' cosines to
+# 0.994-0.997, so each block is also held alone at the step's own input and
+# output cotangent, where the paths differ only by the kernels: every leaf
+# (and the input) to 0.9999 (>= 0.99998 on an H100).
+# Key biases are left out (their gradient is 0). A step with K2's dK
+# planted as zero must fail these gates.
+TRAIN_BPD_TOL = 1e-2
+ATTN_LEAF_COS_MIN = 0.999
+ATTN_ALONE_COS_MIN = 0.9999
+GRAD_NORM_RTOL = 1e-2
 
 
 def log(phase: str, **fields) -> None:
@@ -68,14 +124,45 @@ def cuda_ms(fn, n: int = 20) -> float:
   return statistics.median(times)
 
 
+def sfu_ops_per_s() -> float:
+  mhz = subprocess.run(
+      ['nvidia-smi', '-i', '0', '--query-gpu=clocks.max.sm',
+       '--format=csv,noheader,nounits'], capture_output=True, text=True,
+      check=True).stdout.strip()
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  return SFU_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def bound(flops: float, nbytes: float, dtype=torch.float32, *,
+          exps: float = 0.0, sfu_rate: float = 1.0):
+  """(bound_ms, bound_by): the least time for the work on this card; `exps`
+  special-function operations run at `sfu_rate` beside the `flops`."""
+  t_ops = 1e3 * max(flops / PEAK_FLOPS[dtype], exps / sfu_rate)
+  t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+  return dict(bound_ms=max(t_ops, t_bytes),
+              bound_by='operations' if t_ops >= t_bytes else 'bytes')
+
+
+def nbytes(*tensors) -> int:
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rel_err(got, want) -> float:
+  """max |got - want| over max |want|."""
+  want = want.float()
+  return ((got.float() - want).abs().max()
+          / want.abs().max().clamp_min(1e-30)).item()
+
+
 def check_attention(dev, gen):
-  """The flagship shape (bf16, tensor-core kernel) and the tiny config's
+  """K1. The flagship shape (bf16, tensor-core kernel) and the tiny config's
   float32 with a ragged T are checked and timed; the others cover a
   head_dim that is not a multiple of 16 and the CUDA-core kernel for bf16
-  with head_dim > 128."""
-  from mulan_tpu_torch.ops.flash_attention import (flash_attention,
+  with head_dim > 128. The row log-sum-exp written under autograd is held
+  against the plain version's, and writing it leaves the output unchanged."""
+  from mulan_tpu_torch.ops.flash_attention import (flash_attention_fwd,
                                                    flash_attention_plain)
-  cases = (((EVAL_BATCH, 1, 1024, 128), torch.bfloat16, ATTN_TOL_BF16),
+  cases = ((FLAGSHIP_ATTN, torch.bfloat16, ATTN_TOL_BF16),
            ((3, 1, 60, 32), torch.float32, ATTN_TOL_F32),
            ((2, 2, 100, 40), torch.bfloat16, ATTN_TOL_BF16),
            ((2, 1, 130, 256), torch.bfloat16, ATTN_TOL_BF16))
@@ -84,24 +171,98 @@ def check_attention(dev, gen):
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     scale = shape[-1] ** -0.5
-    out = flash_attention(q, k, v, scale)
+    out = flash_attention_fwd(q, k, v, scale)
+    out_lse, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, scale)
+    ref, ref_lse = flash_attention_plain(q, k, v, scale, return_lse=True)
     assert out.shape == ref.shape and out.dtype == ref.dtype
-    result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item())
+    assert torch.equal(out, out_lse), 'the lse write changed the output'
+    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
+    result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                  lse_rel_err=lse_err.item())
     if len(results) < 2:
-      result['ms'] = cuda_ms(lambda: flash_attention(q, k, v, scale))
+      result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale))
+      result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
+          q, k, v, scale, return_lse=True))
       result['plain_ms'] = cuda_ms(
           lambda: flash_attention_plain(q, k, v, scale))
+      result['library_ms'] = cuda_ms(
+          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+      b, h, t, d = shape
+      result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
+                          dtype))
     log('flash_attention', shape=list(shape), dtype=str(dtype), tol=tol,
-        **result)
+        lse_rtol=LSE_RTOL, **result)
     assert result['max_abs_err'] <= tol, (shape, dtype, result)
+    assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
     results.append(result)
   return results[0]
 
 
-def check_decoder(dev, gen, cfg):
-  from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob,
+def check_attention_bwd(dev, gen):
+  """K2 and K3 against the plain backward on the same inputs; the flagship
+  shape is timed, beside the plain backward and the backward of
+  `F.scaled_dot_product_attention` (fwd + bwd minus fwd)."""
+  from mulan_tpu_torch.ops.flash_attention import (flash_attention_bwd_dkv,
+                                                   flash_attention_bwd_dq,
+                                                   flash_attention_bwd_plain,
+                                                   flash_attention_fwd)
+  cases = ((FLAGSHIP_ATTN, torch.bfloat16), ((3, 1, 60, 32), torch.float32),
+           ((2, 2, 100, 40), torch.bfloat16),
+           ((2, 1, 130, 256), torch.bfloat16))
+  dkv = dq = None
+  for shape, dtype in cases:
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
+    di = (o.float() * do.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+    dq_k = flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    errs = {name: rel_err(got, want) for name, got, want in
+            (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
+    tol = ATTN_BWD_TOL[dtype]
+    log('flash_attention_bwd', shape=list(shape), dtype=str(dtype), tol=tol,
+        max_abs_ref=max(r.float().abs().max().item() for r in ref),
+        **{f'{n}_rel_err': e for n, e in errs.items()})
+    assert max(errs.values()) <= tol, (shape, dtype, errs)
+    if dkv is None:
+      b, h, t, d = shape
+      product = 2.0 * b * h * t * t * d
+      plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+          q, k, v, o, lse, do, scale), n=5)
+      qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+      sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+          qg, kg, vg, scale=scale))
+      sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+          F.scaled_dot_product_attention(qg, kg, vg, scale=scale),
+          (qg, kg, vg), do))
+      dkv = dict(max_abs_err=max((dk.float() - ref[1].float()).abs().max(),
+                                 (dv.float() - ref[2].float()).abs().max())
+                 .item(),
+                 ms=cuda_ms(lambda: flash_attention_bwd_dkv(
+                     q, k, v, do, lse, di, scale)),
+                 plain_ms=plain_ms, library_ms=sdpa_fwd_bwd - sdpa_fwd,
+                 **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
+                         dtype))
+      dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max()
+                .item(),
+                ms=cuda_ms(lambda: flash_attention_bwd_dq(
+                    q, k, v, do, lse, di, scale)),
+                plain_ms=plain_ms, library_ms=None,
+                **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k),
+                        dtype))
+      log('flash_attention_bwd_timing', shape=list(shape),
+          dkv_ms=dkv['ms'], dq_ms=dq['ms'], plain_ms=plain_ms,
+          sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fwd_bwd)
+  return dkv, dq
+
+
+def check_decoder(dev, gen, cfg, sfu_rate):
+  """K4 against its plain version, per-pixel g0 and g0 = gamma_min."""
+  from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob_fwd,
                                                    decoder_logprob_plain,
                                                    encode)
   shape = (EVAL_BATCH, *cfg.image_shape)
@@ -114,19 +275,104 @@ def check_decoder(dev, gen, cfg):
                                             device=dev))):
     z = encode(x, 256) + torch.exp(0.5 * g0) * torch.randn(
         shape, generator=gen, device=dev)
-    out = decoder_logprob(x, z, g0)
+    out = decoder_logprob_fwd(x, z, g0)
     torch.cuda.synchronize()
     ref = decoder_logprob_plain(x, z, g0)
     assert out.shape == ref.shape == (EVAL_BATCH,)
     rel = ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+    steps = x.numel() * cfg.vocab_size
+    # A (pixel, vocab value) step of the online logsumexp: ~9 float32
+    # operations and two exp.
     result = dict(max_abs_err=(out - ref).abs().max().item(),
-                  ms=cuda_ms(lambda: decoder_logprob(x, z, g0)),
-                  plain_ms=cuda_ms(lambda: decoder_logprob_plain(x, z, g0)))
+                  ms=cuda_ms(lambda: decoder_logprob_fwd(x, z, g0)),
+                  plain_ms=cuda_ms(lambda: decoder_logprob_plain(x, z, g0)),
+                  library_ms=None,
+                  **bound(9.0 * steps, nbytes(x, z, g0, out),
+                          exps=2.0 * steps, sfu_rate=sfu_rate))
     log('decoder_logprob', g0=name, shape=list(shape), max_rel_err=rel,
         rtol=DECODER_RTOL, **result)
     assert rel <= DECODER_RTOL, f'decoder_logprob {name}: {rel}'
     results.append(result)
   return results[0]
+
+
+def check_decoder_bwd(dev, gen, cfg, sfu_rate):
+  """K5 through the autograd wrapper, against the plain closed form, with
+  per-pixel, per-example and scalar g0 (the last two summed back)."""
+  from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob,
+                                                   decoder_logprob_bwd,
+                                                   decoder_logprob_bwd_plain,
+                                                   encode)
+  shape = (EVAL_BATCH, *cfg.image_shape)
+  x = torch.randint(0, 256, shape, generator=gen, device=dev).float()
+  ct = torch.randn((EVAL_BATCH,), generator=gen, device=dev)
+  span = cfg.gamma_max - cfg.gamma_min
+  result = None
+  for name, g_shape in (('per_pixel', shape),
+                        ('per_example', (EVAL_BATCH, 1, 1, 1)),
+                        ('scalar', ())):
+    g0 = (cfg.gamma_min + span * torch.rand(g_shape, generator=gen,
+                                            device=dev)).requires_grad_()
+    z = (encode(x, 256) + torch.exp(0.5 * g0.detach()) * torch.randn(
+        shape, generator=gen, device=dev)).requires_grad_()
+    dz, dg0 = torch.autograd.grad(decoder_logprob(x, z, g0), (z, g0), ct)
+    torch.cuda.synchronize()
+    g_full = g0.detach().expand(shape)
+    ref_dz, ref_dg = decoder_logprob_bwd_plain(x, z.detach(), g_full, ct)
+    ref_dg = ref_dg.sum_to_size(g_shape)
+    errs = dict(dz_rel_err=rel_err(dz, ref_dz),
+                dg0_rel_err=rel_err(dg0, ref_dg))
+    log('decoder_logprob_bwd', g0=name, shape=list(shape),
+        rtol=DECODER_BWD_RTOL, **errs)
+    assert max(errs.values()) <= DECODER_BWD_RTOL, (name, errs)
+    if result is None:
+      zd = z.detach()
+      g_full = g_full.contiguous()
+      dz_k, dg_k = decoder_logprob_bwd(x, zd, g_full, ct)
+      # ~14 float32 operations and two exp a (pixel, vocab value) step.
+      steps = x.numel() * cfg.vocab_size
+      result = dict(
+          max_abs_err=max((dz_k - ref_dz).abs().max(),
+                          (dg_k - ref_dg).abs().max()).item(),
+          ms=cuda_ms(lambda: decoder_logprob_bwd(x, zd, g_full, ct)),
+          plain_ms=cuda_ms(lambda: decoder_logprob_bwd_plain(
+              x, zd, g_full, ct), n=5),
+          library_ms=None,
+          **bound(14.0 * steps, nbytes(x, zd, g_full, ct, dz_k, dg_k),
+                  exps=2.0 * steps, sfu_rate=sfu_rate))
+  return result
+
+
+def check_dropout(dev, cfg):
+  """K6: bit-identical to the plain Philox at one flagship site (bf16) and
+  at a float32 shape with a ragged tail; keep share and mean reported."""
+  from mulan_tpu_torch.ops.dropout import (dropout_mask, dropout_mask_plain,
+                                           effective_rate)
+  rate = cfg.sm_pdrop
+  site_shape = (EVAL_BATCH, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
+  result = None
+  for shape, dtype in ((site_shape, torch.bfloat16),
+                       ((7, 11, 13), torch.float32)):
+    mask = dropout_mask(1234, 5, shape, rate, dtype, dev)
+    torch.cuda.synchronize()
+    ref = dropout_mask_plain(1234, 5, shape, rate, dtype, dev)
+    identical = torch.equal(mask, ref)
+    keep = (mask != 0).float().mean().item()
+    log('dropout_mask', shape=list(shape), dtype=str(dtype),
+        bit_identical=identical, keep_share=keep,
+        expected_keep=1 - effective_rate(rate),
+        mean=mask.float().mean().item())
+    assert identical, (shape, dtype)
+    if result is None:
+      result = dict(
+          max_abs_err=(mask.float() - ref.float()).abs().max().item(),
+          ms=cuda_ms(lambda: dropout_mask(1234, 5, shape, rate, dtype, dev)),
+          plain_ms=cuda_ms(lambda: dropout_mask_plain(
+              1234, 5, shape, rate, dtype, dev)),
+          library_ms=cuda_ms(lambda: torch.empty(
+              shape, dtype=dtype, device=dev).bernoulli_(1 - rate)),
+          **bound(0.0, nbytes(mask)))
+  return result
 
 
 def timed(fn):
@@ -137,19 +383,244 @@ def timed(fn):
   return out, time.perf_counter() - t0
 
 
+def kernel_counters():
+  """{JSON name: the wrapper whose `launches` counts that kernel}."""
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  from mulan_tpu_torch.ops import dropout
+  from mulan_tpu_torch.ops import flash_attention as attn
+  return {'flash_attention': attn.flash_attention,
+          'flash_attention_bwd_dkv': attn.flash_attention_bwd_dkv,
+          'flash_attention_bwd_dq': attn.flash_attention_bwd_dq,
+          'decoder_logprob': dec.decoder_logprob,
+          'decoder_logprob_bwd': dec.decoder_logprob_bwd,
+          'dropout_mask': dropout.dropout_mask}
+
+
+def counted(fn):
+  """(fn(), {kernel: launches during fn}), every count set to 0 first."""
+  counters = kernel_counters()
+  for f in counters.values():
+    f.launches = 0
+  out = fn()
+  torch.cuda.synchronize()
+  return out, {name: f.launches for name, f in counters.items()}
+
+
+# Kernel-name substrings -> category, first match wins.
+_CATEGORIES = (
+    ('K1-K3 flash attention', ('flash_fwd', 'flash_bwd')),
+    ('K4/K5 decoder', ('decoder_logprob',)),
+    ('K6 dropout mask', ('dropout_mask',)),
+    ('layout transposes', ('nchwToNhwc', 'nhwcToNchw', 'transpose')),
+    ('convolutions and GEMMs', ('conv', 'xmma', 'gemm', 'cutlass', 'sm90',
+                                'dgrad', 'wgrad', 'implicit', 'nvjet')),
+    ('GroupNorm', ('group_norm', 'GroupNorm', 'RowwiseMoments',
+                   'ComputeFused', 'compute_stats', 'GammaBeta',
+                   'ComputeInternalGradients', 'ComputeBackwardFused')),
+    ('optimizer and EMA', ('multi_tensor', 'foreach', 'lerp')),
+    ('concat', ('CatArray',)),
+    ('reductions', ('reduce',)),
+    ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
+)
+
+
+def profile(fn, n: int = 2):
+  """Kernel time of fn() by category over n calls after a warm-up, with the
+  device busy share of the span (torch.profiler's CUDA kernel events)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity
+  fn()
+  torch.cuda.synchronize()
+  with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+    span_us = 1e6 * (time.perf_counter() - t0)
+  by_cat, other, count = {}, {}, 0
+  for evt in prof.events():
+    # Ranges such as the optimizer's `Optimizer.step` annotation also lie on
+    # the device's timeline; only kernels and copies count.
+    if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+      continue
+    count += 1
+    cat = next((c for c, keys in _CATEGORIES
+                if any(k in evt.name for k in keys)), 'other')
+    us = evt.time_range.elapsed_us()
+    by_cat[cat] = by_cat.get(cat, 0.0) + us
+    if cat == 'other':
+      other[evt.name[:80]] = other.get(evt.name[:80], 0.0) + us
+  total = sum(by_cat.values())
+  return {'kernels_per_call': count / n,
+          'kernel_ms_per_call': total / n / 1e3,
+          'busy_share': total / span_us,
+          'share': {c: t / total for c, t in
+                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
+          'other_top': {k: t / total for k, t in
+                        sorted(other.items(), key=lambda kv: -kv[1])[:6]}}
+
+
+@contextlib.contextmanager
+def planted_fault():
+  """K2's dK replaced by zeros: a wrong attention backward the train-step
+  gates must reject."""
+  from mulan_tpu_torch.ops import flash_attention as attn
+  real = attn.flash_attention_bwd_dkv
+
+  def zero_dk(*args):
+    dk, dv = real(*args)
+    return torch.zeros_like(dk), dv
+  zero_dk.launches = 0  # the real wrapper counts on the module's name
+  attn.flash_attention_bwd_dkv = zero_dk
+  try:
+    yield
+  finally:
+    attn.flash_attention_bwd_dkv = real
+
+
+def cosine(a, b) -> float:
+  return (torch.dot(a, b) / (a.norm() * b.norm())).item()
+
+
+def leaf_cosines(got, want, names=None):
+  """{leaf: cosine} over `names` (default: all), leaving out the key
+  biases: a key bias shifts every logit of a row by the same q.b, which the
+  softmax ignores, so its gradient is 0 up to rounding."""
+  return {n: cosine(got[n], want[n]) for n in (names or got)
+          if n.split('.')[-2:] != ['k', 'bias']}
+
+
+def attention_grads(block, x, dy, use_kernels):
+  """{leaf: gradient} of one attention block, and its input's, for input x
+  and output cotangent dy."""
+  block.use_kernels = use_kernels
+  block.zero_grad(set_to_none=True)
+  x = x.clone().requires_grad_()
+  torch.autograd.backward(block(x), dy)
+  grads = {n: p.grad.flatten().double() for n, p in block.named_parameters()}
+  grads['input'] = x.grad.flatten().double()
+  block.zero_grad(set_to_none=True)
+  block.use_kernels = True
+  return grads
+
+
+def grad_part(name: str) -> str:
+  """The part of MuLAN a parameter belongs to."""
+  top, block = name.split('.')[:2]
+  if top == 'score_model':
+    part = next((p for p in ('down_block', 'mid', 'up_block')
+                 if block.startswith(p)), 'in_out')
+    return f'unet.{part}'
+  return top
+
+
+def compare_train_step(ex, model, build_plain, batch, noise):
+  """One train step's loss and gradients through `model` (the kernels) and
+  its plain twin on the same batch, noise and dropout masks, with the gates
+  described at ATTN_LEAF_COS_MIN; the same gates must reject the step with a
+  planted fault. The cosines to a float32 twin's gradient, per part of the
+  model, are reported."""
+
+  def loss_and_grads(m):
+    m.zero_grad(set_to_none=True)
+    bpd, _ = ex.loss_fn(m, batch, train=True, noise=noise)
+    bpd.backward()
+    grads = {n: p.grad.flatten().double() for n, p in m.named_parameters()}
+    m.zero_grad(set_to_none=True)
+    return bpd.item(), grads
+
+  blocks = {'unet': model.score_model.mid_attn_1,
+            'encoder': model.encoder_model.trunk.mid_attn_1}
+  captured = {}
+
+  def capture(name):
+    def hook(module, inputs, output):
+      output.register_hook(lambda g: captured.__setitem__(
+          name, (inputs[0].detach(), g.detach())))
+    return hook
+  hooks = [b.register_forward_hook(capture(n)) for n, b in blocks.items()]
+  bpds, grads = {}, {}
+  bpds['kernels'], grads['kernels'] = loss_and_grads(model)
+  for h in hooks:
+    h.remove()
+  for name, overrides in (('plain', {}), ('f32', {'compute_dtype':
+                                                  'float32'})):
+    other = build_plain(**overrides)
+    bpds[name], grads[name] = loss_and_grads(other)
+    del other
+
+  unet_attn = [n for n in grads['kernels']
+               if n.startswith('score_model.mid_attn_1.')]
+
+  def alone(use_kernels):
+    return {b: attention_grads(blocks[b], *captured[b], use_kernels)
+            for b in blocks}
+  alone_plain = alone(False)
+
+  def gates(step_grads, alone_grads):
+    """(leaf cosines of the step's UNet attention block, of each block
+    alone): kernels (or a fault) against plain."""
+    return (leaf_cosines(step_grads, grads['plain'], unet_attn),
+            {b: leaf_cosines(alone_grads[b], alone_plain[b])
+             for b in blocks})
+
+  def passes(step_cos, alone_cos):
+    return (all(c >= ATTN_LEAF_COS_MIN for c in step_cos.values())
+            and all(c >= ATTN_ALONE_COS_MIN for cos in alone_cos.values()
+                    for c in cos.values()))
+
+  step_cos, alone_cos = gates(grads['kernels'], alone(True))
+  with planted_fault():
+    fault_cos = gates(loss_and_grads(model)[1], alone(True))
+  whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
+  norm_rel = abs(whole['kernels'].norm().item()
+                 / whole['plain'].norm().item() - 1)
+  log('train_kernels_vs_plain', bpd=bpds,
+      abs_delta=abs(bpds['kernels'] - bpds['plain']), tol=TRAIN_BPD_TOL,
+      grad_norm_rel_diff=norm_rel, norm_rtol=GRAD_NORM_RTOL,
+      unet_attn_leaf_cos_min=min(step_cos.values()),
+      tol_leaf=ATTN_LEAF_COS_MIN,
+      alone_leaf_cos_min={b: min(c.values()) for b, c in alone_cos.items()},
+      tol_alone=ATTN_ALONE_COS_MIN,
+      planted_fault_rejected=not passes(*fault_cos),
+      whole_cos=cosine(whole['kernels'], whole['plain']),
+      whole_cos_to_f32={k: cosine(whole[k], whole['f32'])
+                        for k in ('kernels', 'plain')})
+  log('train_attn_leaf_cosines', **{n.split('mid_attn_1.')[1]: round(c, 6)
+                                    for n, c in step_cos.items()})
+
+  # Where the bf16 gradients part from the float32 one, per part of MuLAN.
+  parts = {}
+  for n in grads['f32']:
+    parts.setdefault(grad_part(n), []).append(n)
+  total = whole['f32'].square().sum().item()
+  log('train_grad_parts', **{part: dict(
+      share_of_f32_norm2=round(sum(grads['f32'][n].square().sum().item()
+                                   for n in ns) / total, 6),
+      **{f'cos_{a}_{b}': round(cosine(
+          *(torch.cat([grads[k][n] for n in ns]) for k in (a, b))), 6)
+         for a, b in (('kernels', 'f32'), ('plain', 'f32'),
+                      ('kernels', 'plain'))})
+                              for part, ns in parts.items()})
+
+  assert abs(bpds['kernels'] - bpds['plain']) <= TRAIN_BPD_TOL
+  assert norm_rel <= GRAD_NORM_RTOL, norm_rel
+  assert passes(step_cos, alone_cos), (step_cos, alone_cos)
+  assert not passes(*fault_cos), ('a planted fault (dK = 0) passed', fault_cos)
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
                      'script runs only on a CUDA device')
-  from mulan_tpu_torch import data, params
+  from mulan_tpu_torch import configs, data, params
   from mulan_tpu_torch.evals import harness, vlb
-  from mulan_tpu_torch.models import latents
-  from mulan_tpu_torch.models.config import flagship_config
-  from mulan_tpu_torch.models.mulan import MuLAN
+  from mulan_tpu_torch.models import build_model, latents
   from mulan_tpu_torch.models.vdm import sample_times
   from mulan_tpu_torch.ops import _build
-  from mulan_tpu_torch.ops.decoder_logprob import decoder_logprob
-  from mulan_tpu_torch.ops.flash_attention import flash_attention
+  from mulan_tpu_torch.train.loop import Experiment
+  want_profile = '--profile' in sys.argv[1:]
 
   # 1. Device and build.
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -165,59 +636,65 @@ def main() -> None:
       cuda=torch.version.cuda, tf32='off (matmul and cudnn)',
       build_s=round(time.perf_counter() - t0, 3))
   gen = torch.Generator(device=dev).manual_seed(SEED)
-  cfg = flagship_config()
+  train_cfg = configs.replace(
+      configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
+      training={'steps_per_logging': TRAIN_STEPS})
+  cfg = train_cfg.model
 
-  # 2-3. Each kernel against its plain version.
-  attn = check_attention(dev, gen)
-  dec = check_decoder(dev, gen, cfg)
+  # 2. Each kernel against its plain version.
+  results = {'flash_attention': check_attention(dev, gen)}
+  (results['flash_attention_bwd_dkv'],
+   results['flash_attention_bwd_dq']) = check_attention_bwd(dev, gen)
+  sfu_rate = sfu_ops_per_s()
+  results['decoder_logprob'] = check_decoder(dev, gen, cfg, sfu_rate)
+  results['decoder_logprob_bwd'] = check_decoder_bwd(dev, gen, cfg, sfu_rate)
+  results['dropout_mask'] = check_dropout(dev, cfg)
 
-  # 4. The main path: sparse VLB over synthetic eval batches, then sampling.
-  model = MuLAN(cfg).to(dev).eval()
+  # 3. Evaluation: sparse VLB over synthetic eval batches.
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
-  model.load_state_dict(state)
+  model = build_model(cfg, device=dev, state=state)
   images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
-  flash_attention.launches = 0
-  decoder_logprob.launches = 0
-  bpd, secs = timed(lambda: vlb.eval_bpd_sparse(
-      model, data.eval_batches(images, EVAL_BATCH), generator=gen,
-      max_batches=EVAL_BATCHES))
-  eval_counts = (flash_attention.launches, decoder_logprob.launches)
+  (bpd, secs), eval_counts = counted(lambda: timed(
+      lambda: vlb.eval_bpd_sparse(model, data.eval_batches(
+          images, EVAL_BATCH), generator=gen, max_batches=EVAL_BATCHES)))
   log('eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH, bpd=bpd,
-      seconds=secs, launches_flash=eval_counts[0],
-      launches_decoder=eval_counts[1])
+      seconds=secs, launches=eval_counts)
   assert math.isfinite(bpd), bpd
-  # Two attention blocks (encoder, UNet) and one decoder call per batch.
-  assert eval_counts == (2 * EVAL_BATCHES, EVAL_BATCHES), eval_counts
+  # Two attention blocks (encoder, UNet) and one decoder call per batch,
+  # no backward and no dropout.
+  assert eval_counts == dict(
+      flash_attention=2 * EVAL_BATCHES, decoder_logprob=EVAL_BATCHES,
+      flash_attention_bwd_dkv=0, flash_attention_bwd_dq=0,
+      decoder_logprob_bwd=0, dropout_mask=0), eval_counts
 
-  # 5. Sampling: T cut to SAMPLE_STEPS; every step is a full-size UNet pass.
-  (samples, z_0), secs = timed(lambda: harness.random_samples(
-      model, SAMPLE_BATCH, SAMPLE_STEPS, generator=gen))
-  launches = {'flash_attention': flash_attention.launches,
-              'decoder_logprob': decoder_logprob.launches}
+  # 4. Sampling: T cut to SAMPLE_STEPS; every step is a full-size UNet pass.
+  ((samples, z_0), secs), sample_counts = counted(lambda: timed(
+      lambda: harness.random_samples(model, SAMPLE_BATCH, SAMPLE_STEPS,
+                                     generator=gen)))
   log('random_samples', batch=SAMPLE_BATCH, steps=SAMPLE_STEPS,
       ms_per_step=1e3 * secs / SAMPLE_STEPS, shape=list(samples.shape),
       dtype=str(samples.dtype), min=int(samples.min()),
       max=int(samples.max()), z0_abs_max=z_0.abs().max().item(),
-      launches_flash=launches['flash_attention'] - eval_counts[0])
+      launches=sample_counts)
   assert samples.dtype.name == 'uint8'
   assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
   assert 0 <= samples.min() and samples.max() <= 255
   assert torch.isfinite(z_0).all()
-  assert launches['flash_attention'] == eval_counts[0] + SAMPLE_STEPS
+  assert sample_counts['flash_attention'] == SAMPLE_STEPS, sample_counts
+  assert sum(sample_counts.values()) == SAMPLE_STEPS, sample_counts
 
-  # 6. Kernels against the plain path, end to end, on one batch with the same
-  # noise (outside the counted run).
+  # 5. The ELBO, kernels against the plain path, on one batch with the same
+  # noise (outside the counted runs).
   batch = torch.as_tensor(images[:EVAL_BATCH], device=dev)
   t = sample_times(EVAL_BATCH, generator=gen, device=dev)
   eps = torch.randn((EVAL_BATCH, *cfg.image_shape), generator=gen,
                     device=dev)
   noise = latents.gamma_variates(cfg.latent_k, (EVAL_BATCH, cfg.latent_size),
                                  generator=gen, device=dev)
-  plain = MuLAN(dataclasses.replace(cfg, use_kernels=False)).to(dev).eval()
-  plain.load_state_dict(state)
-  rates = {}
-  bpds = {}
+  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                      device=dev, state=state)
+  rates, bpds = {}, {}
   for name, m in (('kernels', model), ('plain', plain)):
     def run(m=m):
       with torch.inference_mode():
@@ -235,17 +712,91 @@ def main() -> None:
       images_per_s_kernels=rates['kernels'],
       images_per_s_plain=rates['plain'])
   assert delta <= BPD_TOL, delta
+  del plain
 
-  kernels = [
-      dict(name='flash_attention', route='cuda',
-           source='mulan_tpu_torch/csrc/flash_attention.cu',
-           replaces='mulan_tpu/ops/flash_bwd.py:287',
-           launches=launches['flash_attention'], **attn),
-      dict(name='decoder_logprob', route='cuda',
-           source='mulan_tpu_torch/csrc/decoder_logprob.cu',
-           replaces='mulan_tpu/ops/decoder_logprob.py:36',
-           launches=launches['decoder_logprob'], **dec),
-  ]
+  # 6. Training: Experiment.train at batch 128 with dropout 0.1. The first
+  # update has lr 0 (the warm-up is read before it), so step 1 leaves the
+  # parameters as they were and later steps move them and the EMA.
+  ex = Experiment(train_cfg, device=dev, state=state)
+  start = {k: p.detach().clone() for k, p in ex.state.params.items()}
+  torch.cuda.reset_peak_memory_stats()
+  (history, train_counts) = counted(lambda: ex.train(1))
+  assert all(torch.equal(start[k], p) for k, p in ex.state.params.items())
+  more, counts = counted(lambda: ex.train(1))
+  history += more
+  train_counts = {k: v + counts[k] for k, v in train_counts.items()}
+  (more, secs), counts = counted(lambda: timed(
+      lambda: ex.train(TRAIN_STEPS - 2)))
+  history += more
+  train_counts = {k: v + counts[k] for k, v in train_counts.items()}
+  peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  ms_per_step = 1e3 * secs / (TRAIN_STEPS - 2)
+  moved = sum(not torch.equal(start[k], p)
+              for k, p in ex.state.params.items())
+  ema_moved = sum(not torch.equal(start[k], p)
+                  for k, p in ex.state.ema_params.items())
+  finite = all(torch.isfinite(p).all() for p in
+               [*ex.state.params.values(), *ex.state.ema_params.values()])
+  log('train', steps=TRAIN_STEPS, batch=train_cfg.training.batch_size_train,
+      bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms_per_step,
+      images_per_s=1e3 * train_cfg.training.batch_size_train / ms_per_step,
+      peak_memory_gb=peak_gb, params_moved=f'{moved}/{len(start)}',
+      ema_moved=f'{ema_moved}/{len(start)}', launches=train_counts)
+  assert len(history) == TRAIN_STEPS
+  assert all(math.isfinite(h['bpd']) for h in history), history
+  assert moved > 0.5 * len(start) and ema_moved > 0.5 * len(start)
+  assert finite
+  n_sites = 2 * cfg.sm_n_layer + 3 + cfg.forward_n_layer + 2
+  per_step = dict(flash_attention=2, flash_attention_bwd_dkv=2,
+                  flash_attention_bwd_dq=2, decoder_logprob=1,
+                  decoder_logprob_bwd=0, dropout_mask=2 * n_sites)
+  assert train_counts == {k: TRAIN_STEPS * v for k, v in per_step.items()}, (
+      train_counts)
+  eval_scalars = ex.evaluate(1)
+  assert math.isfinite(eval_scalars['eval_bpd']), eval_scalars
+
+  # 7. One train step, kernels against plain and against float32.
+  del start
+  compare_train_step(ex, model, lambda **kw: build_model(
+      dataclasses.replace(cfg, use_kernels=False, **kw), device=dev,
+      state=state), {'images': batch},
+                     dict(t=t, eps0=eps, eps=eps, topk_noise=noise,
+                          dropout_seed=1234))
+
+  if want_profile:
+    def train_step():
+      ex.train_step({'images': batch})
+
+    def elbo():
+      with torch.inference_mode():
+        model(batch, generator=gen)
+    for name, fn in (('elbo_b128', elbo), ('train_step_b128', train_step)):
+      log('profile', call=name, **profile(fn))
+
+  sources = {
+      'flash_attention': ('mulan_tpu_torch/csrc/flash_attention.cu',
+                          'mulan_tpu/ops/flash_bwd.py:287'),
+      'flash_attention_bwd_dkv': ('mulan_tpu_torch/csrc/flash_attention_bwd.cu',
+                                  'mulan_tpu/ops/flash_bwd.py:72'),
+      'flash_attention_bwd_dq': ('mulan_tpu_torch/csrc/flash_attention_bwd.cu',
+                                 'mulan_tpu/ops/flash_bwd.py:124'),
+      'decoder_logprob': ('mulan_tpu_torch/csrc/decoder_logprob.cu',
+                          'mulan_tpu/ops/decoder_logprob.py:36'),
+      'decoder_logprob_bwd': ('mulan_tpu_torch/csrc/decoder_logprob.cu',
+                              'mulan_tpu/ops/decoder_logprob.py:61'),
+      'dropout_mask': ('mulan_tpu_torch/csrc/dropout.cu',
+                       'mulan_tpu/ops/dropout.py:40'),
+  }
+  keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+          'library_ms')
+  kernels = []
+  for name, (source, replaces) in sources.items():
+    by_path = {'eval': eval_counts[name], 'sample': sample_counts[name],
+               'train': train_counts[name]}
+    kernels.append(dict(name=name, route='cuda', source=source,
+                        replaces=replaces, launches=sum(by_path.values()),
+                        launches_by_path=by_path,
+                        **{k: results[name][k] for k in keys}))
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

@@ -17,6 +17,18 @@
 // Determinism: no float atomics. Each block writes one partial sum, reduced
 // in a fixed tree order in shared memory; a second kernel sums an example's
 // partials in block order.
+//
+// The backward (decoder_logprob_bwd, K5) replaces the Pallas TPU kernel
+// mulan_tpu/ops/decoder_logprob.py:_bwd_kernel (launched by _bwd). It has a
+// closed form in the softmax moments of the vocab (p_v = softmax_v l_v,
+// inv_var = exp(-g0)):
+//   dz  = ct inv_var (e_x - E_p[e_v])
+//   dg0 = ct 0.5 inv_var ((z - e_x)^2 - E_p[(z - e_v)^2])
+// with ct the per-example cotangent. Each pixel is one thread's 256-step
+// online-softmax recurrence carrying (m, s, sum w e, sum w (z - e)^2), two
+// expf a step: ~2e8 expf at CIFAR train shapes against ~8 MB of traffic, so
+// it is bound by the SFUs' expf rate, not by memory. g0 is per pixel; the
+// wrapper expands a broadcast g0 and sums dg0 back in PyTorch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +92,38 @@ __global__ void sum_partials(const float* __restrict__ partial,
   out[b] = s;
 }
 
+__global__ void __launch_bounds__(kThreads)
+decoder_logprob_bwd(const float* __restrict__ x, const float* __restrict__ z,
+                    const float* __restrict__ g0,
+                    const float* __restrict__ ct, float* __restrict__ dz,
+                    float* __restrict__ dg0, int n, size_t total, int vocab) {
+  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const float zz = z[i];
+  const float g = g0[i];
+  const float inv_var = expf(-g);
+  const float inv_stdev = expf(-0.5f * g);
+  const float e_x = bin_center(rintf(x[i]), vocab);
+  float m = -INFINITY, s = 0.0f, sum_e = 0.0f, sum_sq = 0.0f;
+  for (int v = 0; v < vocab; ++v) {
+    const float e_v = bin_center((float)v, vocab);
+    const float diff = zz - e_v;
+    const float d = diff * inv_stdev;
+    const float l = -0.5f * d * d;
+    const float m_new = fmaxf(m, l);
+    const float rescale = expf(m - m_new);
+    const float w = expf(l - m_new);
+    s = s * rescale + w;
+    sum_e = sum_e * rescale + w * e_v;
+    sum_sq = sum_sq * rescale + w * diff * diff;
+    m = m_new;
+  }
+  const float c = ct[i / n];
+  const float dx = zz - e_x;
+  dz[i] = c * inv_var * (e_x - sum_e / s);
+  dg0[i] = c * 0.5f * inv_var * (dx * dx - sum_sq / s);
+}
+
 }  // namespace
 
 extern "C" int mulan_decoder_logprob_fwd(const void* x, const void* z,
@@ -99,6 +143,22 @@ extern "C" int mulan_decoder_logprob_fwd(const void* x, const void* z,
   if (err != cudaSuccess) return (int)err;
   sum_partials<<<(batch + 127) / 128, 128, 0, s>>>(
       (const float*)partial, (float*)out, batch, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+// (x, z, g0) (batch, n) float32, ct (batch,) -> dz, dg0 (batch, n).
+extern "C" int mulan_decoder_logprob_bwd(const void* x, const void* z,
+                                         const void* g0, const void* ct,
+                                         void* dz, void* dg0, int batch,
+                                         int n, int vocab, void* stream) {
+  if (batch <= 0 || n <= 0 || vocab <= 0) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)batch * n;
+  const size_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  decoder_logprob_bwd<<<(unsigned)blocks, kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)z, (const float*)g0, (const float*)ct,
+      (float*)dz, (float*)dg0, n, total, vocab);
   return (int)cudaGetLastError();
 }
 

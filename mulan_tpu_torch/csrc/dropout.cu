@@ -1,0 +1,109 @@
+// Dropout keep-mask for Hopper (sm_90a): a pre-scaled mask with values in
+// {0, scale}, scale = 1 / (1 - threshold16 / 65536), in the activation's type.
+//
+// Replaces the Pallas TPU kernel mulan_tpu/ops/dropout.py:_mask_kernel
+// (launched by _hw_mask for hw_dropout, K6). As in the TPU design the kernel
+// writes only the mask; the x * mask product stays a PyTorch op, and the
+// backward regenerates the mask from (seed, site) instead of keeping it.
+//
+// The TPU kernel draws from the TPU's hardware PRNG, reseeded per grid tile.
+// Here the bits come from Philox4x32-10 (Salmon et al., SC'11; Random123's
+// constants) written into the kernel: the key is (seed, site) and the counter
+// is the element index divided by 8, so the stream depends only on
+// (seed, site, index), never on the launch's tiling. Each of the four 32-bit
+// output words gives two 16-bit draws, low half first: element i uses word
+// (i / 2) % 4 of counter i / 8, and is kept iff its draw >= threshold16 =
+// min(round(p * 65536), 65535), the quantization of the TPU kernel.
+// mulan_tpu_torch/ops/dropout.py:dropout_mask_plain computes the same bits
+// on int64 tensors, so kernel and plain agree bit for bit.
+//
+// What bounds it on the H100: memory. One thread runs one Philox (10
+// rounds, 20 32-bit multiplies) and writes 8 values, 16 bytes in bf16 as one
+// vector store; at a flagship site (128 x 128 x 32 x 32 bf16) that is a
+// 33.5 MB write, ~10 us at 3.35 TB/s, against ~4e7 integer multiplies.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+template <typename T> __device__ __forceinline__ T cvt(float x);
+template <> __device__ __forceinline__ float cvt<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dropout_mask(T* __restrict__ out, size_t n, uint32_t seed, uint32_t site,
+             uint32_t threshold16, float scale) {
+  const size_t ctr = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t first = ctr * 8;
+  if (first >= n) return;
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed, site);
+  const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+  const T keep = cvt<T>(scale), drop = cvt<T>(0.0f);
+  __align__(16) T vals[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const uint32_t w = words[e / 2];
+    const uint32_t u16 = (e % 2 == 0) ? (w & 0xFFFFu) : (w >> 16);
+    vals[e] = u16 >= threshold16 ? keep : drop;
+  }
+  if (first + 8 <= n) {
+    // 8 values are 16 bytes (bf16) or 32 bytes (f32), 16-byte aligned.
+    const uint4* src = reinterpret_cast<const uint4*>(vals);
+    uint4* dst = reinterpret_cast<uint4*>(out + first);
+#pragma unroll
+    for (int w = 0; w < (int)(8 * sizeof(T) / 16); ++w) dst[w] = src[w];
+  } else {
+    for (int e = 0; e < (int)(n - first); ++e) out[first + e] = vals[e];
+  }
+}
+
+template <typename T>
+int launch(void* out, size_t n, uint32_t seed, uint32_t site,
+           uint32_t threshold16, float scale, cudaStream_t stream) {
+  const size_t counters = (n + 7) / 8;
+  const size_t blocks = (counters + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  dropout_mask<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (T*)out, n, seed, site, threshold16, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: n contiguous, 16-byte aligned values (float32 or bfloat16).
+extern "C" int mulan_dropout_mask(void* out, long long n, unsigned seed,
+                                  unsigned site, unsigned threshold16,
+                                  float scale, int is_bf16, void* stream) {
+  if (n <= 0 || threshold16 > 65535u) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? launch<__nv_bfloat16>(out, (size_t)n, seed, site,
+                                         threshold16, scale, s)
+                 : launch<float>(out, (size_t)n, seed, site, threshold16,
+                                 scale, s);
+}

@@ -17,6 +17,12 @@
 // output accumulator), as the Pallas kernel does over its sequential k-grid.
 // Rows and keys past T are masked, so any T works.
 //
+// Under autograd the caller passes `lse` (B*H, T) float32 and each kernel
+// also writes the row log-sum-exp of the scaled logits, m + log l in natural
+// log units, which the backward kernels (flash_attention_bwd.cu) read to
+// recompute P = exp(s - lse); with lse null nothing extra is written, as the
+// stock kernel saves its residuals only with save_residuals=True.
+//
 // * flash_fwd_mma (bf16, D <= 128, the flagship path): the two products run
 //   on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //   Each of 4 warps owns 16 query rows; its Q fragments stay in registers,
@@ -62,8 +68,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int seq, int d,
-               float scale) {
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int seq, int d, float scale) {
   constexpr int kCols = DMAX / 16;
   extern __shared__ float smem[];
   const int ld = d + 1;  // odd row stride: a column walk hits distinct banks
@@ -174,6 +180,8 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= seq) continue;
     const float inv_l = 1.0f / l[i];
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)blockIdx.x * seq + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + 16 * c;
@@ -184,8 +192,9 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DMAX>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int bh,
-                int seq, int d, float scale, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int seq, int d, float scale,
+                cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(kBlockM + 2 * kBlockN) * (d + 1) +
                        (size_t)kBlockM * kLdP);
@@ -195,17 +204,19 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int bh,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (seq + kBlockM - 1) / kBlockM);
   flash_fwd_simt<T, DMAX><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, seq, d, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_simt(const void* q, const void* k, const void* v, void* o,
-                  int bh, int seq, int d, float scale, cudaStream_t stream) {
-  if (d <= 64) return launch_simt<T, 64>(q, k, v, o, bh, seq, d, scale, stream);
+                  float* lse, int bh, int seq, int d, float scale,
+                  cudaStream_t stream) {
+  if (d <= 64)
+    return launch_simt<T, 64>(q, k, v, o, lse, bh, seq, d, scale, stream);
   if (d <= 128)
-    return launch_simt<T, 128>(q, k, v, o, bh, seq, d, scale, stream);
-  return launch_simt<T, 256>(q, k, v, o, bh, seq, d, scale, stream);
+    return launch_simt<T, 128>(q, k, v, o, lse, bh, seq, d, scale, stream);
+  return launch_simt<T, 256>(q, k, v, o, lse, bh, seq, d, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -260,8 +271,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int seq, int d,
-              float scale_log2) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              int seq, int d, float scale_log2) {
   constexpr int kSteps = DMAX / 16;  // k-steps of Q K^T
   constexpr int kOut = DMAX / 8;     // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -397,6 +408,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  if (lse != nullptr && t4 == 0) {
+    // m is in log2 units of the scaled logits: lse = m ln 2 + ln l.
+    constexpr float kLn2 = 0.6931471805599453f;
+    const size_t lrow = (size_t)blockIdx.x * seq;
+    if (row0 < seq) lse[lrow + row0] = m0 * kLn2 + logf(l0);
+    if (row1 < seq) lse[lrow + row1] = m1 * kLn2 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < kOut; ++n) {
     if (n >= n_out) continue;
@@ -411,8 +429,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DMAX>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
-               int seq, int d, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int seq, int d, float scale,
+               cudaStream_t stream) {
   const int ldk = ((d + 15) & ~15) + kPad;
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((size_t)(kBlockM + kBlockN) * ldk + (size_t)d * kLdV);
@@ -423,7 +442,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
   dim3 grid(bh, (seq + kBlockM - 1) / kBlockM);
   flash_fwd_mma<DMAX><<<grid, kMmaThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, seq, d,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, seq, d,
       scale * 1.4426950408889634f);  // log2(e): exp2f in the kernel
   return (int)cudaGetLastError();
 }
@@ -431,15 +450,17 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
 }  // namespace
 
 extern "C" int mulan_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int bh,
-                                         int seq, int d, float scale,
+                                         const void* v, void* o, void* lse,
+                                         int bh, int seq, int d, float scale,
                                          int is_bf16, void* stream) {
   if (bh <= 0 || seq <= 0 || d <= 0 || d > 256 || d % 8 != 0 ||
       (seq + kBlockM - 1) / kBlockM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!is_bf16) return dispatch_simt<float>(q, k, v, o, bh, seq, d, scale, s);
-  if (d <= 64) return launch_mma<64>(q, k, v, o, bh, seq, d, scale, s);
-  if (d <= 128) return launch_mma<128>(q, k, v, o, bh, seq, d, scale, s);
-  return dispatch_simt<__nv_bfloat16>(q, k, v, o, bh, seq, d, scale, s);
+  float* l = (float*)lse;  // may be null: no residual wanted
+  if (!is_bf16)
+    return dispatch_simt<float>(q, k, v, o, l, bh, seq, d, scale, s);
+  if (d <= 64) return launch_mma<64>(q, k, v, o, l, bh, seq, d, scale, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, o, l, bh, seq, d, scale, s);
+  return dispatch_simt<__nv_bfloat16>(q, k, v, o, l, bh, seq, d, scale, s);
 }

@@ -2,8 +2,8 @@
 
 Counterpart of `mulan_tpu/models/config.py`, which needs flax and jax, and of
 the `ml_collections` files under `mulan_tpu/configs/`; neither can be imported
-where only PyTorch is installed. The fields are the ones the evaluation and
-sampling slice reads, with the JAX package's names and defaults.
+where only PyTorch is installed. The fields are the ones the ported slices
+read, with the JAX package's names and defaults.
 `use_kernels` is the counterpart of `use_pallas`: it routes attention and the
 decoder log-likelihood through the hand-written CUDA kernels in `ops/`.
 """
@@ -36,6 +36,7 @@ class ModelConfig:
   unet_type: str = 'vdm'
   sm_n_embd: int = 128
   sm_n_layer: int = 32
+  sm_pdrop: float = 0.1
   with_fourier_features: bool = True
   with_attention: bool = False
 
@@ -72,13 +73,13 @@ class ModelConfig:
 
 def flagship_config(**overrides) -> ModelConfig:
   """MuLAN-velocity on CIFAR-10 (`mulan_tpu/configs/cifar10_conditioned.py`):
-  bf16 UNet compute, 128 channels, 32 layers, top-15-of-50 latents,
-  `poly_fixedend` schedule, kernels on."""
+  bf16 UNet compute, 128 channels, 32 layers, dropout 0.1, top-15-of-50
+  latents, `poly_fixedend` schedule, kernels on."""
   cfg = ModelConfig(
       vocab_size=256, image_size=32, image_channels=3, sample_softmax=False,
       antithetic_time_sampling=True, sm_n_timesteps=0,
       gamma_type='poly_fixedend', gamma_min=-13.3, gamma_max=5.0,
-      unet_type='vdm', sm_n_embd=128, sm_n_layer=32,
+      unet_type='vdm', sm_n_embd=128, sm_n_layer=32, sm_pdrop=0.1,
       with_fourier_features=True, with_attention=False, encoder='unet',
       forward_n_layer=4, latent_size=50, latent_k=15, latent_type='topk',
       topk_noise_type='gamma', reparam_type='true', z_conditioning=True,

@@ -4,7 +4,9 @@
 The trunk embeds a constant t = 0 / conditioning = 0 vector through learned
 Dense layers, as the score UNet embeds its time, then runs conv_in,
 `forward_n_layer` ResNet blocks, a ResNet-Attn-ResNet middle and a 1-channel
-head, flattened in NHWC order before the final Dense layer.
+head, flattened in NHWC order before the final Dense layer. With a
+`dropout_seed` its 4 + 2 ResNet blocks drop at sites numbered after the
+score UNet's, so that no two blocks of a MuLAN share a mask.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ from torch import nn
 import torch.nn.functional as F
 
 from mulan_tpu_torch.models.config import ModelConfig
-from mulan_tpu_torch.models.layers import (FOURIER_MULT, AttnBlock,
-                                           GroupNormF32, ResnetBlock,
+from mulan_tpu_torch.models.layers import (FOURIER_MULT, AttnBlock, Conv2d,
+                                           GroupNormF32, Linear, ResnetBlock,
                                            base2_fourier_features,
                                            timestep_embedding)
+from mulan_tpu_torch.models.unet import UNet
 
 
 class UnetTrunk(nn.Module):
@@ -28,23 +31,33 @@ class UnetTrunk(nn.Module):
     n_embd = cfg.sm_n_embd
     c = cfg.image_channels
     cond_dim = 4 * n_embd
-    self.dense0 = nn.Linear(n_embd + 1, cond_dim)
-    self.dense1 = nn.Linear(cond_dim, cond_dim)
+    self.dense0 = Linear(n_embd + 1, cond_dim)
+    self.dense1 = Linear(cond_dim, cond_dim)
     in_ch = c * FOURIER_MULT if cfg.with_fourier_features else c
-    self.conv_in = nn.Conv2d(in_ch, n_embd, 3, padding=1)
-    for i in range(cfg.forward_n_layer):
-      self.add_module(f'down_block_{i}', ResnetBlock(n_embd, n_embd,
-                                                     cond_dim))
-    self.mid_block_1 = ResnetBlock(n_embd, n_embd, cond_dim)
-    self.mid_attn_1 = AttnBlock(n_embd, cfg.use_kernels)
-    self.mid_block_2 = ResnetBlock(n_embd, n_embd, cond_dim)
-    self.GroupNormF32_0 = GroupNormF32(n_embd)
-    self.conv_out = nn.Conv2d(n_embd, 1, 3, padding=1)
+    self.conv_in = Conv2d(in_ch, n_embd, 3, padding=1)
+    first = UNet.n_sites(cfg)
+    sites = iter(range(first, first + self.n_sites(cfg)))
 
-  def forward(self, z):
+    def block():
+      return ResnetBlock(n_embd, n_embd, cond_dim, pdrop=cfg.sm_pdrop,
+                         site=next(sites), use_kernels=cfg.use_kernels)
+
+    for i in range(cfg.forward_n_layer):
+      self.add_module(f'down_block_{i}', block())
+    self.mid_block_1 = block()
+    self.mid_attn_1 = AttnBlock(n_embd, cfg.use_kernels)
+    self.mid_block_2 = block()
+    self.GroupNormF32_0 = GroupNormF32(n_embd)
+    self.conv_out = Conv2d(n_embd, 1, 3, padding=1)
+
+  @staticmethod
+  def n_sites(config: ModelConfig) -> int:
+    return config.forward_n_layer + 2
+
+  def forward(self, z, dropout_seed=None):
     """z (B, C, H, W) float32 -> (B, H * W) float32."""
     cfg = self.config
-    dtype = self.conv_in.weight.dtype
+    dtype = cfg.dtype
     b = z.shape[0]
     t = torch.zeros((b,), device=z.device)
     cond = torch.cat([timestep_embedding(t, cfg.sm_n_embd),
@@ -57,10 +70,10 @@ class UnetTrunk(nn.Module):
       h = torch.cat([z, base2_fourier_features(z)], dim=1)
     h = self.conv_in(h.to(dtype))
     for i in range(cfg.forward_n_layer):
-      h = getattr(self, f'down_block_{i}')(h, cond)
-    h = self.mid_block_1(h, cond)
+      h = getattr(self, f'down_block_{i}')(h, cond, dropout_seed)
+    h = self.mid_block_1(h, cond, dropout_seed)
     h = self.mid_attn_1(h)
-    h = self.mid_block_2(h, cond)
+    h = self.mid_block_2(h, cond, dropout_seed)
     h = self.conv_out(F.silu(self.GroupNormF32_0(h)))
     # NHWC flatten, as the JAX trunk does (the same order for one channel).
     return F.silu(h.permute(0, 2, 3, 1).reshape(b, -1).float())
@@ -75,5 +88,5 @@ class UnetEncoder(nn.Module):
     self.dense_layer_final = nn.Linear(config.image_size ** 2,
                                        config.latent_size)
 
-  def forward(self, z):
-    return self.dense_layer_final(self.trunk(z))
+  def forward(self, z, dropout_seed=None):
+    return self.dense_layer_final(self.trunk(z, dropout_seed))

@@ -2,7 +2,10 @@
 
 Blocks run NCHW. Submodules carry the flax module names (`GroupNormF32_0`,
 `conv1`, `cond_proj`, ...) so that `params.from_flax` maps a flax tree leaf
-by leaf. Only the deterministic (evaluation) path exists: there is no dropout.
+by leaf. Parameters are float32; `Conv2d`, `Linear` and `GroupNormF32` cast
+them to the activation's type at use (`cast_param`), as flax's
+`nn.Conv(dtype=...)` and `nn.Dense(dtype=...)` do, so the master weights an
+optimizer updates stay float32 under bfloat16 compute.
 """
 
 from __future__ import annotations
@@ -13,8 +16,50 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from mulan_tpu_torch.ops import dropout as dropout_ops
 from mulan_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+
+
+def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
+  """`module`'s parameter `name` (or None) in `dtype`.
+
+  Under autograd the cast is part of the graph, as in flax. Without autograd
+  (evaluation, sampling) the cast is kept on the module and reused until the
+  parameter changes: every in-place update (an optimizer step, the EMA's
+  lerp, `load_state_dict`) moves its version counter and `Module.to` gives
+  it new storage, and either makes the next call cast afresh. So the
+  sampler's UNet passes do not recast every weight on every step.
+  """
+  p = getattr(module, name)
+  if p is None or p.dtype == dtype:
+    return p
+  if torch.is_grad_enabled():
+    return p.to(dtype)
+  key = (dtype, p.data_ptr(), p._version)
+  cache = module.__dict__.setdefault('_casts', {})
+  if name not in cache or cache[name][0] != key:
+    cache[name] = (key, p.to(dtype))
+  return cache[name][1]
+
+
+class Conv2d(nn.Conv2d):
+  """A convolution whose float32 weight and bias are cast to the input's
+  type inside `forward`."""
+
+  def forward(self, x):
+    return F.conv2d(x, cast_param(self, 'weight', x.dtype),
+                    cast_param(self, 'bias', x.dtype), self.stride,
+                    self.padding, self.dilation, self.groups)
+
+
+class Linear(nn.Linear):
+  """A dense layer whose float32 weight and bias are cast to the input's
+  type inside `forward`."""
+
+  def forward(self, x):
+    return F.linear(x, cast_param(self, 'weight', x.dtype),
+                    cast_param(self, 'bias', x.dtype))
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -66,28 +111,47 @@ class GroupNormF32(nn.Module):
     self.bias = nn.Parameter(torch.zeros(channels))
 
   def forward(self, x):
-    return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
-                        self.bias.to(x.dtype), 1e-6)
+    return F.group_norm(x, self.num_groups,
+                        cast_param(self, 'weight', x.dtype),
+                        cast_param(self, 'bias', x.dtype), 1e-6)
 
 
 class ResnetBlock(nn.Module):
-  """GN-swish-conv3x3 (+ projected conditioning) GN-swish-conv3x3, plus a
-  1x1 `nin_shortcut` when the channel count changes."""
+  """GN-swish-conv3x3 (+ projected conditioning) GN-swish-dropout-conv3x3,
+  plus a 1x1 `nin_shortcut` when the channel count changes.
 
-  def __init__(self, in_ch: int, out_ch: int, cond_dim: int):
+  Dropout runs only when `forward` gets a `dropout_seed`: the mask is keyed
+  by (dropout_seed, site), `site` being the block's fixed index in its
+  model, and comes from the K6 kernel when `use_kernels` is set
+  (`ops/dropout.py`). An explicit pre-scaled `dropout_mask` (NCHW, shaped
+  like the activation) replaces it, as the JAX block's `dropout_mask`
+  argument does.
+  """
+
+  def __init__(self, in_ch: int, out_ch: int, cond_dim: int, *,
+               pdrop: float = 0.0, site: int = 0, use_kernels: bool = False):
     super().__init__()
+    self.pdrop = pdrop
+    self.site = site
+    self.use_kernels = use_kernels
     self.GroupNormF32_0 = GroupNormF32(in_ch)
-    self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-    self.cond_proj = nn.Linear(cond_dim, out_ch, bias=False)
+    self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
+    self.cond_proj = Linear(cond_dim, out_ch, bias=False)
     self.GroupNormF32_1 = GroupNormF32(out_ch)
-    self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-    self.nin_shortcut = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+    self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+    self.nin_shortcut = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
                          else None)
 
-  def forward(self, x, cond):
+  def forward(self, x, cond, dropout_seed=None, dropout_mask=None):
     h = self.conv1(F.silu(self.GroupNormF32_0(x)))
     h = h + self.cond_proj(cond)[:, :, None, None]
-    h = self.conv2(F.silu(self.GroupNormF32_1(h)))
+    h = F.silu(self.GroupNormF32_1(h))
+    if dropout_mask is not None:
+      h = h * dropout_mask.to(h.dtype)
+    elif dropout_seed is not None and self.pdrop > 0:
+      h = dropout_ops.dropout(h, dropout_seed, self.site, self.pdrop,
+                              self.use_kernels)
+    h = self.conv2(h)
     shortcut = x if self.nin_shortcut is None else self.nin_shortcut(x)
     return shortcut + h
 
@@ -104,10 +168,10 @@ class AttnBlock(nn.Module):
     super().__init__()
     self.use_kernels = use_kernels
     self.GroupNormF32_0 = GroupNormF32(channels)
-    self.q = nn.Linear(channels, channels)
-    self.k = nn.Linear(channels, channels)
-    self.v = nn.Linear(channels, channels)
-    self.proj_out = nn.Linear(channels, channels)
+    self.q = Linear(channels, channels)
+    self.k = Linear(channels, channels)
+    self.v = Linear(channels, channels)
+    self.proj_out = Linear(channels, channels)
 
   def forward(self, x):
     b, c, hgt, wid = x.shape

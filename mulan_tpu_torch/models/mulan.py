@@ -1,11 +1,17 @@
-"""MuLAN-velocity: evaluation (ELBO) and ancestral sampling, counterpart of
+"""MuLAN-velocity: the ELBO (for evaluation and training) and ancestral
+sampling, counterpart of
 `mulan_tpu/models/mulan.py:MuLAN(parameterization='velocity')`.
 
 Public methods take and return the JAX package's NHWC layout; the networks
 run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
-`topk_noise`); what is not passed is drawn from `generator`, which must live
-on the model's device. Gamma maps come out of the schedule as (B, n_pixels)
-in NHWC order and are reshaped to the NHWC image shape.
+`topk_noise`, `dropout_seed`); what is not passed is drawn from `generator`,
+which must live on the model's device. Gamma maps come out of the schedule
+as (B, n_pixels) in NHWC order and are reshaped to the NHWC image shape.
+
+Every parameter is float32; the UNet and the encoder trunk cast theirs to
+`config.dtype` at use. Dropout runs only in `forward` / `elbo` with
+`deterministic=False`, whatever `self.training` says, as in JAX: the
+sampler and the evaluation entry points are always deterministic.
 
 Only the flagship path is ported. The epsilon parameterization,
 `velocity_from_epsilon`, the `ldm` UNet, gumbel/gaussian latents, the other
@@ -57,9 +63,8 @@ class MuLAN(nn.Module):
             f'{value!r}); see ROADMAP.md Queue A, model variants')
     self.config = config
     self.encdec = encdec_lib.EncDec(config)
-    self.score_model = UNet(config).to(config.dtype)
+    self.score_model = UNet(config)
     self.encoder_model = UnetEncoder(config)
-    self.encoder_model.trunk.to(config.dtype)
     self.gamma = NoiseSchedulePolynomialFixedend(config)
 
   @property
@@ -69,36 +74,49 @@ class MuLAN(nn.Module):
   def _randn(self, shape, generator):
     return torch.randn(shape, generator=generator, device=self.device)
 
-  def _score(self, z_t, g_t, embedding):
+  def _score(self, z_t, g_t, embedding, dropout_seed=None):
     """Score UNet on NHWC z_t, conditioned on mean(g_t); NHWC out."""
     out = self.score_model(z_t.permute(0, 3, 1, 2),
-                           g_t.mean(dim=(1, 2, 3)), embedding)
+                           g_t.mean(dim=(1, 2, 3)), embedding, dropout_seed)
     return out.permute(0, 2, 3, 1)
 
   # -- ELBO -------------------------------------------------------------------
 
-  def forward(self, images, *, generator: Optional[torch.Generator] = None):
+  def forward(self, images, *, generator: Optional[torch.Generator] = None,
+              deterministic: bool = True, dropout_seed: Optional[int] = None):
     """ELBO at antithetic times drawn from `generator`."""
     t = sample_times(images.shape[0], generator=generator,
                      device=self.device)
-    return self.elbo(images, t, generator=generator)
+    return self.elbo(images, t, generator=generator,
+                     deterministic=deterministic, dropout_seed=dropout_seed)
 
   def elbo(self, images, t, *, eps0=None, eps=None, topk_noise=None,
-           generator: Optional[torch.Generator] = None) -> ELBOOutput:
+           generator: Optional[torch.Generator] = None,
+           deterministic: bool = True,
+           dropout_seed: Optional[int] = None) -> ELBOOutput:
     """ELBO terms at explicit times t (B,) for uint8 NHWC images.
 
     eps0, eps: (B, H, W, C) standard normals for the reconstruction and
     diffusion terms. topk_noise: (latents.N_GAMMA_TERMS, B, latent_size)
-    Gamma(1/latent_k) variates for the top-k perturbation.
+    Gamma(1/latent_k) variates for the top-k perturbation. With
+    `deterministic=False` the ResNet blocks drop with `sm_pdrop`, their
+    masks keyed by `dropout_seed` (drawn from `generator` if None) and the
+    block's site.
     """
     cfg = self.config
     x = torch.as_tensor(images, device=self.device).reshape(
         -1, *cfg.image_shape)
     img = x.shape
     t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+    if deterministic:
+      dropout_seed = None
+    elif dropout_seed is None:
+      dropout_seed = int(torch.randint(
+          2 ** 31 - 1, (), generator=generator,
+          device=self.device if generator is None else generator.device))
 
     orig_f = self.encdec.encode(x)
-    logits = self.encoder_model(orig_f.permute(0, 3, 1, 2))
+    logits = self.encoder_model(orig_f.permute(0, 3, 1, 2), dropout_seed)
     if topk_noise is None:
       topk_noise = latents.gamma_variates(cfg.latent_k, logits.shape,
                                           generator=generator,
@@ -127,7 +145,7 @@ class MuLAN(nn.Module):
     if eps is None:
       eps = self._randn(img, generator)
     z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
-    v_hat = self._score(z_t, g_t, embedding)
+    v_hat = self._score(z_t, g_t, embedding, dropout_seed)
     v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
     loss_diff = 0.5 * torch.sum(
         (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),

@@ -2,10 +2,11 @@
 
 The sources are compiled by `nvcc` for `sm_90a` (H100) into a plain C
 interface, keyed by a hash of the sources and flags, under
-`mulan_tpu_torch/_build/` (listed in `.gitignore`). Nothing here includes
-PyTorch's headers, so a build takes seconds. Kernels launch on the stream the
-caller passes (PyTorch's current stream) and return `cudaGetLastError()`,
-which `check()` turns into an exception.
+`mulan_tpu_torch/_build/` (listed in `.gitignore`): one `nvcc -c` per source,
+all started together, then one link. Nothing here includes PyTorch's headers,
+so a build takes seconds. Kernels launch on the stream the caller passes
+(PyTorch's current stream) and return `cudaGetLastError()`, which `check()`
+turns into an exception.
 """
 
 from __future__ import annotations
@@ -22,19 +23,34 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / 'csrc'
 _BUILD = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
+              '-std=c++17', '-Xcompiler', '-fPIC')
 
 _lock = threading.Lock()
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
-    # (q, k, v, o, batch*heads, tokens, head_dim, sm_scale, is_bf16, stream)
-    'mulan_flash_attention_fwd': [_P, _P, _P, _P, _I, _I, _I,
-                                  ctypes.c_float, _I, _P],
+    # (q, k, v, o, lse or None, batch*heads, tokens, head_dim, sm_scale,
+    #  is_bf16, stream)
+    'mulan_flash_attention_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                  _P],
+    # (q, k, v, do, lse, di, dk, dv, batch*heads, tokens, head_dim,
+    #  sm_scale, is_bf16, stream)
+    'mulan_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _F, _I, _P],
+    # (q, k, v, do, lse, di, dq, batch*heads, tokens, head_dim, sm_scale,
+    #  is_bf16, stream)
+    'mulan_flash_attention_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _F, _I, _P],
     # (x, z, g0, partial, out, batch, pixels, n_blocks, vocab_size, stream)
     'mulan_decoder_logprob_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, z, g0, ct, dz, dg0, batch, pixels, vocab_size, stream)
+    'mulan_decoder_logprob_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (out, n, seed, site, threshold16, scale, is_bf16, stream)
+    'mulan_dropout_mask': [_P, ctypes.c_longlong, _U, _U, _U, _F, _I, _P],
 }
 
 
@@ -58,15 +74,30 @@ def _library_path() -> pathlib.Path:
   return _BUILD / digest.hexdigest()[:16] / 'libmulan_kernels.so'
 
 
+def _run_all(cmds) -> None:
+  """Runs the commands concurrently; raises with the first failure's
+  output."""
+  procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+           for cmd in cmds]
+  outputs = [proc.communicate()[0] for proc in procs]
+  for cmd, proc, output in zip(cmds, procs, outputs):
+    if proc.returncode != 0:
+      raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                         f'{" ".join(cmd)}\n{output}')
+
+
 def _compile(out: pathlib.Path) -> None:
   out.parent.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-         *[str(s) for s in _sources()]]
-  proc = subprocess.run(cmd, capture_output=True, text=True)
-  if proc.returncode != 0:
-    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-                       f'{proc.stdout}\n{proc.stderr}')
+  tag = f'{os.getpid()}.tmp'
+  objs = [out.parent / f'{src.stem}.{tag}.o' for src in _sources()]
+  _run_all([[_nvcc(), *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)])
+  tmp = out.with_suffix(f'.{tag}')
+  _run_all([[_nvcc(), *NVCC_FLAGS, '-shared', '-o', str(tmp),
+             *map(str, objs)]])
+  for obj in objs:
+    obj.unlink()
   os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -1,0 +1,152 @@
+"""Inverted dropout with a counter-based mask: CUDA kernel wrapper, its plain
+version, and the autograd function that regenerates the mask.
+
+The kernel (`csrc/dropout.cu`, K6) replaces the Pallas TPU kernel
+`mulan_tpu/ops/dropout.py:_mask_kernel` (via `_hw_mask` / `hw_dropout`). As
+there, it writes only the pre-scaled keep mask, values in {0, scale}; the
+x * mask product stays a PyTorch op, and the backward regenerates the mask
+from (seed, site, rate) instead of saving it (`hw_dropout`'s vjp,
+`mulan_tpu/ops/dropout.py:161-177`).
+
+The TPU's hardware bits have no counterpart here: both versions draw from
+Philox4x32-10, keyed by (seed, site), with the counter index // 8. Each of
+the four 32-bit output words gives two 16-bit draws, low half first, and an
+element is kept iff its draw >= threshold16 = min(round(rate * 65536),
+65535); the realized rate is `effective_rate`, as on the TPU. The plain
+version runs the same Philox on int64 tensors (every 32-bit product split in
+16-bit halves, so no step overflows), so kernel and plain agree bit for bit
+on the card, and a model's masks do not depend on `use_kernels`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mulan_tpu_torch.ops import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_MASK32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def threshold16(rate: float) -> int:
+  return min(int(round(rate * 65536.0)), 65535)
+
+
+def effective_rate(rate: float) -> float:
+  """The realized drop probability, `rate` quantized to 16 bits
+  (`mulan_tpu/ops/dropout.py:effective_rate`)."""
+  return threshold16(rate) / 65536.0
+
+
+def keep_scale(rate: float) -> float:
+  """The value of a kept element, 1 / (1 - effective_rate), so E[mask] = 1."""
+  return 1.0 / (1.0 - effective_rate(rate))
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+  """(hi, lo) 32-bit halves of m * x for a 32-bit constant m and int64 x
+  holding 32-bit values; each partial product stays below 2^49."""
+  m_hi, m_lo = m >> 16, m & 0xFFFF
+  lo_part = x * m_lo                          # < 2^48
+  hi_part = x * m_hi                          # < 2^48
+  mid = lo_part + ((hi_part & 0xFFFF) << 16)  # < 2^49
+  lo = mid & _MASK32
+  hi = ((hi_part >> 16) + (mid >> 32)) & _MASK32
+  return hi, lo
+
+
+def philox4x32_10(counter, key):
+  """Philox4x32-10 on int64 tensors: counter is 4 tensors of 32-bit values
+  (broadcastable), key 2 Python ints; returns 4 int64 tensors."""
+  c0, c1, c2, c3 = counter
+  k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+  for r in range(10):
+    if r:
+      k0 = (k0 + PHILOX_W[0]) & _MASK32
+      k1 = (k1 + PHILOX_W[1]) & _MASK32
+    hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+    hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+    c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+  return c0, c1, c2, c3
+
+
+def _check(shape, rate, dtype):
+  if not 0.0 <= rate < 1.0:
+    raise ValueError(f'dropout rate {rate} must be in [0, 1)')
+  if dtype not in _DTYPES:
+    raise ValueError(f'dropout mask dtype {dtype} must be float32 or '
+                     f'bfloat16')
+
+
+def dropout_mask_plain(seed: int, site: int, shape, rate: float, dtype,
+                       device=None) -> torch.Tensor:
+  """The keep mask of `shape` for (seed, site), values in {0, scale}."""
+  _check(shape, rate, dtype)
+  device = torch.device('cpu' if device is None else device)
+  n = 1
+  for dim in shape:
+    n *= int(dim)
+  ctr = torch.arange((n + 7) // 8, dtype=torch.int64, device=device)
+  zero = torch.zeros_like(ctr)
+  words = philox4x32_10((ctr & _MASK32, ctr >> 32, zero, zero),
+                        (seed, site))
+  words = torch.stack(words, dim=-1)                     # (ctr, 4)
+  draws = torch.stack([words & 0xFFFF, words >> 16], -1)  # (ctr, 4, 2)
+  keep = draws.reshape(-1)[:n] >= threshold16(rate)
+  scale = torch.tensor(keep_scale(rate), dtype=torch.float32).to(dtype)
+  zeros = torch.zeros((), dtype=dtype, device=device)
+  return torch.where(keep, scale.to(device), zeros).reshape(shape)
+
+
+def dropout_mask(seed: int, site: int, shape, rate: float, dtype,
+                 device=None) -> torch.Tensor:
+  """`dropout_mask_plain` on the CPU; the K6 kernel on a CUDA device."""
+  device = torch.device('cpu' if device is None else device)
+  if device.type == 'cpu':
+    return dropout_mask_plain(seed, site, shape, rate, dtype, device)
+  if device.type != 'cuda':
+    raise ValueError(f'dropout_mask: unsupported device {device}')
+  _check(shape, rate, dtype)
+  out = torch.empty(shape, dtype=dtype, device=device)
+  status = _build.load_library().mulan_dropout_mask(
+      out.data_ptr(), out.numel(), seed & _MASK32, site & _MASK32,
+      threshold16(rate),
+      float(torch.tensor(keep_scale(rate), dtype=torch.float32)),
+      int(dtype == torch.bfloat16),
+      torch.cuda.current_stream(device).cuda_stream)
+  _build.check(status, 'dropout_mask')
+  dropout_mask.launches += 1
+  return out
+
+
+dropout_mask.launches = 0
+
+
+def _make_mask(seed, site, like, rate, use_kernel):
+  # Looked up at call time, so that tests can substitute the plain mask.
+  fn = dropout_mask if use_kernel else dropout_mask_plain
+  return fn(seed, site, like.shape, rate, like.dtype, like.device)
+
+
+class _Dropout(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, seed, site, rate, use_kernel):
+    ctx.args = (seed, site, rate, use_kernel)
+    return x * _make_mask(seed, site, x, rate, use_kernel)
+
+  @staticmethod
+  def backward(ctx, ct):
+    seed, site, rate, use_kernel = ctx.args
+    return (ct * _make_mask(seed, site, ct, rate, use_kernel), None, None,
+            None, None)
+
+
+def dropout(x: torch.Tensor, seed: int, site: int, rate: float,
+            use_kernel: bool) -> torch.Tensor:
+  """x * mask(seed, site); the backward regenerates the same mask. The
+  mask comes from the K6 kernel (`dropout_mask`) with `use_kernel`, else
+  from `dropout_mask_plain`; both give the same bits."""
+  return _Dropout.apply(x, seed, site, rate, use_kernel)

@@ -1,8 +1,8 @@
 """Parameters for the port: transplanted from a flax tree, or made fresh.
 
-Both functions return a float32 `state_dict` for `MuLAN.load_state_dict`,
-which casts each tensor to the type of its parameter (the UNet and encoder
-trunk hold `config.dtype`).
+Both functions return a float32 `state_dict` for `MuLAN.load_state_dict`;
+every parameter of the model is float32 (the UNet and the encoder trunk cast
+theirs to `config.dtype` at use).
 """
 
 from __future__ import annotations

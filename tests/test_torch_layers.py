@@ -91,3 +91,42 @@ def test_attn_block_kernel_path_never_falls_back():
   block = layers.AttnBlock(32, use_kernels=True).to('meta')
   with pytest.raises(ValueError, match='unsupported device'):
     block(torch.empty((1, 32, 4, 4), device='meta'))
+
+
+@pytest.mark.parametrize('module', ['Conv2d', 'Linear', 'GroupNormF32'])
+def test_cast_at_use_is_reused_until_the_parameter_changes(module):
+  """Without autograd the bfloat16 cast of a float32 weight is made once and
+  reused; an optimizer step or an EMA lerp on the weight makes the next call
+  cast afresh, so the output always equals a fresh cast's. Under autograd
+  the cast is in the graph and the float32 weight gets its gradient."""
+  gen = torch.Generator().manual_seed(0)
+  if module == 'Conv2d':
+    layer, x = layers.Conv2d(4, 4, 3, padding=1), torch.randn(
+        (2, 4, 5, 5), generator=gen)
+  elif module == 'Linear':
+    layer, x = layers.Linear(6, 4), torch.randn((3, 6), generator=gen)
+  else:
+    layer, x = layers.GroupNormF32(32), torch.randn((2, 32, 3, 3),
+                                                     generator=gen)
+  x = x.bfloat16()
+
+  def fresh():
+    casts = {n: p.detach().bfloat16() for n, p in layer.named_parameters()}
+    return torch.func.functional_call(layer, casts, (x,))
+
+  with torch.inference_mode():
+    layer(x)
+    cast = layers.cast_param(layer, 'weight', torch.bfloat16)
+    assert layers.cast_param(layer, 'weight', torch.bfloat16) is cast
+  optimizer = torch.optim.AdamW(layer.parameters(), lr=0.1)
+  layer(x).float().square().sum().backward()
+  assert layer.weight.grad.dtype == torch.float32
+  assert layer.weight.grad.abs().sum() > 0
+  optimizer.step()
+  with torch.no_grad():
+    assert torch.equal(layer(x), fresh())
+    assert layers.cast_param(layer, 'weight', torch.bfloat16) is not cast
+    torch._foreach_lerp_(list(layer.parameters()),
+                         [torch.zeros_like(p) for p in layer.parameters()],
+                         0.5)
+    assert torch.equal(layer(x), fresh())
