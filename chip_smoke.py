@@ -1,5 +1,5 @@
 """Drive the PyTorch port's paths once on one GPU: evaluation, sampling
-and the train step.
+and the train step, with the execution-policy flags off and on.
 
     python3 chip_smoke.py [--profile]
 
@@ -12,10 +12,16 @@ weights from a seed) through the sparse-VLB evaluation, the ancestral
 sampler and a dozen steps of `Experiment.train` at batch 128 with dropout,
 and checks from the kernels' launch counts that each path went through its
 kernels; one train step with the kernels is held against one with the plain
-versions. Every check raises on failure.
+versions. Then the same three paths run with `fused_gn_swish` and
+`dropout_mask_batch` on (K8 at every GN-swish site of the score UNet, K7 for
+its masks), one fused train step is held against its plain twin, a few
+train steps run with `with_attention` and `remat='attn'`, and one train step
+under each `remat` mode is held against the step without it. Every check
+raises on failure.
 
-With `--profile` it also profiles one ELBO and one train step by kernel
-category with `torch.profiler` and prints the tables as `[profile]` lines.
+With `--profile` it also profiles one ELBO and one train step, unfused and
+fused, by kernel category with `torch.profiler` and prints the tables as
+`[profile]` lines.
 
 Output, one line per phase; the line before the last is the card's name and
 power limit, the one before that a JSON summary of the kernels, and the last
@@ -43,6 +49,8 @@ EVAL_BATCHES = 4
 SAMPLE_BATCH = 16
 SAMPLE_STEPS = 50
 TRAIN_STEPS = 12
+FUSED_TRAIN_STEPS = 6
+ATTN_TRAIN_STEPS = 3
 FLAGSHIP_ATTN = (EVAL_BATCH, 1, 1024, 128)
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
@@ -102,6 +110,41 @@ TRAIN_BPD_TOL = 1e-2
 ATTN_LEAF_COS_MIN = 0.999
 ATTN_ALONE_COS_MIN = 0.9999
 GRAD_NORM_RTOL = 1e-2
+# K8 against gn_swish_plain, elementwise |kernel - plain| <= atol + rtol
+# |plain|. Both compute in float32 from the same inputs and cast once; the
+# statistics are summed in another order and the kernel computes swish as
+# y / (1 + e^-y), the plain version as y * sigmoid(y), a few float32 ulps
+# apart. In bf16 that moves an output by at most one bf16 ulp (2^-7 of its
+# value) where the two float32 results straddle a rounding boundary; near
+# swish's zero, the float32 rounding of y (~1e-7 absolute) is the atol.
+GN_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
+# |bpd(fused) - bpd(unfused)| on one batch with the same noise, both through
+# the kernels: the fused GroupNorm+swish applies its affine and swish in
+# float32 and rounds once to bf16, the unfused one rounds the GroupNorm's
+# output and the swish's separately, at 134 sites; each a bf16 rounding
+# (2^-9 relative) of activations, far below 1e-2 of a bpd near 10.
+FUSED_BPD_TOL = 1e-2
+# One fused train step, kernels against plain (K8 against gn_swish_plain;
+# K7 and the plain Philox give the same bits): bpd and gradient norms as at
+# TRAIN_BPD_TOL, and a cosine per leaf of the score UNet's ResNet blocks'
+# GroupNormF32_0/1 weights and biases, which K8's output reaches first. The
+# unfused step's UNet parts agree at 0.99985-0.99999 kernels against plain
+# on an H100 (PERF.md); one leaf holds less of the norm than a part and
+# also sees the attention kernels' bf16 rounding, so the in-step gate is
+# the attention leaves' 0.999. Two fused blocks (128 and 256 input channels) are also
+# held alone at the step's input and output cotangent, where only K8
+# differs: every leaf and the input to 0.9999. K8 launched with half the
+# groups must fail these gates.
+GN_LEAF_COS_MIN = 0.999
+GN_ALONE_COS_MIN = 0.9999
+# remat against 'none', one train step each with the kernels, same batch,
+# noise and dropout seed: the forward is the same computation, so the loss
+# must be the same bit for bit. The backward may sum the recomputed blocks'
+# contributions in another order, and cuDNN's weight gradients may differ
+# from run to run (printed: 'none' against itself), so the gradients are
+# held to a whole cosine of REMAT_COS_MIN and norms within GRAD_NORM_RTOL;
+# on an H100 every mode gave 'none''s gradients bit for bit (cosine 1.0).
+REMAT_COS_MIN = 0.9999
 
 
 def log(phase: str, **fields) -> None:
@@ -375,6 +418,138 @@ def check_dropout(dev, cfg):
   return result
 
 
+def check_gn_swish(dev, gen, sfu_rate):
+  """K8 against `gn_swish_plain` at the flagship's two shapes (C = 128 and
+  C = 256, bf16), in float32, at C = 48 (16 groups), and at an H x W that is
+  no multiple of 8 (the kernel's scalar path). The flagship shapes are timed
+  beside the plain version and the unfused path's two calls,
+  F.silu(F.group_norm(...)) (no single PyTorch call computes the function)."""
+  from mulan_tpu_torch.ops.groupnorm_swish import gn_swish_fwd, gn_swish_plain
+  cases = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
+           ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32),
+           ((8, 128, 32, 32), torch.float32, 32),
+           ((4, 48, 16, 16), torch.bfloat16, 16),
+           ((3, 48, 5, 7), torch.float32, 16))
+  results = []
+  for shape, dtype, groups in cases:
+    c = shape[1]
+    x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    out = gn_swish_fwd(x, w, b, groups)
+    torch.cuda.synchronize()
+    ref = gn_swish_plain(x, w, b, groups)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    rtol, atol = GN_TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    excess = (diff - rtol * ref.float().abs()).max().item()
+    result = dict(max_abs_err=diff.max().item(), max_excess_over_rtol=excess)
+    if len(results) < 2:
+      wl, bl = w.to(dtype), b.to(dtype)
+      result.update(
+          ms=cuda_ms(lambda: gn_swish_fwd(x, w, b, groups)),
+          plain_ms=cuda_ms(lambda: gn_swish_plain(x, w, b, groups)),
+          library_ms=None,
+          unfused_pair_ms=cuda_ms(lambda: F.silu(F.group_norm(
+              x, groups, wl, bl, 1e-6))),
+          # ~10 float32 operations and one exp an element.
+          **bound(10.0 * x.numel(), nbytes(x, w, b, out),
+                  exps=float(x.numel()), sfu_rate=sfu_rate))
+    log('gn_swish', shape=list(shape), dtype=str(dtype), groups=groups,
+        rtol=rtol, atol=atol, **result)
+    assert excess <= atol, (shape, dtype, result)
+    results.append(result)
+  return results[0], results[1]
+
+
+def check_mask_batch(dev, cfg):
+  """K7: every slot of one launch of the score UNet's masks at the flagship
+  shape (67 x (128, 128, 32, 32) bf16) bit-identical to K6 at (seed, site);
+  a float32 batch whose slots hold n % 8 != 0 values (so the slots after
+  the first are not 16-byte aligned) against the plain version."""
+  from mulan_tpu_torch.ops.dropout import (dropout_mask, dropout_mask_batch,
+                                           dropout_mask_batch_plain)
+  rate = cfg.sm_pdrop
+  n_sites = 2 * cfg.sm_n_layer + 3
+  shape = (EVAL_BATCH, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
+  masks = dropout_mask_batch(1234, 0, n_sites, shape, rate, torch.bfloat16,
+                             dev)
+  torch.cuda.synchronize()
+  max_err, identical = 0.0, True
+  for i in range(n_sites):
+    one = dropout_mask(1234, i, shape, rate, torch.bfloat16, dev)
+    identical &= torch.equal(masks[i], one)
+    max_err = max(max_err, (masks[i].float() - one.float()).abs().max().item())
+  ragged = dropout_mask_batch(99, 5, 3, (7, 11, 13), rate, torch.float32, dev)
+  ragged_ok = torch.equal(ragged, dropout_mask_batch_plain(
+      99, 5, 3, (7, 11, 13), rate, torch.float32, dev))
+  distinct = not torch.equal(masks[0], masks[1])
+  result = dict(
+      max_abs_err=max_err,
+      ms=cuda_ms(lambda: dropout_mask_batch(1234, 0, n_sites, shape, rate,
+                                            torch.bfloat16, dev)),
+      plain_ms=cuda_ms(lambda: dropout_mask_batch_plain(
+          1234, 0, n_sites, shape, rate, torch.bfloat16, dev), n=3),
+      library_ms=cuda_ms(lambda: torch.empty(
+          (n_sites, *shape), dtype=torch.bfloat16,
+          device=dev).bernoulli_(1 - rate)),
+      **bound(0.0, nbytes(masks)))
+  log('dropout_mask_batch', slots=n_sites, shape=list(shape),
+      bytes=nbytes(masks), every_slot_equals_k6=identical,
+      ragged_f32_equals_plain=ragged_ok, slots_distinct=distinct,
+      keep_share=(masks != 0).float().mean().item(), **result)
+  assert identical and ragged_ok and distinct
+  return result
+
+
+def expected_launches(cfg, path: str) -> dict:
+  """Kernel launches per call of `path` for model config cfg: an ELBO
+  ('eval'), a sampler step ('sample') or a train step ('train').
+
+  Attention blocks: the middle one of the UNet and of the encoder, plus,
+  with `with_attention`, one after each of the UNet's 2 n_layer + 1 down
+  and up blocks and each of the encoder's down blocks. K8 runs twice in
+  each of the UNet's 2 n_layer + 3 ResNet blocks with `fused_gn_swish`.
+  In a train step a checkpointed block (remat) runs its forward again in
+  the backward: K1 once more per attention block, K8 twice and K6 once
+  more per ResNet block. K6 makes a block's mask in the forward and again
+  in the backward; with `dropout_mask_batch`, one K7 launch makes the
+  UNet's masks instead and the encoder keeps K6.
+  """
+  n_unet, n_enc = 2 * cfg.sm_n_layer + 3, cfg.forward_n_layer + 2
+  unet_attn = 1 + (2 * cfg.sm_n_layer + 1 if cfg.with_attention else 0)
+  enc_attn = 1 + (cfg.forward_n_layer if cfg.with_attention else 0)
+  counts = dict.fromkeys(kernel_counters(), 0)
+  k8 = 2 * n_unet if cfg.fused_gn_swish else 0
+  if path == 'eval':
+    counts.update(flash_attention=unet_attn + enc_attn, decoder_logprob=1,
+                  gn_swish=k8)
+    return counts
+  if path == 'sample':
+    counts.update(flash_attention=unet_attn, gn_swish=k8)
+    return counts
+  assert path == 'train', path
+  n_attn = unet_attn + enc_attn
+  unet_remat = (n_unet if cfg.remat_blocks else
+                (n_unet + 1) // 2 if cfg.remat_alt_blocks else 0)
+  enc_remat = n_enc if cfg.remat_blocks else 0
+  drop = cfg.sm_pdrop > 0
+  batched = drop and cfg.dropout_mask_batch
+  counts.update(
+      flash_attention=n_attn * (2 if cfg.remat_attn else 1),
+      flash_attention_bwd_dkv=n_attn, flash_attention_bwd_dq=n_attn,
+      decoder_logprob=1,
+      dropout_mask=drop * ((0 if batched else 2 * n_unet + unet_remat)
+                           + 2 * n_enc + enc_remat),
+      dropout_mask_batch=int(batched),
+      gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0))
+  return counts
+
+
+def times(counts: dict, n: int) -> dict:
+  return {k: n * v for k, v in counts.items()}
+
+
 def timed(fn):
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -388,12 +563,15 @@ def kernel_counters():
   from mulan_tpu_torch.ops import decoder_logprob as dec
   from mulan_tpu_torch.ops import dropout
   from mulan_tpu_torch.ops import flash_attention as attn
+  from mulan_tpu_torch.ops import groupnorm_swish as gn
   return {'flash_attention': attn.flash_attention,
           'flash_attention_bwd_dkv': attn.flash_attention_bwd_dkv,
           'flash_attention_bwd_dq': attn.flash_attention_bwd_dq,
           'decoder_logprob': dec.decoder_logprob,
           'decoder_logprob_bwd': dec.decoder_logprob_bwd,
-          'dropout_mask': dropout.dropout_mask}
+          'dropout_mask': dropout.dropout_mask,
+          'dropout_mask_batch': dropout.dropout_mask_batch,
+          'gn_swish': gn.gn_swish_fwd}
 
 
 def counted(fn):
@@ -410,7 +588,8 @@ def counted(fn):
 _CATEGORIES = (
     ('K1-K3 flash attention', ('flash_fwd', 'flash_bwd')),
     ('K4/K5 decoder', ('decoder_logprob',)),
-    ('K6 dropout mask', ('dropout_mask',)),
+    ('K6/K7 dropout masks', ('dropout_mask',)),
+    ('K8 GroupNorm+swish', ('gn_swish',)),
     ('layout transposes', ('nchwToNhwc', 'nhwcToNchw', 'transpose')),
     ('convolutions and GEMMs', ('conv', 'xmma', 'gemm', 'cutlass', 'sm90',
                                 'dgrad', 'wgrad', 'implicit', 'nvjet')),
@@ -479,6 +658,23 @@ def planted_fault():
     attn.flash_attention_bwd_dkv = real
 
 
+@contextlib.contextmanager
+def planted_gn_fault():
+  """K8 launched with half the groups: a wrong GroupNorm+swish the fused
+  train-step gates must reject."""
+  from mulan_tpu_torch.ops import groupnorm_swish as gn
+  real = gn.gn_swish_fwd
+
+  def half_groups(x, weight, bias, num_groups, eps=1e-6):
+    return real(x, weight, bias, num_groups // 2, eps)
+  half_groups.launches = 0  # the real wrapper counts on the module's name
+  gn.gn_swish_fwd = half_groups
+  try:
+    yield
+  finally:
+    gn.gn_swish_fwd = real
+
+
 def cosine(a, b) -> float:
   return (torch.dot(a, b) / (a.norm() * b.norm())).item()
 
@@ -491,17 +687,22 @@ def leaf_cosines(got, want, names=None):
           if n.split('.')[-2:] != ['k', 'bias']}
 
 
-def attention_grads(block, x, dy, use_kernels):
-  """{leaf: gradient} of one attention block, and its input's, for input x
-  and output cotangent dy."""
-  block.use_kernels = use_kernels
+def block_grads(block, inputs, dy, use_kernels):
+  """{leaf: gradient} of one block, and its input's, for its recorded
+  positional inputs (x, then a ResNet block's cond, dropout_seed and
+  dropout_mask) and output cotangent dy, with the kernels on or off."""
+  flags = {m: m.use_kernels for m in block.modules()
+           if hasattr(m, 'use_kernels')}
+  for m in flags:
+    m.use_kernels = use_kernels
   block.zero_grad(set_to_none=True)
-  x = x.clone().requires_grad_()
-  torch.autograd.backward(block(x), dy)
+  x = inputs[0].clone().requires_grad_()
+  torch.autograd.backward(block(x, *inputs[1:]), dy)
   grads = {n: p.grad.flatten().double() for n, p in block.named_parameters()}
   grads['input'] = x.grad.flatten().double()
   block.zero_grad(set_to_none=True)
-  block.use_kernels = True
+  for m, flag in flags.items():
+    m.use_kernels = flag
   return grads
 
 
@@ -515,6 +716,31 @@ def grad_part(name: str) -> str:
   return top
 
 
+def step_grads(ex, m, batch, noise):
+  """(bpd, {leaf: gradient}) of one train-mode loss of model m."""
+  m.zero_grad(set_to_none=True)
+  bpd, _ = ex.loss_fn(m, batch, train=True, noise=noise)
+  bpd.backward()
+  grads = {n: p.grad.flatten().double() for n, p in m.named_parameters()}
+  m.zero_grad(set_to_none=True)
+  return bpd.item(), grads
+
+
+def capture_io(blocks: dict):
+  """Forward hooks that record each block's positional inputs (detached)
+  and its output's cotangent into the returned dict; and the hooks."""
+  captured = {}
+
+  def capture(name):
+    def hook(module, inputs, output):
+      inputs = tuple(a.detach() if torch.is_tensor(a) else a for a in inputs)
+      output.register_hook(lambda g: captured.__setitem__(
+          name, (inputs, g.detach())))
+    return hook
+  return captured, [b.register_forward_hook(capture(n))
+                    for n, b in blocks.items()]
+
+
 def compare_train_step(ex, model, build_plain, batch, noise):
   """One train step's loss and gradients through `model` (the kernels) and
   its plain twin on the same batch, noise and dropout masks, with the gates
@@ -522,39 +748,24 @@ def compare_train_step(ex, model, build_plain, batch, noise):
   planted fault. The cosines to a float32 twin's gradient, per part of the
   model, are reported."""
 
-  def loss_and_grads(m):
-    m.zero_grad(set_to_none=True)
-    bpd, _ = ex.loss_fn(m, batch, train=True, noise=noise)
-    bpd.backward()
-    grads = {n: p.grad.flatten().double() for n, p in m.named_parameters()}
-    m.zero_grad(set_to_none=True)
-    return bpd.item(), grads
-
   blocks = {'unet': model.score_model.mid_attn_1,
             'encoder': model.encoder_model.trunk.mid_attn_1}
-  captured = {}
-
-  def capture(name):
-    def hook(module, inputs, output):
-      output.register_hook(lambda g: captured.__setitem__(
-          name, (inputs[0].detach(), g.detach())))
-    return hook
-  hooks = [b.register_forward_hook(capture(n)) for n, b in blocks.items()]
+  captured, hooks = capture_io(blocks)
   bpds, grads = {}, {}
-  bpds['kernels'], grads['kernels'] = loss_and_grads(model)
+  bpds['kernels'], grads['kernels'] = step_grads(ex, model, batch, noise)
   for h in hooks:
     h.remove()
   for name, overrides in (('plain', {}), ('f32', {'compute_dtype':
                                                   'float32'})):
     other = build_plain(**overrides)
-    bpds[name], grads[name] = loss_and_grads(other)
+    bpds[name], grads[name] = step_grads(ex, other, batch, noise)
     del other
 
   unet_attn = [n for n in grads['kernels']
                if n.startswith('score_model.mid_attn_1.')]
 
   def alone(use_kernels):
-    return {b: attention_grads(blocks[b], *captured[b], use_kernels)
+    return {b: block_grads(blocks[b], *captured[b], use_kernels)
             for b in blocks}
   alone_plain = alone(False)
 
@@ -572,7 +783,7 @@ def compare_train_step(ex, model, build_plain, batch, noise):
 
   step_cos, alone_cos = gates(grads['kernels'], alone(True))
   with planted_fault():
-    fault_cos = gates(loss_and_grads(model)[1], alone(True))
+    fault_cos = gates(step_grads(ex, model, batch, noise)[1], alone(True))
   whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
   norm_rel = abs(whole['kernels'].norm().item()
                  / whole['plain'].norm().item() - 1)
@@ -608,6 +819,115 @@ def compare_train_step(ex, model, build_plain, batch, noise):
   assert norm_rel <= GRAD_NORM_RTOL, norm_rel
   assert passes(step_cos, alone_cos), (step_cos, alone_cos)
   assert not passes(*fault_cos), ('a planted fault (dK = 0) passed', fault_cos)
+
+
+def compare_fused_step(ex, model, build_plain, batch, noise):
+  """One fused train step (`fused_gn_swish` and `dropout_mask_batch`)
+  through `model` (the kernels) and its plain twin on the same batch, noise
+  and masks, with the gates described at GN_LEAF_COS_MIN; the same gates
+  must reject the step with K8 launched with half the groups."""
+  blocks = {n: model.score_model.get_submodule(n)
+            for n in ('mid_block_1', 'up_block_0')}
+  captured, hooks = capture_io(blocks)
+  bpd_k, grads_k = step_grads(ex, model, batch, noise)
+  for h in hooks:
+    h.remove()
+  plain = build_plain()
+  bpd_p, grads_p = step_grads(ex, plain, batch, noise)
+  del plain
+  gn_leaves = [n for n in grads_k if n.startswith('score_model.')
+               and '_block_' in n and '.GroupNormF32_' in n]
+  assert len(gn_leaves) == 4 * (2 * ex.config.model.sm_n_layer + 3)
+
+  def alone(use_kernels):
+    return {b: block_grads(blocks[b], *captured[b], use_kernels)
+            for b in blocks}
+  alone_plain = alone(False)
+
+  def gates(step, alone_grads):
+    return (leaf_cosines(step, grads_p, gn_leaves),
+            {b: leaf_cosines(alone_grads[b], alone_plain[b]) for b in blocks})
+
+  def passes(step_cos, alone_cos):
+    return (all(c >= GN_LEAF_COS_MIN for c in step_cos.values())
+            and all(c >= GN_ALONE_COS_MIN for cos in alone_cos.values()
+                    for c in cos.values()))
+
+  step_cos, alone_cos = gates(grads_k, alone(True))
+  with planted_gn_fault():
+    fault_bpd, fault_grads = step_grads(ex, model, batch, noise)
+    fault_cos = gates(fault_grads, alone(True))
+  whole_k, whole_p = (torch.cat(list(g.values())) for g in (grads_k, grads_p))
+  norm_rel = abs(whole_k.norm().item() / whole_p.norm().item() - 1)
+  worst = min(step_cos, key=step_cos.get)
+  log('fused_train_kernels_vs_plain', bpd_kernels=bpd_k, bpd_plain=bpd_p,
+      abs_delta=abs(bpd_k - bpd_p), tol=TRAIN_BPD_TOL,
+      grad_norm_rel_diff=norm_rel, norm_rtol=GRAD_NORM_RTOL,
+      gn_leaves=len(gn_leaves), gn_leaf_cos_min=step_cos[worst],
+      gn_leaf_cos_min_at=worst,
+      gn_leaf_cos_median=statistics.median(step_cos.values()),
+      tol_leaf=GN_LEAF_COS_MIN,
+      alone_leaf_cos_min={b: min(c.values()) for b, c in alone_cos.items()},
+      tol_alone=GN_ALONE_COS_MIN, whole_cos=cosine(whole_k, whole_p),
+      fault_bpd=fault_bpd,
+      fault_gn_leaf_cos_min=min(fault_cos[0].values()),
+      fault_alone_leaf_cos_min={b: min(c.values())
+                                for b, c in fault_cos[1].items()},
+      planted_fault_rejected=not passes(*fault_cos))
+  assert abs(bpd_k - bpd_p) <= TRAIN_BPD_TOL
+  assert norm_rel <= GRAD_NORM_RTOL, norm_rel
+  assert passes(step_cos, alone_cos), (step_cos, alone_cos)
+  assert not passes(*fault_cos), ('a planted fault (K8 with half the groups) '
+                                  'passed', fault_cos)
+
+
+def compare_remat(ex, cfg, state, batch, noise, dev):
+  """One train step with the kernels under each remat mode, on the same
+  batch, noise and dropout seed, against 'none' (and 'none' against a
+  second run of itself, the run-to-run spread); launches per mode from
+  `expected_launches`, and the step's peak memory above what was held
+  before it."""
+  from mulan_tpu_torch.models import build_model
+  runs, counts = {}, {}
+  for name, mode in (('none', 'none'), ('all', 'all'), ('attn', 'attn'),
+                     ('alt', 'alt'), ('none_again', 'none')):
+    mcfg = dataclasses.replace(cfg, remat=mode)
+    m = build_model(mcfg, device=dev, state=state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (bpd, grads), c = counted(lambda: step_grads(ex, m, batch, noise))
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del m
+    whole = torch.cat(list(grads.values()))
+    parts = {}
+    for n, g in grads.items():
+      parts.setdefault(grad_part(n), []).append(g)
+    runs[name] = (bpd, whole, {p: torch.cat(gs) for p, gs in parts.items()},
+                  peak_gb)
+    del grads
+    want = expected_launches(mcfg, 'train')
+    log('remat_step', mode=name, bpd=bpd, peak_above_start_gb=peak_gb,
+        launches=c, expected=want)
+    assert c == want, (name, c, want)
+    counts[name] = c
+  bpd0, whole0, parts0, _ = runs['none']
+  result = {}
+  for name, (bpd, whole, parts, peak_gb) in runs.items():
+    if name == 'none':
+      continue
+    result[name] = dict(
+        loss_equal=bpd == bpd0, whole_cos=cosine(whole, whole0),
+        norm_rel_diff=abs(whole.norm().item() / whole0.norm().item() - 1),
+        part_cos={p: round(cosine(g, parts0[p]), 7) for p, g in parts.items()},
+        peak_above_start_gb=peak_gb)
+  log('remat_vs_none', tol_cos=REMAT_COS_MIN, norm_rtol=GRAD_NORM_RTOL,
+      peak_above_start_gb_none=runs['none'][3], **result)
+  for name, r in result.items():
+    assert r['loss_equal'], (name, r)
+    assert r['whole_cos'] >= REMAT_COS_MIN, (name, r)
+    assert r['norm_rel_diff'] <= GRAD_NORM_RTOL, (name, r)
+  return counts
 
 
 def main() -> None:
@@ -649,15 +969,22 @@ def main() -> None:
   results['decoder_logprob'] = check_decoder(dev, gen, cfg, sfu_rate)
   results['decoder_logprob_bwd'] = check_decoder_bwd(dev, gen, cfg, sfu_rate)
   results['dropout_mask'] = check_dropout(dev, cfg)
+  results['gn_swish'], gn_swish_c256 = check_gn_swish(dev, gen, sfu_rate)
+  results['dropout_mask_batch'] = check_mask_batch(dev, cfg)
+  torch.cuda.empty_cache()
 
   # 3. Evaluation: sparse VLB over synthetic eval batches.
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
   model = build_model(cfg, device=dev, state=state)
   images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
-  (bpd, secs), eval_counts = counted(lambda: timed(
-      lambda: vlb.eval_bpd_sparse(model, data.eval_batches(
-          images, EVAL_BATCH), generator=gen, max_batches=EVAL_BATCHES)))
+
+  def run_eval(m):
+    return counted(lambda: timed(lambda: vlb.eval_bpd_sparse(
+        m, data.eval_batches(images, EVAL_BATCH), generator=gen,
+        max_batches=EVAL_BATCHES)))
+
+  (bpd, secs), eval_counts = run_eval(model)
   log('eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH, bpd=bpd,
       seconds=secs, launches=eval_counts)
   assert math.isfinite(bpd), bpd
@@ -666,21 +993,29 @@ def main() -> None:
   assert eval_counts == dict(
       flash_attention=2 * EVAL_BATCHES, decoder_logprob=EVAL_BATCHES,
       flash_attention_bwd_dkv=0, flash_attention_bwd_dq=0,
-      decoder_logprob_bwd=0, dropout_mask=0), eval_counts
+      decoder_logprob_bwd=0, dropout_mask=0, dropout_mask_batch=0,
+      gn_swish=0), eval_counts
+  assert eval_counts == times(expected_launches(cfg, 'eval'), EVAL_BATCHES)
 
   # 4. Sampling: T cut to SAMPLE_STEPS; every step is a full-size UNet pass.
-  ((samples, z_0), secs), sample_counts = counted(lambda: timed(
-      lambda: harness.random_samples(model, SAMPLE_BATCH, SAMPLE_STEPS,
-                                     generator=gen)))
-  log('random_samples', batch=SAMPLE_BATCH, steps=SAMPLE_STEPS,
-      ms_per_step=1e3 * secs / SAMPLE_STEPS, shape=list(samples.shape),
-      dtype=str(samples.dtype), min=int(samples.min()),
-      max=int(samples.max()), z0_abs_max=z_0.abs().max().item(),
-      launches=sample_counts)
-  assert samples.dtype.name == 'uint8'
-  assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
-  assert 0 <= samples.min() and samples.max() <= 255
-  assert torch.isfinite(z_0).all()
+  def run_sampler(m):
+    ((samples, z_0), secs), counts = counted(lambda: timed(
+        lambda: harness.random_samples(m, SAMPLE_BATCH, SAMPLE_STEPS,
+                                       generator=gen)))
+    log('random_samples', fused=m.config.fused_gn_swish, batch=SAMPLE_BATCH,
+        steps=SAMPLE_STEPS, ms_per_step=1e3 * secs / SAMPLE_STEPS,
+        shape=list(samples.shape), dtype=str(samples.dtype),
+        min=int(samples.min()), max=int(samples.max()),
+        z0_abs_max=z_0.abs().max().item(), launches=counts)
+    assert samples.dtype.name == 'uint8'
+    assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
+    assert 0 <= samples.min() and samples.max() <= 255
+    assert torch.isfinite(z_0).all()
+    assert counts == times(expected_launches(m.config, 'sample'),
+                           SAMPLE_STEPS), counts
+    return counts
+
+  sample_counts = run_sampler(model)
   assert sample_counts['flash_attention'] == SAMPLE_STEPS, sample_counts
   assert sum(sample_counts.values()) == SAMPLE_STEPS, sample_counts
 
@@ -692,20 +1027,25 @@ def main() -> None:
                     device=dev)
   noise = latents.gamma_variates(cfg.latent_k, (EVAL_BATCH, cfg.latent_size),
                                  generator=gen, device=dev)
-  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
-                      device=dev, state=state)
-  rates, bpds = {}, {}
-  for name, m in (('kernels', model), ('plain', plain)):
-    def run(m=m):
+
+  def elbo_bpd_and_rate(m):
+    """bpd on the batch above and images/s, median of 3 after a warm-up."""
+    def run():
       with torch.inference_mode():
         out = m.elbo(batch, t, eps0=eps, eps=eps, topk_noise=noise)
         return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
     run()
     secs = []
     for _ in range(3):
-      bpds[name], s = timed(run)
+      bpd, s = timed(run)
       secs.append(s)
-    rates[name] = EVAL_BATCH / statistics.median(secs)
+    return bpd, EVAL_BATCH / statistics.median(secs)
+
+  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                      device=dev, state=state)
+  rates, bpds = {}, {}
+  for name, m in (('kernels', model), ('plain', plain)):
+    bpds[name], rates[name] = elbo_bpd_and_rate(m)
   delta = abs(bpds['kernels'] - bpds['plain'])
   log('kernels_vs_plain', bpd_kernels=bpds['kernels'],
       bpd_plain=bpds['plain'], abs_delta=delta, tol=BPD_TOL,
@@ -717,39 +1057,56 @@ def main() -> None:
   # 6. Training: Experiment.train at batch 128 with dropout 0.1. The first
   # update has lr 0 (the warm-up is read before it), so step 1 leaves the
   # parameters as they were and later steps move them and the EMA.
+  def run_train(ex, steps, name, after_first=None):
+    """`steps` steps of ex.train, the first alone (then `after_first()`),
+    the others timed; logs the bpds, ms a step, the peak memory (in all and
+    above what was held before the first step) and the launches, asserts
+    them against `expected_launches`, and returns the launches."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    history, counts = counted(lambda: ex.train(1))
+    if after_first is not None:
+      after_first()
+    (more, secs), more_counts = counted(lambda: timed(
+        lambda: ex.train(steps - 1)))
+    history += more
+    counts = {k: v + more_counts[k] for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ms_per_step = 1e3 * secs / (steps - 1)
+    batch_size = ex.config.training.batch_size_train
+    log(name, steps=steps, batch=batch_size,
+        bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms_per_step,
+        images_per_s=1e3 * batch_size / ms_per_step,
+        peak_memory_gb=peak / 1e9, peak_above_start_gb=(peak - base) / 1e9,
+        launches=counts)
+    assert len(history) == steps
+    assert all(math.isfinite(h['bpd']) for h in history), history
+    assert counts == times(expected_launches(ex.config.model, 'train'),
+                           steps), counts
+    return counts
+
   ex = Experiment(train_cfg, device=dev, state=state)
   start = {k: p.detach().clone() for k, p in ex.state.params.items()}
-  torch.cuda.reset_peak_memory_stats()
-  (history, train_counts) = counted(lambda: ex.train(1))
-  assert all(torch.equal(start[k], p) for k, p in ex.state.params.items())
-  more, counts = counted(lambda: ex.train(1))
-  history += more
-  train_counts = {k: v + counts[k] for k, v in train_counts.items()}
-  (more, secs), counts = counted(lambda: timed(
-      lambda: ex.train(TRAIN_STEPS - 2)))
-  history += more
-  train_counts = {k: v + counts[k] for k, v in train_counts.items()}
-  peak_gb = torch.cuda.max_memory_allocated() / 1e9
-  ms_per_step = 1e3 * secs / (TRAIN_STEPS - 2)
+
+  def nothing_moved():
+    assert all(torch.equal(start[k], p) for k, p in ex.state.params.items())
+  train_counts = run_train(ex, TRAIN_STEPS, 'train', nothing_moved)
   moved = sum(not torch.equal(start[k], p)
               for k, p in ex.state.params.items())
   ema_moved = sum(not torch.equal(start[k], p)
                   for k, p in ex.state.ema_params.items())
   finite = all(torch.isfinite(p).all() for p in
                [*ex.state.params.values(), *ex.state.ema_params.values()])
-  log('train', steps=TRAIN_STEPS, batch=train_cfg.training.batch_size_train,
-      bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms_per_step,
-      images_per_s=1e3 * train_cfg.training.batch_size_train / ms_per_step,
-      peak_memory_gb=peak_gb, params_moved=f'{moved}/{len(start)}',
-      ema_moved=f'{ema_moved}/{len(start)}', launches=train_counts)
-  assert len(history) == TRAIN_STEPS
-  assert all(math.isfinite(h['bpd']) for h in history), history
+  log('train_state', steps=TRAIN_STEPS, params_moved=f'{moved}/{len(start)}',
+      ema_moved=f'{ema_moved}/{len(start)}')
   assert moved > 0.5 * len(start) and ema_moved > 0.5 * len(start)
   assert finite
   n_sites = 2 * cfg.sm_n_layer + 3 + cfg.forward_n_layer + 2
   per_step = dict(flash_attention=2, flash_attention_bwd_dkv=2,
                   flash_attention_bwd_dq=2, decoder_logprob=1,
-                  decoder_logprob_bwd=0, dropout_mask=2 * n_sites)
+                  decoder_logprob_bwd=0, dropout_mask=2 * n_sites,
+                  dropout_mask_batch=0, gn_swish=0)
   assert train_counts == {k: TRAIN_STEPS * v for k, v in per_step.items()}, (
       train_counts)
   eval_scalars = ex.evaluate(1)
@@ -757,20 +1114,72 @@ def main() -> None:
 
   # 7. One train step, kernels against plain and against float32.
   del start
+  step_noise = dict(t=t, eps0=eps, eps=eps, topk_noise=noise,
+                    dropout_seed=1234)
   compare_train_step(ex, model, lambda **kw: build_model(
       dataclasses.replace(cfg, use_kernels=False, **kw), device=dev,
-      state=state), {'images': batch},
-                     dict(t=t, eps0=eps, eps=eps, topk_noise=noise,
-                          dropout_seed=1234))
+      state=state), {'images': batch}, step_noise)
+
+  # 8. The fused configuration (fused_gn_swish and dropout_mask_batch) on the
+  # same weights: evaluation, sampling and training, then one fused train
+  # step against its plain twin.
+  fused_cfg = dataclasses.replace(cfg, fused_gn_swish=True,
+                                  dropout_mask_batch=True)
+  model_f = build_model(fused_cfg, device=dev, state=state)
+  (bpd, secs), fused_eval_counts = run_eval(model_f)
+  log('fused_eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH,
+      bpd=bpd, seconds=secs, launches=fused_eval_counts)
+  assert math.isfinite(bpd), bpd
+  assert fused_eval_counts == times(expected_launches(fused_cfg, 'eval'),
+                                    EVAL_BATCHES), fused_eval_counts
+  fused_sample_counts = run_sampler(model_f)
+  bpds['fused'], rates['fused'] = elbo_bpd_and_rate(model_f)
+  bpds['unfused'], rates['unfused'] = elbo_bpd_and_rate(model)
+  delta = abs(bpds['fused'] - bpds['unfused'])
+  log('fused_vs_unfused', bpd_fused=bpds['fused'],
+      bpd_unfused=bpds['unfused'], abs_delta=delta, tol=FUSED_BPD_TOL,
+      images_per_s_fused=rates['fused'],
+      images_per_s_unfused=rates['unfused'])
+  assert delta <= FUSED_BPD_TOL, delta
+
+  ex_f = Experiment(configs.replace(train_cfg, model={
+      'fused_gn_swish': True, 'dropout_mask_batch': True}), device=dev,
+                    state=state)
+  fused_train_counts = run_train(ex_f, FUSED_TRAIN_STEPS, 'fused_train')
+  compare_fused_step(ex_f, model_f, lambda: build_model(
+      dataclasses.replace(fused_cfg, use_kernels=False), device=dev,
+      state=state), {'images': batch}, step_noise)
+
+  # 9. bench.py --attention: with_attention and remat='attn', fresh weights.
+  attn_cfg = dataclasses.replace(cfg, with_attention=True, remat='attn')
+  attn_state = params.init_params(attn_cfg,
+                                  torch.Generator().manual_seed(SEED),
+                                  perturb_zero_init=0.02)
+  ex_a = Experiment(configs.replace(train_cfg, model={
+      'with_attention': True, 'remat': 'attn'}), device=dev, state=attn_state)
+  attn_train_counts = run_train(ex_a, ATTN_TRAIN_STEPS, 'attention_train')
+
+  # 10. Every remat mode gives the step without remat, with attention blocks
+  # and the fused GroupNorm+swish (so that a checkpointed ResNet block
+  # recomputes K8 and regenerates its K6 masks).
+  remat_counts = compare_remat(
+      ex_a, dataclasses.replace(attn_cfg, fused_gn_swish=True), attn_state,
+      {'images': batch}, step_noise, dev)
+  torch.cuda.empty_cache()
 
   if want_profile:
-    def train_step():
-      ex.train_step({'images': batch})
+    def train_step(e):
+      return lambda: e.train_step({'images': batch})
 
-    def elbo():
-      with torch.inference_mode():
-        model(batch, generator=gen)
-    for name, fn in (('elbo_b128', elbo), ('train_step_b128', train_step)):
+    def elbo(m):
+      def run():
+        with torch.inference_mode():
+          m(batch, generator=gen)
+      return run
+    for name, fn in (('elbo_b128', elbo(model)),
+                     ('train_step_b128', train_step(ex)),
+                     ('fused_elbo_b128', elbo(model_f)),
+                     ('fused_train_step_b128', train_step(ex_f))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -786,17 +1195,31 @@ def main() -> None:
                               'mulan_tpu/ops/decoder_logprob.py:61'),
       'dropout_mask': ('mulan_tpu_torch/csrc/dropout.cu',
                        'mulan_tpu/ops/dropout.py:40'),
+      'dropout_mask_batch': ('mulan_tpu_torch/csrc/dropout.cu',
+                             'mulan_tpu/ops/dropout.py:120'),
+      'gn_swish': ('mulan_tpu_torch/csrc/groupnorm_swish.cu',
+                   'mulan_tpu/ops/groupnorm_swish.py:64'),
   }
+  paths = {'eval': eval_counts, 'sample': sample_counts,
+           'train': train_counts, 'fused_eval': fused_eval_counts,
+           'fused_sample': fused_sample_counts,
+           'fused_train': fused_train_counts,
+           'attention_train': attn_train_counts,
+           **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'library_ms')
   kernels = []
   for name, (source, replaces) in sources.items():
-    by_path = {'eval': eval_counts[name], 'sample': sample_counts[name],
-               'train': train_counts[name]}
+    by_path = {path: counts[name] for path, counts in paths.items()}
     kernels.append(dict(name=name, route='cuda', source=source,
                         replaces=replaces, launches=sum(by_path.values()),
                         launches_by_path=by_path,
                         **{k: results[name][k] for k in keys}))
+    assert kernels[-1]['launches'] > 0 or name == 'decoder_logprob_bwd', name
+  k8 = next(k for k in kernels if k['name'] == 'gn_swish')
+  k8['unfused_pair_ms'] = results['gn_swish']['unfused_pair_ms']
+  k8['at_c256'] = {k: gn_swish_c256[k] for k in (
+      'ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms', 'max_abs_err')}
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

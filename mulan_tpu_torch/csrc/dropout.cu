@@ -1,10 +1,16 @@
 // Dropout keep-mask for Hopper (sm_90a): a pre-scaled mask with values in
 // {0, scale}, scale = 1 / (1 - threshold16 / 65536), in the activation's type.
 //
-// Replaces the Pallas TPU kernel mulan_tpu/ops/dropout.py:_mask_kernel
-// (launched by _hw_mask for hw_dropout, K6). As in the TPU design the kernel
-// writes only the mask; the x * mask product stays a PyTorch op, and the
-// backward regenerates the mask from (seed, site) instead of keeping it.
+// Replaces the Pallas TPU kernel mulan_tpu/ops/dropout.py:_mask_kernel,
+// launched there two ways, and here through two entry points of one kernel:
+// - mulan_dropout_mask (K6, for _hw_mask / hw_dropout): one site's mask. As
+//   in the TPU design the kernel writes only the mask; the x * mask product
+//   stays a PyTorch op, and the backward regenerates the mask from
+//   (seed, site) instead of keeping it.
+// - mulan_dropout_mask_batch (K7, for hw_mask_batch): the masks of n_masks
+//   consecutive sites, first_site + slot for slot = blockIdx.y, in one
+//   launch; slot i is bit for bit the K6 mask of site first_site + i. The
+//   caller keeps the masks for the backward.
 //
 // The TPU kernel draws from the TPU's hardware PRNG, reseeded per grid tile.
 // Here the bits come from Philox4x32-10 (Salmon et al., SC'11; Random123's
@@ -21,6 +27,7 @@
 // rounds, 20 32-bit multiplies) and writes 8 values, 16 bytes in bf16 as one
 // vector store; at a flagship site (128 x 128 x 32 x 32 bf16) that is a
 // 33.5 MB write, ~10 us at 3.35 TB/s, against ~4e7 integer multiplies.
+// The 67 masks of the flagship's score UNet are a 2.25 GB write, ~0.67 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,15 +61,18 @@ __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// The mask of site first_site + blockIdx.y goes to out + blockIdx.y * n.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dropout_mask(T* __restrict__ out, size_t n, uint32_t seed, uint32_t site,
-             uint32_t threshold16, float scale) {
+dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
+             uint32_t first_site, uint32_t threshold16, float scale) {
   const size_t ctr = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t first = ctr * 8;
   if (first >= n) return;
+  out += (size_t)blockIdx.y * n;
   const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed, site);
+      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed,
+      first_site + blockIdx.y);
   const uint32_t words[4] = {r.x, r.y, r.z, r.w};
   const T keep = cvt<T>(scale), drop = cvt<T>(0.0f);
   __align__(16) T vals[8];
@@ -72,38 +82,61 @@ dropout_mask(T* __restrict__ out, size_t n, uint32_t seed, uint32_t site,
     const uint32_t u16 = (e % 2 == 0) ? (w & 0xFFFFu) : (w >> 16);
     vals[e] = u16 >= threshold16 ? keep : drop;
   }
-  if (first + 8 <= n) {
-    // 8 values are 16 bytes (bf16) or 32 bytes (f32), 16-byte aligned.
+  if (first + 8 <= n && (uintptr_t)(out + first) % 16 == 0) {
+    // 8 values are 16 bytes (bf16) or 32 bytes (f32). A slot after the
+    // first starts 16-byte aligned only if n * sizeof(T) is a multiple of 16.
     const uint4* src = reinterpret_cast<const uint4*>(vals);
     uint4* dst = reinterpret_cast<uint4*>(out + first);
 #pragma unroll
     for (int w = 0; w < (int)(8 * sizeof(T) / 16); ++w) dst[w] = src[w];
   } else {
-    for (int e = 0; e < (int)(n - first); ++e) out[first + e] = vals[e];
+    const int count = first + 8 <= n ? 8 : (int)(n - first);
+    for (int e = 0; e < count; ++e) out[first + e] = vals[e];
   }
 }
 
 template <typename T>
-int launch(void* out, size_t n, uint32_t seed, uint32_t site,
-           uint32_t threshold16, float scale, cudaStream_t stream) {
+int launch(void* out, size_t n, unsigned n_masks, uint32_t seed,
+           uint32_t first_site, uint32_t threshold16, float scale,
+           cudaStream_t stream) {
   const size_t counters = (n + 7) / 8;
   const size_t blocks = (counters + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
-  dropout_mask<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (T*)out, n, seed, site, threshold16, scale);
+  const dim3 grid((unsigned)blocks, n_masks);
+  dropout_mask<T><<<grid, kThreads, 0, stream>>>(
+      (T*)out, n, seed, first_site, threshold16, scale);
   return (int)cudaGetLastError();
+}
+
+int launch_masks(void* out, long long n, unsigned n_masks, unsigned seed,
+                 unsigned first_site, unsigned threshold16, float scale,
+                 int is_bf16, void* stream) {
+  if (n <= 0 || n_masks == 0 || n_masks > 65535u || threshold16 > 65535u)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_bf16 ? launch<__nv_bfloat16>(out, (size_t)n, n_masks, seed,
+                                         first_site, threshold16, scale, s)
+                 : launch<float>(out, (size_t)n, n_masks, seed, first_site,
+                                 threshold16, scale, s);
 }
 
 }  // namespace
 
-// out: n contiguous, 16-byte aligned values (float32 or bfloat16).
+// K6. out: n contiguous, 16-byte aligned values (float32 or bfloat16).
 extern "C" int mulan_dropout_mask(void* out, long long n, unsigned seed,
                                   unsigned site, unsigned threshold16,
                                   float scale, int is_bf16, void* stream) {
-  if (n <= 0 || threshold16 > 65535u) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch<__nv_bfloat16>(out, (size_t)n, seed, site,
-                                         threshold16, scale, s)
-                 : launch<float>(out, (size_t)n, seed, site, threshold16,
-                                 scale, s);
+  return launch_masks(out, n, 1u, seed, site, threshold16, scale, is_bf16,
+                      stream);
+}
+
+// K7. out: n_masks * n contiguous values, 16-byte aligned; slot i holds the
+// mask of site first_site + i. n_masks <= 65535 (the grid's y extent).
+extern "C" int mulan_dropout_mask_batch(void* out, long long n,
+                                        unsigned n_masks, unsigned seed,
+                                        unsigned first_site,
+                                        unsigned threshold16, float scale,
+                                        int is_bf16, void* stream) {
+  return launch_masks(out, n, n_masks, seed, first_site, threshold16, scale,
+                      is_bf16, stream);
 }

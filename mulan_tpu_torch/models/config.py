@@ -4,13 +4,18 @@ Counterpart of `mulan_tpu/models/config.py`, which needs flax and jax, and of
 the `ml_collections` files under `mulan_tpu/configs/`; neither can be imported
 where only PyTorch is installed. The fields are the ones the ported slices
 read, with the JAX package's names and defaults.
-`use_kernels` is the counterpart of `use_pallas`: it routes attention and the
-decoder log-likelihood through the hand-written CUDA kernels in `ops/`.
+`use_kernels` is the counterpart of `use_pallas`: it routes attention, the
+decoder log-likelihood, the dropout masks and the fused GroupNorm+swish
+through the hand-written CUDA kernels in `ops/`. The other execution-policy
+fields, `remat`, `dropout_mask_batch` and `fused_gn_swish`, take the JAX
+package's values (`mulan_tpu/models/config.py:93-140`); `gamma_precision`
+is not ported (ROADMAP.md Queue A, remaining surface).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -56,6 +61,42 @@ class ModelConfig:
   # execution policy
   compute_dtype: str = 'float32'  # 'float32' | 'bfloat16' (UNet compute only)
   use_kernels: bool = False
+  # Activation checkpointing: 'none' (or False) | 'all' (or True: every
+  # block) | 'attn' (attention blocks only) | 'alt' (attention blocks and
+  # every other ResNet block of the score UNet).
+  remat: Any = 'none'
+  # All of the score UNet's dropout masks from one launch per training
+  # forward (K7), kept for the backward, instead of one mask per block in the
+  # forward and its regeneration in the backward (K6).
+  dropout_mask_batch: bool = False
+  # swish(groupnorm(x)) in one pass (K8) at both GN-swish sites of every
+  # ResNet block of the score UNet.
+  fused_gn_swish: bool = False
+
+  @property
+  def remat_blocks(self) -> bool:
+    if self.remat in (False, 'none', 'attn', 'alt'):
+      return False
+    if self.remat in (True, 'all'):
+      return True
+    raise ValueError(f'unknown remat mode: {self.remat!r}')
+
+  @property
+  def remat_attn(self) -> bool:
+    if self.remat in (False, 'none'):
+      return False
+    if self.remat in (True, 'all', 'attn', 'alt'):
+      return True
+    raise ValueError(f'unknown remat mode: {self.remat!r}')
+
+  @property
+  def remat_alt_blocks(self) -> bool:
+    """Checkpoint every other ResNet block (only the 'alt' mode)."""
+    if self.remat in (False, 'none', 'attn', True, 'all'):
+      return False
+    if self.remat == 'alt':
+      return True
+    raise ValueError(f'unknown remat mode: {self.remat!r}')
 
   @property
   def n_pixels(self) -> int:

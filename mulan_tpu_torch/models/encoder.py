@@ -7,6 +7,12 @@ Dense layers, as the score UNet embeds its time, then runs conv_in,
 head, flattened in NHWC order before the final Dense layer. With a
 `dropout_seed` its 4 + 2 ResNet blocks drop at sites numbered after the
 score UNet's, so that no two blocks of a MuLAN share a mask.
+
+As in JAX (`mulan_tpu/models/encoder.py:53-71`), `with_attention` adds
+`down_attn_{i}` after each down block and `remat` checkpoints every block
+('all') or the attention blocks ('attn', 'alt'); the trunk takes neither
+`fused_gn_swish` nor `dropout_mask_batch`, so its blocks keep the unfused
+GroupNorm and their own masks (K6).
 """
 
 from __future__ import annotations
@@ -40,12 +46,18 @@ class UnetTrunk(nn.Module):
 
     def block():
       return ResnetBlock(n_embd, n_embd, cond_dim, pdrop=cfg.sm_pdrop,
-                         site=next(sites), use_kernels=cfg.use_kernels)
+                         site=next(sites), use_kernels=cfg.use_kernels,
+                         remat=cfg.remat_blocks)
+
+    def attn():
+      return AttnBlock(n_embd, cfg.use_kernels, remat=cfg.remat_attn)
 
     for i in range(cfg.forward_n_layer):
       self.add_module(f'down_block_{i}', block())
+      if cfg.with_attention:
+        self.add_module(f'down_attn_{i}', attn())
     self.mid_block_1 = block()
-    self.mid_attn_1 = AttnBlock(n_embd, cfg.use_kernels)
+    self.mid_attn_1 = attn()
     self.mid_block_2 = block()
     self.GroupNormF32_0 = GroupNormF32(n_embd)
     self.conv_out = Conv2d(n_embd, 1, 3, padding=1)
@@ -71,6 +83,8 @@ class UnetTrunk(nn.Module):
     h = self.conv_in(h.to(dtype))
     for i in range(cfg.forward_n_layer):
       h = getattr(self, f'down_block_{i}')(h, cond, dropout_seed)
+      if cfg.with_attention:
+        h = getattr(self, f'down_attn_{i}')(h)
     h = self.mid_block_1(h, cond, dropout_seed)
     h = self.mid_attn_1(h)
     h = self.mid_block_2(h, cond, dropout_seed)

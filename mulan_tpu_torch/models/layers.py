@@ -6,6 +6,10 @@ by leaf. Parameters are float32; `Conv2d`, `Linear` and `GroupNormF32` cast
 them to the activation's type at use (`cast_param`), as flax's
 `nn.Conv(dtype=...)` and `nn.Dense(dtype=...)` do, so the master weights an
 optimizer updates stay float32 under bfloat16 compute.
+
+`ResnetBlock` and `AttnBlock` take `remat`: their forward then runs under
+activation checkpointing (`maybe_remat`), the counterpart of JAX's
+`maybe_remat` / `nn.remat` (`mulan_tpu/models/layers.py:214-224`).
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mulan_tpu_torch.ops import dropout as dropout_ops
+from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
 from mulan_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
@@ -95,6 +101,24 @@ def base2_fourier_features(x: torch.Tensor) -> torch.Tensor:
   return torch.cat([torch.sin(h), torch.cos(h)], dim=1)
 
 
+def maybe_remat(fn, remat: bool, *args):
+  """fn(*args), under activation checkpointing when `remat` is set and
+  autograd is on: the forward keeps only fn's inputs, and the backward runs
+  fn again to rebuild what it needs (non-reentrant
+  `torch.utils.checkpoint`). Without autograd (evaluation, sampling) fn
+  just runs.
+
+  `preserve_rng_state=False`: nothing in a block draws from torch's
+  generators. Every dropout mask comes from (seed, site) or is passed in,
+  so the recompute rebuilds the same masks without the generator state
+  being saved and restored around it.
+  """
+  if remat and torch.is_grad_enabled():
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+  return fn(*args)
+
+
 class GroupNormF32(nn.Module):
   """GroupNorm with float32 statistics, eps 1e-6 (flax's) and gcd(C, 32)
   groups; the output has the input's type.
@@ -102,15 +126,26 @@ class GroupNormF32(nn.Module):
   PyTorch's group_norm accumulates the statistics of bf16 input in float32,
   so the activation is not copied to float32 (as flax does, the affine
   parameters are applied in the input's type).
+
+  With `fused_swish` it returns swish(groupnorm(x)) through
+  `ops/groupnorm_swish.py:gn_swish` instead, the affine in float32 (the K8
+  kernel with `use_kernels`, else its plain version), under the same
+  parameters (`GroupNormF32_k/GroupNorm_0/{scale,bias}` in flax).
   """
 
-  def __init__(self, channels: int):
+  def __init__(self, channels: int, fused_swish: bool = False,
+               use_kernels: bool = False):
     super().__init__()
     self.num_groups = math.gcd(channels, 32)
+    self.fused_swish = fused_swish
+    self.use_kernels = use_kernels
     self.weight = nn.Parameter(torch.ones(channels))
     self.bias = nn.Parameter(torch.zeros(channels))
 
   def forward(self, x):
+    if self.fused_swish:
+      return gn_ops.gn_swish(x, self.weight, self.bias, self.num_groups, 1e-6,
+                             self.use_kernels)
     return F.group_norm(x, self.num_groups,
                         cast_param(self, 'weight', x.dtype),
                         cast_param(self, 'bias', x.dtype), 1e-6)
@@ -125,27 +160,40 @@ class ResnetBlock(nn.Module):
   model, and comes from the K6 kernel when `use_kernels` is set
   (`ops/dropout.py`). An explicit pre-scaled `dropout_mask` (NCHW, shaped
   like the activation) replaces it, as the JAX block's `dropout_mask`
-  argument does.
+  argument does; the product saves it for the backward.
+
+  `fused_gn` computes both GN-swish sites in one pass each
+  (`GroupNormF32(fused_swish=True)`, K8 with `use_kernels`).
   """
 
   def __init__(self, in_ch: int, out_ch: int, cond_dim: int, *,
-               pdrop: float = 0.0, site: int = 0, use_kernels: bool = False):
+               pdrop: float = 0.0, site: int = 0, use_kernels: bool = False,
+               fused_gn: bool = False, remat: bool = False):
     super().__init__()
     self.pdrop = pdrop
     self.site = site
     self.use_kernels = use_kernels
-    self.GroupNormF32_0 = GroupNormF32(in_ch)
+    self.fused_gn = fused_gn
+    self.remat = remat
+    self.GroupNormF32_0 = GroupNormF32(in_ch, fused_gn, use_kernels)
     self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
     self.cond_proj = Linear(cond_dim, out_ch, bias=False)
-    self.GroupNormF32_1 = GroupNormF32(out_ch)
+    self.GroupNormF32_1 = GroupNormF32(out_ch, fused_gn, use_kernels)
     self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
     self.nin_shortcut = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
                          else None)
 
+  def _gn_swish(self, norm: GroupNormF32, h):
+    return norm(h) if self.fused_gn else F.silu(norm(h))
+
   def forward(self, x, cond, dropout_seed=None, dropout_mask=None):
-    h = self.conv1(F.silu(self.GroupNormF32_0(x)))
+    return maybe_remat(self._forward, self.remat, x, cond, dropout_seed,
+                       dropout_mask)
+
+  def _forward(self, x, cond, dropout_seed, dropout_mask):
+    h = self.conv1(self._gn_swish(self.GroupNormF32_0, x))
     h = h + self.cond_proj(cond)[:, :, None, None]
-    h = F.silu(self.GroupNormF32_1(h))
+    h = self._gn_swish(self.GroupNormF32_1, h)
     if dropout_mask is not None:
       h = h * dropout_mask.to(h.dtype)
     elif dropout_seed is not None and self.pdrop > 0:
@@ -164,9 +212,10 @@ class AttnBlock(nn.Module):
   (`ops/flash_attention.py`); otherwise it runs the plain einsum version.
   """
 
-  def __init__(self, channels: int, use_kernels: bool):
+  def __init__(self, channels: int, use_kernels: bool, remat: bool = False):
     super().__init__()
     self.use_kernels = use_kernels
+    self.remat = remat
     self.GroupNormF32_0 = GroupNormF32(channels)
     self.q = Linear(channels, channels)
     self.k = Linear(channels, channels)
@@ -174,6 +223,9 @@ class AttnBlock(nn.Module):
     self.proj_out = Linear(channels, channels)
 
   def forward(self, x):
+    return maybe_remat(self._forward, self.remat, x)
+
+  def _forward(self, x):
     b, c, hgt, wid = x.shape
     tokens = self.GroupNormF32_0(x).flatten(2).transpose(1, 2)  # (B, T, C)
     # (B, T, C) -> (B, 1, T, C): the attention ops' (B, heads, T, D) layout.

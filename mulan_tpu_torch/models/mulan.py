@@ -13,11 +13,12 @@ Every parameter is float32; the UNet and the encoder trunk cast theirs to
 `deterministic=False`, whatever `self.training` says, as in JAX: the
 sampler and the evaluation entry points are always deterministic.
 
-Only the flagship path is ported. The epsilon parameterization,
-`velocity_from_epsilon`, the `ldm` UNet, gumbel/gaussian latents, the other
-schedules and encoders and `with_attention` raise NotImplementedError at
-construction (ROADMAP.md Queue A, model variants); the SDE/ODE methods raise
-it when called (Queue A, ODE NLL).
+Only the flagship path is ported, under each of its execution-policy flags
+(`with_attention`, `remat`, `fused_gn_swish`, `dropout_mask_batch`). The
+epsilon parameterization, `velocity_from_epsilon`, the `ldm` UNet,
+gumbel/gaussian latents and the other schedules and encoders raise
+NotImplementedError at construction (ROADMAP.md Queue A, model variants);
+the SDE/ODE methods raise it when called (Queue A, ODE NLL).
 """
 
 from __future__ import annotations
@@ -42,8 +43,7 @@ _PORTED = {
     'topk_noise_type': 'gamma', 'gamma_type': 'poly_fixedend',
     'reparam_type': 'true', 'z_conditioning': True,
     'velocity_from_epsilon': False, 'sm_n_timesteps': 0,
-    'sample_softmax': False, 'with_attention': False,
-    'antithetic_time_sampling': True,
+    'sample_softmax': False, 'antithetic_time_sampling': True,
 }
 
 

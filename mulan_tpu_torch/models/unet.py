@@ -10,7 +10,20 @@ conditioning trigonometry and the residual stay float32.
 With a `dropout_seed`, each of the 2 n_layer + 3 ResNet blocks drops with
 `sm_pdrop` at its own site (down blocks first, then mid, then up), so its
 mask is keyed by (dropout_seed, site); without one the pass is
-deterministic.
+deterministic. With `dropout_mask_batch` all of those masks are made at
+once before the blocks (K7 with `use_kernels`, one launch) and block i is
+handed slot i, which the backward reads again; without it each block makes
+its own mask and the backward regenerates it (K6). JAX takes the batched
+path only with `use_pallas` too (`mulan_tpu/models/unet.py:102`), because
+its off-TPU masks come from another generator; here both paths give the
+same bits, so the flag alone decides.
+
+The execution-policy flags follow `mulan_tpu/models/unet.py:89-154`:
+`fused_gn_swish` fuses both GN-swish sites of every ResNet block (not the
+final GroupNorm); `with_attention` adds `down_attn_{i}` after every down
+block and `up_attn_{i}` after every up block; `remat` checkpoints every
+block ('all'), every attention block ('attn'), or the attention blocks and
+the even-numbered ResNet blocks in site order ('alt').
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from mulan_tpu_torch.models.layers import (FOURIER_MULT, AttnBlock, Conv2d,
                                            GroupNormF32, Linear, ResnetBlock,
                                            base2_fourier_features,
                                            timestep_embedding)
+from mulan_tpu_torch.ops import dropout as dropout_ops
 
 
 class UNet(nn.Module):
@@ -41,16 +55,26 @@ class UNet(nn.Module):
     sites = iter(range(self.n_sites(cfg)))
 
     def block(in_ch):
-      return ResnetBlock(in_ch, n_embd, cond_dim, pdrop=cfg.sm_pdrop,
-                         site=next(sites), use_kernels=cfg.use_kernels)
+      site = next(sites)
+      return ResnetBlock(
+          in_ch, n_embd, cond_dim, pdrop=cfg.sm_pdrop, site=site,
+          use_kernels=cfg.use_kernels, fused_gn=cfg.fused_gn_swish,
+          remat=cfg.remat_blocks or (cfg.remat_alt_blocks and site % 2 == 0))
+
+    def attn():
+      return AttnBlock(n_embd, cfg.use_kernels, remat=cfg.remat_attn)
 
     for i in range(cfg.sm_n_layer):
       self.add_module(f'down_block_{i}', block(n_embd))
+      if cfg.with_attention:
+        self.add_module(f'down_attn_{i}', attn())
     self.mid_block_1 = block(n_embd)
-    self.mid_attn_1 = AttnBlock(n_embd, cfg.use_kernels)
+    self.mid_attn_1 = attn()
     self.mid_block_2 = block(n_embd)
     for i in range(cfg.sm_n_layer + 1):
       self.add_module(f'up_block_{i}', block(2 * n_embd))
+      if cfg.with_attention:
+        self.add_module(f'up_attn_{i}', attn())
     self.GroupNormF32_0 = GroupNormF32(n_embd)
     self.conv_out = Conv2d(n_embd, c, 3, padding=1)
 
@@ -75,14 +99,40 @@ class UNet(nn.Module):
     if cfg.with_fourier_features:
       h = torch.cat([z, base2_fourier_features(z)], dim=1)
     hs = [self.conv_in(h.to(dtype))]
+
+    masks = None
+    if (cfg.dropout_mask_batch and dropout_seed is not None
+        and cfg.sm_pdrop > 0):
+      # Every block's mask is (B, n_embd, H, W): all project to n_embd
+      # before the dropout site.
+      masks = dropout_ops.dropout_masks(
+          dropout_seed, 0, self.n_sites(cfg),
+          (z.shape[0], cfg.sm_n_embd, *z.shape[2:]), cfg.sm_pdrop, dtype,
+          z.device, cfg.use_kernels)
+    used = []
+
+    def res_block(name, h):
+      block = getattr(self, name)
+      mask = None
+      if masks is not None:
+        mask = masks[block.site]
+        used.append(block.site)
+      return block(h, cond, dropout_seed, mask)
+
+    def attn_block(name, h):
+      return getattr(self, name)(h) if cfg.with_attention else h
+
     for i in range(cfg.sm_n_layer):
-      hs.append(getattr(self, f'down_block_{i}')(hs[-1], cond, dropout_seed))
-    h = self.mid_block_1(hs[-1], cond, dropout_seed)
+      h = res_block(f'down_block_{i}', hs[-1])
+      hs.append(attn_block(f'down_attn_{i}', h))
+    h = res_block('mid_block_1', hs[-1])
     h = self.mid_attn_1(h)
-    h = self.mid_block_2(h, cond, dropout_seed)
+    h = res_block('mid_block_2', h)
     for i in range(cfg.sm_n_layer + 1):
-      h = getattr(self, f'up_block_{i}')(torch.cat([h, hs.pop()], dim=1),
-                                         cond, dropout_seed)
+      h = res_block(f'up_block_{i}', torch.cat([h, hs.pop()], dim=1))
+      h = attn_block(f'up_attn_{i}', h)
     assert not hs
+    if masks is not None:
+      assert used == list(range(masks.shape[0])), (used, masks.shape)
     eps_pred = self.conv_out(F.silu(self.GroupNormF32_0(h)))
     return eps_pred.float() + z

@@ -1,12 +1,19 @@
-"""Inverted dropout with a counter-based mask: CUDA kernel wrapper, its plain
-version, and the autograd function that regenerates the mask.
+"""Inverted dropout with a counter-based mask: CUDA kernel wrappers, their
+plain versions, and the autograd function that regenerates the mask.
 
-The kernel (`csrc/dropout.cu`, K6) replaces the Pallas TPU kernel
-`mulan_tpu/ops/dropout.py:_mask_kernel` (via `_hw_mask` / `hw_dropout`). As
-there, it writes only the pre-scaled keep mask, values in {0, scale}; the
-x * mask product stays a PyTorch op, and the backward regenerates the mask
-from (seed, site, rate) instead of saving it (`hw_dropout`'s vjp,
-`mulan_tpu/ops/dropout.py:161-177`).
+The kernel (`csrc/dropout.cu`) replaces the Pallas TPU kernel
+`mulan_tpu/ops/dropout.py:_mask_kernel`, which JAX launches two ways:
+- K6 (`dropout_mask`, for `_hw_mask` / `hw_dropout`): one site's mask. As
+  there, it writes only the pre-scaled keep mask, values in {0, scale}; the
+  x * mask product stays a PyTorch op, and the backward regenerates the mask
+  from (seed, site, rate) instead of saving it (`hw_dropout`'s vjp,
+  `mulan_tpu/ops/dropout.py:161-177`).
+- K7 (`dropout_mask_batch`, for `hw_mask_batch`, `:120-158`): the masks of
+  n consecutive sites in one launch, which the caller applies as
+  `h * masks[i]` and keeps for the backward. Slot i is bit for bit the K6
+  mask of site first_site + i, so with one seed the batched path changes
+  which kernel runs, how often, and what memory the step holds, and nothing
+  else; the TPU kernel promises only K6's statistics.
 
 The TPU's hardware bits have no counterpart here: both versions draw from
 Philox4x32-10, keyed by (seed, site), with the counter index // 8. Each of
@@ -122,6 +129,53 @@ def dropout_mask(seed: int, site: int, shape, rate: float, dtype,
 
 
 dropout_mask.launches = 0
+
+
+def dropout_mask_batch_plain(seed: int, first_site: int, n_masks: int, shape,
+                             rate: float, dtype, device=None) -> torch.Tensor:
+  """(n_masks, *shape): slot i is `dropout_mask_plain(seed, first_site + i,
+  shape, ...)`."""
+  return torch.stack([dropout_mask_plain(seed, first_site + i, shape, rate,
+                                         dtype, device)
+                      for i in range(n_masks)])
+
+
+def dropout_mask_batch(seed: int, first_site: int, n_masks: int, shape,
+                       rate: float, dtype, device=None) -> torch.Tensor:
+  """`dropout_mask_batch_plain` on the CPU; the K7 kernel, one launch for
+  all slots, on a CUDA device."""
+  device = torch.device('cpu' if device is None else device)
+  if device.type == 'cpu':
+    return dropout_mask_batch_plain(seed, first_site, n_masks, shape, rate,
+                                    dtype, device)
+  if device.type != 'cuda':
+    raise ValueError(f'dropout_mask_batch: unsupported device {device}')
+  _check(shape, rate, dtype)
+  if not 1 <= n_masks <= 65535:
+    raise ValueError(f'dropout_mask_batch: {n_masks} masks, not 1 to 65535')
+  out = torch.empty((n_masks, *shape), dtype=dtype, device=device)
+  status = _build.load_library().mulan_dropout_mask_batch(
+      out.data_ptr(), out[0].numel(), n_masks, seed & _MASK32,
+      first_site & _MASK32, threshold16(rate),
+      float(torch.tensor(keep_scale(rate), dtype=torch.float32)),
+      int(dtype == torch.bfloat16),
+      torch.cuda.current_stream(device).cuda_stream)
+  _build.check(status, 'dropout_mask_batch')
+  dropout_mask_batch.launches += 1
+  return out
+
+
+dropout_mask_batch.launches = 0
+
+
+def dropout_masks(seed: int, first_site: int, n_masks: int, shape,
+                  rate: float, dtype, device, use_kernel: bool):
+  """The masks of sites first_site .. first_site + n_masks - 1 at once: from
+  K7 (`dropout_mask_batch`) with `use_kernel`, else from
+  `dropout_mask_batch_plain`; both give the same bits."""
+  # Looked up at call time, so that tests can substitute the plain masks.
+  fn = dropout_mask_batch if use_kernel else dropout_mask_batch_plain
+  return fn(seed, first_site, n_masks, shape, rate, dtype, device)
 
 
 def _make_mask(seed, site, like, rate, use_kernel):

@@ -4,6 +4,7 @@ ancestral sampler step (batch 16) and per ELBO (batch 128) of the flagship
 MuLAN-velocity at full width and depth, random weights from seed 0.
 
     python3 tools/torch_host_cost.py [--tree DIR] [--reps 7] [--steps 20]
+                                     [--fused]
 
 `--tree` names the checkout whose `mulan_tpu_torch` is measured (default:
 this one). To compare two commits on one card, unpack the other into a
@@ -14,7 +15,9 @@ a synchronized call: a sampler run of `--steps` steps, or one ELBO), and
 for the sampler the main thread's CPU time per step spent enqueueing
 `--steps` steps with no synchronization between them (`time.thread_time`,
 which a busy shared host does not inflate as it does the wall clock).
-Needs CUDA and `nvcc`; uses only torch and numpy.
+`--fused` measures the model with `fused_gn_swish` (K8 at the score UNet's
+GN-swish sites; a tree from before that flag does not take it). Needs CUDA
+and `nvcc`; uses only torch and numpy.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ def main() -> None:
       pathlib.Path(__file__).resolve().parents[1]))
   parser.add_argument('--reps', type=int, default=7)
   parser.add_argument('--steps', type=int, default=20)
+  parser.add_argument('--fused', action='store_true')
   args = parser.parse_args()
   sys.path.insert(0, args.tree)
   import torch
@@ -55,7 +59,7 @@ def main() -> None:
        '--format=csv,noheader'], capture_output=True, text=True,
       check=True).stdout.strip()
 
-  cfg = flagship_config()
+  cfg = flagship_config(**({'fused_gn_swish': True} if args.fused else {}))
   model = MuLAN(cfg)
   model.load_state_dict(params.init_params(
       cfg, torch.Generator().manual_seed(0), perturb_zero_init=0.02))
@@ -102,7 +106,8 @@ def main() -> None:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / (1e6 * span)
     return len(kernels), busy
 
-  result = {'tree': args.tree, 'card': card, 'torch': torch.__version__}
+  result = {'tree': args.tree, 'fused': args.fused, 'card': card,
+            'torch': torch.__version__}
   for name, fn, per in (('sample_step_b16', sample, args.steps),
                         ('elbo_b128', elbo, 1)):
     fn()
