@@ -52,6 +52,10 @@ TRAIN_STEPS = 12
 FUSED_TRAIN_STEPS = 6
 ATTN_TRAIN_STEPS = 3
 FLAGSHIP_ATTN = (EVAL_BATCH, 1, 1024, 128)
+SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 128)
+# Kernels every one of whose launches on the flagship paths must take the
+# 'sm90' route (TMA-fed, warp-specialised wgmma kernels).
+SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv')
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -198,19 +202,24 @@ def rel_err(got, want) -> float:
 
 
 def check_attention(dev, gen):
-  """K1. The flagship shape (bf16, tensor-core kernel) and the tiny config's
-  float32 with a ragged T are checked and timed; the others cover a
-  head_dim that is not a multiple of 16 and the CUDA-core kernel for bf16
-  with head_dim > 128. The row log-sum-exp written under autograd is held
-  against the plain version's, and writing it leaves the output unchanged."""
-  from mulan_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+  """K1. The flagship shape and the sampler's (bf16, sm90 route) and the
+  tiny config's float32 with a ragged T (simt route) are checked and timed;
+  the others cover the sm90 route at a head_dim that is not a multiple of 16
+  and at D = 64 with a T ragged across a 128-row tile, on two heads, and the
+  simt route for bf16 with head_dim > 128. The row log-sum-exp written under
+  autograd is held against the plain version's, and writing it leaves the
+  output unchanged. Returns the flagship's and the sampler's results."""
+  from mulan_tpu_torch.ops.flash_attention import (attention_route,
+                                                   flash_attention_fwd,
                                                    flash_attention_plain)
-  cases = ((FLAGSHIP_ATTN, torch.bfloat16, ATTN_TOL_BF16),
-           ((3, 1, 60, 32), torch.float32, ATTN_TOL_F32),
-           ((2, 2, 100, 40), torch.bfloat16, ATTN_TOL_BF16),
-           ((2, 1, 130, 256), torch.bfloat16, ATTN_TOL_BF16))
+  cases = ((FLAGSHIP_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
+           (SAMPLER_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
+           ((3, 1, 60, 32), torch.float32, ATTN_TOL_F32, True),
+           ((2, 2, 100, 40), torch.bfloat16, ATTN_TOL_BF16, False),
+           ((2, 2, 200, 64), torch.bfloat16, ATTN_TOL_BF16, False),
+           ((2, 1, 130, 256), torch.bfloat16, ATTN_TOL_BF16, False))
   results = []
-  for shape, dtype, tol in cases:
+  for shape, dtype, tol, timed_case in cases:
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     scale = shape[-1] ** -0.5
@@ -223,7 +232,7 @@ def check_attention(dev, gen):
     lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
     result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
                   lse_rel_err=lse_err.item())
-    if len(results) < 2:
+    if timed_case:
       result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale))
       result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
           q, k, v, scale, return_lse=True))
@@ -234,24 +243,28 @@ def check_attention(dev, gen):
       b, h, t, d = shape
       result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
                           dtype))
-    log('flash_attention', shape=list(shape), dtype=str(dtype), tol=tol,
-        lse_rtol=LSE_RTOL, **result)
+    log('flash_attention', shape=list(shape), dtype=str(dtype),
+        route=attention_route(dtype, shape[-1]), tol=tol, lse_rtol=LSE_RTOL,
+        **result)
     assert result['max_abs_err'] <= tol, (shape, dtype, result)
     assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
     results.append(result)
-  return results[0]
+  return results[0], results[1]
 
 
 def check_attention_bwd(dev, gen):
-  """K2 and K3 against the plain backward on the same inputs; the flagship
-  shape is timed, beside the plain backward and the backward of
+  """K2 and K3 against the plain backward on the same inputs, on the same
+  shapes and routes as `check_attention`; the flagship shape is timed,
+  beside the plain backward and the backward of
   `F.scaled_dot_product_attention` (fwd + bwd minus fwd)."""
-  from mulan_tpu_torch.ops.flash_attention import (flash_attention_bwd_dkv,
+  from mulan_tpu_torch.ops.flash_attention import (attention_route,
+                                                   flash_attention_bwd_dkv,
                                                    flash_attention_bwd_dq,
                                                    flash_attention_bwd_plain,
                                                    flash_attention_fwd)
-  cases = ((FLAGSHIP_ATTN, torch.bfloat16), ((3, 1, 60, 32), torch.float32),
-           ((2, 2, 100, 40), torch.bfloat16),
+  cases = ((FLAGSHIP_ATTN, torch.bfloat16), (SAMPLER_ATTN, torch.bfloat16),
+           ((3, 1, 60, 32), torch.float32), ((2, 2, 100, 40), torch.bfloat16),
+           ((2, 2, 200, 64), torch.bfloat16),
            ((2, 1, 130, 256), torch.bfloat16))
   dkv = dq = None
   for shape, dtype in cases:
@@ -267,7 +280,8 @@ def check_attention_bwd(dev, gen):
     errs = {name: rel_err(got, want) for name, got, want in
             (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
     tol = ATTN_BWD_TOL[dtype]
-    log('flash_attention_bwd', shape=list(shape), dtype=str(dtype), tol=tol,
+    log('flash_attention_bwd', shape=list(shape), dtype=str(dtype),
+        route=attention_route(dtype, shape[-1]), tol=tol,
         max_abs_ref=max(r.float().abs().max().item() for r in ref),
         **{f'{n}_rel_err': e for n, e in errs.items()})
     assert max(errs.values()) <= tol, (shape, dtype, errs)
@@ -574,19 +588,36 @@ def kernel_counters():
           'gn_swish': gn.gn_swish_fwd}
 
 
-def counted(fn):
-  """(fn(), {kernel: launches during fn}), every count set to 0 first."""
+def counted(fn, route_totals):
+  """(fn(), {kernel: launches during fn}), every count set to 0 first.
+  Asserts that every launch of the SM90_KERNELS took the 'sm90' route, and
+  adds the launches by route to route_totals ({kernel: {route: n}})."""
   counters = kernel_counters()
   for f in counters.values():
     f.launches = 0
+    if hasattr(f, 'launches_by_route'):
+      f.launches_by_route = dict.fromkeys(f.launches_by_route, 0)
   out = fn()
   torch.cuda.synchronize()
-  return out, {name: f.launches for name, f in counters.items()}
+  counts = {name: f.launches for name, f in counters.items()}
+  for name, f in counters.items():
+    by_route = getattr(f, 'launches_by_route', None)
+    if by_route is None:
+      continue
+    assert sum(by_route.values()) == counts[name], (name, by_route)
+    if name in SM90_KERNELS:
+      assert by_route['sm90'] == counts[name], (name, by_route)
+    total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
+    for route, n in by_route.items():
+      total[route] += n
+  return out, counts
 
 
 # Kernel-name substrings -> category, first match wins.
 _CATEGORIES = (
-    ('K1-K3 flash attention', ('flash_fwd', 'flash_bwd')),
+    ('K1 flash attention', ('flash_fwd',)),
+    ('K2 flash attention dK dV', ('flash_bwd_dkv',)),
+    ('K3 flash attention dQ', ('flash_bwd_dq',)),
     ('K4/K5 decoder', ('decoder_logprob',)),
     ('K6/K7 dropout masks', ('dropout_mask',)),
     ('K8 GroupNorm+swish', ('gn_swish',)),
@@ -650,7 +681,9 @@ def planted_fault():
   def zero_dk(*args):
     dk, dv = real(*args)
     return torch.zeros_like(dk), dv
-  zero_dk.launches = 0  # the real wrapper counts on the module's name
+  # The real wrapper counts on the module's name.
+  zero_dk.launches = 0
+  zero_dk.launches_by_route = dict.fromkeys(real.launches_by_route, 0)
   attn.flash_attention_bwd_dkv = zero_dk
   try:
     yield
@@ -881,12 +914,12 @@ def compare_fused_step(ex, model, build_plain, batch, noise):
                                   'passed', fault_cos)
 
 
-def compare_remat(ex, cfg, state, batch, noise, dev):
+def compare_remat(ex, cfg, state, batch, noise, dev, route_totals):
   """One train step with the kernels under each remat mode, on the same
   batch, noise and dropout seed, against 'none' (and 'none' against a
   second run of itself, the run-to-run spread); launches per mode from
-  `expected_launches`, and the step's peak memory above what was held
-  before it."""
+  `expected_launches` (by route into route_totals, as `counted`), and the
+  step's peak memory above what was held before it."""
   from mulan_tpu_torch.models import build_model
   runs, counts = {}, {}
   for name, mode in (('none', 'none'), ('all', 'all'), ('attn', 'attn'),
@@ -896,7 +929,8 @@ def compare_remat(ex, cfg, state, batch, noise, dev):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    (bpd, grads), c = counted(lambda: step_grads(ex, m, batch, noise))
+    (bpd, grads), c = counted(lambda: step_grads(ex, m, batch, noise),
+                              route_totals)
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     del m
     whole = torch.cat(list(grads.values()))
@@ -962,7 +996,8 @@ def main() -> None:
   cfg = train_cfg.model
 
   # 2. Each kernel against its plain version.
-  results = {'flash_attention': check_attention(dev, gen)}
+  results = {}
+  results['flash_attention'], k1_sampler = check_attention(dev, gen)
   (results['flash_attention_bwd_dkv'],
    results['flash_attention_bwd_dq']) = check_attention_bwd(dev, gen)
   sfu_rate = sfu_ops_per_s()
@@ -973,7 +1008,9 @@ def main() -> None:
   results['dropout_mask_batch'] = check_mask_batch(dev, cfg)
   torch.cuda.empty_cache()
 
-  # 3. Evaluation: sparse VLB over synthetic eval batches.
+  # 3. Evaluation: sparse VLB over synthetic eval batches. Every counted
+  # run of a main path adds its launches by route to route_totals.
+  route_totals = {}
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
   model = build_model(cfg, device=dev, state=state)
@@ -982,7 +1019,7 @@ def main() -> None:
   def run_eval(m):
     return counted(lambda: timed(lambda: vlb.eval_bpd_sparse(
         m, data.eval_batches(images, EVAL_BATCH), generator=gen,
-        max_batches=EVAL_BATCHES)))
+        max_batches=EVAL_BATCHES)), route_totals)
 
   (bpd, secs), eval_counts = run_eval(model)
   log('eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH, bpd=bpd,
@@ -1001,7 +1038,7 @@ def main() -> None:
   def run_sampler(m):
     ((samples, z_0), secs), counts = counted(lambda: timed(
         lambda: harness.random_samples(m, SAMPLE_BATCH, SAMPLE_STEPS,
-                                       generator=gen)))
+                                       generator=gen)), route_totals)
     log('random_samples', fused=m.config.fused_gn_swish, batch=SAMPLE_BATCH,
         steps=SAMPLE_STEPS, ms_per_step=1e3 * secs / SAMPLE_STEPS,
         shape=list(samples.shape), dtype=str(samples.dtype),
@@ -1065,11 +1102,11 @@ def main() -> None:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    history, counts = counted(lambda: ex.train(1))
+    history, counts = counted(lambda: ex.train(1), route_totals)
     if after_first is not None:
       after_first()
     (more, secs), more_counts = counted(lambda: timed(
-        lambda: ex.train(steps - 1)))
+        lambda: ex.train(steps - 1)), route_totals)
     history += more
     counts = {k: v + more_counts[k] for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1164,7 +1201,7 @@ def main() -> None:
   # recomputes K8 and regenerates its K6 masks).
   remat_counts = compare_remat(
       ex_a, dataclasses.replace(attn_cfg, fused_gn_swish=True), attn_state,
-      {'images': batch}, step_noise, dev)
+      {'images': batch}, step_noise, dev, route_totals)
   torch.cuda.empty_cache()
 
   if want_profile:
@@ -1179,7 +1216,8 @@ def main() -> None:
     for name, fn in (('elbo_b128', elbo(model)),
                      ('train_step_b128', train_step(ex)),
                      ('fused_elbo_b128', elbo(model_f)),
-                     ('fused_train_step_b128', train_step(ex_f))):
+                     ('fused_train_step_b128', train_step(ex_f)),
+                     ('attention_train_step_b128', train_step(ex_a))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -1215,7 +1253,13 @@ def main() -> None:
                         replaces=replaces, launches=sum(by_path.values()),
                         launches_by_path=by_path,
                         **{k: results[name][k] for k in keys}))
+    if name in route_totals:
+      kernels[-1]['launches_by_route'] = route_totals[name]
+      assert sum(route_totals[name].values()) == kernels[-1]['launches']
     assert kernels[-1]['launches'] > 0 or name == 'decoder_logprob_bwd', name
+  k1 = kernels[0]
+  k1['at_sampler_shape'] = {k: k1_sampler[k] for k in (
+      'ms', 'plain_ms', 'library_ms', 'bound_ms', 'max_abs_err')}
   k8 = next(k for k in kernels if k['name'] == 'gn_swish')
   k8['unfused_pair_ms'] = results['gn_swish']['unfused_pair_ms']
   k8['at_c256'] = {k: gn_swish_c256[k] for k in (

@@ -10,12 +10,11 @@
 // What bounds it on the H100: at the flagship shape (B=128, H=1, T=1024,
 // D=128, bf16) the work is 2 * 2 * B * T^2 * D = 69 GFLOP against 100 MB of
 // q/k/v/o, so a kernel that keeps the (T, T) scores on chip is bound by
-// arithmetic, while the plain version moves the 512 MB f32 score matrix
-// through HBM several times. Both kernels below keep the scores on chip: a
-// block owns 64 query rows and walks 64-key K/V tiles staged in shared
-// memory with an online softmax (running row max m and sum l, rescaling the
-// output accumulator), as the Pallas kernel does over its sequential k-grid.
-// Rows and keys past T are masked, so any T works.
+// arithmetic (0.07 ms at 989 TFLOP/s), while the plain version moves the
+// 512 MB f32 score matrix through HBM several times. Both kernels below keep
+// the scores on chip with an online softmax (running row max m and sum l,
+// rescaling the output accumulator), as the Pallas kernel does over its
+// sequential k-grid. Rows and keys past T are masked, so any T works.
 //
 // Under autograd the caller passes `lse` (B*H, T) float32 and each kernel
 // also writes the row log-sum-exp of the scaled logits, m + log l in natural
@@ -23,25 +22,39 @@
 // recompute P = exp(s - lse); with lse null nothing extra is written, as the
 // stock kernel saves its residuals only with save_residuals=True.
 //
-// * flash_fwd_mma (bf16, D <= 128, the flagship path): the two products run
-//   on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//   Each of 4 warps owns 16 query rows; its Q fragments stay in registers,
-//   and the score accumulators are re-packed in registers as the bf16 A
-//   operand of P V, so P never touches shared memory. V is stored
-//   transposed in shared memory so that its B fragments are 32-bit loads.
-//   P is rounded to bf16 for the second product, as the plain version
-//   rounds its softmax weights.
-// * flash_fwd_simt (float32, and bf16 with D > 128): the arithmetic runs on
-//   the CUDA cores in float32; every thread keeps a 4 x 4 tile of scores and
-//   a 4 x (D/16) tile of the output in registers, so each shared-memory load
-//   feeds several FMAs, and P stays in float32.
-//
-// Later work: wgmma and TMA-fed, pipelined tiles.
+// Two routes, one C entry point each; ops/flash_attention.py picks one from
+// (dtype, D):
+// * mulan_flash_attention_fwd_sm90 (bf16, D <= 128, the flagship path):
+//   flash_fwd_sm90, warp-specialised and persistent (one block per SM
+//   walking 128-row query tiles). A block has one producer warpgroup, whose
+//   single issuing thread loads each Q tile by TMA and streams 128-key K
+//   and V tiles through a 3-stage ring of 128B-swizzled shared memory (full
+//   and empty mbarriers), and two consumer warpgroups of 64 query rows
+//   each. A consumer computes S = Q K^T with wgmma m64n128k16 straight from
+//   the TMA tiles (SS form, both K-major), runs the online softmax in exp2
+//   units on the accumulator layout, packs P to bf16 in registers as the A
+//   operand of O += P V (RS form), and reads V as the MN-major B operand
+//   with the transpose bit, so no transposed copy of V exists. S of the
+//   next tile is issued with P V of this one, so the softmax runs while the
+//   tensor cores work; the copies run ahead of both, across items too, and
+//   setmaxnreg moves registers from the producer to the consumers. P is
+//   rounded to bf16 unnormalized for the second product, as the plain
+//   version rounds its (normalized) softmax weights. TMA fills rows past T
+//   and columns past D with zeros within the head (3-D tensor maps), keys
+//   past T are masked to -inf, and only columns < D are stored.
+// * mulan_flash_attention_fwd_simt (float32, and bf16 with D > 128):
+//   flash_fwd_simt, the arithmetic on the CUDA cores in float32; every
+//   thread keeps a 4 x 4 tile of scores and a 4 x (D/16) tile of the output
+//   in registers, so each shared-memory load feeds several FMAs, and P stays
+//   in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -220,247 +233,349 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16, D <= 128.
+// sm90 route: bf16, D <= 128.
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
-constexpr int kPad = 8;           // bf16 of row padding: rows stay 16-byte
-                                  // aligned and fragment loads hit distinct
-                                  // banks
-constexpr int kLdV = kBlockN + kPad;
+constexpr int kWgThreads = 128;
+constexpr int kFwdRows = 128;   // query rows a block: 2 consumer warpgroups
+constexpr int kFwdKeys = 128;   // keys a K/V tile
+constexpr int kFwdStages = 3;   // K/V tiles in flight
+constexpr int kFwdThreads = 3 * kWgThreads;  // producer + 2 consumers
+constexpr int kConsumerWarps = 8;
+// 128 x 24 + 256 x 240 registers fit the SM's 65,536.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Byte offsets in the block's shared memory, from a 1024-byte boundary.
+// DPAD (64 or 128) is D rounded up to whole 64-column boxes.
+template <int DPAD>
+struct FwdLayout {
+  static constexpr int kBoxes = DPAD / 64;
+  static constexpr int kQBox = kFwdRows * 128;   // one 64-column box of Q
+  static constexpr int kKVBox = kFwdKeys * 128;  // of a K or V tile
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  static constexpr int kK = kQBytes;                        // K ring
+  static constexpr int kV = kK + kFwdStages * kKVBytes;     // V ring
+  static constexpr int kBars = kV + kFwdStages * kKVBytes;  // mbarriers
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kFwdStages) + 1024;
+};
+
+// S (64 x 128 keys) = Q K^T for the consumer whose Q rows start at byte
+// q_row of each Q box: DPAD / 16 wgmma, SS form, both K-major.
+template <int DPAD>
+__device__ __forceinline__ void issue_qk(float (&sc)[kFwdKeys / 2],
+                                         uint32_t q_tile, int q_row,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < DPAD / 16; ++ks)
+    sm90::wgmma_ss<0>(
+        sc, sm90::desc_k_major(q_tile, kFwdRows * 128, q_row, ks),
+        sm90::desc_k_major(k_tile, kFwdKeys * 128, 0, ks), ks > 0);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// O += P V: P's bf16 A fragments, V the MN-major B operand (transpose bit).
+template <int DPAD>
+__device__ __forceinline__ void issue_pv(float (&acc)[DPAD / 2],
+                                         const uint32_t (&pa)[kFwdKeys / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int ks = 0; ks < kFwdKeys / 16; ++ks)
+    sm90::wgmma_rs<1>(acc, pa[ks],
+                      sm90::desc_mn_major(v_tile, kFwdKeys * 128, ks), 1);
 }
 
-// d += a b on one 16 x 8 x 16 tile: bf16 in, f32 accumulators. Fragment
-// layouts (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane % 4:
-// a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
-// b = B[2t..][g], B[2t+8..][g]; d = D[g][2t..], D[g+8][2t..].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies rows [row0, row0 + 64) of a (seq, d) bf16 matrix into a (64, ld)
-// shared tile in 16-byte chunks, zero past seq and past d (up to d16).
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src, int row0,
-                                          int seq, int d, int d16) {
-  const int chunks = d16 / 8;
-  for (int i = threadIdx.x; i < 64 * chunks; i += kMmaThreads) {
-    const int r = i / chunks, c = i - r * chunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq && c * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
-                                            c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
+// The online softmax of one tile of scores, keys from key0, in place:
+// keys past seq masked, the rows' running max m (log2 units of the scaled
+// logits) and partial sums l updated, sc replaced by the unnormalized
+// weights exp2(s scale_log2 - m), and alpha = exp2(m_old - m), the factor
+// that brings the output so far to the new max. Rows g and g + 8 of the
+// warp's 16 (suffixes 0 and 1); a row's 128 keys lie in the 4 threads of a
+// quad, reduced by shuffles.
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kFwdKeys / 2], int key0, int seq, int t4, float scale_log2,
+    float& m0, float& m1, float& l0, float& l1, float& alpha0,
+    float& alpha1) {
+  const bool ragged = key0 + kFwdKeys > seq;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kFwdKeys / 8; ++j) {
+    if (ragged) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (key0 + 8 * j + 2 * t4 + (e & 1) >= seq) sc[4 * j + e] = -INFINITY;
+    }
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-              int seq, int d, float scale_log2) {
-  constexpr int kSteps = DMAX / 16;  // k-steps of Q K^T
-  constexpr int kOut = DMAX / 8;     // 8-column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d16 = (d + 15) & ~15;
-  const int ldk = d16 + kPad;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockM * ldk;  // [kBlockN][ldk]
-  __nv_bfloat16* vt = ks + kBlockN * ldk;  // [d][kLdV]: V transposed
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t base = (size_t)blockIdx.x * seq * d;
-  const int q0 = blockIdx.y * kBlockM;
-  const int n_steps = d16 / 16;
-  const int n_out = d / 8;
-
-  load_rows(qs, ldk, q + base, q0, seq, d, d16);
-  __syncthreads();
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const __nv_bfloat16* p0 = qs + (warp * 16 + g) * ldk + s * 16 + t4 * 2;
-    const __nv_bfloat16* p1 = p0 + 8 * ldk;
-    const bool on = s < n_steps;
-    qa[s][0] = on ? ld32(p0) : 0u;
-    qa[s][1] = on ? ld32(p1) : 0u;
-    qa[s][2] = on ? ld32(p0 + 8) : 0u;
-    qa[s][3] = on ? ld32(p1 + 8) : 0u;
-  }
-
-  float acc[kOut][4];
-#pragma unroll
-  for (int n = 0; n < kOut; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  // Rows g and g + 8 of this warp's 16: running max (log2 units) and the
-  // partial sum over this thread's columns (summed over the quad at the end).
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-  for (int k0 = 0; k0 < seq; k0 += kBlockN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(ks, ldk, k + base, k0, seq, d, d16);
-    // V^T: consecutive threads take consecutive rows, so one warp's 2-byte
-    // stores fall in distinct banks.
-    for (int i = threadIdx.x; i < kBlockN * n_out; i += kMmaThreads) {
-      const int r = i % kBlockN, c = i / kBlockN;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < seq)
-        val = *reinterpret_cast<const uint4*>(v + base + (size_t)(k0 + r) * d +
-                                              c * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c * 8 + j) * kLdV + r] = e[j];
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        if (st < n_steps) {
-          const __nv_bfloat16* p = ks + (n * 8 + g) * ldk + st * 16 + t4 * 2;
-          mma_bf16(s[n], qa[st], ld32(p), ld32(p + 8));
-        }
-      }
-    }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t4 * 2 + (e & 1);
-        s[n][e] = col < seq ? s[n][e] * scale_log2 : -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float new0 = fmaxf(m0, mx0), new1 = fmaxf(m1, mx1);  // finite
-    const float alpha0 = exp2f(m0 - new0), alpha1 = exp2f(m1 - new1);
-    m0 = new0;
-    m1 = new1;
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - new0);
-      s[n][1] = exp2f(s[n][1] - new0);
-      s[n][2] = exp2f(s[n][2] - new1);
-      s[n][3] = exp2f(s[n][3] - new1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-#pragma unroll
-    for (int n = 0; n < kOut; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
-    }
-
-    // O += P V. The score accumulators of tiles 2j and 2j + 1 are, element
-    // for element, the A fragment of keys [16 j, 16 j + 16).
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kOut; ++n) {
-        if (n < n_out) {
-          const __nv_bfloat16* p = vt + (n * 8 + g) * kLdV + j * 16 + t4 * 2;
-          mma_bf16(acc[n], pa, ld32(p), ld32(p + 8));
-        }
-      }
-    }
-  }
-
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-  if (lse != nullptr && t4 == 0) {
-    // m is in log2 units of the scaled logits: lse = m ln 2 + ln l.
-    constexpr float kLn2 = 0.6931471805599453f;
-    const size_t lrow = (size_t)blockIdx.x * seq;
-    if (row0 < seq) lse[lrow + row0] = m0 * kLn2 + logf(l0);
-    if (row1 < seq) lse[lrow + row1] = m1 * kLn2 + logf(l1);
-  }
+  // Finite: every tile holds a key < seq. scale_log2 > 0, so the max of
+  // the scaled logits is the scaled max.
+  const float new0 = fmaxf(m0, mx0 * scale_log2);
+  const float new1 = fmaxf(m1, mx1 * scale_log2);
+  alpha0 = exp2f(m0 - new0);
+  alpha1 = exp2f(m1 - new1);
+  m0 = new0;
+  m1 = new1;
+  float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-  for (int n = 0; n < kOut; ++n) {
-    if (n >= n_out) continue;
-    const int col = n * 8 + t4 * 2;
-    if (row0 < seq)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)row0 * d + col) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row1 < seq)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)row1 * d + col) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  for (int j = 0; j < kFwdKeys / 8; ++j) {
+    sc[4 * j] = exp2f(fmaf(sc[4 * j], scale_log2, -new0));
+    sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], scale_log2, -new0));
+    sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], scale_log2, -new1));
+    sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], scale_log2, -new1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l0 = l0 * alpha0 + sum0;
+  l1 = l1 * alpha1 + sum1;
+}
+
+// Chunks 2 ks and 2 ks + 1 of the scores' accumulator layout are, packed to
+// bf16 pairs, the A fragment of keys [16 ks, 16 ks + 16).
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kFwdKeys / 16][4],
+                                       const float (&sc)[kFwdKeys / 2]) {
+#pragma unroll
+  for (int ks = 0; ks < kFwdKeys / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[ks][r] = sm90::pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+}
+
+// Persistent: a block per SM walks the items (a 128-row query tile of one
+// head) blockIdx.x, blockIdx.x + gridDim.x, ...; consecutive blocks take
+// consecutive query tiles of a head, so its K and V stay in L2. The K/V
+// ring runs on from one item into the next, and the Q tile is released as
+// soon as the item's last S = Q K^T is done, so the next item's Q and
+// first K/V tiles load while this item finishes its last P V and stores.
+template <int DPAD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               int n_items, int seq, int d, float scale_log2) {
+  using L = FwdLayout<DPAD>;
+  extern __shared__ uint8_t smem_tiles[];
+  uint8_t* smem = sm90::align_1024(smem_tiles);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;       // both consumers done with Q
+  uint64_t* full = q_empty + 1;         // [stage]: K and V tiles landed
+  uint64_t* empty = full + kFwdStages;  // [stage]: both consumers done
+  const int n_qtiles = (seq + kFwdRows - 1) / kFwdRows;
+  const int n_tiles = (seq + kFwdKeys - 1) / kFwdKeys;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < kFwdStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / kWgThreads;  // warpgroup
+  if (role == 0) {
+    // Producer warpgroup; one thread issues every copy. n counts the K/V
+    // tiles through the ring, `it` the items (Q tiles).
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int head = item / n_qtiles;
+        const int q0 = item % n_qtiles * kFwdRows;
+        sm90::mbar_wait(q_empty, (it & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(q_full, L::kQBytes);
+        for (int b = 0; b < L::kBoxes; ++b)
+          sm90::tma_load(smem + b * L::kQBox, &q_map, q_full, 64 * b, q0,
+                         head);
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % kFwdStages;
+          sm90::mbar_wait(&empty[s], ((n / kFwdStages) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKVBytes);
+          uint8_t* kt = smem + L::kK + s * L::kKVBytes;
+          uint8_t* vt = smem + L::kV + s * L::kKVBytes;
+          for (int b = 0; b < L::kBoxes; ++b) {
+            sm90::tma_load(kt + b * L::kKVBox, &k_map, &full[s], 64 * b,
+                           i * kFwdKeys, head);
+            sm90::tma_load(vt + b * L::kKVBox, &v_map, &full[s], 64 * b,
+                           i * kFwdKeys, head);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg + [0, 64) of each item.
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = role - 1;
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t q_tile = sm90::smem_u32(smem);
+    const int q_row = wg * 64 * 128;  // this warpgroup's rows in a Q box
+    auto k_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kK + s * L::kKVBytes);
+    };
+    auto v_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kV + s * L::kKVBytes);
+    };
+    // Arrive on a barrier once per consumer warp.
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+
+    int n = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int head = item / n_qtiles;
+      const int q0 = item % n_qtiles * kFwdRows;
+      float acc[DPAD / 2];  // O, 64 x DPAD
+#pragma unroll
+      for (int r = 0; r < DPAD / 2; ++r) acc[r] = 0.0f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+      float alpha0, alpha1;
+      float sc[kFwdKeys / 2];         // S of one tile, then its weights P
+      uint32_t pa[kFwdKeys / 16][4];  // P in bf16, the A operand of P V
+
+      // Tile 0: S, softmax, P.
+      sm90::mbar_wait(q_full, it & 1);
+      sm90::mbar_wait(&full[n % kFwdStages], (n / kFwdStages) & 1);
+      sm90::wgmma_fence();
+      issue_qk<DPAD>(sc, q_tile, q_row, k_tile(n % kFwdStages));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      if (n_tiles == 1) release(q_empty);
+      online_softmax(sc, 0, seq, t4, scale_log2, m0, m1, l0, l1, alpha0,
+                     alpha1);
+      pack_p(pa, sc);
+      // Tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together;
+      // the softmax of S_i runs while the tensor cores do P_{i-1} V_{i-1}.
+      for (int i = 1; i < n_tiles; ++i) {
+        const int s = (n + i) % kFwdStages, prev = (n + i - 1) % kFwdStages;
+        sm90::mbar_wait(&full[s], ((n + i) / kFwdStages) & 1);
+        sm90::wgmma_fence();
+        issue_qk<DPAD>(sc, q_tile, q_row, k_tile(s));
+        sm90::wgmma_commit();
+        issue_pv<DPAD>(acc, pa, v_tile(prev));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // S_i
+        sm90::fence_regs(sc);
+        if (i == n_tiles - 1) release(q_empty);
+        online_softmax(sc, i * kFwdKeys, seq, t4, scale_log2, m0, m1, l0,
+                       l1, alpha0, alpha1);
+        sm90::wgmma_wait<0>();  // P_{i-1} V_{i-1}: stage prev is free
+        sm90::fence_regs(acc);
+        release(&empty[prev]);
+#pragma unroll
+        for (int j = 0; j < DPAD / 8; ++j) {
+          acc[4 * j] *= alpha0;
+          acc[4 * j + 1] *= alpha0;
+          acc[4 * j + 2] *= alpha1;
+          acc[4 * j + 3] *= alpha1;
+        }
+        pack_p(pa, sc);
+      }
+      const int last = (n + n_tiles - 1) % kFwdStages;
+      sm90::wgmma_fence();
+      issue_pv<DPAD>(acc, pa, v_tile(last));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      release(&empty[last]);
+      n += n_tiles;
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const int row0 = q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+      const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+      if (lse != nullptr && t4 == 0) {
+        // m is in log2 units of the scaled logits: lse = m ln 2 + ln l.
+        constexpr float kLn2 = 0.6931471805599453f;
+        const size_t lrow = (size_t)head * seq;
+        if (row0 < seq) lse[lrow + row0] = m0 * kLn2 + logf(l0);
+        if (row1 < seq) lse[lrow + row1] = m1 * kLn2 + logf(l1);
+      }
+      const size_t base = (size_t)head * seq * d;
+#pragma unroll
+      for (int j = 0; j < DPAD / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col >= d) continue;
+        if (row0 < seq)
+          *reinterpret_cast<uint32_t*>(o + base + (size_t)row0 * d + col) =
+              sm90::pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        if (row1 < seq)
+          *reinterpret_cast<uint32_t*>(o + base + (size_t)row1 * d + col) =
+              sm90::pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+    }
   }
 }
 
-template <int DMAX>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int bh, int seq, int d, float scale,
-               cudaStream_t stream) {
-  const int ldk = ((d + 15) & ~15) + kPad;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(kBlockM + kBlockN) * ldk + (size_t)d * kLdV);
+template <int DPAD>
+int launch_sm90(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int seq, int d, float scale,
+                cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* srcs[3] = {q, k, v};
+  const int rows[3] = {kFwdRows, kFwdKeys, kFwdKeys};
+  for (int i = 0; i < 3; ++i) {
+    const int err = sm90::make_map(&maps[i], srcs[i], bh, seq, d, rows[i]);
+    if (err != 0) return err;
+  }
+  constexpr int smem = FwdLayout<DPAD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_sm90<DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (seq + kBlockM - 1) / kBlockM);
-  flash_fwd_mma<DMAX><<<grid, kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, seq, d,
-      scale * 1.4426950408889634f);  // log2(e): exp2f in the kernel
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int n_items = (seq + kFwdRows - 1) / kFwdRows * bh;
+  flash_fwd_sm90<DPAD><<<n_items < sms ? n_items : sms, kFwdThreads, smem,
+                         stream>>>(maps[0], maps[1], maps[2],
+                                   (__nv_bfloat16*)o, lse, n_items, seq, d,
+                                   scale * kLog2e);  // exp2f in the kernel
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mulan_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, void* lse,
-                                         int bh, int seq, int d, float scale,
-                                         int is_bf16, void* stream) {
+// q, k, v, o: (bh, seq, d) bf16 with d % 8 == 0 and d <= 128.
+extern "C" int mulan_flash_attention_fwd_sm90(const void* q, const void* k,
+                                              const void* v, void* o,
+                                              void* lse, int bh, int seq,
+                                              int d, float scale,
+                                              void* stream) {
+  if (bh <= 0 || seq <= 0 || d <= 0 || d > 128 || d % 8 != 0 ||
+      (long long)((seq + kFwdRows - 1) / kFwdRows) * bh > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;  // may be null: no residual wanted
+  if (d <= 64) return launch_sm90<64>(q, k, v, o, l, bh, seq, d, scale, s);
+  return launch_sm90<128>(q, k, v, o, l, bh, seq, d, scale, s);
+}
+
+// q, k, v, o: (bh, seq, d) float32 or bf16 with d % 8 == 0 and d <= 256.
+extern "C" int mulan_flash_attention_fwd_simt(const void* q, const void* k,
+                                              const void* v, void* o,
+                                              void* lse, int bh, int seq,
+                                              int d, float scale, int is_bf16,
+                                              void* stream) {
   if (bh <= 0 || seq <= 0 || d <= 0 || d > 256 || d % 8 != 0 ||
       (seq + kBlockM - 1) / kBlockM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  float* l = (float*)lse;  // may be null: no residual wanted
-  if (!is_bf16)
-    return dispatch_simt<float>(q, k, v, o, l, bh, seq, d, scale, s);
-  if (d <= 64) return launch_mma<64>(q, k, v, o, l, bh, seq, d, scale, s);
-  if (d <= 128) return launch_mma<128>(q, k, v, o, l, bh, seq, d, scale, s);
-  return dispatch_simt<__nv_bfloat16>(q, k, v, o, l, bh, seq, d, scale, s);
+  float* l = (float*)lse;
+  if (is_bf16)
+    return dispatch_simt<__nv_bfloat16>(q, k, v, o, l, bh, seq, d, scale, s);
+  return dispatch_simt<float>(q, k, v, o, l, bh, seq, d, scale, s);
 }

@@ -1,12 +1,15 @@
 """Builds `csrc/*.cu` into one shared library at first use and loads it.
 
 The sources are compiled by `nvcc` for `sm_90a` (H100) into a plain C
-interface, keyed by a hash of the sources and flags, under
+interface, keyed by a hash of the flags and of every file under `csrc/`
+(the `.cu` sources and the headers they include, such as `sm90.cuh`), under
 `mulan_tpu_torch/_build/` (listed in `.gitignore`): one `nvcc -c` per source,
 all started together, then one link. Nothing here includes PyTorch's headers,
-so a build takes seconds. Kernels launch on the stream the caller passes
-(PyTorch's current stream) and return `cudaGetLastError()`, which `check()`
-turns into an exception.
+so a build takes seconds. The library links only the CUDA runtime: the
+kernels that use TMA look `cuTensorMapEncodeTiled` up through
+`cudaGetDriverEntryPoint` (`csrc/sm90.cuh`), so no `-lcuda` is needed.
+Kernels launch on the stream the caller passes (PyTorch's current stream)
+and return `cudaGetLastError()`, which `check()` turns into an exception.
 """
 
 from __future__ import annotations
@@ -34,17 +37,26 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     # (q, k, v, o, lse or None, batch*heads, tokens, head_dim, sm_scale,
-    #  is_bf16, stream)
-    'mulan_flash_attention_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                                  _P],
+    #  stream); bf16, head_dim <= 128
+    'mulan_flash_attention_fwd_sm90': [_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                       _P],
+    # the same, then is_bf16 before the stream
+    'mulan_flash_attention_fwd_simt': [_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                       _I, _P],
     # (q, k, v, do, lse, di, dk, dv, batch*heads, tokens, head_dim,
-    #  sm_scale, is_bf16, stream)
-    'mulan_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                      _I, _F, _I, _P],
+    #  sm_scale, stream); bf16, head_dim <= 128
+    'mulan_flash_attention_bwd_dkv_sm90': [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _F, _P],
+    # the same, then is_bf16 before the stream
+    'mulan_flash_attention_bwd_dkv_simt': [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _F, _I, _P],
     # (q, k, v, do, lse, di, dq, batch*heads, tokens, head_dim, sm_scale,
-    #  is_bf16, stream)
-    'mulan_flash_attention_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _F, _I, _P],
+    #  stream); bf16, head_dim <= 128
+    'mulan_flash_attention_bwd_dq_sm90': [_P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _F, _P],
+    # the same, then is_bf16 before the stream
+    'mulan_flash_attention_bwd_dq_simt': [_P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _F, _I, _P],
     # (x, z, g0, partial, out, batch, pixels, n_blocks, vocab_size, stream)
     'mulan_decoder_logprob_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (x, z, g0, ct, dz, dg0, batch, pixels, vocab_size, stream)
@@ -74,10 +86,12 @@ def _sources():
 
 
 def _library_path() -> pathlib.Path:
+  """The library's path, named by a hash of the flags and of every file
+  under `csrc/`, so that an edit to a header alone rebuilds it too."""
   digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-  for src in _sources():
-    digest.update(src.name.encode())
-    digest.update(src.read_bytes())
+  for path in sorted(p for p in _CSRC.iterdir() if p.is_file()):
+    digest.update(path.name.encode())
+    digest.update(path.read_bytes())
   return _BUILD / digest.hexdigest()[:16] / 'libmulan_kernels.so'
 
 

@@ -9,6 +9,14 @@ module's `_dkv_kernel` (K2, dK and dV) and `_dq_kernel` (K3, dQ). As in JAX
 autograd, and the backward computes di = rowsum(o * dO) in PyTorch before
 the two kernels.
 
+Each kernel has two routes, one C entry point each (`<entry>_sm90`,
+`<entry>_simt`), chosen here once by `attention_route(dtype, head_dim)`:
+'sm90' for bfloat16 with head_dim <= 128 (the flagship's path: K1 and K2 as
+TMA-fed, warp-specialised `wgmma` kernels; K3 on `mma.sync` until it gets
+the same treatment) and 'simt' otherwise (float32, and head_dim up to 256,
+on the CUDA cores). A wrapper counts its launches in `launches` and, by
+route, in `launches_by_route`.
+
 The plain versions run for CPU tensors and are what the kernels are held
 against on the card. The plain forward is the einsum path of
 `mulan_tpu/models/layers.py:AttnBlock` (float32 logits and softmax, weights
@@ -27,6 +35,13 @@ import torch
 from mulan_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ('sm90', 'simt')
+
+
+def attention_route(dtype: torch.dtype, head_dim: int) -> str:
+  """The kernels' route for inputs of this dtype and head_dim: 'sm90'
+  (tensor cores) for bfloat16 with head_dim <= 128, else 'simt'."""
+  return 'sm90' if dtype == torch.bfloat16 and head_dim <= 128 else 'simt'
 
 
 def flash_attention_plain(q, k, v, sm_scale: float, *,
@@ -87,6 +102,20 @@ def _stream(t):
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(entry, wrapper, q, *args):
+  """Calls the C entry point `{entry}_{route}` for q's route (the simt one
+  also takes is_bf16) on the current stream, raises on its error, and
+  counts the launch on `wrapper`."""
+  route = attention_route(q.dtype, q.shape[-1])
+  if route == 'simt':
+    args = (*args, int(q.dtype == torch.bfloat16))
+  lib = _build.load_library()
+  _build.check(getattr(lib, f'{entry}_{route}')(*args, _stream(q)),
+               wrapper.__name__)
+  wrapper.launches += 1
+  wrapper.launches_by_route[route] += 1
+
+
 def flash_attention_fwd(q, k, v, sm_scale: float, *,
                         return_lse: bool = False):
   """`flash_attention_plain` for CPU tensors; the K1 kernel otherwise.
@@ -102,13 +131,10 @@ def flash_attention_fwd(q, k, v, sm_scale: float, *,
   o = torch.empty_like(q)
   lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
          if return_lse else None)
-  lib = _build.load_library()
-  status = lib.mulan_flash_attention_fwd(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-      None if lse is None else lse.data_ptr(), b * h, t, d, float(sm_scale),
-      int(q.dtype == torch.bfloat16), _stream(q))
-  _build.check(status, 'flash_attention')
-  flash_attention.launches += 1
+  _launch('mulan_flash_attention_fwd', flash_attention, q, q.data_ptr(),
+          k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          None if lse is None else lse.data_ptr(), b * h, t, d,
+          float(sm_scale))
   return (o, lse) if return_lse else o
 
 
@@ -118,12 +144,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dkv', q, lse, di)
   b, h, t, d = q.shape
   dk, dv = torch.empty_like(k), torch.empty_like(v)
-  status = _build.load_library().mulan_flash_attention_bwd_dkv(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-      lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t,
-      d, float(sm_scale), int(q.dtype == torch.bfloat16), _stream(q))
-  _build.check(status, 'flash_attention_bwd_dkv')
-  flash_attention_bwd_dkv.launches += 1
+  _launch('mulan_flash_attention_bwd_dkv', flash_attention_bwd_dkv, q,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
+          t, d, float(sm_scale))
   return dk, dv
 
 
@@ -133,12 +157,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dq', q, lse, di)
   b, h, t, d = q.shape
   dq = torch.empty_like(q)
-  status = _build.load_library().mulan_flash_attention_bwd_dq(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-      lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h, t, d,
-      float(sm_scale), int(q.dtype == torch.bfloat16), _stream(q))
-  _build.check(status, 'flash_attention_bwd_dq')
-  flash_attention_bwd_dq.launches += 1
+  _launch('mulan_flash_attention_bwd_dq', flash_attention_bwd_dq, q,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h, t, d,
+          float(sm_scale))
   return dq
 
 
@@ -181,6 +203,7 @@ def flash_attention(q, k, v, sm_scale: float) -> torch.Tensor:
   return flash_attention_fwd(q, k, v, sm_scale)
 
 
-flash_attention.launches = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
+for _wrapper in (flash_attention, flash_attention_bwd_dkv,
+                 flash_attention_bwd_dq):
+  _wrapper.launches = 0
+  _wrapper.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,0 +1,165 @@
+"""The attention kernels' routes, their C entry points and the build's
+cache key, on the CPU (no nvcc, no card).
+
+`attention_route(dtype, head_dim)` picks each wrapper's C entry point: the
+'sm90' route (TMA-fed, warp-specialised wgmma kernels for K1 and K2) for
+bfloat16 with head_dim <= 128, the 'simt' route otherwise. The kernels
+themselves are held against the plain versions on the card by
+chip_smoke.py, which also asserts that every K1 and K2 launch of the
+flagship paths took the 'sm90' route.
+"""
+
+import re
+import shutil
+
+import pytest
+import torch
+
+from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.ops import flash_attention as attn_ops
+import torch_port_helpers  # noqa: F401  (caps torch threads)
+
+WRAPPERS = (attn_ops.flash_attention, attn_ops.flash_attention_bwd_dkv,
+            attn_ops.flash_attention_bwd_dq)
+
+
+@pytest.mark.parametrize('dtype, head_dim, route', [
+    (torch.bfloat16, 128, 'sm90'),  # the flagship's attention blocks
+    (torch.bfloat16, 64, 'sm90'),
+    (torch.bfloat16, 40, 'sm90'),   # padded to a 64-column box
+    (torch.bfloat16, 8, 'sm90'),
+    (torch.bfloat16, 136, 'simt'),
+    (torch.bfloat16, 256, 'simt'),  # imagenet32's 256 channels
+    (torch.float32, 128, 'simt'),
+    (torch.float32, 64, 'simt'),
+])
+def test_route_table(dtype, head_dim, route):
+  assert attn_ops.attention_route(dtype, head_dim) == route
+  assert route in attn_ops.ROUTES
+
+
+def test_every_wrapper_counts_by_route():
+  for wrapper in WRAPPERS:
+    assert set(wrapper.launches_by_route) == set(attn_ops.ROUTES)
+
+
+def _entry_points():
+  """{name: number of parameters} of every extern "C" function in csrc/."""
+  found = {}
+  for path in _build._CSRC.glob('*.cu'):
+    text = path.read_text()
+    for m in re.finditer(r'extern "C" [\w ]+?\*?\s*(mulan_\w+)\(([^)]*)\)',
+                         text):
+      found[m.group(1)] = len([a for a in m.group(2).split(',') if a.strip()])
+  return found
+
+
+def test_signatures_match_the_sources():
+  """Every ctypes signature names an entry point of csrc/ with as many
+  parameters, and each route of K1, K2 and K3 has its own entry point."""
+  entries = _entry_points()
+  for name, argtypes in _build._SIGNATURES.items():
+    assert entries.get(name) == len(argtypes), (name, entries.get(name))
+  for entry in ('mulan_flash_attention_fwd', 'mulan_flash_attention_bwd_dkv',
+                'mulan_flash_attention_bwd_dq'):
+    assert entry not in entries, entry  # no entry point chooses in C
+    for route in attn_ops.ROUTES:
+      assert f'{entry}_{route}' in _build._SIGNATURES, (entry, route)
+
+
+def test_tensor_core_kernels_are_the_sm90_ones():
+  """flash_fwd_mma and flash_bwd_dkv_mma are gone; the sm90 kernels keep
+  the flash_fwd / flash_bwd prefixes by which profiles file them."""
+  text = ''.join(p.read_text() for p in _build._CSRC.iterdir())
+  assert 'flash_fwd_mma' not in text and 'flash_bwd_dkv_mma' not in text
+  for kernel in ('flash_fwd_sm90', 'flash_bwd_dkv_sm90', 'flash_bwd_dq_mma',
+                 'flash_fwd_simt', 'flash_bwd_dkv', 'flash_bwd_dq'):
+    assert re.search(rf'\b{kernel}\s*\(', text), kernel
+  assert '#include "sm90.cuh"' in (_build._CSRC /
+                                   'flash_attention.cu').read_text()
+  assert '#include "sm90.cuh"' in (_build._CSRC /
+                                   'flash_attention_bwd.cu').read_text()
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+  copy = tmp_path / 'csrc'
+  shutil.copytree(_build._CSRC, copy)
+  monkeypatch.setattr(_build, '_CSRC', copy)
+  return copy
+
+
+@pytest.mark.parametrize('name', ['sm90.cuh', 'flash_attention.cu'])
+def test_library_path_follows_every_source(csrc_copy, name):
+  """An edit to a header alone gives another library, as one to a .cu
+  does; undoing it gives the first one back."""
+  before = _build._library_path()
+  path = csrc_copy / name
+  text = path.read_text()
+  path.write_text(text + '\n// edited\n')
+  edited = _build._library_path()
+  assert edited != before
+  assert edited.parent.parent == before.parent.parent == _build._BUILD
+  path.write_text(text)
+  assert _build._library_path() == before
+
+
+def test_library_path_follows_a_new_file_and_the_flags(csrc_copy,
+                                                      monkeypatch):
+  before = _build._library_path()
+  (csrc_copy / 'extra.cuh').write_text('#pragma once\n')
+  with_header = _build._library_path()
+  assert with_header != before
+  monkeypatch.setattr(_build, 'NVCC_FLAGS', (*_build.NVCC_FLAGS, '-lineinfo'))
+  assert _build._library_path() != with_header
+
+
+def _qkv(device, dtype=torch.float32, shape=(1, 1, 8, 8)):
+  return tuple(torch.zeros(shape, dtype=dtype, device=device)
+               for _ in range(4))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_wrappers_raise_off_cpu_and_cuda(dtype):
+  """A tensor on neither device never takes the plain version or a
+  kernel: every wrapper raises, whatever its route would be."""
+  q, k, v, do = _qkv('meta', dtype)
+  rows = torch.zeros((1, 1, 8), device='meta')
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention(q, k, v, 1.0)
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_fwd(q, k, v, 1.0, return_lse=True)
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_bwd_dkv(q, k, v, do, rows, rows, 1.0)
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_bwd_dq(q, k, v, do, rows, rows, 1.0)
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_bwd(q, k, v, q, rows, do, 1.0)
+
+
+def test_kernel_wrappers_take_no_cpu_tensors():
+  """K2's and K3's wrappers launch kernels only; the CPU's plain backward
+  is reached through flash_attention_bwd."""
+  q, k, v, do = _qkv('cpu', torch.bfloat16)
+  rows = torch.zeros((1, 1, 8))
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_bwd_dkv(q, k, v, do, rows, rows, 1.0)
+  with pytest.raises(ValueError, match='unsupported device'):
+    attn_ops.flash_attention_bwd_dq(q, k, v, do, rows, rows, 1.0)
+
+
+@pytest.mark.parametrize('dtype, head_dim', [(torch.bfloat16, 128),
+                                             (torch.float32, 32)])
+def test_cpu_calls_launch_nothing(dtype, head_dim):
+  """The plain versions on the CPU count no launch on any route."""
+  shape = (2, 1, 16, head_dim)
+  gen = torch.Generator().manual_seed(0)
+  q, k, v, do = (torch.randn(shape, generator=gen).to(dtype)
+                 for _ in range(4))
+  before = [(w.launches, dict(w.launches_by_route)) for w in WRAPPERS]
+  o, lse = attn_ops.flash_attention_fwd(q, k, v, head_dim ** -0.5,
+                                        return_lse=True)
+  grads = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, head_dim ** -0.5)
+  assert o.shape == shape and lse.shape == shape[:3]
+  assert all(g.shape == shape and g.dtype == dtype for g in grads)
+  assert [(w.launches, dict(w.launches_by_route)) for w in WRAPPERS] == before
