@@ -12,12 +12,12 @@ weights from a seed) through the sparse-VLB evaluation, the ancestral
 sampler and a dozen steps of `Experiment.train` at batch 128 with dropout,
 and checks from the kernels' launch counts that each path went through its
 kernels; one train step with the kernels is held against one with the plain
-versions. Then the same three paths run with `fused_gn_swish` and
-`dropout_mask_batch` on (K8 at every GN-swish site of the score UNet, K7 for
-its masks), one fused train step is held against its plain twin, a few
-train steps run with `with_attention` and `remat='attn'`, and one train step
-under each `remat` mode is held against the step without it. Every check
-raises on failure.
+versions, and planted faults in K2 and K3 must fail the same gates. Then
+the same three paths run with `fused_gn_swish` and `dropout_mask_batch` on
+(K8 at every GN-swish site of the score UNet, K7 for its masks), one fused
+train step is held against its plain twin, a few train steps run with
+`with_attention` and `remat='attn'`, and one train step under each `remat`
+mode is held against the step without it. Every check raises on failure.
 
 With `--profile` it also profiles one ELBO and one train step, unfused and
 fused, by kernel category with `torch.profiler` and prints the tables as
@@ -55,7 +55,8 @@ FLAGSHIP_ATTN = (EVAL_BATCH, 1, 1024, 128)
 SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 128)
 # Kernels every one of whose launches on the flagship paths must take the
 # 'sm90' route (TMA-fed, warp-specialised wgmma kernels).
-SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv')
+SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
+                'flash_attention_bwd_dq')
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -67,6 +68,12 @@ HBM_BYTES_PER_S = 3.35e12
 # arithmetic instruction throughput); the rate is that times the SM count
 # times the card's maximum SM clock, read at run time.
 SFU_PER_CLOCK_PER_SM = 16
+# Its 32-bit integer multiply units return 64 results a clock per SM (the
+# same table); a mulhi counts as one multiply.
+IMUL_PER_CLOCK_PER_SM = 64
+# K6/K7: Philox4x32-10 takes 10 rounds of a mulhi and a mul on two lanes,
+# 40 32-bit multiplies a counter of 8 mask values.
+PHILOX_MULS = 40
 
 # K1 tolerances. bf16: the plain version rounds the normalized softmax
 # weights to bf16 before the product with v, the tensor-core kernel the
@@ -109,7 +116,8 @@ BPD_TOL = 1e-2
 # output cotangent, where the paths differ only by the kernels: every leaf
 # (and the input) to 0.9999 (>= 0.99998 on an H100).
 # Key biases are left out (their gradient is 0). A step with K2's dK
-# planted as zero must fail these gates.
+# planted as zero, and one with K3's dQ zeroed on half of every query tile,
+# must fail these gates.
 TRAIN_BPD_TOL = 1e-2
 ATTN_LEAF_COS_MIN = 0.999
 ATTN_ALONE_COS_MIN = 0.9999
@@ -171,23 +179,50 @@ def cuda_ms(fn, n: int = 20) -> float:
   return statistics.median(times)
 
 
-def sfu_ops_per_s() -> float:
+def back_to_back_ms(fn, reps: int = 10, n: int = 10) -> float:
+  """The device's time per call of fn(): CUDA events around `reps` calls
+  in a row, per call, median of n."""
+  def run():
+    for _ in range(reps):
+      fn()
+  return cuda_ms(run, n) / reps
+
+
+def host_ms(fn, calls: int = 50) -> float:
+  """The host's time per call of fn(), over `calls` calls enqueued with no
+  synchronize between them."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    fn()
+  secs = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  return 1e3 * secs / calls
+
+
+def sm_ops_per_s(per_clock_per_sm: int) -> float:
+  """The card's rate for a unit that returns `per_clock_per_sm` results a
+  clock on each SM, at the card's maximum SM clock."""
   mhz = subprocess.run(
       ['nvidia-smi', '-i', '0', '--query-gpu=clocks.max.sm',
        '--format=csv,noheader,nounits'], capture_output=True, text=True,
       check=True).stdout.strip()
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  return SFU_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+  return per_clock_per_sm * sms * float(mhz) * 1e6
 
 
 def bound(flops: float, nbytes: float, dtype=torch.float32, *,
-          exps: float = 0.0, sfu_rate: float = 1.0):
-  """(bound_ms, bound_by): the least time for the work on this card; `exps`
-  special-function operations run at `sfu_rate` beside the `flops`."""
-  t_ops = 1e3 * max(flops / PEAK_FLOPS[dtype], exps / sfu_rate)
+          exps: float = 0.0, sfu_rate: float = 1.0, imuls: float = 0.0,
+          imul_rate: float = 1.0):
+  """The least time for the work on this card (bound_ms, bound_by), and
+  its two terms; `exps` special-function operations run at `sfu_rate` and
+  `imuls` 32-bit integer multiplies at `imul_rate` beside the `flops`."""
+  t_ops = 1e3 * max(flops / PEAK_FLOPS[dtype], exps / sfu_rate,
+                    imuls / imul_rate)
   t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
   return dict(bound_ms=max(t_ops, t_bytes),
-              bound_by='operations' if t_ops >= t_bytes else 'bytes')
+              bound_by='operations' if t_ops >= t_bytes else 'bytes',
+              bound_ops_ms=t_ops, bound_bytes_ms=t_bytes)
 
 
 def nbytes(*tensors) -> int:
@@ -254,9 +289,11 @@ def check_attention(dev, gen):
 
 def check_attention_bwd(dev, gen):
   """K2 and K3 against the plain backward on the same inputs, on the same
-  shapes and routes as `check_attention`; the flagship shape is timed,
-  beside the plain backward and the backward of
-  `F.scaled_dot_product_attention` (fwd + bwd minus fwd)."""
+  shapes and routes as `check_attention`. The flagship shape is timed: K2,
+  K3 and the pair K2 + K3, one launch and back to back, the host's time a
+  K3 call, beside the plain backward and the backward of
+  `F.scaled_dot_product_attention` (fwd + bwd minus fwd; one launch and
+  back to back)."""
   from mulan_tpu_torch.ops.flash_attention import (attention_route,
                                                    flash_attention_bwd_dkv,
                                                    flash_attention_bwd_dq,
@@ -291,29 +328,47 @@ def check_attention_bwd(dev, gen):
       plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
           q, k, v, o, lse, do, scale), n=5)
       qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-      sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-          qg, kg, vg, scale=scale))
-      sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-          F.scaled_dot_product_attention(qg, kg, vg, scale=scale),
-          (qg, kg, vg), do))
+
+      def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+      def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
+
+      def run_dkv():
+        return flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+
+      def run_dq():
+        return flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
+
+      def run_pair():
+        run_dkv()
+        run_dq()
+      sdpa_bwd = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+      sdpa_bwd_b2b = back_to_back_ms(sdpa_fwd_bwd) - back_to_back_ms(sdpa_fwd)
       dkv = dict(max_abs_err=max((dk.float() - ref[1].float()).abs().max(),
                                  (dv.float() - ref[2].float()).abs().max())
                  .item(),
-                 ms=cuda_ms(lambda: flash_attention_bwd_dkv(
-                     q, k, v, do, lse, di, scale)),
-                 plain_ms=plain_ms, library_ms=sdpa_fwd_bwd - sdpa_fwd,
+                 ms=cuda_ms(run_dkv), back_to_back_ms=back_to_back_ms(run_dkv),
+                 plain_ms=plain_ms, library_ms=sdpa_bwd,
+                 library_back_to_back_ms=sdpa_bwd_b2b,
                  **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
                          dtype))
       dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max()
                 .item(),
-                ms=cuda_ms(lambda: flash_attention_bwd_dq(
-                    q, k, v, do, lse, di, scale)),
-                plain_ms=plain_ms, library_ms=None,
+                ms=cuda_ms(run_dq), back_to_back_ms=back_to_back_ms(run_dq),
+                host_ms=host_ms(run_dq), plain_ms=plain_ms, library_ms=None,
                 **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k),
                         dtype))
+      pair = dict(ms=cuda_ms(run_pair), back_to_back_ms=back_to_back_ms(
+          run_pair))
+      dq['with_dkv'] = pair
       log('flash_attention_bwd_timing', shape=list(shape),
-          dkv_ms=dkv['ms'], dq_ms=dq['ms'], plain_ms=plain_ms,
-          sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fwd_bwd)
+          dkv_ms=dkv['ms'], dkv_back_to_back_ms=dkv['back_to_back_ms'],
+          dq_ms=dq['ms'], dq_back_to_back_ms=dq['back_to_back_ms'],
+          dq_host_ms=dq['host_ms'], dkv_dq_ms=pair['ms'],
+          dkv_dq_back_to_back_ms=pair['back_to_back_ms'], plain_ms=plain_ms,
+          sdpa_bwd_ms=sdpa_bwd, sdpa_bwd_back_to_back_ms=sdpa_bwd_b2b)
   return dkv, dq
 
 
@@ -400,15 +455,23 @@ def check_decoder_bwd(dev, gen, cfg, sfu_rate):
   return result
 
 
-def check_dropout(dev, cfg):
-  """K6: bit-identical to the plain Philox at one flagship site (bf16) and
-  at a float32 shape with a ragged tail; keep share and mean reported."""
+# K6/K7 at a bf16 size of 15 M values, whose last chunk of 8 holds 5: a
+# grid of 7,325 blocks with a ragged tail.
+LONG_MASK = (3, 5, 1000003)
+
+
+def check_dropout(dev, cfg, imul_rate):
+  """K6: bit-identical to the plain Philox at one flagship site (bf16), at
+  LONG_MASK and at a float32 shape with a ragged tail; keep share and mean
+  reported. The flagship site is timed: one launch, back to back and the
+  host's time a call of the wrapper."""
   from mulan_tpu_torch.ops.dropout import (dropout_mask, dropout_mask_plain,
                                            effective_rate)
   rate = cfg.sm_pdrop
   site_shape = (EVAL_BATCH, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
   result = None
   for shape, dtype in ((site_shape, torch.bfloat16),
+                       (LONG_MASK, torch.bfloat16),
                        ((7, 11, 13), torch.float32)):
     mask = dropout_mask(1234, 5, shape, rate, dtype, dev)
     torch.cuda.synchronize()
@@ -421,14 +484,20 @@ def check_dropout(dev, cfg):
         mean=mask.float().mean().item())
     assert identical, (shape, dtype)
     if result is None:
+      def run():
+        return dropout_mask(1234, 5, shape, rate, dtype, dev)
+      counters = (mask.numel() + 7) // 8
       result = dict(
           max_abs_err=(mask.float() - ref.float()).abs().max().item(),
-          ms=cuda_ms(lambda: dropout_mask(1234, 5, shape, rate, dtype, dev)),
+          ms=cuda_ms(run), back_to_back_ms=back_to_back_ms(run),
+          host_ms=host_ms(run),
           plain_ms=cuda_ms(lambda: dropout_mask_plain(
               1234, 5, shape, rate, dtype, dev)),
           library_ms=cuda_ms(lambda: torch.empty(
               shape, dtype=dtype, device=dev).bernoulli_(1 - rate)),
-          **bound(0.0, nbytes(mask)))
+          **bound(0.0, nbytes(mask), imuls=PHILOX_MULS * counters,
+                  imul_rate=imul_rate))
+      log('dropout_mask_timing', shape=list(shape), **result)
   return result
 
 
@@ -476,11 +545,14 @@ def check_gn_swish(dev, gen, sfu_rate):
   return results[0], results[1]
 
 
-def check_mask_batch(dev, cfg):
+def check_mask_batch(dev, cfg, imul_rate):
   """K7: every slot of one launch of the score UNet's masks at the flagship
   shape (67 x (128, 128, 32, 32) bf16) bit-identical to K6 at (seed, site);
-  a float32 batch whose slots hold n % 8 != 0 values (so the slots after
-  the first are not 16-byte aligned) against the plain version."""
+  3 bf16 slots of LONG_MASK, whose n % 8 != 0 values leave the slots after
+  the first not 16-byte aligned, slot by slot against K6 and against the
+  plain version; a float32 batch of such slots against the plain version.
+  The flagship launch is timed: one launch, back to back and the host's
+  time a call of the wrapper."""
   from mulan_tpu_torch.ops.dropout import (dropout_mask, dropout_mask_batch,
                                            dropout_mask_batch_plain)
   rate = cfg.sm_pdrop
@@ -494,25 +566,38 @@ def check_mask_batch(dev, cfg):
     one = dropout_mask(1234, i, shape, rate, torch.bfloat16, dev)
     identical &= torch.equal(masks[i], one)
     max_err = max(max_err, (masks[i].float() - one.float()).abs().max().item())
+  long = dropout_mask_batch(77, 9, 3, LONG_MASK, rate, torch.bfloat16, dev)
+  long_ok = torch.equal(long, dropout_mask_batch_plain(
+      77, 9, 3, LONG_MASK, rate, torch.bfloat16, dev)) and all(
+          torch.equal(long[i], dropout_mask(77, 9 + i, LONG_MASK, rate,
+                                            torch.bfloat16, dev))
+          for i in range(3))
+  del long
   ragged = dropout_mask_batch(99, 5, 3, (7, 11, 13), rate, torch.float32, dev)
   ragged_ok = torch.equal(ragged, dropout_mask_batch_plain(
       99, 5, 3, (7, 11, 13), rate, torch.float32, dev))
   distinct = not torch.equal(masks[0], masks[1])
+
+  def run():
+    return dropout_mask_batch(1234, 0, n_sites, shape, rate, torch.bfloat16,
+                              dev)
+  counters = n_sites * ((masks[0].numel() + 7) // 8)
   result = dict(
-      max_abs_err=max_err,
-      ms=cuda_ms(lambda: dropout_mask_batch(1234, 0, n_sites, shape, rate,
-                                            torch.bfloat16, dev)),
+      max_abs_err=max_err, ms=cuda_ms(run), back_to_back_ms=back_to_back_ms(
+          run, n=5), host_ms=host_ms(run, calls=20),
       plain_ms=cuda_ms(lambda: dropout_mask_batch_plain(
           1234, 0, n_sites, shape, rate, torch.bfloat16, dev), n=3),
       library_ms=cuda_ms(lambda: torch.empty(
           (n_sites, *shape), dtype=torch.bfloat16,
           device=dev).bernoulli_(1 - rate)),
-      **bound(0.0, nbytes(masks)))
+      **bound(0.0, nbytes(masks), imuls=PHILOX_MULS * counters,
+              imul_rate=imul_rate))
   log('dropout_mask_batch', slots=n_sites, shape=list(shape),
       bytes=nbytes(masks), every_slot_equals_k6=identical,
+      long_bf16_slots_equal_k6_and_plain=long_ok,
       ragged_f32_equals_plain=ragged_ok, slots_distinct=distinct,
       keep_share=(masks != 0).float().mean().item(), **result)
-  assert identical and ragged_ok and distinct
+  assert identical and long_ok and ragged_ok and distinct
   return result
 
 
@@ -672,23 +757,30 @@ def profile(fn, n: int = 2):
 
 
 @contextlib.contextmanager
-def planted_fault():
-  """K2's dK replaced by zeros: a wrong attention backward the train-step
-  gates must reject."""
+def planted_fault(kernel: str):
+  """A wrong attention backward the train-step gates must reject: K2's dK
+  replaced by zeros ('dk'), or K3's dQ zeroed on one consumer warpgroup's
+  64 rows of every 128-query tile ('dq')."""
   from mulan_tpu_torch.ops import flash_attention as attn
-  real = attn.flash_attention_bwd_dkv
+  name = {'dk': 'flash_attention_bwd_dkv', 'dq': 'flash_attention_bwd_dq'}[
+      kernel]
+  real = getattr(attn, name)
 
-  def zero_dk(*args):
-    dk, dv = real(*args)
-    return torch.zeros_like(dk), dv
+  def faulty(*args):
+    out = real(*args)
+    if kernel == 'dk':
+      dk, dv = out
+      return torch.zeros_like(dk), dv
+    rows = torch.arange(out.shape[2], device=out.device) % 128 >= 64
+    return out.masked_fill(rows[:, None], 0)
   # The real wrapper counts on the module's name.
-  zero_dk.launches = 0
-  zero_dk.launches_by_route = dict.fromkeys(real.launches_by_route, 0)
-  attn.flash_attention_bwd_dkv = zero_dk
+  faulty.launches = 0
+  faulty.launches_by_route = dict.fromkeys(real.launches_by_route, 0)
+  setattr(attn, name, faulty)
   try:
     yield
   finally:
-    attn.flash_attention_bwd_dkv = real
+    setattr(attn, name, real)
 
 
 @contextlib.contextmanager
@@ -815,8 +907,11 @@ def compare_train_step(ex, model, build_plain, batch, noise):
                     for c in cos.values()))
 
   step_cos, alone_cos = gates(grads['kernels'], alone(True))
-  with planted_fault():
-    fault_cos = gates(step_grads(ex, model, batch, noise)[1], alone(True))
+  faults = {}
+  for kernel in ('dk', 'dq'):
+    with planted_fault(kernel):
+      faults[kernel] = gates(step_grads(ex, model, batch, noise)[1],
+                             alone(True))
   whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
   norm_rel = abs(whole['kernels'].norm().item()
                  / whole['plain'].norm().item() - 1)
@@ -827,7 +922,9 @@ def compare_train_step(ex, model, build_plain, batch, noise):
       tol_leaf=ATTN_LEAF_COS_MIN,
       alone_leaf_cos_min={b: min(c.values()) for b, c in alone_cos.items()},
       tol_alone=ATTN_ALONE_COS_MIN,
-      planted_fault_rejected=not passes(*fault_cos),
+      planted_faults_rejected={k: not passes(*c) for k, c in faults.items()},
+      fault_unet_attn_leaf_cos_min={k: min(c[0].values())
+                                    for k, c in faults.items()},
       whole_cos=cosine(whole['kernels'], whole['plain']),
       whole_cos_to_f32={k: cosine(whole[k], whole['f32'])
                         for k in ('kernels', 'plain')})
@@ -851,7 +948,8 @@ def compare_train_step(ex, model, build_plain, batch, noise):
   assert abs(bpds['kernels'] - bpds['plain']) <= TRAIN_BPD_TOL
   assert norm_rel <= GRAD_NORM_RTOL, norm_rel
   assert passes(step_cos, alone_cos), (step_cos, alone_cos)
-  assert not passes(*fault_cos), ('a planted fault (dK = 0) passed', fault_cos)
+  for kernel, cos in faults.items():
+    assert not passes(*cos), (f'a planted {kernel} fault passed', cos)
 
 
 def compare_fused_step(ex, model, build_plain, batch, noise):
@@ -1000,12 +1098,13 @@ def main() -> None:
   results['flash_attention'], k1_sampler = check_attention(dev, gen)
   (results['flash_attention_bwd_dkv'],
    results['flash_attention_bwd_dq']) = check_attention_bwd(dev, gen)
-  sfu_rate = sfu_ops_per_s()
+  sfu_rate = sm_ops_per_s(SFU_PER_CLOCK_PER_SM)
+  imul_rate = sm_ops_per_s(IMUL_PER_CLOCK_PER_SM)
   results['decoder_logprob'] = check_decoder(dev, gen, cfg, sfu_rate)
   results['decoder_logprob_bwd'] = check_decoder_bwd(dev, gen, cfg, sfu_rate)
-  results['dropout_mask'] = check_dropout(dev, cfg)
+  results['dropout_mask'] = check_dropout(dev, cfg, imul_rate)
   results['gn_swish'], gn_swish_c256 = check_gn_swish(dev, gen, sfu_rate)
-  results['dropout_mask_batch'] = check_mask_batch(dev, cfg)
+  results['dropout_mask_batch'] = check_mask_batch(dev, cfg, imul_rate)
   torch.cuda.empty_cache()
 
   # 3. Evaluation: sparse VLB over synthetic eval batches. Every counted
@@ -1245,14 +1344,19 @@ def main() -> None:
            'attention_train': attn_train_counts,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-          'library_ms')
+          'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
+  # Measured for some kernels only.
+  extras = ('back_to_back_ms', 'host_ms', 'library_back_to_back_ms',
+            'with_dkv')
   kernels = []
   for name, (source, replaces) in sources.items():
     by_path = {path: counts[name] for path, counts in paths.items()}
     kernels.append(dict(name=name, route='cuda', source=source,
                         replaces=replaces, launches=sum(by_path.values()),
                         launches_by_path=by_path,
-                        **{k: results[name][k] for k in keys}))
+                        **{k: results[name][k] for k in keys},
+                        **{k: results[name][k] for k in extras
+                           if k in results[name]}))
     if name in route_totals:
       kernels[-1]['launches_by_route'] = route_totals[name]
       assert sum(route_totals[name].values()) == kernels[-1]['launches']

@@ -23,11 +23,19 @@
 // mulan_tpu_torch/ops/dropout.py:dropout_mask_plain computes the same bits
 // on int64 tensors, so kernel and plain agree bit for bit.
 //
-// What bounds it on the H100: memory. One thread runs one Philox (10
-// rounds, 20 32-bit multiplies) and writes 8 values, 16 bytes in bf16 as one
-// vector store; at a flagship site (128 x 128 x 32 x 32 bf16) that is a
-// 33.5 MB write, ~10 us at 3.35 TB/s, against ~4e7 integer multiplies.
-// The 67 masks of the flagship's score UNet are a 2.25 GB write, ~0.67 ms.
+// What bounds it on the H100: memory. At a flagship site (128 x 128 x 32 x 32
+// bf16) the mask is a 33.5 MB write, 10.0 us at 3.35 TB/s; its 2.1 M
+// counters take 40 32-bit multiplies each (10 Philox rounds, a mulhi and a
+// mul on two lanes), 84 M in all, 5.0 us at 64 a clock per SM. The 67 masks
+// of the flagship's score UNet are a 2.25 GB write, 0.67 ms. One thread
+// runs one counter and writes its 8 values, 16 bytes in bf16, as one
+// ordinary vector store (the mask stays in the 50 MB L2 for the x * mask
+// that reads it next); consecutive threads write consecutive chunks. A
+// grid-stride loop over a few waves of the SMs, several counters a thread,
+// was measured against it (mulan_tpu_torch/ops/ablations/k6_mask.json): no
+// faster for one mask, slower for the 67 of K7. Back to back the kernel
+// takes twice its bound, about a third of it the launch; in one launch the
+// wrapper's host time weighs more (mulan_tpu_torch/ops/dropout.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

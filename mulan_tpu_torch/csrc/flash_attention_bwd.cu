@@ -41,13 +41,29 @@
 //   rows past T and columns past D with zeros within the head (3-D tensor
 //   maps), queries past T get P = 0, and only rows < T and columns < D are
 //   stored.
-// * K3, bf16 with D <= 128 (mulan_flash_attention_bwd_dq_sm90):
-//   flash_bwd_dq_mma, on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate). Each of 4 warps owns 16 of the block's 64 queries; the
-//   score and dP accumulators of two adjacent 8-column tiles are, element
-//   for element, the A fragment of dS K, so dS is re-packed in registers as
-//   bf16 and never stored; K is staged transposed in shared memory so that
-//   its B fragments are 32-bit loads.
+// * K3, bf16 with D <= 128 (mulan_flash_attention_bwd_dq_sm90, the
+//   flagship path): flash_bwd_dq_sm90, query-stationary like the forward
+//   (flash_attention.cu) and persistent (one block per SM walking 128-query
+//   tiles). One producer thread loads the item's Q and dO tiles once by TMA
+//   and streams 128-key K and V tiles through a 2-stage ring of
+//   128B-swizzled shared memory; two consumer warpgroups own 64 queries
+//   each and hold their rows' lse and di in registers for the whole item,
+//   so no row statistics are staged per tile. Per key tile a consumer
+//   computes S = Q K^T and dP = dO V^T with wgmma m64n128k16 (SS form, all
+//   K-major, straight from the tiles), then dS = P (dP - di) with
+//   P = exp2(S scale log2 e - lse log2 e) on the accumulator layout, packs
+//   dS to bf16 in registers (where the Pallas kernel casts it to the input
+//   type) and accumulates dQ += dS K with wgmma m64nDk16 in the RS form,
+//   reading K MN-major with the transpose bit from the tile S read K-major:
+//   no transposed copy of K. A consumer waits for a tile's dS K before it
+//   issues the next tile's S and dP, so dS's fragments never live beside
+//   them (with both, 224 registers spill), and the two warpgroups take
+//   turns to issue their products (ping-pong on named barriers), so one
+//   computes dS while the tensor cores run the other's. 64-key tiles on 3
+//   stages, with the next S and dP issued beside this dS K, take the same
+//   time (mulan_tpu_torch/ops/ablations/k3_dq.json). dQ is scaled by
+//   `scale` once at the end; keys past T get P = 0, and only rows < T and
+//   columns < D are stored.
 // * float32, and bf16 with D > 128 (mulan_flash_attention_bwd_{dkv,dq}_simt):
 //   the arithmetic runs on the CUDA cores in float32 (67 TFLOP/s peak):
 //   every thread keeps an R x R tile of scores and an R x (DMAX/16) tile of
@@ -331,197 +347,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core path: bf16, D <= 128.
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-constexpr int kRows = 64;         // rows (keys or queries) per tile
-constexpr int kPad = 8;           // bf16 of row padding: rows stay 16-byte
-                                  // aligned and fragment loads hit distinct
-                                  // banks
-constexpr int kLdT = kRows + kPad;
-constexpr float kLog2e = 1.4426950408889634f;
-
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a b on one 16 x 8 x 16 tile: bf16 in, f32 accumulators. Fragment
-// layouts (PTX ISA, mma.m16n8k16), with g = lane / 4 and t = lane % 4:
-// a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
-// b = B[2t..][g], B[2t+8..][g]; d = D[g][2t..], D[g+8][2t..].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [row0, row0 + 16), columns [col, col + 16) of a
-// shared tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int ld, int row0, int col, int g,
-                                       int t4) {
-  const bf16* p0 = tile + (row0 + g) * ld + col + t4 * 2;
-  const bf16* p1 = p0 + 8 * ld;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
-
-// Rows [row0, row0 + 64) of a (seq, d) bf16 matrix into a (64, ld) shared
-// tile in 16-byte chunks, zero past seq and past d (up to d16).
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, int ld,
-                                               const bf16* src, int row0,
-                                               int seq, int d, int d16) {
-  const int chunks = d16 / 8;
-  for (int i = threadIdx.x; i < kRows * chunks; i += kMmaThreads) {
-    const int r = i / chunks, c = i - r * chunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq && c * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
-                                            c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
-  }
-}
-
-// The same rows transposed into a (d, kLdT) shared tile: dst[c][r]. Nearby
-// threads take nearby rows, so one warp's 2-byte stores fall in distinct
-// banks.
-__device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* src,
-                                            int row0, int seq, int d) {
-  const int chunks = d / 8;
-  for (int i = threadIdx.x; i < kRows * chunks; i += kMmaThreads) {
-    const int r = i % kRows, c = i / kRows;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d +
-                                            c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c * 8 + j) * kLdT + r] = e[j];
-  }
-}
-
-// K3 on the tensor cores. Warp w owns queries q0 + 16 w + [0, 16): S = Q K^T
-// and dP = dO V^T per key tile, then dQ += dS K with dS as the A fragment.
-template <int DMAX>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ di,
-                 bf16* __restrict__ dq, int seq, int d, float scale) {
-  constexpr int kSteps = DMAX / 16;
-  constexpr int kOut = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d16 = (d + 15) & ~15;
-  const int ldk = d16 + kPad;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64 queries][ldk]
-  bf16* dos = qs + kRows * ldk;                  // [64 queries][ldk]
-  bf16* ks = dos + kRows * ldk;                  // [64 keys][ldk]
-  bf16* vs = ks + kRows * ldk;                   // [64 keys][ldk]
-  bf16* kt = vs + kRows * ldk;                   // [d][kLdT]: K^T
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t base = (size_t)blockIdx.x * seq * d;
-  const size_t rows = (size_t)blockIdx.x * seq;
-  const int q0 = blockIdx.y * kRows;
-  const int n_steps = d16 / 16, n_out = d / 8;
-  const float scale_log2 = scale * kLog2e;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float lse0 = row0 < seq ? lse[rows + row0] * kLog2e : 0.0f;
-  const float lse1 = row1 < seq ? lse[rows + row1] * kLog2e : 0.0f;
-  const float di0 = row0 < seq ? di[rows + row0] : 0.0f;
-  const float di1 = row1 < seq ? di[rows + row1] : 0.0f;
-
-  load_rows_bf16(qs, ldk, q + base, q0, seq, d, d16);
-  load_rows_bf16(dos, ldk, dout + base, q0, seq, d, d16);
-
-  float acc[kOut][4];
-#pragma unroll
-  for (int n = 0; n < kOut; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  for (int k0 = 0; k0 < seq; k0 += kRows) {
-    __syncthreads();
-    load_rows_bf16(ks, ldk, k + base, k0, seq, d, d16);
-    load_rows_bf16(vs, ldk, v + base, k0, seq, d, d16);
-    load_rows_t(kt, k + base, k0, seq, d);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      if (st < n_steps) {
-        uint32_t qa[4], oa[4];
-        load_a(qa, qs, ldk, warp * 16, st * 16, g, t4);
-        load_a(oa, dos, ldk, warp * 16, st * 16, g, t4);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const bf16* pk = ks + (n * 8 + g) * ldk + st * 16 + t4 * 2;
-          const bf16* pv = vs + (n * 8 + g) * ldk + st * 16 + t4 * 2;
-          mma_bf16(s[n], qa, ld32(pk), ld32(pk + 8));
-          mma_bf16(dp[n], oa, ld32(pv), ld32(pv + 8));
-        }
-      }
-    }
-    // dS = P (dP - di), P = exp(s - lse); column = key.
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        const bool ok = k0 + n * 8 + t4 * 2 + (e & 1) < seq &&
-                        (hi ? row1 : row0) < seq;
-        const float p =
-            ok ? exp2f(s[n][e] * scale_log2 - (hi ? lse1 : lse0)) : 0.0f;
-        dp[n][e] = p * (dp[n][e] - (hi ? di1 : di0));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t sa[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
-                              pack_bf16(dp[2 * j][2], dp[2 * j][3]),
-                              pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-                              pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kOut; ++n) {
-        if (n < n_out) {
-          const bf16* pk = kt + (n * 8 + g) * kLdT + j * 16 + t4 * 2;
-          mma_bf16(acc[n], sa, ld32(pk), ld32(pk + 8));
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < kOut; ++n) {
-    if (n >= n_out) continue;
-    const int col = n * 8 + t4 * 2;
-    if (row0 < seq)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row0 * d + col) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    if (row1 < seq)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row1 * d + col) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -560,22 +386,6 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-int launch_dq_mma(const Args& a) {
-  const int ldk = ((a.d + 15) & ~15) + kPad;
-  const size_t smem = sizeof(bf16) * ((size_t)4 * kRows * ldk +
-                                      (size_t)a.d * kLdT);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.bh, (a.seq + kRows - 1) / kRows);
-  flash_bwd_dq_mma<DMAX><<<grid, kMmaThreads, smem, a.stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const bf16*)a.dout, a.lse, a.di, (bf16*)a.dq, a.seq, a.d, a.scale);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int dispatch(const Args& a, bool dkv) {
   if (a.d <= 64)
@@ -592,24 +402,30 @@ int run_simt(const Args& a, int is_bf16, bool dkv) {
   return is_bf16 ? dispatch<bf16>(a, dkv) : dispatch<float>(a, dkv);
 }
 
-// The tensor-core routes: bf16 with d % 8 == 0 (16-byte rows), d <= 128.
-bool mma_shape_ok(const Args& a) {
-  return a.bh > 0 && a.seq > 0 && a.d > 0 && a.d <= 128 && a.d % 8 == 0 &&
-         (a.seq + kRows - 1) / kRows <= 65535;
-}
-
 // ---------------------------------------------------------------------------
-// K2, sm90 route: bf16, D <= 128.
+// sm90 routes (K2 and K3): bf16, D <= 128.
 
 constexpr int kWgThreads = 128;
-constexpr int kBwdKeys = 128;  // keys a block: 2 consumer warpgroups x 64
-constexpr int kBwdRows = 64;   // queries a streamed Q / dO tile
-constexpr int kBwdStages = 2;  // Q / dO tiles in flight
-constexpr int kBwdThreads = 3 * kWgThreads;  // producer + 2 consumers
+constexpr int kSm90Threads = 3 * kWgThreads;  // producer + 2 consumers
 constexpr int kConsumerWarps = 8;
 // 128 x 24 + 256 x 240 registers fit the SM's 65,536.
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shapes both take: bf16 with d % 8 == 0 (16-byte rows, as TMA needs)
+// and d <= 128, in at most INT_MAX items of `rows` rows of one head.
+bool sm90_shape_ok(const Args& a, int rows) {
+  return a.bh > 0 && a.seq > 0 && a.d > 0 && a.d <= 128 && a.d % 8 == 0 &&
+         (long long)((a.seq + rows - 1) / rows) * a.bh <= INT_MAX;
+}
+
+// ---------------------------------------------------------------------------
+// K2, sm90 route.
+
+constexpr int kBwdKeys = 128;  // keys a block: 2 consumer warpgroups x 64
+constexpr int kBwdRows = 64;   // queries a streamed Q / dO tile
+constexpr int kBwdStages = 2;  // Q / dO tiles in flight
 
 // Byte offsets in the block's shared memory, from a 1024-byte boundary.
 // DPAD (64 or 128) is D rounded up to whole 64-column boxes.
@@ -637,7 +453,7 @@ struct DkvLayout {
 // as soon as the item's last S^T and dP^T are done, so the next item's K,
 // V and first Q/dO tiles load while this item finishes and stores.
 template <int DPAD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kSm90Threads, 1)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
@@ -864,10 +680,293 @@ int launch_dkv_sm90(const Args& a) {
   err = sm90::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int n_items = (a.seq + kBwdKeys - 1) / kBwdKeys * a.bh;
-  flash_bwd_dkv_sm90<DPAD><<<n_items < sms ? n_items : sms, kBwdThreads,
+  flash_bwd_dkv_sm90<DPAD><<<n_items < sms ? n_items : sms, kSm90Threads,
                              smem, a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], a.lse, a.di, (bf16*)a.dk,
       (bf16*)a.dv, n_items, a.seq, a.d, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K3, sm90 route.
+
+constexpr int kDqRows = 128;  // queries an item: 2 consumer warpgroups x 64
+constexpr int kDqKeys = 128;  // keys a streamed K / V tile
+constexpr int kDqStages = 2;  // K / V tiles in flight (3 exceed 227 KB)
+
+// Byte offsets in the block's shared memory, from a 1024-byte boundary.
+// DPAD (64 or 128) is D rounded up to whole 64-column boxes.
+template <int DPAD>
+struct DqLayout {
+  static constexpr int kBoxes = DPAD / 64;
+  static constexpr int kQBox = kDqRows * 128;   // one 64-column box of Q, dO
+  static constexpr int kKVBox = kDqKeys * 128;  // of a K or V tile
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;                  // K ring
+  static constexpr int kV = kK + kDqStages * kKVBytes;    // V ring
+  static constexpr int kBars = kV + kDqStages * kKVBytes;  // mbarriers
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kDqStages) + 1024;
+};
+
+// S = Q K^T and dP = dO V^T (64 queries x kDqKeys keys each) for the
+// consumer whose rows start at byte `row` of each Q and dO box: SS form,
+// all K-major, straight from the tiles.
+template <int DPAD>
+__device__ __forceinline__ void issue_s_dp(float (&s)[kDqKeys / 2],
+                                           float (&dp)[kDqKeys / 2],
+                                           uint32_t q_tile, uint32_t do_tile,
+                                           int row, uint32_t k_tile,
+                                           uint32_t v_tile) {
+  using L = DqLayout<DPAD>;
+#pragma unroll
+  for (int ks = 0; ks < DPAD / 16; ++ks)
+    sm90::wgmma_ss<0>(s, sm90::desc_k_major(q_tile, L::kQBox, row, ks),
+                      sm90::desc_k_major(k_tile, L::kKVBox, 0, ks), ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < DPAD / 16; ++ks)
+    sm90::wgmma_ss<0>(dp, sm90::desc_k_major(do_tile, L::kQBox, row, ks),
+                      sm90::desc_k_major(v_tile, L::kKVBox, 0, ks), ks > 0);
+}
+
+// dQ += dS K: dS's bf16 A fragments, K the MN-major B operand (its rows,
+// the keys, are the k dimension) read with the transpose bit from the same
+// tile S read K-major.
+template <int DPAD>
+__device__ __forceinline__ void issue_dq(float (&acc)[DPAD / 2],
+                                         const uint32_t (&sa)[kDqKeys / 16][4],
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int ks = 0; ks < kDqKeys / 16; ++ks)
+    sm90::wgmma_rs<1>(acc, sa[ks],
+                      sm90::desc_mn_major(k_tile, DqLayout<DPAD>::kKVBox, ks),
+                      1);
+}
+
+// dS = P (dP - di), P = exp2(S scale log2 e - lse log2 e), in place of S,
+// for keys from key0 (P = 0 past seq); rows g and g + 8 of the warp's 16
+// (suffixes 0 and 1), lse in log2 units.
+__device__ __forceinline__ void compute_ds(float (&s)[kDqKeys / 2],
+                                           const float (&dp)[kDqKeys / 2],
+                                           int key0, int seq, int t4,
+                                           float scale_log2, float lse0,
+                                           float lse1, float di0, float di1) {
+  const bool ragged = key0 + kDqKeys > seq;
+#pragma unroll
+  for (int j = 0; j < kDqKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool hi = e >= 2;
+      float p = exp2f(fmaf(s[4 * j + e], scale_log2, hi ? -lse1 : -lse0));
+      if (ragged && key0 + 8 * j + 2 * t4 + (e & 1) >= seq) p = 0.0f;
+      s[4 * j + e] = p * (dp[4 * j + e] - (hi ? di1 : di0));
+    }
+  }
+}
+
+// Chunks 2 ks and 2 ks + 1 of dS's accumulator layout are, packed to bf16
+// pairs (the rounding point of the Pallas kernel), the A fragment of keys
+// [16 ks, 16 ks + 16).
+__device__ __forceinline__ void pack_ds(uint32_t (&sa)[kDqKeys / 16][4],
+                                        const float (&s)[kDqKeys / 2]) {
+#pragma unroll
+  for (int ks = 0; ks < kDqKeys / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      sa[ks][r] = sm90::pack_bf16(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1]);
+}
+
+// Persistent: a block per SM walks the items (a 128-query tile of one
+// head) blockIdx.x, blockIdx.x + gridDim.x, ...; consecutive blocks take
+// consecutive query tiles of a head, so its K and V stay in L2. The K/V
+// ring runs on from one item into the next, and Q and dO are released as
+// soon as the item's last S and dP are done, so the next item's Q, dO and
+// first K/V tiles load while this item finishes its last dS K and stores.
+// Registers: S and dP of a 128-key tile take 64 each, dQ 64 (D = 128) and
+// dS's bf16 fragments 32; each tile's dS K is waited for before the next
+// tile's S and dP are issued, so the fragments never live beside them.
+template <int DPAD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const float* __restrict__ lse, const float* __restrict__ di,
+                  bf16* __restrict__ dq, int n_items, int seq, int d,
+                  float scale) {
+  using L = DqLayout<DPAD>;
+  extern __shared__ uint8_t smem_tiles[];
+  uint8_t* smem = sm90::align_1024(smem_tiles);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;      // both consumers done with Q, dO
+  uint64_t* full = q_empty + 1;        // [stage]: K and V tiles landed
+  uint64_t* empty = full + kDqStages;  // [stage]: both consumers done
+  const int n_qtiles = (seq + kDqRows - 1) / kDqRows;
+  const int n_tiles = (seq + kDqKeys - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < kDqStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / kWgThreads;  // warpgroup
+  if (role == 0) {
+    // Producer warpgroup; one thread issues every copy. n counts the K/V
+    // tiles through the ring, `it` the items (Q and dO tiles).
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int head = item / n_qtiles;
+        const int q0 = item % n_qtiles * kDqRows;
+        sm90::mbar_wait(q_empty, (it & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
+        for (int b = 0; b < L::kBoxes; ++b) {
+          sm90::tma_load(smem + L::kQ + b * L::kQBox, &q_map, q_full, 64 * b,
+                         q0, head);
+          sm90::tma_load(smem + L::kDO + b * L::kQBox, &do_map, q_full,
+                         64 * b, q0, head);
+        }
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % kDqStages;
+          sm90::mbar_wait(&empty[s], ((n / kDqStages) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKVBytes);
+          uint8_t* kt = smem + L::kK + s * L::kKVBytes;
+          uint8_t* vt = smem + L::kV + s * L::kKVBytes;
+          for (int b = 0; b < L::kBoxes; ++b) {
+            sm90::tma_load(kt + b * L::kKVBox, &k_map, &full[s], 64 * b,
+                           i * kDqKeys, head);
+            sm90::tma_load(vt + b * L::kKVBox, &v_map, &full[s], 64 * b,
+                           i * kDqKeys, head);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: queries q0 + 64 wg + [0, 64) of each item.
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = role - 1;
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t q_tile = sm90::smem_u32(smem + L::kQ);
+    const uint32_t do_tile = sm90::smem_u32(smem + L::kDO);
+    const int row = wg * 64 * 128;  // this warpgroup's rows in a Q/dO box
+    const float scale_log2 = scale * kLog2e;
+    auto k_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kK + s * L::kKVBytes);
+    };
+    auto v_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kV + s * L::kKVBytes);
+    };
+    // Arrive on a barrier once per consumer warp.
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (named barrier 1 + wg is wg's turn), so that one computes dS while
+    // the tensor cores run the other's products; in step, both would
+    // compute dS at once and leave the tensor cores idle meanwhile.
+    auto my_turn = [&] { sm90::bar_sync(1 + wg, 2 * kWgThreads); };
+    auto pass_turn = [&] { sm90::bar_arrive(2 - wg, 2 * kWgThreads); };
+    if (wg == 1) pass_turn();  // warpgroup 0 goes first
+
+    int n = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int head = item / n_qtiles;
+      const int q0 = item % n_qtiles * kDqRows;
+      // This thread's two rows, and their lse (log2 units) and di, held
+      // in registers for the whole item.
+      const int row0 = q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+      const size_t rows = (size_t)head * seq;
+      const float lse0 = row0 < seq ? lse[rows + row0] * kLog2e : 0.0f;
+      const float lse1 = row1 < seq ? lse[rows + row1] * kLog2e : 0.0f;
+      const float di0 = row0 < seq ? di[rows + row0] : 0.0f;
+      const float di1 = row1 < seq ? di[rows + row1] : 0.0f;
+      float acc[DPAD / 2];  // dQ / scale, 64 x DPAD
+#pragma unroll
+      for (int r = 0; r < DPAD / 2; ++r) acc[r] = 0.0f;
+
+      // Per key tile, in this warpgroup's turn: S and dP; then dS, then
+      // dQ += dS K, while the other warpgroup's products run.
+      sm90::mbar_wait(q_full, it & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = (n + i) % kDqStages;
+        float s[kDqKeys / 2], dp[kDqKeys / 2];  // S (then dS) and dP
+        uint32_t sa[kDqKeys / 16][4];  // dS in bf16, the A operand of dS K
+        sm90::mbar_wait(&full[st], ((n + i) / kDqStages) & 1);
+        my_turn();
+        sm90::wgmma_fence();
+        issue_s_dp<DPAD>(s, dp, q_tile, do_tile, row, k_tile(st),
+                         v_tile(st));
+        sm90::wgmma_commit();
+        pass_turn();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        if (i == n_tiles - 1) release(q_empty);
+        compute_ds(s, dp, i * kDqKeys, seq, t4, scale_log2, lse0, lse1, di0,
+                   di1);
+        pack_ds(sa, s);
+        sm90::wgmma_fence();
+        issue_dq<DPAD>(acc, sa, k_tile(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        release(&empty[st]);
+      }
+      n += n_tiles;
+
+      const size_t base = (size_t)head * seq * d;
+#pragma unroll
+      for (int j = 0; j < DPAD / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col >= d) continue;
+        if (row0 < seq)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)row0 * d + col) =
+              sm90::pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+        if (row1 < seq)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)row1 * d + col) =
+              sm90::pack_bf16(acc[4 * j + 2] * scale,
+                              acc[4 * j + 3] * scale);
+      }
+    }
+    // Warpgroup 1 passed the turn once more than warpgroup 0 took it.
+    if (wg == 0) my_turn();
+  }
+}
+
+template <int DPAD>
+int launch_dq_sm90(const Args& a) {
+  CUtensorMap maps[4];
+  const void* srcs[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {kDqRows, kDqKeys, kDqKeys, kDqRows};
+  for (int i = 0; i < 4; ++i) {
+    const int err = sm90::make_map(&maps[i], srcs[i], a.bh, a.seq, a.d,
+                                   rows[i]);
+    if (err != 0) return err;
+  }
+  constexpr int smem = DqLayout<DPAD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_sm90<DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int n_items = (a.seq + kDqRows - 1) / kDqRows * a.bh;
+  flash_bwd_dq_sm90<DPAD><<<n_items < sms ? n_items : sms, kSm90Threads,
+                            smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.di, (bf16*)a.dq, n_items,
+      a.seq, a.d, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -882,9 +981,7 @@ extern "C" int mulan_flash_attention_bwd_dkv_sm90(
     int d, float scale, void* stream) {
   const Args a{q, k, v, dout, (const float*)lse, (const float*)di, nullptr,
                dk, dv, bh, seq, d, scale, (cudaStream_t)stream};
-  if (!mma_shape_ok(a) ||
-      (long long)((a.seq + kBwdKeys - 1) / kBwdKeys) * a.bh > INT_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (!sm90_shape_ok(a, kBwdKeys)) return (int)cudaErrorInvalidValue;
   return a.d <= 64 ? launch_dkv_sm90<64>(a) : launch_dkv_sm90<128>(a);
 }
 
@@ -897,16 +994,17 @@ extern "C" int mulan_flash_attention_bwd_dkv_simt(
   return run_simt(a, is_bf16, true);
 }
 
-// dQ (K3). The sm90 route (the mma.sync kernel) takes bf16 with
-// d % 8 == 0 and d <= 128; the simt route float32 or bf16 with d <= 256.
+// dQ (K3), the same arguments but dq for dk and dv. The sm90 route takes
+// bf16 with d % 8 == 0 and d <= 128; the simt route float32 or bf16 with
+// d <= 256.
 extern "C" int mulan_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dq, int bh, int seq, int d,
     float scale, void* stream) {
   const Args a{q, k, v, dout, (const float*)lse, (const float*)di, dq,
                nullptr, nullptr, bh, seq, d, scale, (cudaStream_t)stream};
-  if (!mma_shape_ok(a)) return (int)cudaErrorInvalidValue;
-  return a.d <= 64 ? launch_dq_mma<64>(a) : launch_dq_mma<128>(a);
+  if (!sm90_shape_ok(a, kDqRows)) return (int)cudaErrorInvalidValue;
+  return a.d <= 64 ? launch_dq_sm90<64>(a) : launch_dq_sm90<128>(a);
 }
 
 extern "C" int mulan_flash_attention_bwd_dq_simt(

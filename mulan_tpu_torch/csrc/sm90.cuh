@@ -21,8 +21,9 @@
 // 16 w + g and 16 w + g + 8 (g = lane / 4), and, for each 8-column chunk j,
 // columns 8 j + 2 t and 8 j + 2 t + 1 (t = lane % 4): registers
 // d[4 j .. 4 j + 1] for row g, d[4 j + 2 .. 4 j + 3] for row g + 8. That is
-// mma.sync m16n8's layout per chunk, so chunks 2 s and 2 s + 1, packed to
-// bf16 pairs, are the RS-form A fragment of k-step s of the next product.
+// the PTX m16n8 accumulator layout per chunk, so chunks 2 s and 2 s + 1,
+// packed to bf16 pairs, are the RS-form A fragment of k-step s of the next
+// product.
 
 #pragma once
 
@@ -161,6 +162,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// Named barrier `id` (1 to 15; 0 is __syncthreads') of `threads` threads, a
+// multiple of 32: bar_sync waits until all have arrived, bar_arrive counts
+// the caller without waiting.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------

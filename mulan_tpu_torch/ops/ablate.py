@@ -1,24 +1,29 @@
-"""Times textual variants of one attention kernel against each other on the
-card: an ablation harness for the sm90 kernels.
+"""Times textual variants of one kernel's source against each other on the
+card: an ablation harness for the hand-written kernels.
 
-    python3 -m mulan_tpu_torch.ops.ablate mulan_tpu_torch/ops/ablations/k1_fwd.json
+    python3 -m mulan_tpu_torch.ops.ablate mulan_tpu_torch/ops/ablations/k3_dq.json
 
-SPEC (`ablations/k1_fwd.json` and `k2_dkv.json` beside this module) names
-the source under `mulan_tpu_torch/csrc/` (`flash_attention.cu`
-for K1's `mulan_flash_attention_fwd_sm90`, `flash_attention_bwd.cu` for
-K2's `mulan_flash_attention_bwd_dkv_sm90`) and a dict of variants, each a
-list of [old, new] text substitutions applied to the sources (a variant
-whose `old` text is missing fails to build); "tree" with no substitution
-is the source as it is. Every variant is built into a library of its own
-(one `nvcc` each, all started together, with `-Xptxas -v`: spills and
-ptxas performance warnings are printed), then each is timed at the
-flagship shape (128, 1, 1024, 128) bf16 in turns, three rounds:
+SPEC (`ablations/*.json` beside this module) names the source under
+`mulan_tpu_torch/csrc/` (`file`), the C entry points to time (`entries`,
+names of `_build._SIGNATURES`: K1's `mulan_flash_attention_fwd_sm90`, K2's
+`mulan_flash_attention_bwd_dkv_sm90`, K3's
+`mulan_flash_attention_bwd_dq_sm90`, K6's `mulan_dropout_mask`, K7's
+`mulan_dropout_mask_batch`) and a dict of variants, each a list of
+[old, new] text substitutions applied to the sources (a variant whose `old`
+text is missing fails to build); "tree" with no substitution is the source
+as it is. Every variant is built into a library of its own (one `nvcc`
+each, all started together, with `-Xptxas -v`: spills and ptxas
+performance warnings are printed), then each entry point of each variant is
+timed at the flagship's shape in turns, three rounds: the attention
+kernels at (128, 1, 1024, 128) bf16, K6 at one (128, 128, 32, 32) bf16
+site, K7 at the score UNet's 67 such sites:
 
   * single: CUDA events around one launch, median of 20 (as chip_smoke.py
     times a kernel; the host's launch cost is inside when the card idles);
   * back_to_back: around 10 launches, per launch, median of 10 (the
     device's time);
-  * host_ms_per_call: the host's time per launch call, 50 calls.
+  * host_ms_per_call: the host's time per call of the C entry point, 50
+    calls.
 
 and its outputs are compared with the tree's (a variant that removes
 work is only a timing probe). Needs a CUDA device and nvcc; writes only
@@ -31,6 +36,7 @@ import concurrent.futures
 import ctypes
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -40,13 +46,18 @@ import time
 import torch
 
 from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.ops.dropout import kernel_constants
 
-SHAPE = (128, 1, 1024, 128)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ATTN_SHAPE = (128, 1, 1024, 128)
+MASK_SHAPE = (128, 128, 32, 32)
+MASK_SLOTS = 67
+MASK_RATE = 0.1
 
 
-def build(name, subs, source, tmp_root):
-  """(name, library path or None, ptxas notes or the failure)."""
+def build(name, subs, source, show, tmp_root):
+  """(name, library path or None, ptxas notes or the failure). The notes
+  are ptxas's spill and C75xx performance warnings, and the registers and
+  spills of every kernel whose mangled name contains `show`."""
   tmp = pathlib.Path(tempfile.mkdtemp(dir=tmp_root))
   texts = {f.name: f.read_text() for f in _build._CSRC.iterdir()}
   for old, new in subs:
@@ -64,38 +75,62 @@ def build(name, subs, source, tmp_root):
   log = (proc.stdout + proc.stderr).splitlines()
   if proc.returncode:
     return name, None, '\n'.join(log[-30:])
-  notes = [line.strip()[:120] for line in log
-           if 'C75' in line or ('spill stores' in line
-                                and ' 0 bytes spill stores' not in line)]
+  notes, kernel = [], ''
+  for line in log:
+    found = re.search(r"entry function '(\w+)'", line)
+    if found:
+      kernel = found.group(1)
+    shown = show and show in kernel and ('spill stores' in line
+                                         or 'Used' in line)
+    if (shown or 'C75' in line or ('spill stores' in line
+                                   and ' 0 bytes spill stores' not in line)):
+      notes.append(f'{kernel[:48]}: {line.strip()[:100]}')
   return name, str(lib), '; '.join(notes)
 
 
-def launcher(lib, source, tensors):
-  """(launch(), outputs) for the variant's sm90 entry point."""
-  q, k, v, do, lse, di = tensors
-  b, h, t, d = q.shape
+def load(path, entries):
+  """The variant's library, its entry points typed from _SIGNATURES."""
+  lib = ctypes.CDLL(path)
+  for name in entries:
+    fn = getattr(lib, name)
+    fn.argtypes = _build._SIGNATURES[name]
+    fn.restype = ctypes.c_int
+  return lib
+
+
+def launcher(lib, entry, inputs):
+  """(launch(), outputs) of one entry point on the shared inputs."""
+  q, k, v, do, lse, di = inputs
+  bh, t, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
   stream = torch.cuda.current_stream().cuda_stream
   scale = d ** -0.5
-  if source == 'flash_attention.cu':
-    fn = lib.mulan_flash_attention_fwd_sm90
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
-    o = torch.empty_like(q)
-
-    def launch():
-      status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  None, b * h, t, d, scale, stream)
-      assert status == 0, status
-    return launch, (o,)
-  fn = lib.mulan_flash_attention_bwd_dkv_sm90
-  fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
-  dk, dv = torch.empty_like(k), torch.empty_like(v)
+  fn = getattr(lib, entry)
+  if entry == 'mulan_flash_attention_fwd_sm90':
+    outs = (torch.empty_like(q),)
+    args = (q, k, v, *outs, None, bh, t, d, scale)
+  elif entry == 'mulan_flash_attention_bwd_dkv_sm90':
+    outs = (torch.empty_like(k), torch.empty_like(v))
+    args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
+  elif entry == 'mulan_flash_attention_bwd_dq_sm90':
+    outs = (torch.empty_like(q),)
+    args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
+  elif entry == 'mulan_dropout_mask':
+    outs = (torch.empty(MASK_SHAPE, dtype=torch.bfloat16, device=q.device),)
+    args = (*outs, outs[0].numel(), 1234, 5,
+            *kernel_constants(MASK_RATE), 1)
+  elif entry == 'mulan_dropout_mask_batch':
+    outs = (torch.empty((MASK_SLOTS, *MASK_SHAPE), dtype=torch.bfloat16,
+                        device=q.device),)
+    args = (*outs, outs[0][0].numel(), MASK_SLOTS, 1234, 0,
+            *kernel_constants(MASK_RATE), 1)
+  else:
+    raise ValueError(f'ablate: no launcher for {entry}')
+  args = tuple(a.data_ptr() if torch.is_tensor(a) else a for a in args)
 
   def launch():
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b * h, t, d, scale, stream)
-    assert status == 0, status
-  return launch, (dk, dv)
+    status = fn(*args, stream)
+    assert status == 0, (entry, status)
+  return launch, outs
 
 
 def cuda_ms(fn, n=20):
@@ -117,7 +152,7 @@ def main():
   if not torch.cuda.is_available():
     raise SystemExit('ablate: needs a CUDA device')
   spec = json.loads(pathlib.Path(sys.argv[1]).read_text())
-  source = spec['file']
+  source, entries = spec['file'], spec['entries']
   card = subprocess.run(['nvidia-smi', '-i', '0',
                          '--query-gpu=name,power.limit',
                          '--format=csv,noheader'], capture_output=True,
@@ -125,43 +160,46 @@ def main():
   print('card', card, flush=True)
   with tempfile.TemporaryDirectory() as tmp_root:
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-      built = list(pool.map(lambda kv: build(*kv, source, tmp_root),
-                            spec['variants'].items()))
+      built = list(pool.map(
+          lambda kv: build(*kv, source, spec.get('show', ''), tmp_root),
+          spec['variants'].items()))
     libs = {}
     for name, path, notes in built:
-      print('build', name, 'ok' if path else 'FAILED', notes[:600],
+      print('build', name, 'ok' if path else 'FAILED', notes[:1500],
             flush=True)
       if path:
-        libs[name] = ctypes.CDLL(path)
+        libs[name] = load(path, entries)
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v, do = (torch.randn(SHAPE, generator=gen, device=dev)
+    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
-    lse = torch.randn(SHAPE[:3], generator=gen, device=dev).abs() + 5
-    di = torch.randn(SHAPE[:3], generator=gen, device=dev)
-    runs = {n: launcher(lib, source, (q, k, v, do, lse, di))
-            for n, lib in libs.items()}
-    single = {n: [] for n in runs}
-    back = {n: [] for n in runs}
-    for _ in range(3):
-      for n, (launch, _) in runs.items():
-        single[n].append(cuda_ms(launch))
-        back[n].append(cuda_ms(lambda: [launch() for _ in range(10)],
-                               n=10) / 10)
-    ref = runs['tree'][1] if 'tree' in runs else None
-    for n, (launch, outs) in runs.items():
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      for _ in range(50):
-        launch()
-      host_ms = (time.perf_counter() - t0) / 50 * 1e3
-      torch.cuda.synchronize()
-      diff = (max((a.float() - r.float()).abs().max().item()
-                  for a, r in zip(outs, ref)) if ref else None)
-      print(json.dumps({'variant': n, 'single_ms': single[n],
-                        'back_to_back_ms': back[n],
-                        'host_ms_per_call': host_ms,
-                        'max_abs_diff_to_tree': diff}), flush=True)
+    lse = torch.randn(ATTN_SHAPE[:3], generator=gen, device=dev).abs() + 5
+    di = torch.randn(ATTN_SHAPE[:3], generator=gen, device=dev)
+    inputs = (q, k, v, do, lse, di)
+    for entry in entries:
+      runs = {n: launcher(lib, entry, inputs) for n, lib in libs.items()}
+      single = {n: [] for n in runs}
+      back = {n: [] for n in runs}
+      for _ in range(3):
+        for n, (launch, _) in runs.items():
+          single[n].append(cuda_ms(launch))
+          back[n].append(cuda_ms(lambda: [launch() for _ in range(10)],
+                                 n=10) / 10)
+      ref = runs['tree'][1] if 'tree' in runs else None
+      for n, (launch, outs) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+          launch()
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        diff = (max((a.float() - r.float()).abs().max().item()
+                    for a, r in zip(outs, ref)) if ref else None)
+        print(json.dumps({'entry': entry, 'variant': n,
+                          'single_ms': single[n], 'back_to_back_ms': back[n],
+                          'host_ms_per_call': host_ms,
+                          'max_abs_diff_to_tree': diff}), flush=True)
+      del runs
 
 
 if __name__ == '__main__':

@@ -27,6 +27,8 @@ on the card, and a model's masks do not depend on `use_kernels`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mulan_tpu_torch.ops import _build
@@ -50,6 +52,15 @@ def effective_rate(rate: float) -> float:
 def keep_scale(rate: float) -> float:
   """The value of a kept element, 1 / (1 - effective_rate), so E[mask] = 1."""
   return 1.0 / (1.0 - effective_rate(rate))
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_constants(rate: float) -> tuple[int, float]:
+  """(threshold16, keep scale rounded to float32) of `rate`, the kernels'
+  arguments: computed once per rate (a model uses one or two), not on
+  every launch."""
+  return threshold16(rate), float(torch.tensor(keep_scale(rate),
+                                               dtype=torch.float32))
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -119,9 +130,7 @@ def dropout_mask(seed: int, site: int, shape, rate: float, dtype,
   out = torch.empty(shape, dtype=dtype, device=device)
   status = _build.load_library().mulan_dropout_mask(
       out.data_ptr(), out.numel(), seed & _MASK32, site & _MASK32,
-      threshold16(rate),
-      float(torch.tensor(keep_scale(rate), dtype=torch.float32)),
-      int(dtype == torch.bfloat16),
+      *kernel_constants(rate), int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask')
   dropout_mask.launches += 1
@@ -156,8 +165,7 @@ def dropout_mask_batch(seed: int, first_site: int, n_masks: int, shape,
   out = torch.empty((n_masks, *shape), dtype=dtype, device=device)
   status = _build.load_library().mulan_dropout_mask_batch(
       out.data_ptr(), out[0].numel(), n_masks, seed & _MASK32,
-      first_site & _MASK32, threshold16(rate),
-      float(torch.tensor(keep_scale(rate), dtype=torch.float32)),
+      first_site & _MASK32, *kernel_constants(rate),
       int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask_batch')

@@ -11,10 +11,10 @@ the two kernels.
 
 Each kernel has two routes, one C entry point each (`<entry>_sm90`,
 `<entry>_simt`), chosen here once by `attention_route(dtype, head_dim)`:
-'sm90' for bfloat16 with head_dim <= 128 (the flagship's path: K1 and K2 as
-TMA-fed, warp-specialised `wgmma` kernels; K3 on `mma.sync` until it gets
-the same treatment) and 'simt' otherwise (float32, and head_dim up to 256,
-on the CUDA cores). A wrapper counts its launches in `launches` and, by
+'sm90' for bfloat16 with head_dim <= 128 (the flagship's path: K1, K2 and
+K3 as TMA-fed, warp-specialised, persistent `wgmma` kernels on
+`csrc/sm90.cuh`) and 'simt' otherwise (float32, and head_dim up to 256, on
+the CUDA cores). A wrapper counts its launches in `launches` and, by
 route, in `launches_by_route`.
 
 The plain versions run for CPU tensors and are what the kernels are held

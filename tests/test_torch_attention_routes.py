@@ -1,14 +1,16 @@
-"""The attention kernels' routes, their C entry points and the build's
-cache key, on the CPU (no nvcc, no card).
+"""The attention kernels' routes, their C entry points, the build's cache
+key and the kernel ablation specs, on the CPU (no nvcc, no card).
 
 `attention_route(dtype, head_dim)` picks each wrapper's C entry point: the
-'sm90' route (TMA-fed, warp-specialised wgmma kernels for K1 and K2) for
-bfloat16 with head_dim <= 128, the 'simt' route otherwise. The kernels
+'sm90' route (TMA-fed, warp-specialised wgmma kernels for K1, K2 and K3)
+for bfloat16 with head_dim <= 128, the 'simt' route otherwise. The kernels
 themselves are held against the plain versions on the card by
-chip_smoke.py, which also asserts that every K1 and K2 launch of the
+chip_smoke.py, which also asserts that every K1, K2 and K3 launch of the
 flagship paths took the 'sm90' route.
 """
 
+import json
+import pathlib
 import re
 import shutil
 
@@ -68,17 +70,52 @@ def test_signatures_match_the_sources():
 
 
 def test_tensor_core_kernels_are_the_sm90_ones():
-  """flash_fwd_mma and flash_bwd_dkv_mma are gone; the sm90 kernels keep
-  the flash_fwd / flash_bwd prefixes by which profiles file them."""
+  """flash_fwd_mma, flash_bwd_dkv_mma, flash_bwd_dq_mma and every mma.sync
+  are gone; the sm90 kernels keep the flash_fwd / flash_bwd prefixes by
+  which profiles file them."""
   text = ''.join(p.read_text() for p in _build._CSRC.iterdir())
-  assert 'flash_fwd_mma' not in text and 'flash_bwd_dkv_mma' not in text
-  for kernel in ('flash_fwd_sm90', 'flash_bwd_dkv_sm90', 'flash_bwd_dq_mma',
+  for gone in ('flash_fwd_mma', 'flash_bwd_dkv_mma', 'flash_bwd_dq_mma',
+               'mma.sync', 'mma_bf16', 'load_rows_t', 'kLdT'):
+    assert gone not in text, gone
+  for kernel in ('flash_fwd_sm90', 'flash_bwd_dkv_sm90', 'flash_bwd_dq_sm90',
                  'flash_fwd_simt', 'flash_bwd_dkv', 'flash_bwd_dq'):
     assert re.search(rf'\b{kernel}\s*\(', text), kernel
   assert '#include "sm90.cuh"' in (_build._CSRC /
                                    'flash_attention.cu').read_text()
   assert '#include "sm90.cuh"' in (_build._CSRC /
                                    'flash_attention_bwd.cu').read_text()
+
+
+_ABLATIONS = sorted((pathlib.Path(_build.__file__).parent / 'ablations')
+                    .glob('*.json'))
+
+
+def test_every_kernel_redesign_has_an_ablation_spec():
+  names = {p.name for p in _ABLATIONS}
+  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json',
+          'k6_mask.json'} <= names, names
+
+
+@pytest.mark.parametrize('spec_path', _ABLATIONS, ids=lambda p: p.stem)
+def test_ablation_spec_matches_the_sources(spec_path):
+  """A spec names an existing source and known entry points, and every
+  variant's `old` text occurs in csrc/ (a stale ablation fails here, not on
+  the card); 'tree' is the source as it is."""
+  spec = json.loads(spec_path.read_text())
+  assert (_build._CSRC / spec['file']).is_file(), spec['file']
+  assert spec['entries'], spec_path
+  source = (_build._CSRC / spec['file']).read_text()
+  for entry in spec['entries']:
+    assert entry in _build._SIGNATURES, entry
+    assert re.search(rf'extern "C" [\w ]+?\*?\s*{entry}\(', source), entry
+  assert spec['variants']['tree'] == []
+  texts = [p.read_text() for p in _build._CSRC.iterdir()]
+  for name, subs in spec['variants'].items():
+    for old, new in subs:
+      assert old != new, (name, old)
+      assert any(old in text for text in texts), (name, old[:60])
+  if 'show' in spec:
+    assert re.search(rf'\b{spec["show"]}\s*\(', source), spec['show']
 
 
 @pytest.fixture

@@ -173,6 +173,20 @@ def test_effective_rate_matches_jax(rate):
       1.0 - jax_dropout.effective_rate(rate))
 
 
+@pytest.mark.parametrize('rate', [0.0, 1e-5, 0.05, 0.1, 0.2, 0.25, 1 / 3, 0.5,
+                                  0.9, 0.99999])
+def test_kernel_constants_are_cached_per_rate(rate):
+  """The kernels' (threshold16, keep scale) come from a cache, once per
+  rate, and equal what the wrappers computed on every call before."""
+  want = (drop_ops.threshold16(rate),
+          float(torch.tensor(drop_ops.keep_scale(rate), dtype=torch.float32)))
+  got = drop_ops.kernel_constants(rate)
+  assert got == want and type(got[0]) is int and type(got[1]) is float
+  hits = drop_ops.kernel_constants.cache_info().hits
+  assert drop_ops.kernel_constants(rate) is got
+  assert drop_ops.kernel_constants.cache_info().hits == hits + 1
+
+
 def test_mask_values_keep_share_and_mean():
   n, rate = 10 ** 6, 0.1
   mask = drop_ops.dropout_mask_plain(7, 3, (n,), rate, torch.float32)
