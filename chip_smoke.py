@@ -14,8 +14,10 @@ and checks from the kernels' launch counts that each path went through its
 kernels; one train step with the kernels is held against one with the plain
 versions, and planted faults in K2 and K3 must fail the same gates. Then
 the same three paths run with `fused_gn_swish` and `dropout_mask_batch` on
-(K8 at every GN-swish site of the score UNet, K7 for its masks), one fused
-train step is held against its plain twin, a few train steps run with
+(K8 at every GN-swish site of the score UNet, forward and backward, K7 for
+its masks), one fused train step is held against its plain twin (and planted
+faults in K8's forward and backward must fail its gates), a few train steps
+run with
 `with_attention` and `remat='attn'`, and one train step under each `remat`
 mode is held against the step without it. Every check raises on failure.
 
@@ -90,8 +92,10 @@ LSE_RTOL = 1e-5
 # inputs, so only the order of the T-long sums differs (f32: 1e-5); in bf16
 # both round their outputs to bf16 (2^-9 relative), hence 2e-2.
 ATTN_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
-# K4: f32 both ways; the kernel runs the recurrence one vocab value at a time,
-# the plain version in chunks of 64, and the pixel sums differ in order.
+# K4: f32 both ways; the kernel sums its logsumexp over the window of bins
+# that a float32 exp does not flush to 0 (one ex2.approx each, ~2^-22
+# relative), the plain version over all of them in chunks of 64, and the
+# pixel sums differ in order.
 DECODER_RTOL = 1e-5
 # K5: f32 both ways, the same closed form, max |kernel - plain| over the
 # gradient's max-abs. The kernel runs the moments one vocab value at a time,
@@ -130,6 +134,18 @@ GRAD_NORM_RTOL = 1e-2
 # value) where the two float32 results straddle a rounding boundary; near
 # swish's zero, the float32 rounding of y (~1e-7 absolute) is the atol.
 GN_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
+# K8's backward against gn_swish_bwd_plain on the same (x, dy). dx
+# elementwise, |kernel - plain| <= rtol |plain| + atol_frac max |plain|: both
+# compute in float32 and cast once (bf16: one ulp, 2^-7 of the value, where
+# the two straddle a rounding boundary; float32: the sigmoid's ex2.approx
+# and rcp.approx, a few ulps), and dx = r (w g - mean(w g) - xhat mean(w g
+# xhat)) subtracts two group means summed in other orders, ~1e-7 of the
+# largest |dx|, hence atol_frac. dweight and dbias (float32) are sums over
+# B x H x W = 131,072 terms of mixed sign, in other orders: max |kernel -
+# plain| over their max-abs, as DECODER_BWD_RTOL.
+GN_BWD_DX_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5),
+                 torch.float32: (1e-5, 1e-5)}
+GN_BWD_SUM_RTOL = 1e-4
 # |bpd(fused) - bpd(unfused)| on one batch with the same noise, both through
 # the kernels: the fused GroupNorm+swish applies its affine and swish in
 # float32 and rounds once to bf16, the unfused one rounds the GroupNorm's
@@ -146,7 +162,8 @@ FUSED_BPD_TOL = 1e-2
 # the attention leaves' 0.999. Two fused blocks (128 and 256 input channels) are also
 # held alone at the step's input and output cotangent, where only K8
 # differs: every leaf and the input to 0.9999. K8 launched with half the
-# groups must fail these gates.
+# groups, and K8's backward with dx missing its xhat mean(w g xhat) term,
+# must each fail these gates.
 GN_LEAF_COS_MIN = 0.999
 GN_ALONE_COS_MIN = 0.9999
 # remat against 'none', one train step each with the kernels, same batch,
@@ -373,10 +390,13 @@ def check_attention_bwd(dev, gen):
 
 
 def check_decoder(dev, gen, cfg, sfu_rate):
-  """K4 against its plain version, per-pixel g0 and g0 = gamma_min."""
+  """K4 against its plain version, per-pixel g0 and g0 = gamma_min, each
+  timed beside the bound of the work its window needs (`bound_ms`) and that
+  of the full-vocab online logsumexp (`bound_full_vocab_ms`). Returns both
+  cases' results."""
   from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob_fwd,
                                                    decoder_logprob_plain,
-                                                   encode)
+                                                   encode, logsumexp_window)
   shape = (EVAL_BATCH, *cfg.image_shape)
   x = torch.randint(0, 256, shape, generator=gen, device=dev).float()
   per_pixel = cfg.gamma_min + (cfg.gamma_max - cfg.gamma_min) * torch.rand(
@@ -392,20 +412,31 @@ def check_decoder(dev, gen, cfg, sfu_rate):
     ref = decoder_logprob_plain(x, z, g0)
     assert out.shape == ref.shape == (EVAL_BATCH,)
     rel = ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
-    steps = x.numel() * cfg.vocab_size
-    # A (pixel, vocab value) step of the online logsumexp: ~9 float32
-    # operations and two exp.
+    first, last = logsumexp_window(z, g0, cfg.vocab_size)
+    bins = (last - first + 1).sum().item()
+    pixels = x.numel()
+    steps = pixels * cfg.vocab_size
+    # The work the function needs: x, z and g0 read once, and a bin of the
+    # window (`logsumexp_window`, this run's data) ~5 float32 operations and
+    # one exp; a pixel ~30 operations and three exp or log. Beside it, the
+    # work of the full-vocab online logsumexp the TPU kernel runs: ~9
+    # operations and two exp a (pixel, vocab value) step.
+    full = bound(9.0 * steps, nbytes(x, z, g0, out), exps=2.0 * steps,
+                 sfu_rate=sfu_rate)
     result = dict(max_abs_err=(out - ref).abs().max().item(),
                   ms=cuda_ms(lambda: decoder_logprob_fwd(x, z, g0)),
+                  back_to_back_ms=back_to_back_ms(
+                      lambda: decoder_logprob_fwd(x, z, g0)),
                   plain_ms=cuda_ms(lambda: decoder_logprob_plain(x, z, g0)),
-                  library_ms=None,
-                  **bound(9.0 * steps, nbytes(x, z, g0, out),
-                          exps=2.0 * steps, sfu_rate=sfu_rate))
+                  library_ms=None, window_bins_per_pixel=bins / pixels,
+                  bound_full_vocab_ms=full['bound_ms'],
+                  **bound(5.0 * bins + 30.0 * pixels, nbytes(x, z, g0, out),
+                          exps=bins + 3.0 * pixels, sfu_rate=sfu_rate))
     log('decoder_logprob', g0=name, shape=list(shape), max_rel_err=rel,
         rtol=DECODER_RTOL, **result)
     assert rel <= DECODER_RTOL, f'decoder_logprob {name}: {rel}'
     results.append(result)
-  return results[0]
+  return results
 
 
 def check_decoder_bwd(dev, gen, cfg, sfu_rate):
@@ -505,16 +536,12 @@ def check_gn_swish(dev, gen, sfu_rate):
   """K8 against `gn_swish_plain` at the flagship's two shapes (C = 128 and
   C = 256, bf16), in float32, at C = 48 (16 groups), and at an H x W that is
   no multiple of 8 (the kernel's scalar path). The flagship shapes are timed
-  beside the plain version and the unfused path's two calls,
+  (one launch and back to back) beside the plain version and the unfused
+  path's two calls,
   F.silu(F.group_norm(...)) (no single PyTorch call computes the function)."""
   from mulan_tpu_torch.ops.groupnorm_swish import gn_swish_fwd, gn_swish_plain
-  cases = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
-           ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32),
-           ((8, 128, 32, 32), torch.float32, 32),
-           ((4, 48, 16, 16), torch.bfloat16, 16),
-           ((3, 48, 5, 7), torch.float32, 16))
   results = []
-  for shape, dtype, groups in cases:
+  for shape, dtype, groups in GN_CASES:
     c = shape[1]
     x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -535,12 +562,83 @@ def check_gn_swish(dev, gen, sfu_rate):
           library_ms=None,
           unfused_pair_ms=cuda_ms(lambda: F.silu(F.group_norm(
               x, groups, wl, bl, 1e-6))),
-          # ~10 float32 operations and one exp an element.
-          **bound(10.0 * x.numel(), nbytes(x, w, b, out),
-                  exps=float(x.numel()), sfu_rate=sfu_rate))
+          back_to_back_ms=back_to_back_ms(
+              lambda: gn_swish_fwd(x, w, b, groups)),
+          # ~6 float32 operations, an exp2 and a reciprocal an element.
+          **bound(6.0 * x.numel(), nbytes(x, w, b, out),
+                  exps=2.0 * x.numel(), sfu_rate=sfu_rate))
     log('gn_swish', shape=list(shape), dtype=str(dtype), groups=groups,
         rtol=rtol, atol=atol, **result)
     assert excess <= atol, (shape, dtype, result)
+    results.append(result)
+  return results[0], results[1]
+
+
+GN_CASES = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
+            ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32),
+            ((8, 128, 32, 32), torch.float32, 32),
+            ((4, 48, 16, 16), torch.bfloat16, 16),
+            ((3, 48, 5, 7), torch.float32, 16))
+
+
+def check_gn_swish_bwd(dev, gen, sfu_rate):
+  """K8's backward against `gn_swish_bwd_plain` on the cases of
+  `check_gn_swish`: dx elementwise and dweight, dbias by their max-abs (see
+  GN_BWD_DX_TOL). The flagship shapes are timed (one launch, back to back,
+  the host's time a call) beside the plain version and the backward of the
+  unfused pair F.silu(F.group_norm(...)) in bf16 (forward and backward minus
+  forward; no single PyTorch call computes the function)."""
+  from mulan_tpu_torch.ops.groupnorm_swish import (gn_swish_bwd,
+                                                   gn_swish_bwd_plain)
+  results = []
+  for shape, dtype, groups in GN_CASES:
+    c = shape[1]
+    x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    dx, dw, db = gn_swish_bwd(x, w, b, dy, groups)
+    torch.cuda.synchronize()
+    ref = gn_swish_bwd_plain(x, w, b, dy, groups)
+    assert dx.dtype == ref[0].dtype == dtype and dx.shape == x.shape
+    assert dw.dtype == db.dtype == torch.float32 and dw.shape == (c,)
+    rtol, atol_frac = GN_BWD_DX_TOL[dtype]
+    want = ref[0].float()
+    diff = (dx.float() - want).abs()
+    dx_excess = ((diff - rtol * want.abs()).max()
+                 / want.abs().max()).item()
+    errs = dict(dx_excess_over_rtol_frac=dx_excess,
+                dweight_rel_err=rel_err(dw, ref[1]),
+                dbias_rel_err=rel_err(db, ref[2]))
+    result = dict(max_abs_err=max(diff.max(), (dw - ref[1]).abs().max(),
+                                  (db - ref[2]).abs().max()).item(), **errs)
+    if len(results) < 2:
+      xg = x.detach().requires_grad_()
+      wl, bl = (t.to(dtype).requires_grad_() for t in (w, b))
+
+      def pair_fwd():
+        return F.silu(F.group_norm(xg, groups, wl, bl, 1e-6))
+
+      def pair_fwd_bwd():
+        return torch.autograd.grad(pair_fwd(), (xg, wl, bl), dy)
+
+      def run():
+        return gn_swish_bwd(x, w, b, dy, groups)
+      result.update(
+          ms=cuda_ms(run), back_to_back_ms=back_to_back_ms(run),
+          host_ms=host_ms(run),
+          plain_ms=cuda_ms(lambda: gn_swish_bwd_plain(x, w, b, dy, groups)),
+          library_ms=None,
+          unfused_pair_bwd_ms=cuda_ms(pair_fwd_bwd) - cuda_ms(pair_fwd),
+          # x and dy read and dx written once; ~20 float32 operations, an
+          # exp2 and a reciprocal an element.
+          **bound(20.0 * x.numel(), nbytes(x, dy, w, b, dx, dw, db),
+                  exps=2.0 * x.numel(), sfu_rate=sfu_rate))
+    log('gn_swish_bwd', shape=list(shape), dtype=str(dtype), groups=groups,
+        rtol=rtol, atol_frac=atol_frac, sum_rtol=GN_BWD_SUM_RTOL, **result)
+    assert dx_excess <= atol_frac, (shape, dtype, result)
+    assert max(errs['dweight_rel_err'], errs['dbias_rel_err']) <= (
+        GN_BWD_SUM_RTOL), (shape, dtype, result)
     results.append(result)
   return results[0], results[1]
 
@@ -609,9 +707,9 @@ def expected_launches(cfg, path: str) -> dict:
   with `with_attention`, one after each of the UNet's 2 n_layer + 1 down
   and up blocks and each of the encoder's down blocks. K8 runs twice in
   each of the UNet's 2 n_layer + 3 ResNet blocks with `fused_gn_swish`.
-  In a train step a checkpointed block (remat) runs its forward again in
-  the backward: K1 once more per attention block, K8 twice and K6 once
-  more per ResNet block. K6 makes a block's mask in the forward and again
+  In a train step K8's backward runs once per K8 site, and a checkpointed
+  block (remat) runs its forward again in the backward: K1 once more per
+  attention block, K8 twice and K6 once more per ResNet block. K6 makes a block's mask in the forward and again
   in the backward; with `dropout_mask_batch`, one K7 launch makes the
   UNet's masks instead and the encoder keeps K6.
   """
@@ -641,7 +739,8 @@ def expected_launches(cfg, path: str) -> dict:
       dropout_mask=drop * ((0 if batched else 2 * n_unet + unet_remat)
                            + 2 * n_enc + enc_remat),
       dropout_mask_batch=int(batched),
-      gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0))
+      gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0),
+      gn_swish_bwd=k8)
   return counts
 
 
@@ -670,7 +769,8 @@ def kernel_counters():
           'decoder_logprob_bwd': dec.decoder_logprob_bwd,
           'dropout_mask': dropout.dropout_mask,
           'dropout_mask_batch': dropout.dropout_mask_batch,
-          'gn_swish': gn.gn_swish_fwd}
+          'gn_swish': gn.gn_swish_fwd,
+          'gn_swish_bwd': gn.gn_swish_bwd}
 
 
 def counted(fn, route_totals):
@@ -705,6 +805,7 @@ _CATEGORIES = (
     ('K3 flash attention dQ', ('flash_bwd_dq',)),
     ('K4/K5 decoder', ('decoder_logprob',)),
     ('K6/K7 dropout masks', ('dropout_mask',)),
+    ('K8 GroupNorm+swish backward', ('gn_swish_bwd',)),
     ('K8 GroupNorm+swish', ('gn_swish',)),
     ('layout transposes', ('nchwToNhwc', 'nhwcToNchw', 'transpose')),
     ('convolutions and GEMMs', ('conv', 'xmma', 'gemm', 'cutlass', 'sm90',
@@ -784,20 +885,51 @@ def planted_fault(kernel: str):
 
 
 @contextlib.contextmanager
-def planted_gn_fault():
-  """K8 launched with half the groups: a wrong GroupNorm+swish the fused
-  train-step gates must reject."""
+def planted_gn_fault(kind: str):
+  """A wrong GroupNorm+swish the fused train-step gates must reject: K8
+  launched with half the groups ('half_groups'), or K8's backward with dx
+  missing its rstd xhat mean_grp(w g xhat) term ('missing_term')."""
   from mulan_tpu_torch.ops import groupnorm_swish as gn
-  real = gn.gn_swish_fwd
+  name = {'half_groups': 'gn_swish_fwd', 'missing_term': 'gn_swish_bwd'}[kind]
+  real = getattr(gn, name)
 
   def half_groups(x, weight, bias, num_groups, eps=1e-6):
     return real(x, weight, bias, num_groups // 2, eps)
-  half_groups.launches = 0  # the real wrapper counts on the module's name
-  gn.gn_swish_fwd = half_groups
+
+  def missing_term(x, weight, bias, dy, num_groups, eps=1e-6):
+    dx, dweight, dbias = real(x, weight, bias, dy, num_groups, eps)
+    xhat, rstd = gn._normalized(x, num_groups, eps)
+    w = gn._per_channel(weight, x)
+    y = xhat * w + gn._per_channel(bias, x)
+    s = torch.sigmoid(y)
+    wgx = (w * dy.float() * s * (1 + y * (1 - s)) * xhat).reshape(
+        x.shape[0], num_groups, -1)
+    term = rstd * xhat.reshape(wgx.shape) * wgx.mean(dim=-1, keepdim=True)
+    return (dx.float() + term.reshape(x.shape)).to(x.dtype), dweight, dbias
+  fault = half_groups if kind == 'half_groups' else missing_term
+  fault.launches = 0  # the real wrapper counts on the module's name
+  setattr(gn, name, fault)
   try:
     yield
   finally:
-    gn.gn_swish_fwd = real
+    setattr(gn, name, real)
+
+
+@contextlib.contextmanager
+def no_plain_gn_bwd_on_cuda():
+  """Makes a plain float32 GroupNorm+swish backward on a CUDA tensor raise:
+  on the kernels' path every such backward is K8's backward kernel."""
+  from mulan_tpu_torch.ops import groupnorm_swish as gn
+  real = gn.gn_swish_bwd_plain
+
+  def guarded(x, *args, **kwargs):
+    assert not x.is_cuda, 'a plain GroupNorm+swish backward ran on the card'
+    return real(x, *args, **kwargs)
+  gn.gn_swish_bwd_plain = guarded
+  try:
+    yield
+  finally:
+    gn.gn_swish_bwd_plain = real
 
 
 def cosine(a, b) -> float:
@@ -956,7 +1088,7 @@ def compare_fused_step(ex, model, build_plain, batch, noise):
   """One fused train step (`fused_gn_swish` and `dropout_mask_batch`)
   through `model` (the kernels) and its plain twin on the same batch, noise
   and masks, with the gates described at GN_LEAF_COS_MIN; the same gates
-  must reject the step with K8 launched with half the groups."""
+  must reject the step with each planted K8 fault (`planted_gn_fault`)."""
   blocks = {n: model.score_model.get_submodule(n)
             for n in ('mid_block_1', 'up_block_0')}
   captured, hooks = capture_io(blocks)
@@ -985,9 +1117,18 @@ def compare_fused_step(ex, model, build_plain, batch, noise):
                     for c in cos.values()))
 
   step_cos, alone_cos = gates(grads_k, alone(True))
-  with planted_gn_fault():
-    fault_bpd, fault_grads = step_grads(ex, model, batch, noise)
-    fault_cos = gates(fault_grads, alone(True))
+  faults = {}
+  for kind in ('half_groups', 'missing_term'):
+    with planted_gn_fault(kind):
+      fault_bpd, fault_grads = step_grads(ex, model, batch, noise)
+      fault_step, fault_alone = gates(fault_grads, alone(True))
+    faults[kind] = dict(
+        bpd=fault_bpd, gn_leaf_cos_min=min(fault_step.values()),
+        alone_leaf_cos_min={b: min(c.values())
+                            for b, c in fault_alone.items()},
+        fails_step_gate=not passes(fault_step, {}),
+        fails_alone_gate=not passes({}, fault_alone),
+        rejected=not passes(fault_step, fault_alone))
   whole_k, whole_p = (torch.cat(list(g.values())) for g in (grads_k, grads_p))
   norm_rel = abs(whole_k.norm().item() / whole_p.norm().item() - 1)
   worst = min(step_cos, key=step_cos.get)
@@ -1000,16 +1141,12 @@ def compare_fused_step(ex, model, build_plain, batch, noise):
       tol_leaf=GN_LEAF_COS_MIN,
       alone_leaf_cos_min={b: min(c.values()) for b, c in alone_cos.items()},
       tol_alone=GN_ALONE_COS_MIN, whole_cos=cosine(whole_k, whole_p),
-      fault_bpd=fault_bpd,
-      fault_gn_leaf_cos_min=min(fault_cos[0].values()),
-      fault_alone_leaf_cos_min={b: min(c.values())
-                                for b, c in fault_cos[1].items()},
-      planted_fault_rejected=not passes(*fault_cos))
+      planted_faults=faults)
   assert abs(bpd_k - bpd_p) <= TRAIN_BPD_TOL
   assert norm_rel <= GRAD_NORM_RTOL, norm_rel
   assert passes(step_cos, alone_cos), (step_cos, alone_cos)
-  assert not passes(*fault_cos), ('a planted fault (K8 with half the groups) '
-                                  'passed', fault_cos)
+  for kind, fault in faults.items():
+    assert fault['rejected'], (f'a planted {kind} K8 fault passed', fault)
 
 
 def compare_remat(ex, cfg, state, batch, noise, dev, route_totals):
@@ -1100,10 +1237,13 @@ def main() -> None:
    results['flash_attention_bwd_dq']) = check_attention_bwd(dev, gen)
   sfu_rate = sm_ops_per_s(SFU_PER_CLOCK_PER_SM)
   imul_rate = sm_ops_per_s(IMUL_PER_CLOCK_PER_SM)
-  results['decoder_logprob'] = check_decoder(dev, gen, cfg, sfu_rate)
+  results['decoder_logprob'], k4_gamma_min = check_decoder(dev, gen, cfg,
+                                                           sfu_rate)
   results['decoder_logprob_bwd'] = check_decoder_bwd(dev, gen, cfg, sfu_rate)
   results['dropout_mask'] = check_dropout(dev, cfg, imul_rate)
   results['gn_swish'], gn_swish_c256 = check_gn_swish(dev, gen, sfu_rate)
+  results['gn_swish_bwd'], gn_bwd_c256 = check_gn_swish_bwd(dev, gen,
+                                                           sfu_rate)
   results['dropout_mask_batch'] = check_mask_batch(dev, cfg, imul_rate)
   torch.cuda.empty_cache()
 
@@ -1130,7 +1270,7 @@ def main() -> None:
       flash_attention=2 * EVAL_BATCHES, decoder_logprob=EVAL_BATCHES,
       flash_attention_bwd_dkv=0, flash_attention_bwd_dq=0,
       decoder_logprob_bwd=0, dropout_mask=0, dropout_mask_batch=0,
-      gn_swish=0), eval_counts
+      gn_swish=0, gn_swish_bwd=0), eval_counts
   assert eval_counts == times(expected_launches(cfg, 'eval'), EVAL_BATCHES)
 
   # 4. Sampling: T cut to SAMPLE_STEPS; every step is a full-size UNet pass.
@@ -1242,7 +1382,7 @@ def main() -> None:
   per_step = dict(flash_attention=2, flash_attention_bwd_dkv=2,
                   flash_attention_bwd_dq=2, decoder_logprob=1,
                   decoder_logprob_bwd=0, dropout_mask=2 * n_sites,
-                  dropout_mask_batch=0, gn_swish=0)
+                  dropout_mask_batch=0, gn_swish=0, gn_swish_bwd=0)
   assert train_counts == {k: TRAIN_STEPS * v for k, v in per_step.items()}, (
       train_counts)
   eval_scalars = ex.evaluate(1)
@@ -1281,7 +1421,8 @@ def main() -> None:
   ex_f = Experiment(configs.replace(train_cfg, model={
       'fused_gn_swish': True, 'dropout_mask_batch': True}), device=dev,
                     state=state)
-  fused_train_counts = run_train(ex_f, FUSED_TRAIN_STEPS, 'fused_train')
+  with no_plain_gn_bwd_on_cuda():
+    fused_train_counts = run_train(ex_f, FUSED_TRAIN_STEPS, 'fused_train')
   compare_fused_step(ex_f, model_f, lambda: build_model(
       dataclasses.replace(fused_cfg, use_kernels=False), device=dev,
       state=state), {'images': batch}, step_noise)
@@ -1298,9 +1439,10 @@ def main() -> None:
   # 10. Every remat mode gives the step without remat, with attention blocks
   # and the fused GroupNorm+swish (so that a checkpointed ResNet block
   # recomputes K8 and regenerates its K6 masks).
-  remat_counts = compare_remat(
-      ex_a, dataclasses.replace(attn_cfg, fused_gn_swish=True), attn_state,
-      {'images': batch}, step_noise, dev, route_totals)
+  with no_plain_gn_bwd_on_cuda():
+    remat_counts = compare_remat(
+        ex_a, dataclasses.replace(attn_cfg, fused_gn_swish=True), attn_state,
+        {'images': batch}, step_noise, dev, route_totals)
   torch.cuda.empty_cache()
 
   if want_profile:
@@ -1336,6 +1478,8 @@ def main() -> None:
                              'mulan_tpu/ops/dropout.py:120'),
       'gn_swish': ('mulan_tpu_torch/csrc/groupnorm_swish.cu',
                    'mulan_tpu/ops/groupnorm_swish.py:64'),
+      'gn_swish_bwd': ('mulan_tpu_torch/csrc/groupnorm_swish.cu',
+                       'mulan_tpu/ops/groupnorm_swish.py:123'),
   }
   paths = {'eval': eval_counts, 'sample': sample_counts,
            'train': train_counts, 'fused_eval': fused_eval_counts,
@@ -1347,7 +1491,8 @@ def main() -> None:
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
   # Measured for some kernels only.
   extras = ('back_to_back_ms', 'host_ms', 'library_back_to_back_ms',
-            'with_dkv')
+            'with_dkv', 'window_bins_per_pixel', 'bound_full_vocab_ms',
+            'unfused_pair_ms', 'unfused_pair_bwd_ms')
   kernels = []
   for name, (source, replaces) in sources.items():
     by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1364,10 +1509,16 @@ def main() -> None:
   k1 = kernels[0]
   k1['at_sampler_shape'] = {k: k1_sampler[k] for k in (
       'ms', 'plain_ms', 'library_ms', 'bound_ms', 'max_abs_err')}
-  k8 = next(k for k in kernels if k['name'] == 'gn_swish')
-  k8['unfused_pair_ms'] = results['gn_swish']['unfused_pair_ms']
-  k8['at_c256'] = {k: gn_swish_c256[k] for k in (
-      'ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms', 'max_abs_err')}
+  by_name = {k['name']: k for k in kernels}
+  by_name['decoder_logprob']['at_gamma_min'] = {k: k4_gamma_min[k] for k in (
+      'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_full_vocab_ms',
+      'window_bins_per_pixel', 'max_abs_err')}
+  by_name['gn_swish']['at_c256'] = {k: gn_swish_c256[k] for k in (
+      'ms', 'back_to_back_ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms',
+      'max_abs_err')}
+  by_name['gn_swish_bwd']['at_c256'] = {k: gn_bwd_c256[k] for k in (
+      'ms', 'back_to_back_ms', 'host_ms', 'plain_ms', 'unfused_pair_bwd_ms',
+      'bound_ms', 'max_abs_err')}
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

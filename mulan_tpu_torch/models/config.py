@@ -8,8 +8,9 @@ read, with the JAX package's names and defaults.
 decoder log-likelihood, the dropout masks and the fused GroupNorm+swish
 through the hand-written CUDA kernels in `ops/`. The other execution-policy
 fields, `remat`, `dropout_mask_batch` and `fused_gn_swish`, take the JAX
-package's values (`mulan_tpu/models/config.py:93-140`); `gamma_precision`
-is not ported (ROADMAP.md Queue A, remaining surface).
+package's values (`mulan_tpu/models/config.py:93-140`). The JAX fields that
+the port does not have, each with the value the port implies, are listed in
+`tests/test_torch_port.py` (`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,9 @@ class ModelConfig:
 
   # velocity parameterization
   velocity_from_epsilon: bool = False
+
+  # sampling: the prior's standard deviation at t = 1
+  sigma_prior: float = 1.0
 
   # execution policy
   compute_dtype: str = 'float32'  # 'float32' | 'bfloat16' (UNet compute only)
@@ -124,8 +128,8 @@ def flagship_config(**overrides) -> ModelConfig:
       with_fourier_features=True, with_attention=False, encoder='unet',
       forward_n_layer=4, latent_size=50, latent_k=15, latent_type='topk',
       topk_noise_type='gamma', reparam_type='true', z_conditioning=True,
-      velocity_from_epsilon=False, compute_dtype='bfloat16',
-      use_kernels=True)
+      velocity_from_epsilon=False, sigma_prior=1.0,
+      compute_dtype='bfloat16', use_kernels=True)
   return dataclasses.replace(cfg, **overrides)
 
 

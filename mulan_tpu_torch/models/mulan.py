@@ -184,6 +184,14 @@ class MuLAN(nn.Module):
     z_s_mean = torch.sqrt(a / b) * (z_t - sigma_t * c * eps_hat)
     return z_s_mean + torch.sqrt((1.0 - a) * c) * eps
 
+  def sample(self, i: int, T: int, z_t, *, eps=None,
+             generator: Optional[torch.Generator] = None):
+    """One unconditional ancestral step: `conditional_sample` with the
+    canonical `deterministic_embedding` (the first `latent_k` latents on)."""
+    return self.conditional_sample(
+        i, T, z_t, self.deterministic_embedding(z_t.shape[0]), eps=eps,
+        generator=generator)
+
   def generate_x(self, z_0) -> torch.Tensor:
     """z_0 (B, H, W, C) -> argmax pixel values (B, H, W, C) int64."""
     bsz = z_0.shape[0]

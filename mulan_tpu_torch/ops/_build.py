@@ -70,6 +70,10 @@ _SIGNATURES = {
     # (x, weight, bias, out, batch, channels, hw, groups, eps, is_bf16,
     #  stream)
     'mulan_gn_swish': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # (x, dy, weight, bias, dx, partial, dweight, dbias, batch, channels,
+    #  hw, groups, eps, is_bf16, stream)
+    'mulan_gn_swish_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _I, _P],
 }
 
 

@@ -7,8 +7,9 @@ SPEC (`ablations/*.json` beside this module) names the source under
 `mulan_tpu_torch/csrc/` (`file`), the C entry points to time (`entries`,
 names of `_build._SIGNATURES`: K1's `mulan_flash_attention_fwd_sm90`, K2's
 `mulan_flash_attention_bwd_dkv_sm90`, K3's
-`mulan_flash_attention_bwd_dq_sm90`, K6's `mulan_dropout_mask`, K7's
-`mulan_dropout_mask_batch`) and a dict of variants, each a list of
+`mulan_flash_attention_bwd_dq_sm90`, K4's `mulan_decoder_logprob_fwd`, K6's
+`mulan_dropout_mask`, K7's `mulan_dropout_mask_batch`, K8's `mulan_gn_swish`
+and `mulan_gn_swish_bwd`) and a dict of variants, each a list of
 [old, new] text substitutions applied to the sources (a variant whose `old`
 text is missing fails to build); "tree" with no substitution is the source
 as it is. Every variant is built into a library of its own (one `nvcc`
@@ -16,7 +17,10 @@ each, all started together, with `-Xptxas -v`: spills and ptxas
 performance warnings are printed), then each entry point of each variant is
 timed at the flagship's shape in turns, three rounds: the attention
 kernels at (128, 1, 1024, 128) bf16, K6 at one (128, 128, 32, 32) bf16
-site, K7 at the score UNet's 67 such sites:
+site, K7 at the score UNet's 67 such sites, K8 at its two bf16 sites
+(C = 128 and C = 256, 32 groups), K4 at (128, 32, 32, 3) with g0 per pixel
+uniform over [gamma_min, gamma_max] and with g0 = gamma_min (the cases of
+chip_smoke.py):
 
   * single: CUDA events around one launch, median of 20 (as chip_smoke.py
     times a kernel; the host's launch cost is inside when the card idles);
@@ -52,6 +56,10 @@ ATTN_SHAPE = (128, 1, 1024, 128)
 MASK_SHAPE = (128, 128, 32, 32)
 MASK_SLOTS = 67
 MASK_RATE = 0.1
+GN_SHAPES = ((128, 128, 32, 32), (128, 256, 32, 32))
+GN_GROUPS = 32
+DECODER_SHAPE = (128, 32 * 32 * 3)
+GAMMA_MIN, GAMMA_MAX = -13.3, 5.0
 
 
 def build(name, subs, source, show, tmp_root):
@@ -98,39 +106,97 @@ def load(path, entries):
   return lib
 
 
-def launcher(lib, entry, inputs):
-  """(launch(), outputs) of one entry point on the shared inputs."""
-  q, k, v, do, lse, di = inputs
-  bh, t, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+def make_inputs(dev):
+  """The shared inputs of every entry point, from seed 0."""
+  gen = torch.Generator(device=dev).manual_seed(0)
+
+  def randn(shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+  q, k, v, do = (randn(ATTN_SHAPE, torch.bfloat16) for _ in range(4))
+  inputs = dict(attn=(q, k, v, do, randn(ATTN_SHAPE[:3]).abs() + 5,
+                      randn(ATTN_SHAPE[:3])))
+  for shape in GN_SHAPES:
+    c = shape[1]
+    inputs[f'gn_c{c}'] = ((2 * randn(shape) + 0.5).to(torch.bfloat16),
+                          randn(shape, torch.bfloat16),
+                          1 + 0.1 * randn((c,)), 0.1 * randn((c,)))
+  x = torch.randint(0, 256, DECODER_SHAPE, generator=gen,
+                    device=dev).float()
+  per_pixel = GAMMA_MIN + (GAMMA_MAX - GAMMA_MIN) * torch.rand(
+      DECODER_SHAPE, generator=gen, device=dev)
+  for name, g0 in (('per_pixel', per_pixel),
+                   ('gamma_min', torch.full_like(per_pixel, GAMMA_MIN))):
+    z = (2 * (x + 0.5) / 256 - 1) + torch.exp(0.5 * g0) * randn(
+        DECODER_SHAPE)
+    inputs[f'decoder_{name}'] = (x, z, g0)
+  return inputs
+
+
+def launchers(lib, entry, inputs):
+  """[(case, launch(), outputs)] of one entry point on the shared inputs."""
   stream = torch.cuda.current_stream().cuda_stream
-  scale = d ** -0.5
   fn = getattr(lib, entry)
-  if entry == 'mulan_flash_attention_fwd_sm90':
-    outs = (torch.empty_like(q),)
-    args = (q, k, v, *outs, None, bh, t, d, scale)
-  elif entry == 'mulan_flash_attention_bwd_dkv_sm90':
-    outs = (torch.empty_like(k), torch.empty_like(v))
-    args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
-  elif entry == 'mulan_flash_attention_bwd_dq_sm90':
-    outs = (torch.empty_like(q),)
-    args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
+  cases = []
+  if entry.startswith('mulan_flash_attention'):
+    q, k, v, do, lse, di = inputs['attn']
+    bh, t, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    scale = d ** -0.5
+    if entry == 'mulan_flash_attention_fwd_sm90':
+      outs = (torch.empty_like(q),)
+      args = (q, k, v, *outs, None, bh, t, d, scale)
+    elif entry == 'mulan_flash_attention_bwd_dkv_sm90':
+      outs = (torch.empty_like(k), torch.empty_like(v))
+      args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
+    elif entry == 'mulan_flash_attention_bwd_dq_sm90':
+      outs = (torch.empty_like(q),)
+      args = (q, k, v, do, lse, di, *outs, bh, t, d, scale)
+    else:
+      raise ValueError(f'ablate: no launcher for {entry}')
+    cases.append(('', outs, args))
   elif entry == 'mulan_dropout_mask':
-    outs = (torch.empty(MASK_SHAPE, dtype=torch.bfloat16, device=q.device),)
-    args = (*outs, outs[0].numel(), 1234, 5,
-            *kernel_constants(MASK_RATE), 1)
+    outs = (torch.empty(MASK_SHAPE, dtype=torch.bfloat16,
+                        device=inputs['attn'][0].device),)
+    cases.append(('', outs, (*outs, outs[0].numel(), 1234, 5,
+                             *kernel_constants(MASK_RATE), 1)))
   elif entry == 'mulan_dropout_mask_batch':
     outs = (torch.empty((MASK_SLOTS, *MASK_SHAPE), dtype=torch.bfloat16,
-                        device=q.device),)
-    args = (*outs, outs[0][0].numel(), MASK_SLOTS, 1234, 0,
-            *kernel_constants(MASK_RATE), 1)
+                        device=inputs['attn'][0].device),)
+    cases.append(('', outs, (*outs, outs[0][0].numel(), MASK_SLOTS, 1234, 0,
+                             *kernel_constants(MASK_RATE), 1)))
+  elif entry in ('mulan_gn_swish', 'mulan_gn_swish_bwd'):
+    for shape in GN_SHAPES:
+      x, dy, w, b = inputs[f'gn_c{shape[1]}']
+      n, c, hw = shape[0], shape[1], shape[2] * shape[3]
+      if entry == 'mulan_gn_swish':
+        outs = (torch.empty_like(x),)
+        args = (x, w, b, *outs, n, c, hw, GN_GROUPS, 1e-6, 1)
+      else:
+        outs = (torch.empty_like(x), torch.empty_like(w),
+                torch.empty_like(b))
+        partial = torch.empty((2, n, c), device=x.device)
+        args = (x, dy, w, b, outs[0], partial, outs[1], outs[2], n, c, hw,
+                GN_GROUPS, 1e-6, 1)
+      cases.append((f'c{c}', outs, args))
+  elif entry == 'mulan_decoder_logprob_fwd':
+    for name in ('per_pixel', 'gamma_min'):
+      x, z, g0 = inputs[f'decoder_{name}']
+      b, n = x.shape
+      n_blocks = -(-n // 1024)
+      partial = torch.empty((b, n_blocks), device=x.device)
+      outs = (torch.empty((b,), device=x.device),)
+      cases.append((name, outs, (x, z, g0, partial, *outs, b, n, n_blocks,
+                                 256)))
   else:
     raise ValueError(f'ablate: no launcher for {entry}')
-  args = tuple(a.data_ptr() if torch.is_tensor(a) else a for a in args)
+  result = []
+  for case, outs, args in cases:
+    args = tuple(a.data_ptr() if torch.is_tensor(a) else a for a in args)
 
-  def launch():
-    status = fn(*args, stream)
-    assert status == 0, (entry, status)
-  return launch, outs
+    def launch(args=args):
+      status = fn(*args, stream)
+      assert status == 0, (entry, status)
+    result.append((case, launch, outs))
+  return result
 
 
 def cuda_ms(fn, n=20):
@@ -169,34 +235,30 @@ def main():
             flush=True)
       if path:
         libs[name] = load(path, entries)
-    dev = torch.device('cuda', 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q, k, v, do = (torch.randn(ATTN_SHAPE, generator=gen, device=dev)
-                   .to(torch.bfloat16) for _ in range(4))
-    lse = torch.randn(ATTN_SHAPE[:3], generator=gen, device=dev).abs() + 5
-    di = torch.randn(ATTN_SHAPE[:3], generator=gen, device=dev)
-    inputs = (q, k, v, do, lse, di)
+    inputs = make_inputs(torch.device('cuda', 0))
     for entry in entries:
-      runs = {n: launcher(lib, entry, inputs) for n, lib in libs.items()}
-      single = {n: [] for n in runs}
-      back = {n: [] for n in runs}
+      runs = {(n, case): (launch, outs) for n, lib in libs.items()
+              for case, launch, outs in launchers(lib, entry, inputs)}
+      single = {key: [] for key in runs}
+      back = {key: [] for key in runs}
       for _ in range(3):
-        for n, (launch, _) in runs.items():
-          single[n].append(cuda_ms(launch))
-          back[n].append(cuda_ms(lambda: [launch() for _ in range(10)],
-                                 n=10) / 10)
-      ref = runs['tree'][1] if 'tree' in runs else None
-      for n, (launch, outs) in runs.items():
+        for key, (launch, _) in runs.items():
+          single[key].append(cuda_ms(launch))
+          back[key].append(cuda_ms(lambda: [launch() for _ in range(10)],
+                                   n=10) / 10)
+      for (n, case), (launch, outs) in runs.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(50):
           launch()
         host_ms = (time.perf_counter() - t0) / 50 * 1e3
         torch.cuda.synchronize()
+        ref = runs.get(('tree', case))
         diff = (max((a.float() - r.float()).abs().max().item()
-                    for a, r in zip(outs, ref)) if ref else None)
-        print(json.dumps({'entry': entry, 'variant': n,
-                          'single_ms': single[n], 'back_to_back_ms': back[n],
+                    for a, r in zip(outs, ref[1])) if ref else None)
+        print(json.dumps({'entry': entry, 'case': case, 'variant': n,
+                          'single_ms': single[(n, case)],
+                          'back_to_back_ms': back[(n, case)],
                           'host_ms_per_call': host_ms,
                           'max_abs_diff_to_tree': diff}), flush=True)
       del runs

@@ -7,10 +7,12 @@ l_v = -0.5 ((z - e_v) exp(-g0/2))^2 and e_v = 2 (v + 1/2) / vocab - 1.
 The kernels (`csrc/decoder_logprob.cu`) replace the Pallas TPU kernels of
 `mulan_tpu/ops/decoder_logprob.py`: `_fwd_kernel` (K4, via `_run_fwd`) and
 `_bwd_kernel` (K5, via `_bwd`), whose closed-form backward needs only the
-softmax moments E_p[e_v] and E_p[(z - e_v)^2]. The plain forward streams the
-normalizer over vocab chunks as `mulan_tpu/models/encdec.py:logprob` does;
-the plain backward is the same closed form in PyTorch. They run for CPU
-tensors and are what the kernels are held against on the card.
+softmax moments E_p[e_v] and E_p[(z - e_v)^2]. K4 sums the logsumexp only
+over `logsumexp_window`, the bins whose terms a float32 exp does not flush
+to 0. The plain forward streams the normalizer over vocab chunks as
+`mulan_tpu/models/encdec.py:logprob` does; the plain backward is the same
+closed form in PyTorch. They run for CPU tensors and are what the kernels
+are held against on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +28,25 @@ def encode(x: torch.Tensor, vocab_size: int) -> torch.Tensor:
   """Map discrete values {0..vocab-1} to centred bins in (-1, 1)."""
   x = torch.round(x.float())
   return 2.0 * ((x + 0.5) / vocab_size) - 1.0
+
+
+# A term of the logsumexp at |z - e_v| e^(-g0/2) >= this sits below e^-104
+# relative to the largest one, below float32's smallest denormal.
+WINDOW_SIGMAS = 14.5
+
+
+def logsumexp_window(z, g0, vocab_size: int = 256):
+  """(first, last): the bins, inclusive, outside of which every term of
+  logsumexp_v l_v is below e^-104 times the largest, as K4 computes them.
+  The largest is at the bin nearest z, v*; a bin k places from it has
+  l_v - l_{v*} <= -k (k - 1) / 2 (2 / vocab)^2 e^-g0, below -104 for k above
+  ceil(14.5 e^(g0/2) vocab / 2) + 1."""
+  half_bins = vocab_size / 2
+  v_star = torch.clamp(torch.round((z + 1) * half_bins - 0.5), 0,
+                       vocab_size - 1)
+  half = torch.ceil(WINDOW_SIGMAS * torch.exp(0.5 * g0) * half_bins) + 1
+  return (torch.clamp(v_star - half, min=0),
+          torch.clamp(v_star + half, max=vocab_size - 1))
 
 
 # Vocab values per step of the plain version's streamed normalizer.

@@ -29,7 +29,6 @@ import torch
 from mulan_tpu_torch import data as data_lib
 from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.configs import Config
-from mulan_tpu_torch.evals import harness
 from mulan_tpu_torch.models import build_model, resolve_device
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
@@ -165,13 +164,21 @@ class Experiment:
     self.writer.write_scalars(self.state.step, means)
     return means
 
+  @torch.inference_mode()
   def draw_samples(self, batch_size: Optional[int] = None,
                    T: int = 1000) -> np.ndarray:
-    """An image grid of ancestral samples from the EMA model."""
+    """An image grid of T unconditional ancestral steps of the EMA model
+    (`mulan_tpu/train/loop.py:201-216`): from `sigma_prior` times a
+    standard normal, through `MuLAN.sample`, then the argmax decode."""
     if batch_size is None:
       batch_size = min(64, self.config.training.batch_size_eval)
-    images, _ = harness.random_samples(self.state.ema_model, batch_size, T,
-                                       generator=self.generator)
+    model = self.state.ema_model
+    cfg = model.config
+    z = cfg.sigma_prior * model._randn((batch_size, *cfg.image_shape),
+                                       self.generator)
+    for i in range(T):
+      z = model.sample(i, T, z, generator=self.generator)
+    images = model.generate_x(z).to(torch.uint8).cpu().numpy()
     grid = image_grid(images)
     self.writer.write_images(self.state.step, {'samples': grid[None]})
     return grid

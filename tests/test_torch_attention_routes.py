@@ -92,8 +92,8 @@ _ABLATIONS = sorted((pathlib.Path(_build.__file__).parent / 'ablations')
 
 def test_every_kernel_redesign_has_an_ablation_spec():
   names = {p.name for p in _ABLATIONS}
-  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json',
-          'k6_mask.json'} <= names, names
+  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k4_decoder.json',
+          'k6_mask.json', 'k8_gn.json'} <= names, names
 
 
 @pytest.mark.parametrize('spec_path', _ABLATIONS, ids=lambda p: p.stem)

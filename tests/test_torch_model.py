@@ -159,6 +159,21 @@ def test_conditional_sample_matches_jax(pair, monkeypatch):
                              atol=ATOL)
 
 
+def test_sample_matches_jax(pair):
+  """One unconditional step (the canonical embedding) with JAX's own noise
+  for step i, `normal(fold_in(rng, i))`, handed to the port as `eps`."""
+  model, params, port = pair
+  z_t = _rand((B, *port.config.image_shape), 9)
+  rng = jax.random.PRNGKey(4)
+  want = model.apply({'params': params}, 3, 10, jnp.asarray(z_t),
+                     jnp.zeros((B,), jnp.uint8), rng, method=model.sample)
+  eps = jax.random.normal(jax.random.fold_in(rng, 3), z_t.shape)
+  with torch.no_grad():
+    got = port.sample(3, 10, to_torch(z_t), eps=to_torch(eps))
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                             atol=ATOL)
+
+
 def test_generate_x_matches_jax(pair):
   model, params, port = pair
   z_0 = _rand((B, *port.config.image_shape), 8)

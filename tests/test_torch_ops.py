@@ -86,3 +86,36 @@ def test_encode_matches_jax():
   np.testing.assert_array_equal(
       dec_ops.encode(torch.from_numpy(x), 256).numpy(),
       np.asarray(jax_encdec.encode(jnp.asarray(x), 256)))
+
+
+def test_logsumexp_window_drops_only_vanishing_terms():
+  """K4's window (`logsumexp_window`, computed in float32 as the kernel
+  does) against the full 256-bin sum in float64, for g0 over [gamma_min,
+  gamma_max] and z over [-1.5, 1.5] with the bin edges among them: every
+  bin left out has l_v - max_v l_v < -104, so the windowed logsumexp is the
+  full one to float64 rounding; at gamma_min the window is 9 bins inside
+  the vocab's range."""
+  vocab = 256
+  rs = np.random.RandomState(0)
+  g0 = np.concatenate([np.linspace(-13.3, 5.0, 37), rs.uniform(-13.3, 5.0,
+                                                               11)])
+  edges = -1.0 + 2.0 * np.arange(0, vocab + 1, 17) / vocab
+  z = np.concatenate([np.linspace(-1.5, 1.5, 401), rs.uniform(-1.5, 1.5, 97),
+                      edges, edges + 1e-6, edges - 1e-6])
+  g0, z = (a.ravel() for a in np.meshgrid(g0, z))
+  first, last = dec_ops.logsumexp_window(
+      torch.from_numpy(z.astype(np.float32)),
+      torch.from_numpy(g0.astype(np.float32)), vocab)
+  first, last = first.numpy()[:, None], last.numpy()[:, None]
+  v = np.arange(vocab)
+  e = 2.0 * (v + 0.5) / vocab - 1.0
+  logits = -0.5 * ((z[:, None] - e) * np.exp(-0.5 * g0[:, None])) ** 2
+  rel = logits - logits.max(axis=1, keepdims=True)
+  inside = (v >= first) & (v <= last)
+  assert (rel[~inside] < -104).all(), rel[~inside].max()
+  full = np.log(np.exp(rel).sum(axis=1))
+  window = np.log(np.where(inside, np.exp(rel), 0.0).sum(axis=1))
+  np.testing.assert_allclose(window, full, rtol=0, atol=1e-15)
+  at_min = (g0 == -13.3) & (np.abs(z) < 1 - 4 * 2 / vocab)
+  assert at_min.any()
+  assert ((last - first)[at_min] == 8).all()

@@ -18,6 +18,7 @@ from __graft_entry__ import _flagship_config
 from mulan_tpu.configs import cifar10_conditioned
 from mulan_tpu.data import pipeline
 from mulan_tpu.models import model_config_from_dict
+from mulan_tpu.models.config import ModelConfig as JaxModelConfig
 from mulan_tpu_torch import data, params
 from mulan_tpu_torch.evals import harness, vlb
 from mulan_tpu_torch.models.config import (ModelConfig, flagship_config,
@@ -43,6 +44,46 @@ def test_flagship_config_matches_jax():
 def test_tiny_config_matches_graft_entry():
   _assert_fields_match(tiny_config(), model_config_from_dict(
       dict(_flagship_config(tiny=True).model)))
+
+
+# JAX ModelConfig fields that the port renames: {JAX name: port name}.
+RENAMED = {'use_pallas': 'use_kernels'}
+# JAX ModelConfig fields that the port does not have, each with the value
+# that the port's code implies (it runs only that behaviour).
+NOT_PORTED = {
+    'condition': 'input',  # the score UNet takes z_t itself as its input
+    'epsilon': 0.0,  # no offset of the time grid
+    'gamma_precision': 'highest',  # the gamma MLP runs in float32, TF32 off
+    'importance_sampling': False,  # t is drawn uniform (antithetic)
+    'model_time': False,  # the UNet is conditioned on gamma_t, not on t
+    'monotone_layer': 'dense_monotone',  # the poly_fixedend network's layer
+    'sigma_max': 20.0,  # sigma_*: the blur schedule's; 'no_blur' has none
+    'sigma_min': 0.0,
+    'sigma_type': 'no_blur',
+    'trace_matching': False,  # the ELBO has no trace-matching term
+}
+
+
+def test_every_jax_config_field_is_ported_or_listed():
+  """Walks the JAX ModelConfig's fields: each is a port field with the same
+  flagship and tiny values, a rename, or a NOT_PORTED entry whose implied
+  value both JAX configs have. A JAX field added without a port fails."""
+  port_fields = {f.name for f in dataclasses.fields(ModelConfig)}
+  jax_fields = [f.name for f in dataclasses.fields(JaxModelConfig)]
+  assert not port_fields & NOT_PORTED.keys()
+  assert NOT_PORTED.keys() <= set(jax_fields)
+  pairs = ((flagship_config(), model_config_from_dict(
+      cifar10_conditioned.get_config().model)),
+           (tiny_config(), model_config_from_dict(
+               dict(_flagship_config(tiny=True).model))))
+  for name in jax_fields:
+    for port_cfg, jax_cfg in pairs:
+      if name in NOT_PORTED:
+        assert getattr(jax_cfg, name) == NOT_PORTED[name], name
+      else:
+        port_name = RENAMED.get(name, name)
+        assert port_name in port_fields, f'{name} is neither ported nor listed'
+        assert getattr(port_cfg, port_name) == getattr(jax_cfg, name), name
 
 
 @pytest.mark.parametrize('split', ['train', 'eval'])

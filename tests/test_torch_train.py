@@ -17,6 +17,7 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -26,6 +27,7 @@ from mulan_tpu.data import pipeline
 from mulan_tpu.models import build_model as build_jax_model
 from mulan_tpu.models import model_config_from_dict
 from mulan_tpu.ops import dropout as jax_dropout
+from mulan_tpu.parallel import mesh as mesh_lib
 from mulan_tpu.train import loop as jax_loop
 from mulan_tpu.train import optimizer as jax_optimizer
 from mulan_tpu.train.state import TrainState as JaxTrainState
@@ -38,6 +40,7 @@ from mulan_tpu_torch.ops import dropout as drop_ops
 from mulan_tpu_torch.train import optimizer as port_optimizer
 from mulan_tpu_torch.train.loop import Experiment
 from mulan_tpu_torch.train.state import TrainState
+from mulan_tpu_torch.utils.metrics import image_grid
 from parity_helpers import frozen_randomness, shape_seed
 from torch_port_helpers import (jax_config, mulan_pair, shaped_gamma,
                                 shaped_normal, to_torch)
@@ -437,6 +440,62 @@ def test_experiment_train_steps_match_jax(monkeypatch, tiny_params):
         for k, w in want.items()])
     assert excess.max() <= move, excess.max()
     assert (excess > 0.1 * move).double().mean() <= 1e-2
+
+
+def test_draw_samples_matches_jax_p_sample(monkeypatch, tiny_params):
+  """Three steps of `Experiment.draw_samples` against JAX's `_p_sample`
+  (`Experiment._compile_steps`, run on a stand-in Experiment), with
+  sigma_prior 0.5. JAX draws its own noise: the prior from the second half
+  of `split(rng)`, step i's from `fold_in(rng, i)` of the first; the port is
+  handed the same arrays through `MuLAN._randn`. The argmax decode may move
+  a pixel whose z_0 lies within float32 rounding of a bin edge to the
+  neighbouring value, so the grids agree to one level and exactly on all
+  but 1% of the values. The sampler draw_samples ran before (a random
+  embedding per example) differs from JAX's in more than half of them."""
+  cfg = configs.replace(configs.tiny_synthetic(), model={'sigma_prior': 0.5})
+  n, steps = 4, 3
+  jax_params, port = tiny_params
+  jax_cfg = jax_tiny_synthetic.get_config()
+  jax_cfg.model.sigma_prior = 0.5
+  mesh = mesh_lib.create_mesh(devices=jax.devices()[:1])
+  fake = types.SimpleNamespace(
+      config=jax_cfg, mesh=mesh, model_config=jax_config(cfg.model),
+      model=build_jax_model('mulan_velocity', jax_config(cfg.model)),
+      state=JaxTrainState.create(apply_fn=None, params=jax_params,
+                                 tx=optax.identity()),
+      _replicated=mesh_lib.replicated_sharding(mesh),
+      _train_rng=jax.random.PRNGKey(1), _eval_rng=jax.random.PRNGKey(2),
+      _sample_rng=jax.random.PRNGKey(3))
+  jax_loop.Experiment._compile_steps(fake)
+  want = jax_loop.Experiment._draw_samples(fake, jax_params, n, steps)
+
+  rng, prior_rng = jax.random.split(fake._sample_rng)
+  shape = (n, *cfg.model.image_shape)
+  noise = [jax.random.normal(prior_rng, shape)] + [
+      jax.random.normal(jax.random.fold_in(rng, i), shape)
+      for i in range(steps)]
+  ex = Experiment(cfg, device='cpu', state=port.state_dict())
+  monkeypatch.setattr(MuLAN, '_randn',
+                      lambda self, shape, generator: to_torch(noise.pop(0)))
+  got = ex.draw_samples(n, T=steps)
+  assert not noise
+  assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+  diff = np.abs(got.astype(int) - want.astype(int))
+  assert diff.max() <= 1 and (diff > 0).mean() <= 1e-2, diff.sum()
+
+  # What draw_samples drew before: a random hard top-k embedding per example
+  # (`harness.random_samples`), here on the same prior and step noise.
+  model, m = ex.state.ema_model, cfg.model
+  emb = latents.logits_to_embeddings(torch.randn(
+      (n, m.latent_size), generator=torch.Generator().manual_seed(0)),
+                                     m.latent_k)
+  with torch.no_grad():
+    z = to_torch(jax.random.normal(prior_rng, shape))
+    for i in range(steps):
+      z = model.conditional_sample(i, steps, z, emb, eps=to_torch(
+          jax.random.normal(jax.random.fold_in(rng, i), shape)))
+    old = image_grid(model.generate_x(z).to(torch.uint8).numpy())
+  assert (old != want).mean() > 0.5
 
 
 def test_experiment_trains_and_evaluates_on_cpu(capsys):

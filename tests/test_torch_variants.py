@@ -120,11 +120,86 @@ def test_gn_swish_bf16_gradient_types():
                                             torch.float32)
 
 
+@pytest.mark.parametrize('shape', [(2, 4, 8, 64), (2, 4, 4, 48)])
+def test_gn_swish_bwd_plain_matches_jax_custom_vjp(shape):
+  """The closed form against the vjp of JAX's `fused_gn_swish` (its `_bwd`
+  differentiates `_gn_swish_reference`) for a random cotangent, float32.
+  Only the order of the sums differs; dx cancels two group means against
+  w g, so it is held at the tolerance of the existing gradient test."""
+  c = shape[-1]
+  groups = jax_layers.num_groups_for(c)
+  x, dy = _rand(shape, 5, scale=2.0, shift=0.5), _rand(shape, 6)
+  scale, bias = _affine(c, 7)
+  _, vjp = jax.vjp(lambda xx, s, b: fused_gn_swish(xx, s, b, groups, 1e-6,
+                                                    True),
+                   jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+  want = vjp(jnp.asarray(dy))
+  got = gn_ops.gn_swish_bwd_plain(nchw(x), to_torch(scale), to_torch(bias),
+                                  nchw(dy), groups)
+  for g, w, name in zip((nhwc(got[0]), got[1].numpy(), got[2].numpy()), want,
+                        ('x', 'scale', 'bias')):
+    np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-5,
+                               err_msg=name)
+
+
+def test_gn_swish_bwd_plain_bf16_matches_jax_custom_vjp():
+  """bf16 x and cotangent: both upcast and compute in float32, dx is cast
+  back to bf16 (one bf16 ulp apart where the float32 results straddle a
+  rounding boundary), dweight and dbias stay float32."""
+  shape, groups = (2, 4, 4, 32), 32
+  x = jnp.asarray(_rand(shape, 8, scale=2.0), jnp.bfloat16)
+  dy = jnp.asarray(_rand(shape, 9), jnp.bfloat16)
+  scale, bias = _affine(32, 10)
+  _, vjp = jax.vjp(lambda xx, s, b: fused_gn_swish(xx, s, b, groups, 1e-6,
+                                                    True),
+                   x, jnp.asarray(scale), jnp.asarray(bias))
+  want = vjp(dy)
+  got = gn_ops.gn_swish_bwd_plain(
+      nchw(np.asarray(x, np.float32)).to(torch.bfloat16), to_torch(scale),
+      to_torch(bias), nchw(np.asarray(dy, np.float32)).to(torch.bfloat16),
+      groups)
+  assert (got[0].dtype, got[1].dtype, got[2].dtype) == (
+      torch.bfloat16, torch.float32, torch.float32)
+  assert want[0].dtype == jnp.bfloat16
+  dx_want = np.asarray(want[0], np.float32)
+  np.testing.assert_allclose(nhwc(got[0].float()), dx_want, rtol=BF16_ULP,
+                             atol=1e-5 * np.abs(dx_want).max())
+  for g, w in zip(got[1:], want[1:]):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_gn_swish_backward_routes_through_gn_swish_bwd(monkeypatch):
+  """With use_kernel the autograd backward calls `gn_swish_bwd` (on the CPU
+  its plain version), without it `gn_swish_bwd_plain`, once a call."""
+  calls = []
+
+  def counting(name, fn):
+    def wrapped(*args):
+      calls.append(name)
+      return fn(*args)
+    return wrapped
+  monkeypatch.setattr(gn_ops, 'gn_swish_bwd',
+                      counting('kernel', gn_ops.gn_swish_bwd))
+  monkeypatch.setattr(gn_ops, 'gn_swish_bwd_plain',
+                      counting('plain', gn_ops.gn_swish_bwd_plain))
+  x = nchw(_rand((2, 4, 4, 32), 11)).requires_grad_()
+  w = torch.ones(32, requires_grad=True)
+  b = torch.zeros(32, requires_grad=True)
+  gn_ops.gn_swish(x, w, b, 32, use_kernel=True).sum().backward()
+  assert calls == ['kernel', 'plain']  # gn_swish_bwd's CPU path
+  calls.clear()
+  gn_ops.gn_swish(x, w, b, 32, use_kernel=False).sum().backward()
+  assert calls == ['plain']
+
+
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
   x = torch.empty((2, 32, 4, 4), device='meta')
   w = torch.empty(32, device='meta')
   with pytest.raises(ValueError, match='unsupported device'):
     gn_ops.gn_swish_fwd(x, w, w, 32)
+  with pytest.raises(ValueError, match='unsupported device'):
+    gn_ops.gn_swish_bwd(x, w, w, x, 32)
   with pytest.raises(ValueError, match='unsupported device'):
     drop_ops.dropout_mask_batch(1, 0, 3, (2, 4), 0.1, torch.float32, 'meta')
 
