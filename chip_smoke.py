@@ -19,11 +19,20 @@ its masks), one fused train step is held against its plain twin (and planted
 faults in K8's forward and backward must fail its gates), a few train steps
 run with
 `with_attention` and `remat='attn'`, and one train step under each `remat`
-mode is held against the step without it. Every check raises on failure.
+mode is held against the step without it. Last, the checkpoint paths:
+K1 and K4 at the dense VLB's shapes against their plain versions;
+`Experiment.train_and_evaluate` in a temporary workdir (4 steps, an
+evaluation and a sample grid after step 1 and every 2 steps, a checkpoint
+every 2), whose last checkpoint restored into a fresh Experiment must hold
+its state bit for bit and whose step-2 checkpoint must give step 3's bpd
+again; the checkpoint exported as a `ckpt-N.flax` and read by
+`EvalExperiment`, whose EMA must be the run's bit for bit; and the dense VLB
+through it, one chunk held against the plain versions. Every check raises
+on failure.
 
-With `--profile` it also profiles one ELBO and one train step, unfused and
-fused, by kernel category with `torch.profiler` and prints the tables as
-`[profile]` lines.
+With `--profile` it also profiles one ELBO, one dense-VLB chunk and one
+train step, unfused and fused, by kernel category with `torch.profiler` and
+prints the tables as `[profile]` lines.
 
 Output, one line per phase; the line before the last is the card's name and
 power limit, the one before that a JSON summary of the kernels, and the last
@@ -35,11 +44,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -55,6 +67,18 @@ FUSED_TRAIN_STEPS = 6
 ATTN_TRAIN_STEPS = 3
 FLAGSHIP_ATTN = (EVAL_BATCH, 1, 1024, 128)
 SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 128)
+# Checkpoint evaluation. The dense VLB's t-grid and the images it sweeps:
+# chunks of 512 (image, t) rows, so K1 at (512, 1, 1024, 128) in the score
+# UNet and at (4, 1, 1024, 128) in the encoder (once per image), K4 at 512
+# rows. The workdir run: steps, and the in-training sampler's batch
+# (min(64, batch_size_eval)).
+DENSE_T = 128
+DENSE_IMAGES = 8
+DENSE_ROWS = 512
+DENSE_ATTN = (DENSE_ROWS, 1, 1024, 128)
+DENSE_ENCODER_ATTN = (DENSE_ROWS // DENSE_T, 1, 1024, 128)
+WORKDIR_STEPS = 4
+WORKDIR_SAMPLER_ATTN = (64, 1, 1024, 128)
 # Kernels every one of whose launches on the flagship paths must take the
 # 'sm90' route (TMA-fed, warp-specialised wgmma kernels).
 SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
@@ -253,54 +277,60 @@ def rel_err(got, want) -> float:
           / want.abs().max().clamp_min(1e-30)).item()
 
 
+def attention_case(dev, gen, shape, dtype, tol, timed_case):
+  """K1 at one shape against its plain version (the output and the row
+  log-sum-exp written under autograd, which must leave the output
+  unchanged); with `timed_case`, timed beside the plain version, SDPA and
+  its bound. Logs and returns the result."""
+  from mulan_tpu_torch.ops.flash_attention import (attention_route,
+                                                   flash_attention_fwd,
+                                                   flash_attention_plain)
+  q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+             for _ in range(3))
+  scale = shape[-1] ** -0.5
+  out = flash_attention_fwd(q, k, v, scale)
+  out_lse, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
+  torch.cuda.synchronize()
+  ref, ref_lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+  assert out.shape == ref.shape and out.dtype == ref.dtype
+  assert torch.equal(out, out_lse), 'the lse write changed the output'
+  lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
+  result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                lse_rel_err=lse_err.item())
+  del ref, ref_lse
+  if timed_case:
+    result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale))
+    result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
+        q, k, v, scale, return_lse=True))
+    result['plain_ms'] = cuda_ms(
+        lambda: flash_attention_plain(q, k, v, scale))
+    result['library_ms'] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    b, h, t, d = shape
+    result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
+                        dtype))
+  log('flash_attention', shape=list(shape), dtype=str(dtype),
+      route=attention_route(dtype, shape[-1]), tol=tol, lse_rtol=LSE_RTOL,
+      **result)
+  assert result['max_abs_err'] <= tol, (shape, dtype, result)
+  assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
+  return result
+
+
 def check_attention(dev, gen):
   """K1. The flagship shape and the sampler's (bf16, sm90 route) and the
   tiny config's float32 with a ragged T (simt route) are checked and timed;
   the others cover the sm90 route at a head_dim that is not a multiple of 16
   and at D = 64 with a T ragged across a 128-row tile, on two heads, and the
-  simt route for bf16 with head_dim > 128. The row log-sum-exp written under
-  autograd is held against the plain version's, and writing it leaves the
-  output unchanged. Returns the flagship's and the sampler's results."""
-  from mulan_tpu_torch.ops.flash_attention import (attention_route,
-                                                   flash_attention_fwd,
-                                                   flash_attention_plain)
+  simt route for bf16 with head_dim > 128. Returns the flagship's and the
+  sampler's results."""
   cases = ((FLAGSHIP_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
            (SAMPLER_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
            ((3, 1, 60, 32), torch.float32, ATTN_TOL_F32, True),
            ((2, 2, 100, 40), torch.bfloat16, ATTN_TOL_BF16, False),
            ((2, 2, 200, 64), torch.bfloat16, ATTN_TOL_BF16, False),
            ((2, 1, 130, 256), torch.bfloat16, ATTN_TOL_BF16, False))
-  results = []
-  for shape, dtype, tol, timed_case in cases:
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for _ in range(3))
-    scale = shape[-1] ** -0.5
-    out = flash_attention_fwd(q, k, v, scale)
-    out_lse, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
-    torch.cuda.synchronize()
-    ref, ref_lse = flash_attention_plain(q, k, v, scale, return_lse=True)
-    assert out.shape == ref.shape and out.dtype == ref.dtype
-    assert torch.equal(out, out_lse), 'the lse write changed the output'
-    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
-    result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                  lse_rel_err=lse_err.item())
-    if timed_case:
-      result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale))
-      result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
-          q, k, v, scale, return_lse=True))
-      result['plain_ms'] = cuda_ms(
-          lambda: flash_attention_plain(q, k, v, scale))
-      result['library_ms'] = cuda_ms(
-          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-      b, h, t, d = shape
-      result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
-                          dtype))
-    log('flash_attention', shape=list(shape), dtype=str(dtype),
-        route=attention_route(dtype, shape[-1]), tol=tol, lse_rtol=LSE_RTOL,
-        **result)
-    assert result['max_abs_err'] <= tol, (shape, dtype, result)
-    assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
-    results.append(result)
+  results = [attention_case(dev, gen, *case) for case in cases]
   return results[0], results[1]
 
 
@@ -389,15 +419,15 @@ def check_attention_bwd(dev, gen):
   return dkv, dq
 
 
-def check_decoder(dev, gen, cfg, sfu_rate):
-  """K4 against its plain version, per-pixel g0 and g0 = gamma_min, each
-  timed beside the bound of the work its window needs (`bound_ms`) and that
-  of the full-vocab online logsumexp (`bound_full_vocab_ms`). Returns both
-  cases' results."""
+def check_decoder(dev, gen, cfg, sfu_rate, batch=EVAL_BATCH):
+  """K4 against its plain version at `batch` images, per-pixel g0 and
+  g0 = gamma_min, each timed beside the bound of the work its window needs
+  (`bound_ms`) and that of the full-vocab online logsumexp
+  (`bound_full_vocab_ms`). Returns both cases' results."""
   from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob_fwd,
                                                    decoder_logprob_plain,
                                                    encode, logsumexp_window)
-  shape = (EVAL_BATCH, *cfg.image_shape)
+  shape = (batch, *cfg.image_shape)
   x = torch.randint(0, 256, shape, generator=gen, device=dev).float()
   per_pixel = cfg.gamma_min + (cfg.gamma_max - cfg.gamma_min) * torch.rand(
       shape, generator=gen, device=dev)
@@ -410,7 +440,7 @@ def check_decoder(dev, gen, cfg, sfu_rate):
     out = decoder_logprob_fwd(x, z, g0)
     torch.cuda.synchronize()
     ref = decoder_logprob_plain(x, z, g0)
-    assert out.shape == ref.shape == (EVAL_BATCH,)
+    assert out.shape == ref.shape == (batch,)
     rel = ((out - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
     first, last = logsumexp_window(z, g0, cfg.vocab_size)
     bins = (last - first + 1).sum().item()
@@ -1199,6 +1229,171 @@ def compare_remat(ex, cfg, state, batch, noise, dev, route_totals):
   return counts
 
 
+def check_dense_kernels(dev, gen, cfg, sfu_rate):
+  """K1 at the dense VLB's score-UNet and encoder shapes (timed) and the
+  in-training sampler's, and K4 at the dense chunk's rows, against their
+  plain versions with the tolerances above. Returns ({shape: K1 result},
+  {g0 case: K4 result})."""
+  k1 = {'x'.join(map(str, shape)): attention_case(
+      dev, gen, shape, torch.bfloat16, ATTN_TOL_BF16, timed_case)
+        for shape, timed_case in ((DENSE_ATTN, True),
+                                  (DENSE_ENCODER_ATTN, True),
+                                  (WORKDIR_SAMPLER_ATTN, False))}
+  per_pixel, gamma_min = check_decoder(dev, gen, cfg, sfu_rate,
+                                       batch=DENSE_ROWS)
+  return k1, {'per_pixel': per_pixel, 'gamma_min': gamma_min}
+
+
+def state_tensors(state) -> dict:
+  """Every tensor of a TrainState by name: params, EMA, the AdamW moments
+  and steps, and its step and count."""
+  out = {f'params/{k}': v for k, v in state.params.items()}
+  out.update({f'ema/{k}': v for k, v in state.ema_params.items()})
+  for i, slots in state.optimizer.adamw.state_dict()['state'].items():
+    out.update({f'adamw/{i}/{k}': v for k, v in slots.items()})
+  out['step'] = torch.tensor(state.step)
+  out['count'] = torch.tensor(state.optimizer.count)
+  return out
+
+
+def run_workdir_train(train_cfg, state, dev, route_totals, workdir):
+  """`Experiment.train_and_evaluate` in `workdir`: WORKDIR_STEPS steps at
+  batch 128, a checkpoint every 2 (2 kept), an evaluation of 2 batches and
+  a sample grid (T cut to SAMPLE_STEPS) after step 1, every 2 steps and at
+  the last. Then a fresh Experiment restored from the last checkpoint must
+  hold the run's state bit for bit; step 3 run again from the step-2
+  checkpoint on the same batch and step key must give its bpd; the last
+  checkpoint exported to a `ckpt-N.flax` and read by EvalExperiment must
+  give the run's EMA bit for bit. Returns (launches, the EvalExperiment)."""
+  from mulan_tpu_torch import compat, configs
+  from mulan_tpu_torch.evals.harness import EvalExperiment
+  from mulan_tpu_torch.train import checkpoint as ckpt_lib
+  from mulan_tpu_torch.train.loop import Experiment
+  cfg_w = configs.replace(train_cfg, training={
+      'num_steps_train': WORKDIR_STEPS, 'steps_per_save': 2,
+      'steps_per_eval': 2, 'num_steps_eval': 2, 'steps_per_logging': 1})
+  cfg = cfg_w.model
+  ex = Experiment(cfg_w, device=dev, state=state)
+  ex.draw_samples = functools.partial(ex.draw_samples, T=SAMPLE_STEPS)
+  steps = []
+  train_step = ex.train_step
+
+  def recording_step(batch, noise=None):
+    steps.append((batch, train_step(batch, noise)))
+    return steps[-1][1]
+  ex.train_step = recording_step
+  save_secs = []
+  save = ckpt_lib.CheckpointManager.save
+
+  def timed_save(self, step, st):
+    path, secs = timed(lambda: save(self, step, st))
+    save_secs.append(secs)
+    return path
+  ckpt_lib.CheckpointManager.save = timed_save
+  try:
+    (_, secs), counts = counted(lambda: timed(
+        lambda: ex.train_and_evaluate(workdir, max_to_keep=2)), route_totals)
+  finally:
+    ckpt_lib.CheckpointManager.save = save
+  n_evals = 3  # after step 1, at step 2 and at step 4
+  want = times(expected_launches(cfg, 'train'), WORKDIR_STEPS)
+  for path, n in (('eval', n_evals * 2), ('sample', n_evals * SAMPLE_STEPS)):
+    for k, v in times(expected_launches(cfg, path), n).items():
+      want[k] += v
+  ckpt_dir = os.path.join(workdir, 'checkpoints')
+  mngr = ckpt_lib.CheckpointManager(ckpt_dir)
+  log('workdir_train', steps=WORKDIR_STEPS,
+      batch=cfg_w.training.batch_size_train, seconds=secs,
+      bpd=[round(s['bpd'].item(), 4) for _, s in steps],
+      checkpoints=mngr.steps(), save_s=save_secs, launches=counts)
+  assert counts == want, (counts, want)
+  assert mngr.steps() == [2, 4] and len(save_secs) == 2, mngr.steps()
+  assert all(math.isfinite(s['bpd'].item()) for _, s in steps)
+
+  fresh = Experiment(cfg_w, device=dev, state=state)
+  _, restore_s = timed(lambda: mngr.restore(fresh.state))
+  got, saved = state_tensors(fresh.state), state_tensors(ex.state)
+  assert got.keys() == saved.keys()
+  unequal = [k for k, v in saved.items() if not torch.equal(got[k], v)]
+  assert not unequal, unequal[:8]
+  mngr.restore(fresh.state, 2)
+  again = fresh.train_step(steps[2][0])['bpd'].item()
+  first = steps[2][1]['bpd'].item()
+  del fresh
+
+  path, export_s = timed(lambda: compat.export_reference_checkpoint(
+      ckpt_dir, os.path.join(workdir, 'reference')))
+  ev, import_s = timed(lambda: EvalExperiment(cfg_w, path, device=dev))
+  ema_equal = all(torch.equal(ev.state.ema_params[k], v)
+                  for k, v in ex.state.ema_params.items())
+  log('checkpoints', tensors=len(saved), restored_bit_exact=True,
+      step3_bpd=first, step3_bpd_resumed=again,
+      step3_abs_delta=abs(again - first), tol=TRAIN_BPD_TOL,
+      save_s=save_secs, restore_s=restore_s, export_s=export_s,
+      import_s=import_s, checkpoint_bytes=os.path.getsize(mngr.path(4)),
+      flax_bytes=os.path.getsize(path), flax_ema_bit_exact=ema_equal)
+  assert abs(again - first) <= TRAIN_BPD_TOL, (again, first)
+  assert ev.checkpoint_step == WORKDIR_STEPS and ema_equal
+  return counts, ev
+
+
+def run_dense_eval(ev, images, gen, dev, route_totals):
+  """`eval_bpd_dense` of the EvalExperiment's EMA model over DENSE_IMAGES
+  images at DENSE_T times (chunks of DENSE_ROWS rows): K1 2 and K4 1 a
+  chunk, the encoder once a chunk on its images; rows per second on a
+  second run; the dense minus the sparse bpd on the same images; one
+  chunk's bpd (the mean of its images') kernels against plain on the same
+  noise, within BPD_TOL. Returns the launches."""
+  from mulan_tpu_torch.evals import vlb
+  from mulan_tpu_torch.models import build_model, latents
+  model = ev.state.ema_model
+  cfg = model.config
+  sizes = []
+  hook = model.encoder_model.register_forward_hook(
+      lambda m, args, out: sizes.append(args[0].shape[0]))
+  batches = [images[:DENSE_IMAGES]]
+
+  def dense():
+    return vlb.eval_bpd_dense(model, batches, n_timesteps=DENSE_T,
+                              generator=gen)
+  (bpd, secs), counts = counted(lambda: timed(dense), route_totals)
+  hook.remove()
+  chunks = DENSE_IMAGES * DENSE_T // DENSE_ROWS
+  assert sizes == [DENSE_ROWS // DENSE_T] * chunks, sizes
+  assert counts == times(expected_launches(cfg, 'eval'), chunks), counts
+  assert math.isfinite(bpd), bpd
+  _, warm_secs = timed(dense)
+  rows_per_s = DENSE_IMAGES * DENSE_T / warm_secs
+  sparse = vlb.eval_bpd_sparse(model, batches, generator=gen)
+
+  n_img = DENSE_ROWS // DENSE_T
+  u = torch.rand((n_img,), generator=gen, device=dev)
+  eps = torch.randn((DENSE_ROWS, *cfg.image_shape), generator=gen,
+                    device=dev)
+  topk = latents.gamma_variates(cfg.latent_k, (DENSE_ROWS, cfg.latent_size),
+                                generator=gen, device=dev)
+  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                      device=dev, state=model.state_dict())
+  with torch.inference_mode():
+    got, want = (vlb.dense_chunk_bpd(m, images[:n_img], DENSE_T, u=u,
+                                     eps0=eps, eps=eps, topk_noise=topk)
+                 for m in (model, plain))
+  delta = abs(got.mean() - want.mean()).item()
+  log('dense_eval', images=DENSE_IMAGES, n_timesteps=DENSE_T,
+      rows_per_chunk=DENSE_ROWS, bpd=bpd, seconds_first=secs,
+      seconds=warm_secs, rows_per_s=rows_per_s,
+      images_per_s=DENSE_IMAGES / warm_secs,
+      sweep_10k_images_s=10_000 * DENSE_T / rows_per_s,
+      sparse_bpd=sparse, dense_minus_sparse=bpd - sparse,
+      chunk_bpd_kernels=got.tolist(), chunk_bpd_plain=want.tolist(),
+      chunk_abs_delta=delta, tol=BPD_TOL,
+      per_image_max_abs_delta=(got - want).abs().max().item(),
+      encoder_calls=sizes,
+      launches=counts)
+  assert delta <= BPD_TOL, delta
+  return counts
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
@@ -1385,7 +1580,7 @@ def main() -> None:
                   dropout_mask_batch=0, gn_swish=0, gn_swish_bwd=0)
   assert train_counts == {k: TRAIN_STEPS * v for k, v in per_step.items()}, (
       train_counts)
-  eval_scalars = ex.evaluate(1)
+  eval_scalars = ex.run_eval(1)
   assert math.isfinite(eval_scalars['eval_bpd']), eval_scalars
 
   # 7. One train step, kernels against plain and against float32.
@@ -1445,6 +1640,18 @@ def main() -> None:
         {'images': batch}, step_noise, dev, route_totals)
   torch.cuda.empty_cache()
 
+  # 11. Checkpoints and their evaluation: K1 and K4 at the dense VLB's
+  # shapes; a workdir run that saves, restores, exports and imports its
+  # checkpoints; the dense VLB through EvalExperiment on the export.
+  dense_k1, dense_k4 = check_dense_kernels(dev, gen, cfg, sfu_rate)
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as workdir:
+    workdir_counts, ev = run_workdir_train(train_cfg, state, dev,
+                                           route_totals, workdir)
+  dense_counts = run_dense_eval(ev, images, gen, dev, route_totals)
+  del ev
+  torch.cuda.empty_cache()
+
   if want_profile:
     def train_step(e):
       return lambda: e.train_step({'images': batch})
@@ -1454,7 +1661,13 @@ def main() -> None:
         with torch.inference_mode():
           m(batch, generator=gen)
       return run
+
+    def dense_chunk():
+      with torch.inference_mode():
+        vlb.dense_chunk_bpd(model, images[:DENSE_ROWS // DENSE_T], DENSE_T,
+                            generator=gen)
     for name, fn in (('elbo_b128', elbo(model)),
+                     ('dense_chunk_512_rows', dense_chunk),
                      ('train_step_b128', train_step(ex)),
                      ('fused_elbo_b128', elbo(model_f)),
                      ('fused_train_step_b128', train_step(ex_f)),
@@ -1486,6 +1699,7 @@ def main() -> None:
            'fused_sample': fused_sample_counts,
            'fused_train': fused_train_counts,
            'attention_train': attn_train_counts,
+           'workdir_train': workdir_counts, 'dense_eval': dense_counts,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
@@ -1510,6 +1724,13 @@ def main() -> None:
   k1['at_sampler_shape'] = {k: k1_sampler[k] for k in (
       'ms', 'plain_ms', 'library_ms', 'bound_ms', 'max_abs_err')}
   by_name = {k['name']: k for k in kernels}
+  k1['at_dense_shapes'] = {shape: {k: r[k] for k in (
+      'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')
+                                     if k in r}
+                            for shape, r in dense_k1.items()}
+  by_name['decoder_logprob']['at_dense_rows'] = {case: {k: r[k] for k in (
+      'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_by',
+      'window_bins_per_pixel', 'max_abs_err')} for case, r in dense_k4.items()}
   by_name['decoder_logprob']['at_gamma_min'] = {k: k4_gamma_min[k] for k in (
       'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_full_vocab_ms',
       'window_bins_per_pixel', 'max_abs_err')}

@@ -2,8 +2,10 @@
 
 Imports torch, numpy and the standard library only. The JAX package
 `mulan_tpu` is the reference it is tested against. Ported: MuLAN-velocity's
-evaluation (sparse VLB), ancestral sampling and train step (`train/`), with
-the flash-attention forward and backward, the decoder log-likelihood forward
-and backward and the dropout mask as CUDA kernels (`ops/`, sources in
-`csrc/`).
+evaluation (sparse and dense VLB, `EvalExperiment`), ancestral sampling,
+train step and training loop with checkpoints (`train/`), the reference's
+`ckpt-N.flax` files (`compat.py`) and the command lines (`main.py`,
+`eval_bpd.py`), with the flash-attention forward and backward, the decoder
+log-likelihood forward and backward, the dropout masks and the fused
+GroupNorm+swish as CUDA kernels (`ops/`, sources in `csrc/`).
 """

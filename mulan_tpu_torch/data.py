@@ -1,15 +1,18 @@
-"""Synthetic image source, training and evaluation batches (numpy only).
+"""Image sources, training and evaluation batches (numpy only).
 
-Counterpart of `mulan_tpu/data/pipeline.py`'s `_synthetic` source,
-`train_iterator`, `eval_iterator` and `one_time_eval_iterator`, which that
+Counterpart of `mulan_tpu/data/pipeline.py`'s synthetic, `npz:<dir>` and
+`npy:<dir>` sources, `train_iterator`, `eval_iterator`,
+`one_time_eval_iterator` and `create_one_time_eval_dataset`, which that
 module cannot serve where JAX is absent: the same seed gives the same
 permutation stream and the same batches. Images stay uint8 NHWC; there is no
-augmentation (the flagship dataset has none) and no prefetch thread.
+augmentation (the flagship dataset has none), no prefetch thread, and no
+TFDS source (it needs `tensorflow_datasets` and a download).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import os
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -41,15 +44,49 @@ def eval_batches(images: np.ndarray, batch_size: int) -> Iterator[np.ndarray]:
     yield images[lo:lo + batch_size]
 
 
+def _load_npz(path: str, split: str):
+  """`<path>/<split>.npz` with `images` (uint8 NHWC) and optional
+  `labels`."""
+  data = np.load(os.path.join(path, f'{split}.npz'))
+  images = np.asarray(data['images'], np.uint8)
+  labels = data['labels'] if 'labels' in data else np.zeros(len(images))
+  return images, np.asarray(labels, np.int32)
+
+
+def _load_npy_memmap(path: str, split: str):
+  """`<path>/<split>_images.npy` (uint8 NHWC), memory-mapped so batches are
+  read off disk on demand, and optional `<path>/<split>_labels.npy`."""
+  images = np.load(os.path.join(path, f'{split}_images.npy'), mmap_mode='r')
+  if images.dtype != np.uint8 or images.ndim != 4:
+    raise ValueError(f'{path}: images must be uint8 NHWC, got '
+                     f'{images.dtype} {images.shape}')
+  labels_path = os.path.join(path, f'{split}_labels.npy')
+  labels = (np.load(labels_path) if os.path.exists(labels_path)
+            else np.zeros(len(images)))
+  return images, np.asarray(labels, np.int32)
+
+
 def source(dataset: str, split: str, image_shape, *, seed: int = 0,
            examples: int = 4096):
-  """(images, labels) of a split; only the synthetic source is ported (the
-  TFDS and on-disk sources need their data, ROADMAP.md Queue A)."""
-  if dataset != 'synthetic':
-    raise NotImplementedError(
-        f'dataset {dataset!r} is not ported yet (only synthetic); see '
-        'ROADMAP.md Queue A')
-  return synthetic_split(split, image_shape, seed=seed, examples=examples)
+  """(images, labels) of a split of `synthetic`, `npz:<dir>` or
+  `npy:<dir>` (`pipeline.py:load_source`); the TFDS datasets are not
+  ported."""
+  if dataset == 'synthetic':
+    return synthetic_split(split, image_shape, seed=seed, examples=examples)
+  if dataset.startswith('npz:'):
+    return _load_npz(dataset[len('npz:'):], split)
+  if dataset.startswith('npy:'):
+    return _load_npy_memmap(dataset[len('npy:'):], split)
+  raise NotImplementedError(
+      f'dataset {dataset!r} is not ported (the port reads synthetic, '
+      'npz:<dir> and npy:<dir>; TFDS needs its package and a download)')
+
+
+def config_source(config, split: str):
+  """(images, labels) of a split of `config.data` for `config.model`."""
+  return source(config.data.dataset, split, config.model.image_shape,
+                seed=config.data.synthetic_seed,
+                examples=config.data.synthetic_examples)
 
 
 def train_iterator(images: np.ndarray, labels: np.ndarray, *,
@@ -84,3 +121,24 @@ def eval_iterator(images: np.ndarray, labels: np.ndarray, *,
       idx = order[lo:lo + batch_size]
       yield {'images': images[idx], 'labels': labels[idx],
              'conditioning': np.zeros(batch_size, np.uint8)}
+
+
+def one_time_eval_iterator(images: np.ndarray, labels: np.ndarray, *,
+                           batch_size: int) -> Iterator[dict]:
+  """One unshuffled pass over a split in batches of `batch_size`; the
+  trailing remainder is dropped (`pipeline.py:one_time_eval_iterator`)."""
+  labels = np.asarray(labels, np.int32)
+  for lo in range(0, len(images) - batch_size + 1, batch_size):
+    yield {'images': images[lo:lo + batch_size],
+           'labels': labels[lo:lo + batch_size],
+           'conditioning': np.zeros(batch_size, np.uint8)}
+
+
+def create_one_time_eval_dataset(config, batch_size: Optional[int] = None
+                                 ) -> Iterator[dict]:
+  """`one_time_eval_iterator` over the config's eval split, in batches of
+  `batch_size` (default `training.batch_size_eval`)."""
+  if batch_size is None:
+    batch_size = config.training.batch_size_eval
+  return one_time_eval_iterator(*config_source(config, 'eval'),
+                                batch_size=batch_size)

@@ -1,1 +1,2 @@
-"""Evaluation: sparse VLB and ancestral sampling."""
+"""Evaluation: sparse and dense VLB, checkpoint evaluation and ancestral
+sampling."""

@@ -90,7 +90,16 @@ class MuLAN(nn.Module):
     return self.elbo(images, t, generator=generator,
                      deterministic=deterministic, dropout_seed=dropout_seed)
 
+  def apply_encoder(self, images) -> torch.Tensor:
+    """uint8 NHWC images -> the latent logits (B, latent_size), without
+    dropout (`mulan_tpu/models/mulan.py:apply_encoder`)."""
+    cfg = self.config
+    x = torch.as_tensor(images, device=self.device).reshape(
+        -1, *cfg.image_shape)
+    return self.encoder_model(self.encdec.encode(x).permute(0, 3, 1, 2))
+
   def elbo(self, images, t, *, eps0=None, eps=None, topk_noise=None,
+           encoder_logits=None,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True,
            dropout_seed: Optional[int] = None) -> ELBOOutput:
@@ -101,7 +110,9 @@ class MuLAN(nn.Module):
     Gamma(1/latent_k) variates for the top-k perturbation. With
     `deterministic=False` the ResNet blocks drop with `sm_pdrop`, their
     masks keyed by `dropout_seed` (drawn from `generator` if None) and the
-    block's site.
+    block's site. `encoder_logits` (B, latent_size), if given, stand in for
+    the encoder UNet (the dense VLB computes them once per image and repeats
+    them over its t-grid); the top-k noise is still drawn for every row.
     """
     cfg = self.config
     x = torch.as_tensor(images, device=self.device).reshape(
@@ -116,7 +127,10 @@ class MuLAN(nn.Module):
           device=self.device if generator is None else generator.device))
 
     orig_f = self.encdec.encode(x)
-    logits = self.encoder_model(orig_f.permute(0, 3, 1, 2), dropout_seed)
+    if encoder_logits is None:
+      logits = self.encoder_model(orig_f.permute(0, 3, 1, 2), dropout_seed)
+    else:
+      logits = torch.as_tensor(encoder_logits, device=self.device)
     if topk_noise is None:
       topk_noise = latents.gamma_variates(cfg.latent_k, logits.shape,
                                           generator=generator,

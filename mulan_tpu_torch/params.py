@@ -50,6 +50,36 @@ def from_flax(flat: Mapping[str, np.ndarray]) -> dict:
               for path, value in flat.items())
 
 
+def _export(name: str, value: np.ndarray):
+  """The inverse of `_convert` (the port's attention has one head)."""
+  *mods, leaf = name.split('.')
+  if mods[-1].startswith('GroupNormF32'):
+    mods.append('GroupNorm_0')
+    leaf = {'weight': 'scale', 'bias': 'bias'}[leaf]
+  elif leaf == 'weight':
+    leaf = 'kernel'
+    if mods[-1] == 'nin_shortcut':           # 1x1 conv -> Dense on channels
+      value = value[:, :, 0, 0].T
+    elif value.ndim == 4:                    # conv OIHW -> HWIO
+      value = value.transpose(2, 3, 1, 0)
+    elif mods[-1] == 'proj_out':             # (C, hd) -> (1, hd, C)
+      value = value.T.reshape(1, *value.T.shape)
+    elif mods[-1] in ('q', 'k', 'v'):        # (hd, C) -> (C, 1, hd)
+      value = value.T.reshape(value.shape[1], 1, value.shape[0])
+    else:                                    # (out, in) -> Dense (in, out)
+      value = value.T
+  elif leaf == 'bias' and mods[-1] in ('q', 'k', 'v'):
+    value = value.reshape(1, -1)
+  return '/'.join([*mods, leaf]), np.ascontiguousarray(value)
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+  """The port's state_dict -> flattened flax params (`/`-joined paths,
+  float32 numpy), the inverse of `from_flax`."""
+  return dict(_export(name, value.detach().cpu().float().numpy())
+              for name, value in state.items())
+
+
 def init_params(config: ModelConfig, generator: torch.Generator,
                 perturb_zero_init: float = 0.0) -> dict:
   """A seeded fresh model: normal(0, 1/fan_in) weights (the variance of

@@ -1,2 +1,2 @@
-"""Training: the two-group AdamW, the train state with its EMA, and the
-`Experiment` loop."""
+"""Training: the two-group AdamW, the train state with its EMA, its
+checkpoints, and the `Experiment` loop."""

@@ -1,25 +1,28 @@
 """Experiment: train and evaluate MuLAN-velocity on one device, counterpart
 of `mulan_tpu/train/loop.py:Experiment` (its loss, train step, eval step,
-training loop and sampler).
+training loop with checkpoints, standalone evaluation and sampler).
 
 One call of `train_step` is one optimizer step: the ELBO in bits per
 dimension with dropout on, its gradient, the two-group AdamW update and the
 EMA update. JAX's super-step (`substeps` steps under one `lax.scan`) has no
-counterpart: PyTorch runs eagerly, so the data iterator's substeps axis is 1.
-Evaluation and sampling run on the EMA parameters and are deterministic.
-Checkpoints and device meshes are not ported (ROADMAP.md Queue A,
-checkpoint reader and parallelism).
+counterpart: PyTorch runs eagerly, so the data iterator's substeps axis is 1
+and `train_and_evaluate`'s "first super-step" is step 1. Evaluation and
+sampling run on the EMA parameters and are deterministic. Device meshes are
+not ported (ROADMAP.md Queue A, parallelism).
 
-Randomness: the diffusion noise is drawn from a `torch.Generator` on the
-device, seeded by `training.seed`; the per-step dropout seeds come from a
-CPU generator with the same seed, so that drawing them never waits for the
-device. Neither reproduces `jax.random`'s streams; tests hand both packages
-the same noise instead.
+Randomness is keyed as JAX's is: the noise of train step s (the diffusion
+noise and the dropout seed) is a function of (`training.seed`, s) alone,
+that of eval batch i of every evaluation of (seed, i), and the in-training
+sampler always starts from the same key. Before each, the experiment's
+device generator is reseeded from `step_key` (host work, no launch). So a
+run resumed from a checkpoint draws what the uninterrupted run drew. The
+streams are not `jax.random`'s; tests hand both packages the same noise.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -30,9 +33,48 @@ from mulan_tpu_torch import data as data_lib
 from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.configs import Config
 from mulan_tpu_torch.models import build_model, resolve_device
+from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
-from mulan_tpu_torch.utils.metrics import ScalarWriter, image_grid
+from mulan_tpu_torch.utils.metrics import ScalarWriter, image_grid, write_png
+
+# The streams of `step_key`: train steps, eval batches, the sampler.
+TRAIN, EVAL, SAMPLE = 0, 1, 2
+
+
+def step_key(seed: int, stream: int, index: int) -> int:
+  """A 63-bit generator seed that depends on (seed, stream, index) alone,
+  the counterpart of `jax.random.fold_in` (numpy's SeedSequence hash)."""
+  words = np.random.SeedSequence((seed, stream, index)).generate_state(
+      2, np.uint32)
+  return (int(words[0]) << 31) ^ int(words[1])
+
+
+def create_train_state(config: Config, device, state=None):
+  """(the model in training mode, its TrainState with a fresh two-group
+  AdamW) on `device`; `state` replaces the parameters seeded by
+  `training.seed` (a state_dict, e.g. from `params.from_flax`)."""
+  training = config.training
+  if state is None:
+    state = params_lib.init_params(
+        config.model, torch.Generator().manual_seed(training.seed))
+  model = build_model(config.model, device=device, state=state).train()
+  lr_schedule = make_lr_schedule(
+      config.optimizer.learning_rate, training.num_steps_lr_warmup,
+      training.num_steps_train, config.optimizer.lr_decay)
+  optimizer = make_optimizer(model.named_parameters(), config.optimizer,
+                             lr_schedule, config.lr_gamma_network_scale)
+  return model, TrainState.create(model, optimizer)
+
+
+def mean_scalars(all_scalars: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, float]:
+  """{'eval_' + name: mean over the batches}, read from the device once."""
+  if not all_scalars:
+    raise ValueError('no eval batches')
+  means = torch.stack([torch.stack([s[k] for s in all_scalars]).mean()
+                       for k in all_scalars[0]]).tolist()
+  return {'eval_' + k: v for k, v in zip(all_scalars[0], means)}
 
 
 def _not_ported(what: str, entry: str):
@@ -48,31 +90,18 @@ class Experiment:
   def __init__(self, config: Config, *, device='cuda', state=None):
     self.config = config
     self.device = resolve_device(device)
-    cfg = config.model
     training = config.training
     if config.vdm_type != 'mulan_velocity':
       raise _not_ported(f'vdm_type={config.vdm_type!r}', 'model variants')
     if training.fsdp != 1 or training.tp != 1:
       raise _not_ported('fsdp / tp meshes', 'parallelism')
-    if config.ckpt_restore_dir not in (None, 'None', ''):
-      raise _not_ported('restoring a checkpoint', 'checkpoint reader')
 
     seed = training.seed
-    if state is None:
-      state = params_lib.init_params(cfg, torch.Generator().manual_seed(seed))
-    self.model = build_model(cfg, device=self.device, state=state).train()
-    self.lr_schedule = make_lr_schedule(
-        config.optimizer.learning_rate, training.num_steps_lr_warmup,
-        training.num_steps_train, config.optimizer.lr_decay)
-    optimizer = make_optimizer(self.model.named_parameters(),
-                               config.optimizer, self.lr_schedule,
-                               config.lr_gamma_network_scale)
-    self.state = TrainState.create(self.model, optimizer)
+    self.model, self.state = create_train_state(config, self.device, state)
+    if config.ckpt_restore_dir not in (None, 'None', ''):
+      ckpt_lib.restore_partial_into(self.state, config.ckpt_restore_dir)
 
-    splits = {split: data_lib.source(
-        config.data.dataset, split, cfg.image_shape,
-        seed=config.data.synthetic_seed,
-        examples=config.data.synthetic_examples)
+    splits = {split: data_lib.config_source(config, split)
               for split in ('train', 'eval')}
     self.train_iter = data_lib.train_iterator(
         *splits['train'], batch_size=training.batch_size_train, substeps=1,
@@ -81,32 +110,33 @@ class Experiment:
         *splits['eval'], batch_size=training.batch_size_eval,
         seed=seed + 7919)
 
-    self.generator = torch.Generator(self.device).manual_seed(seed)
-    self._dropout_seeds = torch.Generator().manual_seed(seed)
+    self.generator = torch.Generator(self.device)
     self.writer = ScalarWriter()
 
   # -- loss and steps -----------------------------------------------------------
 
-  def _dropout_seed(self) -> int:
-    return int(torch.randint(2 ** 31 - 1, (),
-                             generator=self._dropout_seeds))
+  def reseed(self, stream: int, index: int) -> int:
+    """Reseeds the device generator from (training.seed, stream, index) and
+    returns the dropout seed of the same key."""
+    key = step_key(self.config.training.seed, stream, index)
+    self.generator.manual_seed(key)
+    return key % (2 ** 31 - 1)
 
-  def loss_fn(self, model, batch, *, train: bool, noise=None):
+  def loss_fn(self, model, batch, *, train: bool, noise=None,
+              dropout_seed: Optional[int] = None):
     """(bpd, scalars): the mean ELBO in bits per dimension and its six
     terms (`loop.py:116-141`). `noise` may hold explicit `t`, `eps0`, `eps`,
-    `topk_noise` and `dropout_seed` for `MuLAN.elbo`; without it they are
-    drawn from the experiment's generators."""
+    `topk_noise` and `dropout_seed` for `MuLAN.elbo`; what it does not hold
+    is drawn from the experiment's generator."""
     images = torch.as_tensor(batch['images'], device=self.device)
-    if noise is None:
-      out = model(images, generator=self.generator, deterministic=not train,
-                  dropout_seed=self._dropout_seed() if train else None)
+    noise = dict(noise or {})
+    dropout_seed = noise.pop('dropout_seed', dropout_seed)
+    kwargs = dict(generator=self.generator, deterministic=not train,
+                  dropout_seed=dropout_seed if train else None)
+    if 't' in noise:
+      out = model.elbo(images, noise.pop('t'), **kwargs, **noise)
     else:
-      noise = dict(noise)
-      seed = noise.pop('dropout_seed', None)
-      if train and seed is None:
-        seed = self._dropout_seed()
-      out = model.elbo(images, noise.pop('t'), generator=self.generator,
-                       deterministic=not train, dropout_seed=seed, **noise)
+      out = model(images, **kwargs)
     rescale = 1.0 / (self.config.model.n_pixels * math.log(2.0))
     bpd_latent = out.loss_klz.mean() * rescale
     bpd_recon = out.loss_recon.mean() * rescale
@@ -117,21 +147,29 @@ class Experiment:
     return bpd, scalars
 
   def train_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
-    """One optimizer step on one batch (images (B, H, W, C) uint8); the
-    scalars stay on the device."""
-    bpd, scalars = self.loss_fn(self.model, batch, train=True, noise=noise)
+    """One optimizer step on one batch (images (B, H, W, C) uint8), its
+    noise keyed by the step; the scalars stay on the device."""
+    seed = self.reseed(TRAIN, self.state.step)
+    bpd, scalars = self.loss_fn(self.model, batch, train=True, noise=noise,
+                                dropout_seed=seed)
     self.state.optimizer.zero_grad()
     bpd.backward()
     self.state.apply_gradients(self.config.optimizer.ema_rate)
     return {k: v.detach() for k, v in scalars.items()}
 
   @torch.no_grad()
-  def eval_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
-    """The scalars of the EMA model on one batch, deterministic."""
+  def eval_step(self, batch, index: int = 0,
+                noise=None) -> Dict[str, torch.Tensor]:
+    """The scalars of the EMA model on one batch, deterministic, the noise
+    keyed by the batch's index within its evaluation."""
+    self.reseed(EVAL, index)
     return self.loss_fn(self.state.ema_model, batch, train=False,
                         noise=noise)[1]
 
   # -- loops ----------------------------------------------------------------------
+
+  def _train_batch(self):
+    return {k: v[0] for k, v in next(self.train_iter).items()}
 
   def train(self, num_steps: int) -> List[Dict[str, float]]:
     """`num_steps` train steps on the training iterator. Logs the scalars
@@ -141,37 +179,79 @@ class Experiment:
     history = []
     last_t, last_step = time.perf_counter(), self.state.step
     for i in range(num_steps):
-      batch = {k: v[0] for k, v in next(self.train_iter).items()}
-      history.append(self.train_step(batch))
+      history.append(self.train_step(self._train_batch()))
       step = self.state.step
       if step % every == 0 or i == num_steps - 1:
-        scalars = {'train_' + k: float(v) for k, v in history[-1].items()}
-        now = time.perf_counter()
-        scalars['steps_per_sec'] = (step - last_step) / (now - last_t)
-        last_t, last_step = now, step
-        self.writer.write_scalars(step, scalars)
+        last_t, last_step = self._log_train(history[-1], last_t, last_step)
     return [{k: float(v) for k, v in s.items()} for s in history]
 
-  def evaluate(self, num_steps: Optional[int] = None) -> Dict[str, float]:
+  def _log_train(self, scalars, last_t: float, last_step: int):
+    step = self.state.step
+    scalars = {'train_' + k: float(v) for k, v in scalars.items()}
+    now = time.perf_counter()
+    scalars['steps_per_sec'] = (step - last_step) / (now - last_t)
+    self.writer.write_scalars(step, scalars)
+    return now, step
+
+  def train_and_evaluate(self, workdir: str, *,
+                         max_to_keep: int = 100) -> None:
+    """Trains to `training.num_steps_train` (`loop.py:232-305`): resumes
+    from the latest checkpoint in `<workdir>/checkpoints`, logs every
+    `steps_per_logging` steps, evaluates and draws samples after step 1,
+    every `steps_per_eval` steps and at the last, and saves every
+    `steps_per_save` steps and at the last (keeping `max_to_keep`)."""
+    training = self.config.training
+    ckpt = ckpt_lib.CheckpointManager(os.path.join(workdir, 'checkpoints'),
+                                      max_to_keep)
+    if ckpt.latest_step() is not None:
+      ckpt.restore(self.state)
+    step = self.state.step
+    last_t, last_step = time.perf_counter(), step
+    while step < training.num_steps_train:
+      is_last = step + 1 >= training.num_steps_train
+      scalars = self.train_step(self._train_batch())
+      step = self.state.step
+      if step % training.steps_per_logging == 0 or is_last:
+        last_t, last_step = self._log_train(scalars, last_t, last_step)
+      if step % training.steps_per_eval == 0 or is_last or step == 1:
+        self.writer.write_scalars(step, self.run_eval())
+        self.draw_samples()
+      if step % training.steps_per_save == 0 or is_last:
+        ckpt.save(step, self.state)
+
+  def run_eval(self, num_steps: Optional[int] = None) -> Dict[str, float]:
     """Mean EMA scalars over `num_steps` eval batches (default
-    `training.num_steps_eval`), read from the device once at the end."""
+    `training.num_steps_eval`), batch i keyed by i; read from the device
+    once at the end."""
     if num_steps is None:
       num_steps = self.config.training.num_steps_eval
-    all_scalars = [self.eval_step(next(self.eval_iter))
-                   for _ in range(num_steps)]
-    means = {'eval_' + k: float(torch.stack([s[k] for s in all_scalars])
-                                .mean()) for k in all_scalars[0]}
-    self.writer.write_scalars(self.state.step, means)
-    return means
+    return mean_scalars([self.eval_step(next(self.eval_iter), i)
+                         for i in range(num_steps)])
+
+  def evaluate(self, logdir: str, checkpoint_dir: str) -> Dict[str, float]:
+    """Standalone evaluation of a checkpoint's EMA parameters
+    (`loop.py:334-352`): the eval scalars and a sample grid, written as
+    `<logdir>/eval/samples_<step>.png`."""
+    restored = ckpt_lib.CheckpointManager(checkpoint_dir).restore_dict()
+    self.state.load_tensors('ema_params', restored['ema_params'])
+    step = int(restored['step'])
+    scalars = self.run_eval()
+    self.writer.write_scalars(step, scalars)
+    grid = self.draw_samples()
+    os.makedirs(os.path.join(logdir, 'eval'), exist_ok=True)
+    write_png(os.path.join(logdir, 'eval', f'samples_{step}.png'), grid)
+    return scalars
 
   @torch.inference_mode()
   def draw_samples(self, batch_size: Optional[int] = None,
                    T: int = 1000) -> np.ndarray:
     """An image grid of T unconditional ancestral steps of the EMA model
     (`mulan_tpu/train/loop.py:201-216`): from `sigma_prior` times a
-    standard normal, through `MuLAN.sample`, then the argmax decode."""
+    standard normal, through `MuLAN.sample`, then the argmax decode. The
+    noise starts from the same key every call."""
     if batch_size is None:
       batch_size = min(64, self.config.training.batch_size_eval)
+    self.reseed(SAMPLE, 0)
     model = self.state.ema_model
     cfg = model.config
     z = cfg.sigma_prior * model._randn((batch_size, *cfg.image_shape),

@@ -1,5 +1,5 @@
 """Train state with EMA parameters, counterpart of
-`mulan_tpu/train/state.py:TrainState`.
+`mulan_tpu/train/state.py` (`TrainState`, `merge_restored`).
 
 The EMA starts as a deep copy of the parameters (in a copy of the model, so
 that evaluation can run on it) and follows each update with
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -43,3 +43,59 @@ class TrainState:
     torch._foreach_lerp_(list(self.ema_params.values()),
                          list(self.params.values()), 1.0 - ema_rate)
     self.step += 1
+
+  def state_dict(self) -> Dict[str, Any]:
+    """{step, params, ema_params, opt_state}: the tensors themselves (no
+    copies), the optimizer's state as `torch.optim` gives it."""
+    return {'step': self.step,
+            'params': {k: p.detach() for k, p in self.params.items()},
+            'ema_params': dict(self.ema_params),
+            'opt_state': {'count': self.optimizer.count,
+                          'adamw': self.optimizer.adamw.state_dict()}}
+
+  @torch.no_grad()
+  def load_state_dict(self, state: Dict[str, Any]) -> None:
+    """Copies a `state_dict()` (tensors on any device) into this state."""
+    _check_keys('train state', state, ('step', 'params', 'ema_params',
+                                       'opt_state'))
+    _check_keys('opt_state', state['opt_state'], ('count', 'adamw'))
+    for name in ('params', 'ema_params'):
+      self.load_tensors(name, state[name])
+    self.optimizer.adamw.load_state_dict(state['opt_state']['adamw'])
+    self.optimizer.count = int(state['opt_state']['count'])
+    self.step = int(state['step'])
+
+  @torch.no_grad()
+  def load_tensors(self, name: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Copies `tensors` into the 'params' or 'ema_params' in place; the
+    names and shapes must be ours."""
+    ours = getattr(self, name)
+    _check_keys(name, tensors, ours)
+    for key, value in ours.items():
+      if tuple(tensors[key].shape) != tuple(value.shape):
+        raise ValueError(f'{name}[{key!r}]: shape '
+                         f'{tuple(tensors[key].shape)} in the checkpoint, '
+                         f'{tuple(value.shape)} here')
+    for key, value in ours.items():
+      value.copy_(tensors[key])
+
+
+def _check_keys(what: str, got, want) -> None:
+  missing = sorted(set(want) - set(got))
+  extra = sorted(set(got) - set(want))
+  if missing or extra:
+    raise ValueError(f'{what}: missing {missing[:8]}, unexpected '
+                     f'{extra[:8]}')
+
+
+def merge_restored(state_dict, restored):
+  """Copies into `state_dict` only the keys present in `restored`,
+  recursively (`mulan_tpu/train/state.py:merge_restored`): a checkpoint of
+  another model warm-starts the leaves the two share."""
+  if not isinstance(state_dict, dict):
+    return restored
+  out = dict(state_dict)
+  for key, value in state_dict.items():
+    if isinstance(restored, dict) and key in restored:
+      out[key] = merge_restored(value, restored[key])
+  return out

@@ -1,9 +1,12 @@
-"""Image grids and the stdout scalar writer (numpy only), counterpart of
-`mulan_tpu/utils/metrics.py`'s `image_grid` and `ScalarLoggingWriter`. The
-TensorBoard writer is not ported."""
+"""Image grids, a PNG writer and the stdout scalar writer (numpy and the
+standard library only), counterpart of `mulan_tpu/utils/metrics.py`'s
+`image_grid` and `ScalarLoggingWriter`. The TensorBoard writer is not
+ported."""
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Any, Mapping
 
 import numpy as np
@@ -18,6 +21,27 @@ def image_grid(images) -> np.ndarray:
   _, h, w, c = images.shape
   grid = images.reshape(g, g, h, w, c)[:, ::-1].transpose(0, 2, 1, 3, 4)
   return grid.reshape(g * h, g * w, c)
+
+
+def write_png(path: str, image) -> None:
+  """Writes a uint8 (H, W, 3) image as an 8-bit RGB PNG (zlib and struct;
+  no imaging library needed)."""
+  image = np.ascontiguousarray(image, np.uint8)
+  if image.ndim != 3 or image.shape[-1] != 3:
+    raise ValueError(f'need (H, W, 3), got {image.shape}')
+  h, w, _ = image.shape
+  raw = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, -1)],
+                       axis=1)  # filter type 0 before each row
+
+  def chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack('>I', len(data)) + kind + data
+            + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+
+  with open(path, 'wb') as f:
+    f.write(b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw.tobytes()))
+            + chunk(b'IEND', b''))
 
 
 class ScalarWriter:

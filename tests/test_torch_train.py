@@ -509,7 +509,7 @@ def test_experiment_trains_and_evaluates_on_cpu(capsys):
   assert all(np.isfinite(s['bpd']) for s in history)
   assert any(not torch.equal(start[k], p) for k, p in ex.state.params.items())
   assert all(torch.isfinite(p).all() for p in ex.state.ema_params.values())
-  scalars = ex.evaluate(1)
+  scalars = ex.run_eval(1)
   assert np.isfinite(scalars['eval_bpd'])
   grid = ex.draw_samples(4, T=2)
   assert grid.shape == (16, 16, 3)
