@@ -27,12 +27,20 @@ every 2), whose last checkpoint restored into a fresh Experiment must hold
 its state bit for bit and whose step-2 checkpoint must give step 3's bpd
 again; the checkpoint exported as a `ckpt-N.flax` and read by
 `EvalExperiment`, whose EMA must be the run's bit for bit; and the dense VLB
-through it, one chunk held against the plain versions. Every check raises
-on failure.
+through it, one chunk held against the plain versions. Then the
+probability-flow ODE: DoPri5 and RK4 on the card against the CPU on closed
+forms; an RK4 likelihood of 128 images through the kernels, the plain
+versions and a float32 twin, and the score UNet's attention block alone at
+one RHS evaluation (planted faults in K2 and K3 must fail its gate);
+`eval_bpd --bpd_eval_method=ode` and `main --mode sample --sampler=ode` on
+the exported checkpoint; two adaptive DoPri5 solves; one RHS evaluation with
+`fused_gn_swish` against its plain twin; and `score_jvp`, which must refuse
+the kernels. Every check raises on failure.
 
-With `--profile` it also profiles one ELBO, one dense-VLB chunk and one
-train step, unfused and fused, by kernel category with `torch.profiler` and
-prints the tables as `[profile]` lines.
+With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
+step (unfused, fused and with `with_attention`) and one ODE RHS evaluation
+by kernel category with `torch.profiler` and prints the tables as
+`[profile]` lines.
 
 Output, one line per phase; the line before the last is the card's name and
 power limit, the one before that a JSON summary of the kernels, and the last
@@ -198,6 +206,38 @@ GN_ALONE_COS_MIN = 0.9999
 # held to a whole cosine of REMAT_COS_MIN and norms within GRAD_NORM_RTOL;
 # on an H100 every mode gave 'none''s gradients bit for bit (cosine 1.0).
 REMAT_COS_MIN = 0.9999
+# The probability-flow ODE (phase 12): a likelihood solve takes ODE_ROWS
+# images at once; RK4 with ODE_RK4_STEPS steps is 16 RHS evaluations, each
+# the score UNet's forward and its input gradient (K1, K2 and K3 once). The
+# solvers on the card against the CPU: the same steps, and y within
+# ODE_SOLVER_RTOL of its largest magnitude (the same float32 operations;
+# the error norm's mean and the closed forms' sin round differently). The
+# adaptive solve's tolerances and its step budget (two solves within ~90
+# s): at 1e-2 a 128-row solve takes 9 steps (55 RHS evaluations, 7 s on an
+# H100); tighter tolerances cost far more (tools/torch_ode_tolerance.py).
+# The ODE sampler's loosened tolerances (79 evaluations at batch 16).
+ODE_ROWS = EVAL_BATCH
+ODE_RK4_STEPS = 4
+ODE_SOLVER_RTOL = 1e-6
+ODE_DOPRI5_TOL = 1e-2
+ODE_DOPRI5_MAX_STEPS = 50
+ODE_SAMPLE_TOL = 1e-2
+# The RK4 solve, kernels against plain, and a float32 plain twin beside
+# them. log p is the prior's log density at x(1) (the drift's integral)
+# plus delta log p (the divergence's): their bpd parts are held apart. The
+# drift's part: within BPD_TOL. The divergence's part is ill-conditioned on
+# seeded weights: the Hutchinson estimate integrates per-image divergences
+# of up to ~1e5 nats, which each bf16 path rounds differently, so two
+# correct bf16 solves part by far more than their drifts do (on an H100,
+# 700 W: the divergence parts of kernels and plain 0.072 bpd apart, the
+# drift parts 0.005; plain against float32 0.049 in all). The whole bpd is
+# held within BPD_TOL plus ODE_BPD_NOISE times the plain bf16 solve's own
+# distance from the float32 one.
+ODE_BPD_NOISE = 2.0
+# One fused RHS evaluation (K8 and K8's backward at 134 sites) against its
+# plain twin: cosines of the drift and of the divergence, 0.99921 and
+# 0.99998 on an H100 (700 W).
+ODE_FUSED_COS_MIN = 0.998
 
 
 def log(phase: str, **fields) -> None:
@@ -731,7 +771,10 @@ def check_mask_batch(dev, cfg, imul_rate):
 
 def expected_launches(cfg, path: str) -> dict:
   """Kernel launches per call of `path` for model config cfg: an ELBO
-  ('eval'), a sampler step ('sample') or a train step ('train').
+  ('eval'), a sampler step ('sample'), a train step ('train'), the latent
+  encoder ('encoder', once per ODE solve), one RHS evaluation of the ODE
+  likelihood ('ode_rhs': the score UNet's forward and its input gradient)
+  or of the ODE sampler ('ode_sample_rhs': the forward alone).
 
   Attention blocks: the middle one of the UNet and of the encoder, plus,
   with `with_attention`, one after each of the UNet's 2 n_layer + 1 down
@@ -752,13 +795,23 @@ def expected_launches(cfg, path: str) -> dict:
     counts.update(flash_attention=unet_attn + enc_attn, decoder_logprob=1,
                   gn_swish=k8)
     return counts
-  if path == 'sample':
+  if path in ('sample', 'ode_sample_rhs'):
     counts.update(flash_attention=unet_attn, gn_swish=k8)
+    return counts
+  if path == 'encoder':
+    counts.update(flash_attention=enc_attn)
+    return counts
+  unet_remat = (n_unet if cfg.remat_blocks else
+                (n_unet + 1) // 2 if cfg.remat_alt_blocks else 0)
+  if path == 'ode_rhs':
+    counts.update(
+        flash_attention=unet_attn * (2 if cfg.remat_attn else 1),
+        flash_attention_bwd_dkv=unet_attn, flash_attention_bwd_dq=unet_attn,
+        gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0),
+        gn_swish_bwd=k8)
     return counts
   assert path == 'train', path
   n_attn = unet_attn + enc_attn
-  unet_remat = (n_unet if cfg.remat_blocks else
-                (n_unet + 1) // 2 if cfg.remat_alt_blocks else 0)
   enc_remat = n_enc if cfg.remat_blocks else 0
   drop = cfg.sm_pdrop > 0
   batched = drop and cfg.dropout_mask_batch
@@ -975,9 +1028,10 @@ def leaf_cosines(got, want, names=None):
 
 
 def block_grads(block, inputs, dy, use_kernels):
-  """{leaf: gradient} of one block, and its input's, for its recorded
-  positional inputs (x, then a ResNet block's cond, dropout_seed and
-  dropout_mask) and output cotangent dy, with the kernels on or off."""
+  """{leaf: gradient} of one block (the leaves that require grad), and its
+  input's, for its recorded positional inputs (x, then a ResNet block's
+  cond, dropout_seed and dropout_mask) and output cotangent dy, with the
+  kernels on or off."""
   flags = {m: m.use_kernels for m in block.modules()
            if hasattr(m, 'use_kernels')}
   for m in flags:
@@ -985,7 +1039,8 @@ def block_grads(block, inputs, dy, use_kernels):
   block.zero_grad(set_to_none=True)
   x = inputs[0].clone().requires_grad_()
   torch.autograd.backward(block(x, *inputs[1:]), dy)
-  grads = {n: p.grad.flatten().double() for n, p in block.named_parameters()}
+  grads = {n: p.grad.flatten().double() for n, p in block.named_parameters()
+           if p.grad is not None}
   grads['input'] = x.grad.flatten().double()
   block.zero_grad(set_to_none=True)
   for m, flag in flags.items():
@@ -1264,7 +1319,8 @@ def run_workdir_train(train_cfg, state, dev, route_totals, workdir):
   hold the run's state bit for bit; step 3 run again from the step-2
   checkpoint on the same batch and step key must give its bpd; the last
   checkpoint exported to a `ckpt-N.flax` and read by EvalExperiment must
-  give the run's EMA bit for bit. Returns (launches, the EvalExperiment)."""
+  give the run's EMA bit for bit. Returns (launches, the EvalExperiment,
+  the `ckpt-N.flax`'s path)."""
   from mulan_tpu_torch import compat, configs
   from mulan_tpu_torch.evals.harness import EvalExperiment
   from mulan_tpu_torch.train import checkpoint as ckpt_lib
@@ -1334,7 +1390,7 @@ def run_workdir_train(train_cfg, state, dev, route_totals, workdir):
       flax_bytes=os.path.getsize(path), flax_ema_bit_exact=ema_equal)
   assert abs(again - first) <= TRAIN_BPD_TOL, (again, first)
   assert ev.checkpoint_step == WORKDIR_STEPS and ema_equal
-  return counts, ev
+  return counts, ev, path
 
 
 def run_dense_eval(ev, images, gen, dev, route_totals):
@@ -1392,6 +1448,346 @@ def run_dense_eval(ev, images, gen, dev, route_totals):
       launches=counts)
   assert delta <= BPD_TOL, delta
   return counts
+
+
+def ode_solve_launches(cfg, nfe: int, solves: int = 1) -> dict:
+  """Launches of `solves` ODE-likelihood solves of `nfe` RHS evaluations
+  each: the encoder once a solve, the score UNet's forward and input
+  gradient once an evaluation."""
+  want = times(expected_launches(cfg, 'ode_rhs'), nfe)
+  for k, v in times(expected_launches(cfg, 'encoder'), solves).items():
+    want[k] += v
+  return want
+
+
+def check_ode_solver(dev):
+  """DoPri5 and RK4 on the card against the same solves on the CPU, on
+  closed-form right-hand sides: the exponential, reverse-time and nonlinear
+  cases of the CPU tests, and the nonlinear RHS on a state of the ODE
+  likelihood's shape (ODE_ROWS x 3073). Equal accepted and rejected steps
+  and RHS evaluations, y within ODE_SOLVER_RTOL."""
+  from mulan_tpu_torch.ops import ode
+  cpu_gen = torch.Generator().manual_seed(SEED)
+  a = torch.linspace(0.5, 1.5, 8)
+  w = torch.rand((ODE_ROWS, 3073), generator=cpu_gen) + 0.5
+  w0 = 2 * torch.rand((ODE_ROWS, 3073), generator=cpu_gen) - 1
+
+  def nonlinear(c):
+    return lambda t, y: torch.sin(3 * t) * y - 0.5 * y ** 3 + c.to(y.device)
+  cases = (('exponential', lambda t, y: -y, torch.ones(4), 0.0, 1.0,
+            dict(rtol=1e-6, atol=1e-8)),
+           ('reverse_time', lambda t, y: y, torch.full((3,), 2.0), 1.0, 0.0,
+            dict(rtol=1e-6, atol=1e-8)),
+           ('nonlinear', nonlinear(a), torch.linspace(-1, 1, 8), 0.0, 1.0,
+            dict(rtol=1e-5, atol=1e-5)),
+           ('likelihood_state', nonlinear(w), w0, 0.0, 1.0,
+            dict(rtol=1e-3, atol=1e-3)))
+  results = {}
+  for name, rhs, y0, t0, t1, kw in cases:
+    for solver in (ode.odeint_dopri5, ode.odeint_rk4):
+      cpu = solver(rhs, y0, t0, t1, **kw)
+      gpu, secs = timed(lambda: solver(rhs, y0.to(dev), t0, t1, **kw))
+      counts = [s[1:] for s in (cpu, gpu)]
+      err = rel_err(gpu.y.cpu(), cpu.y)
+      results[f'{name}/{solver.__name__}'] = dict(
+          steps_rejected_nfe_success=counts[1], cpu=counts[0], rel_err=err,
+          seconds=secs)
+      assert counts[0] == counts[1] and err <= ODE_SOLVER_RTOL, (
+          name, solver.__name__, counts, err)
+  log('ode_solver', rtol=ODE_SOLVER_RTOL, **results)
+
+
+def ode_rhs(model, images, u, probe):
+  """The ODE likelihood's RHS for `images` with the dequantization draw u
+  and the probe, and its initial state (a solver that records them)."""
+  from mulan_tpu_torch.evals import nll_ode
+  from mulan_tpu_torch.ops import ode
+  got = {}
+
+  def odeint(func, y0, t0, t1, **unused):
+    got.update(func=func, y0=y0)
+    return ode.ODESolution(y0, 0, 0, 0, True)
+  nll_ode.make_ode_likelihood_fn(model, odeint=odeint)(images, u=u,
+                                                       probe=probe)
+  return got['func'], got['y0']
+
+
+def ode_noise(cfg, gen, dev):
+  """A truncated-normal dequantization draw and a Rademacher probe for
+  ODE_ROWS images."""
+  shape = (ODE_ROWS, *cfg.image_shape)
+  u = torch.nn.init.trunc_normal_(torch.empty(shape, device=dev), a=-3.0,
+                                  b=3.0, generator=gen)
+  probe = (2 * torch.randint(0, 2, shape, generator=gen, device=dev)
+           - 1).float()
+  return u, probe
+
+
+def ode_bpd(cfg, log_p, aux) -> float:
+  """bpd of one importance sample with 'tn' dequantization."""
+  from mulan_tpu_torch.evals import nll_ode
+  return ((-log_p + aux).mean().item() / (cfg.n_pixels * math.log(2.0))
+          + nll_ode.bpd_offset('tn', 1, cfg.gamma_min))
+
+
+def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
+  """One RK4 solve of the ODE likelihood (ODE_RK4_STEPS steps, 128 rows)
+  through the kernels, through the plain versions and through a float32
+  plain twin, on the same dequantization draw and probe, with the gates
+  described at ODE_BPD_NOISE. Then one RHS evaluation: its ms and peak
+  memory, and the score UNet's attention block alone at the input and
+  output cotangent it recorded there: every leaf's gradient and the
+  input's, kernels against plain, to ATTN_ALONE_COS_MIN, which planted
+  faults in K2 and K3 must fail. Returns (the launches of the kernels'
+  solve, the kernels' model, its RHS and initial state)."""
+  from mulan_tpu_torch.evals import nll_ode
+  from mulan_tpu_torch.models import build_model
+  from mulan_tpu_torch.ops import ode
+  u, probe = ode_noise(cfg, gen, dev)
+  rk4 = functools.partial(ode.odeint_rk4, num_steps=ODE_RK4_STEPS)
+  to_bpd = 1.0 / (cfg.n_pixels * math.log(2.0))
+
+  def solve(model):
+    """(bpd, its prior term's and its divergence term's parts, stats)."""
+    got = {}
+
+    def odeint(*args, **kwargs):
+      got['sol'] = rk4(*args, **kwargs)
+      return got['sol']
+    log_p, _, aux, stats = nll_ode.make_ode_likelihood_fn(
+        model, odeint=odeint)(batch, u=u, probe=probe)
+    divergence = -got['sol'].y[:, cfg.n_pixels].mean().item() * to_bpd
+    bpd = ode_bpd(cfg, log_p, aux)
+    return dict(bpd=bpd, divergence_part=divergence,
+                prior_part=bpd - divergence), stats
+
+  models, runs = {}, {}
+  for name, overrides in (('kernels', {}), ('plain', dict(use_kernels=False)),
+                          ('f32', dict(use_kernels=False,
+                                       compute_dtype='float32'))):
+    models[name] = build_model(dataclasses.replace(cfg, **overrides),
+                               device=dev, state=state).requires_grad_(False)
+    if name == 'kernels':
+      ((runs[name], stats), secs), counts = counted(lambda: timed(
+          lambda: solve(models[name])), route_totals)
+    else:
+      (runs[name], stats), secs = timed(lambda: solve(models[name]))
+    runs[name]['seconds'] = secs
+    if name == 'f32':
+      del models[name]
+  nfe = stats['nfe']
+  assert nfe == 4 * ODE_RK4_STEPS and stats['success'], stats
+  assert counts == ode_solve_launches(cfg, nfe), counts
+
+  def delta(a, b, part='bpd'):
+    return abs(runs[a][part] - runs[b][part])
+  noise = delta('plain', 'f32')
+  bpd_tol = BPD_TOL + ODE_BPD_NOISE * noise
+
+  rhs = {name: ode_rhs(m, batch, u, probe) for name, m in models.items()}
+  t = ode.f32(0.5)
+  rhs_ms = {name: cuda_ms(lambda: func(t, y0), n=5)
+            for name, (func, y0) in rhs.items()}
+  func, y0 = rhs['kernels']
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  func(t, y0)
+  torch.cuda.synchronize()
+  peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+  # The block alone, its leaves made to require grad for the check only.
+  block = models['kernels'].score_model.mid_attn_1
+  captured, hooks = capture_io({'unet': block})
+  func(t, y0)
+  for h in hooks:
+    h.remove()
+  block.requires_grad_(True)
+  plain = block_grads(block, *captured['unet'], False)
+  # The residual passes dy to the input unchanged; the attention branch's
+  # share of the input gradient, beside it.
+  dy = captured['unet'][1].flatten().double()
+  branch_ratio = ((plain['input'] - dy).norm() / dy.norm()).item()
+
+  def alone():
+    return leaf_cosines(block_grads(block, *captured['unet'], True), plain)
+  cos = alone()
+  faults = {}
+  for kernel in ('dk', 'dq'):
+    with planted_fault(kernel):
+      faults[kernel] = alone()
+  block.requires_grad_(False)
+
+  def passes(c):
+    return all(v >= ATTN_ALONE_COS_MIN for v in c.values())
+  log('ode_nll_kernels_vs_plain', rows=ODE_ROWS, rk4_steps=ODE_RK4_STEPS,
+      nfe=nfe, runs=runs, abs_delta=delta('kernels', 'plain'),
+      plain_minus_f32=noise, tol=bpd_tol,
+      prior_part_abs_delta=delta('kernels', 'plain', 'prior_part'),
+      prior_tol=BPD_TOL, kernels_minus_f32=delta('kernels', 'f32'),
+      ms_per_rhs_kernels=rhs_ms['kernels'], ms_per_rhs_plain=rhs_ms['plain'],
+      rhs_peak_above_start_gb=peak_gb,
+      alone_cos_min=min(cos.values()), tol_alone=ATTN_ALONE_COS_MIN,
+      alone_cos={n: round(c, 7) for n, c in cos.items()},
+      planted_faults_rejected={k: not passes(c) for k, c in faults.items()},
+      fault_cos_min={k: min(c.values()) for k, c in faults.items()},
+      fault_input_cos={k: c['input'] for k, c in faults.items()},
+      branch_to_residual_norm=branch_ratio, launches=counts)
+  assert delta('kernels', 'plain', 'prior_part') <= BPD_TOL, runs
+  assert delta('kernels', 'plain') <= bpd_tol, runs
+  assert passes(cos), cos
+  for kernel, c in faults.items():
+    assert not passes(c), (f'a planted {kernel} fault passed', c)
+  del models['plain'], rhs['plain']
+  return counts, models['kernels'], func, y0
+
+
+def run_ode_dopri5(model, batch, gen, dev, route_totals):
+  """One adaptive DoPri5 solve of the ODE likelihood at 128 rows
+  (rtol = atol = ODE_DOPRI5_TOL, at most ODE_DOPRI5_MAX_STEPS steps),
+  twice on the same noise: each must succeed; whether the two agree is
+  printed, not gated. Returns the launches of both."""
+  from mulan_tpu_torch.evals import nll_ode
+  u, probe = ode_noise(model.config, gen, dev)
+  likelihood = nll_ode.make_ode_likelihood_fn(
+      model, rtol=ODE_DOPRI5_TOL, atol=ODE_DOPRI5_TOL,
+      max_steps=ODE_DOPRI5_MAX_STEPS)
+  runs, total = [], None
+  for _ in range(2):
+    ((log_p, _, aux, stats), secs), counts = counted(lambda: timed(
+        lambda: likelihood(batch, u=u, probe=probe)), route_totals)
+    runs.append(dict(stats, seconds=secs, bpd=ode_bpd(model.config, log_p,
+                                                      aux),
+                     log_p=log_p))
+    assert stats['success'], stats
+    assert counts == ode_solve_launches(model.config, stats['nfe']), counts
+    total = counts if total is None else {k: v + counts[k]
+                                          for k, v in total.items()}
+  log('ode_dopri5', rows=ODE_ROWS, rtol=ODE_DOPRI5_TOL, atol=ODE_DOPRI5_TOL,
+      max_steps=ODE_DOPRI5_MAX_STEPS,
+      runs=[{k: v for k, v in r.items() if k != 'log_p'} for r in runs],
+      ms_per_rhs=[1e3 * r['seconds'] / r['nfe'] for r in runs],
+      nfe_agree=runs[0]['nfe'] == runs[1]['nfe'],
+      log_p_equal=torch.equal(runs[0]['log_p'], runs[1]['log_p']),
+      log_p_max_abs_diff=(runs[0]['log_p'] - runs[1]['log_p']).abs().max()
+      .item())
+  return total
+
+
+def ode_cli_config():
+  """The command lines' arguments for the flagship on synthetic data, one
+  eval batch of ODE_ROWS images."""
+  return ['--config=cifar10_conditioned', '--config.data.dataset=synthetic',
+          f'--config.data.synthetic_examples={4 * ODE_ROWS}',
+          f'--config.training.batch_size_eval={ODE_ROWS}']
+
+
+def run_ode_nll_cli(cfg, flax_path, route_totals):
+  """`eval_bpd --bpd_eval_method=ode --solver=rk4` on the exported
+  `ckpt-N.flax`, one batch of ODE_ROWS images, one importance sample:
+  finite bpd, launches of one solve. Returns the launches."""
+  from mulan_tpu_torch import eval_bpd
+  argv = [*ode_cli_config(), f'--checkpoint_directory={flax_path}',
+          '--bpd_eval_method=ode', '--solver=rk4',
+          f'--rk4_steps={ODE_RK4_STEPS}', '--n_is=1']
+  (bpd, secs), counts = counted(lambda: timed(lambda: eval_bpd.main(argv)),
+                                route_totals)
+  log('ode_nll', argv=' '.join(argv[-4:]), bpd=bpd, seconds=secs,
+      nfe=4 * ODE_RK4_STEPS, launches=counts)
+  assert math.isfinite(bpd), bpd
+  assert counts == ode_solve_launches(cfg, 4 * ODE_RK4_STEPS), counts
+  return counts
+
+
+def run_ode_sample_cli(cfg, flax_path, workdir, route_totals):
+  """`main --mode sample --sampler=ode` on the exported `ckpt-N.flax` at
+  batch SAMPLE_BATCH, its tolerances loosened to ODE_SAMPLE_TOL: a uint8
+  grid in [0, 255], z_0 finite, launches of nfe forward evaluations.
+  Returns the launches."""
+  from mulan_tpu_torch import main as main_lib
+  from mulan_tpu_torch.evals import nll_ode
+  from mulan_tpu_torch.utils import metrics
+  make_sample_fn, write_png = nll_ode.make_ode_sample_fn, metrics.write_png
+  got = {}
+
+  def loose_sample_fn(model):
+    sample = make_sample_fn(model, rtol=ODE_SAMPLE_TOL, atol=ODE_SAMPLE_TOL)
+
+    def recorded(*args, **kwargs):
+      (got['z_0'], got['nfe']), got['solve_s'] = timed(
+          lambda: sample(*args, **kwargs))
+      return got['z_0'], got['nfe']
+    return recorded
+
+  def recording_write_png(path, image):
+    got['grid'] = image
+    write_png(path, image)
+  nll_ode.make_ode_sample_fn = loose_sample_fn
+  metrics.write_png = recording_write_png
+  try:
+    (_, secs), counts = counted(lambda: timed(lambda: main_lib.main([
+        *ode_cli_config(), '--mode=sample', '--sampler=ode',
+        f'--sample_batch={SAMPLE_BATCH}', f'--checkpoint={flax_path}',
+        f'--workdir={workdir}'])), route_totals)
+  finally:
+    nll_ode.make_ode_sample_fn, metrics.write_png = make_sample_fn, write_png
+  grid, z_0, nfe = got['grid'], got['z_0'], got['nfe']
+  log('ode_sample', batch=SAMPLE_BATCH, rtol=ODE_SAMPLE_TOL,
+      atol=ODE_SAMPLE_TOL, nfe=nfe, seconds=secs, solve_s=got['solve_s'],
+      ms_per_rhs=1e3 * got['solve_s'] / nfe, grid_shape=list(grid.shape),
+      dtype=str(grid.dtype), min=int(grid.min()), max=int(grid.max()),
+      z0_abs_max=z_0.abs().max().item(), launches=counts)
+  assert grid.dtype.name == 'uint8' and 0 <= grid.min() <= grid.max() <= 255
+  assert torch.isfinite(z_0).all()
+  assert counts == times(expected_launches(cfg, 'ode_sample_rhs'), nfe), (
+      counts)
+  return counts
+
+
+def compare_ode_fused(cfg, state, batch, gen, dev, route_totals):
+  """One RHS evaluation with `fused_gn_swish` through the kernels (K8 and
+  K8's backward at every GN-swish site, a plain GroupNorm+swish backward on
+  the card raising) against its plain twin on the same state and probe:
+  cosines of the drift and of the divergence >= ODE_FUSED_COS_MIN.
+  Returns the launches."""
+  from mulan_tpu_torch.models import build_model
+  from mulan_tpu_torch.ops import ode
+  fused_cfg = dataclasses.replace(cfg, fused_gn_swish=True)
+  u, probe = ode_noise(cfg, gen, dev)
+  out = {}
+  for name, use_kernels in (('kernels', True), ('plain', False)):
+    m = build_model(dataclasses.replace(fused_cfg, use_kernels=use_kernels),
+                    device=dev, state=state).requires_grad_(False)
+    func, y0 = ode_rhs(m, batch, u, probe)
+    if use_kernels:
+      with no_plain_gn_bwd_on_cuda():
+        out[name], counts = counted(lambda: func(ode.f32(0.5), y0),
+                                    route_totals)
+    else:
+      out[name] = func(ode.f32(0.5), y0)
+    del m, func
+  d = cfg.n_pixels
+  cos = {part: cosine(out['kernels'][:, s].flatten().double(),
+                      out['plain'][:, s].flatten().double())
+         for part, s in (('drift', slice(0, d)), ('divergence', d))}
+  log('ode_fused', rows=ODE_ROWS, cos=cos, tol=ODE_FUSED_COS_MIN,
+      launches=counts)
+  assert counts == expected_launches(fused_cfg, 'ode_rhs'), counts
+  assert min(cos.values()) >= ODE_FUSED_COS_MIN, cos
+  return counts
+
+
+def check_score_jvp_raises(model, batch):
+  """`score_jvp` needs forward-mode AD, which the kernels lack: with them on
+  the card it must raise."""
+  x = torch.randn((2, *model.config.image_shape), device=batch.device)
+  emb = model.deterministic_embedding(2)
+  try:
+    model.score_jvp(x, torch.zeros_like(x), emb, torch.ones_like(x))
+  except NotImplementedError as e:
+    log('score_jvp', raises=True, message=repr(str(e)[:60]))
+    return
+  raise AssertionError('score_jvp ran with the kernels on the card')
 
 
 def main() -> None:
@@ -1646,13 +2042,34 @@ def main() -> None:
   dense_k1, dense_k4 = check_dense_kernels(dev, gen, cfg, sfu_rate)
   torch.cuda.empty_cache()
   with tempfile.TemporaryDirectory() as workdir:
-    workdir_counts, ev = run_workdir_train(train_cfg, state, dev,
-                                           route_totals, workdir)
-  dense_counts = run_dense_eval(ev, images, gen, dev, route_totals)
-  del ev
+    workdir_counts, ev, flax_path = run_workdir_train(
+        train_cfg, state, dev, route_totals, workdir)
+    dense_counts = run_dense_eval(ev, images, gen, dev, route_totals)
+    del ev
+    torch.cuda.empty_cache()
+
+    # 12. The probability-flow ODE: the solvers on the card against the CPU;
+    # an RK4 likelihood kernels against plain, with one RHS evaluation's
+    # attention block alone; `eval_bpd --bpd_eval_method=ode` and `main
+    # --mode sample --sampler=ode` on the exported checkpoint; an adaptive
+    # DoPri5 solve; one fused RHS against its plain twin; `score_jvp`.
+    check_ode_solver(dev)
+    ode_batch = torch.as_tensor(images[:ODE_ROWS], device=dev)
+    ode_counts, ode_model, ode_func, ode_y0 = compare_ode_nll(
+        cfg, state, ode_batch, gen, dev, route_totals)
+    ode_cli_counts = run_ode_nll_cli(cfg, flax_path, route_totals)
+    ode_sample_counts = run_ode_sample_cli(
+        cfg, flax_path, os.path.join(workdir, 'ode_samples'), route_totals)
+  dopri5_counts = run_ode_dopri5(ode_model, ode_batch, gen, dev,
+                                 route_totals)
+  ode_fused_counts = compare_ode_fused(cfg, state, ode_batch, gen, dev,
+                                       route_totals)
+  check_score_jvp_raises(ode_model, ode_batch)
   torch.cuda.empty_cache()
 
   if want_profile:
+    ode_t = torch.tensor(0.5)
+
     def train_step(e):
       return lambda: e.train_step({'images': batch})
 
@@ -1671,7 +2088,8 @@ def main() -> None:
                      ('train_step_b128', train_step(ex)),
                      ('fused_elbo_b128', elbo(model_f)),
                      ('fused_train_step_b128', train_step(ex_f)),
-                     ('attention_train_step_b128', train_step(ex_a))):
+                     ('attention_train_step_b128', train_step(ex_a)),
+                     ('ode_rhs_b128', lambda: ode_func(ode_t, ode_y0))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -1700,6 +2118,9 @@ def main() -> None:
            'fused_train': fused_train_counts,
            'attention_train': attn_train_counts,
            'workdir_train': workdir_counts, 'dense_eval': dense_counts,
+           'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
+           'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
+           'ode_fused_rhs': ode_fused_counts,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')

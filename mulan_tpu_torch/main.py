@@ -6,14 +6,16 @@
     python -m mulan_tpu_torch.main --mode eval --config=... \
         --workdir=<dir> --checkpoint=<workdir>/<...>/checkpoints
     python -m mulan_tpu_torch.main --mode sample --config=... \
-        --workdir=<dir> --checkpoint=<checkpoints dir or ckpt-N.flax>
+        --workdir=<dir> --checkpoint=<checkpoints dir or ckpt-N.flax> \
+        [--sampler={ancestral,ode}]
 
 `--config` takes a port config name or the path of a JAX config file
 (mapped by its basename); `--config.<section>.<field>=<value>` overrides a
 field. `train` runs `Experiment.train_and_evaluate` in
 `<workdir>/<config>/<job id or time stamp>[-<overrides>]` and resumes from
 its checkpoints; `eval` evaluates a checkpoint's EMA weights; `sample` draws
-a grid of ancestral samples from a checkpoint and writes it as a PNG. Runs
+a grid of samples from a checkpoint, ancestral or by the probability-flow
+ODE (`evals/nll_ode.py:make_ode_sample_fn`), and writes it as a PNG. Runs
 on the card unless `--device=cpu` is given.
 """
 
@@ -22,6 +24,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 from mulan_tpu_torch import configs
 from mulan_tpu_torch.models import resolve_device
@@ -72,12 +76,11 @@ def main(argv=None) -> None:
 
 
 def _sample(args, config, device) -> None:
-  """Writes a grid of ancestral samples of a checkpoint's EMA weights."""
+  """Writes a grid of samples of a checkpoint's EMA weights."""
+  from mulan_tpu_torch.evals import nll_ode
   from mulan_tpu_torch.evals.harness import EvalExperiment
+  from mulan_tpu_torch.train.loop import SAMPLE
   from mulan_tpu_torch.utils.metrics import image_grid, write_png
-  if args.sampler == 'ode':
-    raise NotImplementedError('--sampler=ode is not ported yet; see '
-                              'ROADMAP.md Queue A, item 4 (ODE NLL)')
   if not args.checkpoint:
     raise ValueError('--mode sample needs --checkpoint=<checkpoints dir or '
                      'ckpt-N.flax>')
@@ -86,10 +89,19 @@ def _sample(args, config, device) -> None:
     raise ValueError(f'--sample_batch must be a perfect square, got '
                      f'{args.sample_batch}')
   ex = EvalExperiment(config, args.checkpoint, device=device)
-  samples = ex.random_samples(batch_size=args.sample_batch, T=args.sample_T)
+  if args.sampler == 'ancestral':
+    samples = ex.random_samples(batch_size=args.sample_batch,
+                                T=args.sample_T)
+  else:
+    model = ex.state.ema_model
+    ex.reseed(SAMPLE, 0)
+    z_0, nfe = nll_ode.make_ode_sample_fn(model)(args.sample_batch,
+                                                 ex.generator)
+    print(f'ode sampler nfe: {nfe}')
+    samples = model.generate_x(z_0).to(torch.uint8).cpu().numpy()
   os.makedirs(args.workdir, exist_ok=True)
   path = os.path.join(args.workdir,
-                      f'samples_ckpt{ex.checkpoint_step}_ancestral.png')
+                      f'samples_ckpt{ex.checkpoint_step}_{args.sampler}.png')
   write_png(path, image_grid(samples))
   print(f'Wrote {len(samples)} samples: {path}')
 

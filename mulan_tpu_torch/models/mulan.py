@@ -17,8 +17,9 @@ Only the flagship path is ported, under each of its execution-policy flags
 (`with_attention`, `remat`, `fused_gn_swish`, `dropout_mask_batch`). The
 epsilon parameterization, `velocity_from_epsilon`, the `ldm` UNet,
 gumbel/gaussian latents and the other schedules and encoders raise
-NotImplementedError at construction (ROADMAP.md Queue A, model variants);
-the SDE/ODE methods raise it when called (Queue A, ODE NLL).
+NotImplementedError at construction (ROADMAP.md Queue A, model variants).
+The SDE and probability-flow ODE methods (`sde`, `score_fn`, `score_jvp`,
+`reverse_ode`) are the velocity forms; `evals/nll_ode.py` solves the ODE.
 """
 
 from __future__ import annotations
@@ -217,10 +218,60 @@ class MuLAN(nn.Module):
 
   # -- SDE / probability-flow ODE ---------------------------------------------
 
-  def _ode_not_ported(self, *args, **kwargs):
-    raise NotImplementedError(
-        'the SDE / probability-flow ODE methods are not ported yet; see '
-        'ROADMAP.md Queue A, ODE NLL')
+  def _gammas(self, embeddings, t, shape):
+    """gamma(z, t) and dgamma/dt at t (a scalar or (B,)), in `shape`."""
+    t = t * torch.ones((shape[0],), device=self.device)
+    return (g.reshape(shape) for g in
+            self.gamma.gamma_and_dgamma(embeddings, t))
 
-  sde = score_fn = score_jvp = reverse_ode = _ode_not_ported
+  def sde(self, xt, embeddings, t):
+    """(drift, diffusion) of the forward SDE at t for NHWC x_t
+    (`mulan_tpu/models/mulan.py:sde`)."""
+    g_t, g_t_grad = self._gammas(embeddings, t, xt.shape)
+    drift = -0.5 * torch.sigmoid(g_t) * g_t_grad * xt
+    diffusion = torch.sqrt(torch.sigmoid(g_t) * g_t_grad)
+    return drift, diffusion
 
+  def score_fn(self, xt, gt, embeddings):
+    """score(x_t) = -x_t - exp(-gamma/2) v_hat (the velocity form), NHWC."""
+    return -xt - torch.exp(-0.5 * gt) * self._score(xt, gt, embeddings)
+
+  def score_jvp(self, z_t, g_t, conditioning, v,
+                dropout_seed: Optional[int] = None):
+    """(score, its JVP along v with respect to z_t) by forward-mode AD
+    (`torch.func.jvp`); `dropout_seed` None is the deterministic pass.
+
+    The CUDA kernels are opaque to forward-mode AD (a kernel called on a
+    dual tensor would return the primal and drop the tangent), so with
+    `use_kernels` on a CUDA device this raises, as JAX's custom_vjp kernels
+    refuse forward mode.
+    """
+    if self.config.use_kernels and self.device.type == 'cuda':
+      raise NotImplementedError(
+          'score_jvp needs forward-mode AD, which the CUDA kernels do not '
+          'have; build the model with use_kernels=False')
+
+    def score(xt):
+      return -xt - torch.exp(-0.5 * g_t) * self._score(xt, g_t, conditioning,
+                                                       dropout_seed)
+    return torch.func.jvp(score, (z_t,), (v,))
+
+  def reverse_ode(self, xt, embeddings, t, high_precision: bool = False):
+    """Probability-flow drift dx/dt = 0.5 alpha sigma dgamma/dt v_hat for
+    NHWC x_t at t (a scalar or (B,)).
+
+    `high_precision` takes sigma = exp(gamma/2) where sigma^2 <= 1e-3 and
+    alpha = exp(-gamma/2) where alpha^2 <= 1e-3, the log-domain forms, in
+    place of sqrt(sigmoid(+-gamma)) (`mulan_tpu/models/mulan.py:331-338`).
+    """
+    g_t, g_t_grad = self._gammas(embeddings, t, xt.shape)
+    v_hat = self._score(xt, g_t, embeddings)
+    var = torch.sigmoid(g_t)
+    if high_precision:
+      sigma = torch.where(var <= 1e-3, torch.exp(g_t / 2), torch.sqrt(var))
+      alpha = torch.where(1 - var <= 1e-3, torch.exp(-g_t / 2),
+                          torch.sqrt(1 - var))
+    else:
+      sigma = torch.sqrt(var)
+      alpha = torch.sqrt(1 - var)
+    return v_hat * 0.5 * alpha * sigma * g_t_grad

@@ -38,14 +38,15 @@ from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
 from mulan_tpu_torch.utils.metrics import ScalarWriter, image_grid, write_png
 
-# The streams of `step_key`: train steps, eval batches, the sampler.
-TRAIN, EVAL, SAMPLE = 0, 1, 2
+# The streams of `step_key`: train steps, eval batches, the sampler, the
+# ODE likelihood's solves (`evals/nll_ode.py`).
+TRAIN, EVAL, SAMPLE, ODE = 0, 1, 2, 3
 
 
-def step_key(seed: int, stream: int, index: int) -> int:
-  """A 63-bit generator seed that depends on (seed, stream, index) alone,
+def step_key(seed: int, stream: int, *index: int) -> int:
+  """A 63-bit generator seed that depends on (seed, stream, *index) alone,
   the counterpart of `jax.random.fold_in` (numpy's SeedSequence hash)."""
-  words = np.random.SeedSequence((seed, stream, index)).generate_state(
+  words = np.random.SeedSequence((seed, stream, *index)).generate_state(
       2, np.uint32)
   return (int(words[0]) << 31) ^ int(words[1])
 

@@ -326,7 +326,8 @@ def test_export_reference_checkpoint_is_flax_bytes(tiny, tmp_path):
 # -- entry points without CUDA ------------------------------------------------
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path,
+                                                   capsys):
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   calls = [
       lambda: main.main(['--config=tiny_synthetic',
@@ -340,10 +341,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
   for call in calls:
     with pytest.raises(RuntimeError, match="device='cpu'"):
       call()
-  with pytest.raises(NotImplementedError, match='Queue A, item 4'):
-    eval_bpd.main(['--config=tiny_synthetic', '--device=cpu',
-                   '--bpd_eval_method=ode',
-                   f'--checkpoint_directory={tmp_path}'])
+  ckpt_lib.CheckpointManager(tmp_path / 'ckpts').save(
+      0, Experiment(configs.tiny_synthetic(), device='cpu').state)
+  capsys.readouterr()
+  eval_bpd.main(['--config=tiny_synthetic', '--device=cpu',
+                 '--bpd_eval_method=ode', '--solver=rk4', '--rk4_steps=1',
+                 '--n_is=1', '--config.data.synthetic_examples=32',
+                 f'--checkpoint_directory={tmp_path / "ckpts"}'])
+  assert capsys.readouterr().out.startswith('Test BPD:')
   with pytest.raises(NotImplementedError, match='Queue A, item 7'):
     main.main(['--config=tiny_synthetic', '--device=cpu', '--mode=analyze',
                f'--workdir={tmp_path}'])
@@ -371,5 +376,5 @@ def test_port_imports_without_jax_flax_msgpack_orbax():
   assert out.returncode == 0, out.stderr
   names = out.stdout.split()
   for name in ('compat', 'main', 'eval_bpd', 'train.checkpoint',
-               'utils.msgpack', 'utils.workdir'):
+               'utils.msgpack', 'utils.workdir', 'ops.ode', 'evals.nll_ode'):
     assert f'mulan_tpu_torch.{name}' in names, name

@@ -296,7 +296,8 @@ def test_command_lines_train_resume_and_evaluate_on_cpu(tmp_path, capsys,
     assert int(ckpt) == 4, line
     return float(bpd)
 
-  dense = bpd_of(f'--checkpoint_directory={ckpts}')
+  dense = bpd_of(f'--checkpoint_directory={ckpts}',
+                 '--bpd_eval_method=dense')
   sparse = bpd_of(f'--checkpoint_directory={ckpts}',
                   '--bpd_eval_method=sparse')
   assert np.isfinite(dense) and np.isfinite(sparse)
@@ -305,7 +306,8 @@ def test_command_lines_train_resume_and_evaluate_on_cpu(tmp_path, capsys,
                f'--output={tmp_path / "ref"}'])
   flax_path = tmp_path / 'ref' / 'ckpt-4.flax'
   assert flax_path.exists()
-  assert bpd_of(f'--checkpoint_directory={flax_path}') == dense
+  assert bpd_of(f'--checkpoint_directory={flax_path}',
+                '--bpd_eval_method=dense') == dense
 
   main.main(['--mode=eval', '--config=tiny_synthetic', '--device=cpu',
              f'--workdir={tmp_path / "eval"}', f'--checkpoint={ckpts}'])

@@ -182,13 +182,6 @@ def test_unported_options_raise(field, value):
     MuLAN(tiny_config(**{field: value}))
 
 
-@pytest.mark.parametrize('method', ['sde', 'score_fn', 'score_jvp',
-                                    'reverse_ode'])
-def test_ode_methods_raise(method):
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    getattr(MuLAN(tiny_config()), method)()
-
-
 def test_port_imports_without_jax():
   """Every module of the port imports with jax, flax, ml_collections and
   absl blocked, as on a machine that has only PyTorch."""

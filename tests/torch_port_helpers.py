@@ -19,6 +19,7 @@ from mulan_tpu.models import build_model
 from mulan_tpu.models.config import ModelConfig as JaxModelConfig
 from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.mulan import MuLAN
+from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.params import from_flax
 from parity_helpers import shape_seed
 
@@ -80,6 +81,21 @@ def mulan_pair(cfg: ModelConfig, batch: int = 2, seed: int = 0):
   params = unflatten_dict({tuple(k.split('/')): jnp.asarray(v)
                            for k, v in flat.items()})
   return model, params, load_torch_module(MuLAN(cfg), flat)
+
+
+def seeded_pair(cfg: ModelConfig, seed: int = 0):
+  """(flax MuLAN-velocity, its params, the port's MuLAN with them) like
+  `mulan_pair`, from the port's seeded `init_params` (zero-init leaves
+  perturbed) handed to flax through `params.to_flax`: no flax init to
+  compile."""
+  state = params_lib.init_params(cfg, torch.Generator().manual_seed(seed),
+                             perturb_zero_init=PERTURB_STD)
+  port = MuLAN(cfg)
+  port.load_state_dict(state)
+  jax_params = unflatten_dict({tuple(k.split('/')): jnp.asarray(v)
+                               for k, v in params_lib.to_flax(state).items()})
+  return build_model('mulan_velocity', jax_config(cfg)), jax_params, (
+      port.eval())
 
 
 def shaped_normal(shape) -> np.ndarray:
