@@ -35,11 +35,20 @@ one RHS evaluation (planted faults in K2 and K3 must fail its gate);
 `eval_bpd --bpd_eval_method=ode` and `main --mode sample --sampler=ode` on
 the exported checkpoint; two adaptive DoPri5 solves; one RHS evaluation with
 `fused_gn_swish` against its plain twin; and `score_jvp`, which must refuse
-the kernels. Every check raises on failure.
+the kernels. Last, the baseline VDM (`vdm_cifar10`: the flagship's score
+UNet at full width and depth with the learned scalar schedule): a few steps
+of `Experiment.train` at batch 128, whose learned g0 puts the decoder
+backward (K5) on the path; one step held against its plain twin, and K5
+alone at that step's inputs (planted K5 faults must fail its gate); K5
+timed there, at g0 per example and at gamma_max, beside the earlier
+online-softmax K5 built from `ops/ablations/k5_bwd.json`; the sparse VLB,
+the ancestral sampler, and `eval_bpd --config=vdm_cifar10
+--bpd_eval_method=ode` on its exported `ckpt-N.flax`. Every check raises on
+failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
-step (unfused, fused and with `with_attention`) and one ODE RHS evaluation
-by kernel category with `torch.profiler` and prints the tables as
+step (unfused, fused, with `with_attention`, and the VDM's) and one ODE RHS
+evaluation by kernel category with `torch.profiler` and prints the tables as
 `[profile]` lines.
 
 Output, one line per phase; the line before the last is the card's name and
@@ -50,12 +59,14 @@ line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import json
 import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -206,6 +217,24 @@ GN_ALONE_COS_MIN = 0.9999
 # held to a whole cosine of REMAT_COS_MIN and norms within GRAD_NORM_RTOL;
 # on an H100 every mode gave 'none''s gradients bit for bit (cosine 1.0).
 REMAT_COS_MIN = 0.9999
+# The baseline VDM (phase 13): train steps at batch 128 and the batches of
+# its sparse-VLB evaluation. One step kernels against plain gates the
+# schedule's leaves by their cosines as the attention block's; its linear
+# term's kernel and bias are one number each, so their cosine is their sign.
+# Their relative differences are printed beside the plain step's from its
+# float32 twin: each sums the step's loss terms with opposite signs, where
+# bf16 rounding anywhere in the UNet moves the small remainder (kernels
+# against plain 12.6% and 1.5% on one batch on an H100, with no K5 in the
+# kernel's term at t = 0; plain against float32 4.4% and 0.5%). K5 alone at
+# the VDM step's inputs against its plain version: the cosine of dz and, for
+# the one g0, 1 - the relative difference of dg0. Both compute the same
+# per-pixel terms in float32 (the kernel's exp2.approx 2^-22 relative) and
+# sum dg0 in other orders; its terms are mostly of one sign (pixels whose
+# noise crossed a bin edge), so the sum keeps their relative error. A
+# planted dg0 = 0 gives 0, a flipped dz -1.
+VDM_TRAIN_STEPS = 6
+VDM_EVAL_BATCHES = 2
+DECODER_BWD_ALONE_MIN = 0.9999
 # The probability-flow ODE (phase 12): a likelihood solve takes ODE_ROWS
 # images at once; RK4 with ODE_RK4_STEPS steps is 16 RHS evaluations, each
 # the score UNet's forward and its input gradient (K1, K2 and K3 once). The
@@ -509,18 +538,18 @@ def check_decoder(dev, gen, cfg, sfu_rate, batch=EVAL_BATCH):
   return results
 
 
-def check_decoder_bwd(dev, gen, cfg, sfu_rate):
+def check_decoder_bwd(dev, gen, cfg):
   """K5 through the autograd wrapper, against the plain closed form, with
-  per-pixel, per-example and scalar g0 (the last two summed back)."""
+  per-pixel, per-example and scalar g0 drawn over [gamma_min, gamma_max]
+  (the last two reduced in the kernel to g0's shape). Its times are taken
+  at the VDM step's inputs (`time_decoder_bwd`)."""
   from mulan_tpu_torch.ops.decoder_logprob import (decoder_logprob,
-                                                   decoder_logprob_bwd,
                                                    decoder_logprob_bwd_plain,
                                                    encode)
   shape = (EVAL_BATCH, *cfg.image_shape)
   x = torch.randint(0, 256, shape, generator=gen, device=dev).float()
   ct = torch.randn((EVAL_BATCH,), generator=gen, device=dev)
   span = cfg.gamma_max - cfg.gamma_min
-  result = None
   for name, g_shape in (('per_pixel', shape),
                         ('per_example', (EVAL_BATCH, 1, 1, 1)),
                         ('scalar', ())):
@@ -530,30 +559,175 @@ def check_decoder_bwd(dev, gen, cfg, sfu_rate):
         shape, generator=gen, device=dev)).requires_grad_()
     dz, dg0 = torch.autograd.grad(decoder_logprob(x, z, g0), (z, g0), ct)
     torch.cuda.synchronize()
-    g_full = g0.detach().expand(shape)
-    ref_dz, ref_dg = decoder_logprob_bwd_plain(x, z.detach(), g_full, ct)
-    ref_dg = ref_dg.sum_to_size(g_shape)
+    ref_dz, ref_dg = decoder_logprob_bwd_plain(x, z.detach(), g0.detach(),
+                                               ct)
+    assert dg0.shape == ref_dg.shape == g_shape, (name, dg0.shape)
     errs = dict(dz_rel_err=rel_err(dz, ref_dz),
                 dg0_rel_err=rel_err(dg0, ref_dg))
     log('decoder_logprob_bwd', g0=name, shape=list(shape),
         rtol=DECODER_BWD_RTOL, **errs)
     assert max(errs.values()) <= DECODER_BWD_RTOL, (name, errs)
-    if result is None:
-      zd = z.detach()
-      g_full = g_full.contiguous()
-      dz_k, dg_k = decoder_logprob_bwd(x, zd, g_full, ct)
-      # ~14 float32 operations and two exp a (pixel, vocab value) step.
-      steps = x.numel() * cfg.vocab_size
-      result = dict(
-          max_abs_err=max((dz_k - ref_dz).abs().max(),
-                          (dg_k - ref_dg).abs().max()).item(),
-          ms=cuda_ms(lambda: decoder_logprob_bwd(x, zd, g_full, ct)),
-          plain_ms=cuda_ms(lambda: decoder_logprob_bwd_plain(
-              x, zd, g_full, ct), n=5),
-          library_ms=None,
-          **bound(14.0 * steps, nbytes(x, zd, g_full, ct, dz_k, dg_k),
-                  exps=2.0 * steps, sfu_rate=sfu_rate))
-  return result
+
+
+def build_online_decoder_bwd(tmp_root: str):
+  """The earlier K5 (the 256-step online softmax a pixel, a per-pixel dg0
+  that its wrapper summed back in PyTorch), built from the ablation spec's
+  `online_full_vocab` variant of `csrc/decoder_logprob.cu` by
+  `ops/ablate.py`: (the library, ptxas's notes)."""
+  from mulan_tpu_torch.ops import ablate
+  spec = json.loads((pathlib.Path(ablate.__file__).parent / 'ablations'
+                     / 'k5_bwd.json').read_text())
+  name = 'online_full_vocab'
+  _, path, notes = ablate.build(name, spec['variants'][name], spec['file'],
+                                spec['show'], tmp_root)
+  assert path, f'the online K5 variant did not build: {notes}'
+  return ablate.load(path, spec['entries']), notes
+
+
+def decoder_bwd_c_call(lib, x, z, g0, ct, per_pixel: bool = False):
+  """(a launch of `lib`'s `mulan_decoder_logprob_bwd` on these inputs, its
+  (dz, dg0)), prepared as the wrapper prepares them; with `per_pixel`, g0
+  expanded to z's shape, as the online K5's wrapper handed a broadcast
+  g0."""
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  b, n = z.shape[0], z[0].numel()
+  x2, z2 = dec._flat(z, x, z)
+  g0 = torch.as_tensor(g0, dtype=torch.float32, device=z.device)
+  mode = dec.PER_PIXEL if per_pixel else dec.g0_mode(g0, z)
+  g2 = (dec._flat(z, g0)[0] if mode == dec.PER_PIXEL
+        else g0.reshape(-1).contiguous())
+  ct2 = ct.float().reshape(b).contiguous()
+  n_blocks = -(-n // dec._BWD_PIXELS_PER_BLOCK)
+  dz = torch.empty_like(z2)
+  dg0 = torch.empty_like(z2 if mode == dec.PER_PIXEL else g2)
+  partial = torch.empty((b, n_blocks), device=z.device)
+  tensors = (x2, z2, g2, ct2, dz, dg0, partial)  # alive while launch is
+  stream = torch.cuda.current_stream().cuda_stream
+
+  def launch():
+    status = lib.mulan_decoder_logprob_bwd(
+        *(t.data_ptr() for t in tensors), b, n, n_blocks, mode, 256, stream)
+    assert status == 0, status
+  return launch, (dz, dg0)
+
+
+def time_decoder_bwd(cases, cfg, sfu_rate, online_lib):
+  """K5 at each case's (x, z, g0, ct) against its plain version (dz and dg0
+  within DECODER_BWD_RTOL of their max-abs), timed one launch and back to
+  back through the wrapper and the C call, beside the online K5 at the same
+  inputs (its C call, g0 per pixel) and the bound of the work this run's
+  windows need (`logsumexp_window`). Returns {case: result}."""
+  from mulan_tpu_torch.ops import _build
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  lib = _build.load_library()
+  results = {}
+  for name, (x, z, g0, ct) in cases.items():
+    dz, dg0 = dec.decoder_logprob_bwd(x, z, g0, ct)
+    torch.cuda.synchronize()
+    ref_dz, ref_dg = dec.decoder_logprob_bwd_plain(x, z, g0, ct)
+    errs = dict(dz_rel_err=rel_err(dz, ref_dz),
+                dg0_rel_err=rel_err(dg0, ref_dg))
+    new_call, (new_dz, new_dg) = decoder_bwd_c_call(lib, x, z, g0, ct)
+    old_call, (old_dz, old_dg) = decoder_bwd_c_call(online_lib, x, z, g0, ct,
+                                                    per_pixel=True)
+    new_call()
+    old_call()
+    torch.cuda.synchronize()
+    errs.update(c_call_dz_rel_err=rel_err(new_dz.reshape(z.shape), ref_dz),
+                c_call_dg0_rel_err=rel_err(new_dg.reshape(ref_dg.shape),
+                                           ref_dg),
+                online_kernel_dz_rel_err=rel_err(old_dz.reshape(z.shape),
+                                              ref_dz),
+                online_kernel_dg0_rel_err=rel_err(
+                    old_dg.reshape(z.shape).sum_to_size(ref_dg.shape),
+                    ref_dg))
+    first, last = dec.logsumexp_window(z.float(), torch.broadcast_to(
+        torch.as_tensor(g0, device=z.device), z.shape), cfg.vocab_size)
+    bins = (last - first + 1).sum().item()
+    pixels = z.numel()
+    steps = pixels * cfg.vocab_size
+    io = nbytes(x.float(), z, dz, torch.as_tensor(g0), ct, dg0)
+    # The work the function needs: x and z read and dz written once, and a
+    # bin of the window ~8 float32 operations and one exp; a pixel ~30
+    # operations and three exp, division or log. Beside it, the online
+    # softmax over every bin: ~14 operations and two exp a (pixel, bin).
+    full = bound(14.0 * steps, io, exps=2.0 * steps, sfu_rate=sfu_rate)
+    results[name] = dict(
+        max_abs_err=max((dz - ref_dz).abs().max(),
+                        (dg0 - ref_dg).abs().max()).item(),
+        ms=cuda_ms(lambda: dec.decoder_logprob_bwd(x, z, g0, ct)),
+        back_to_back_ms=back_to_back_ms(
+            lambda: dec.decoder_logprob_bwd(x, z, g0, ct)),
+        c_call_ms=cuda_ms(new_call),
+        c_call_back_to_back_ms=back_to_back_ms(new_call),
+        online_kernel_ms=cuda_ms(old_call),
+        online_kernel_back_to_back_ms=back_to_back_ms(old_call),
+        plain_ms=cuda_ms(lambda: dec.decoder_logprob_bwd_plain(x, z, g0,
+                                                               ct), n=5),
+        library_ms=None, window_bins_per_pixel=bins / pixels,
+        bound_full_vocab_ms=full['bound_ms'],
+        **bound(8.0 * bins + 30.0 * pixels, io, exps=bins + 3.0 * pixels,
+                sfu_rate=sfu_rate))
+    log('decoder_logprob_bwd_timed', case=name, shape=list(z.shape),
+        g0_shape=list(torch.as_tensor(g0).shape), rtol=DECODER_BWD_RTOL,
+        **errs, **results[name])
+    assert max(errs.values()) <= DECODER_BWD_RTOL, (name, errs)
+  return results
+
+
+def agreement(got, want) -> float:
+  """The cosine of two gradients, or 1 - |got - want| / |want| for one
+  number (whose cosine is its sign)."""
+  got, want = got.flatten().double(), want.flatten().double()
+  if want.numel() == 1:
+    return 1.0 - (abs(got - want) / abs(want).clamp_min(1e-30)).item()
+  return cosine(got, want)
+
+
+def decoder_bwd_alone(x, z, g0, ct):
+  """{dz, dg0: agreement of K5 (the module's current wrapper, so a planted
+  fault bites) with its plain version} at one call's inputs."""
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  got = dec.decoder_logprob_bwd(x, z, g0, ct)
+  want = dec.decoder_logprob_bwd_plain(x, z, g0, ct)
+  return {k: agreement(g, w) for k, g, w in zip(('dz', 'dg0'), got, want)}
+
+
+@contextlib.contextmanager
+def planted_decoder_bwd_fault(kind: str):
+  """A wrong K5 the alone gate must reject: dg0 replaced by zeros
+  ('dg0_zero') or dz with its sign flipped ('dz_sign')."""
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  real = dec.decoder_logprob_bwd
+
+  def faulty(*args, **kwargs):
+    dz, dg0 = real(*args, **kwargs)
+    if kind == 'dg0_zero':
+      return dz, torch.zeros_like(dg0)
+    return -dz, dg0
+  faulty.launches = 0  # the real wrapper counts on the module's name
+  dec.decoder_logprob_bwd = faulty
+  try:
+    yield
+  finally:
+    dec.decoder_logprob_bwd = real
+
+
+@contextlib.contextmanager
+def recording_decoder_bwd(calls: list):
+  """Appends the (x, z, g0, ct) of every K5 call to `calls`."""
+  from mulan_tpu_torch.ops import decoder_logprob as dec
+  real = dec.decoder_logprob_bwd
+
+  def recorded(x, z, g0, ct, *args, **kwargs):
+    calls.append(tuple(t.detach() for t in (x, z, g0, ct)))
+    return real(x, z, g0, ct, *args, **kwargs)
+  recorded.launches = 0
+  dec.decoder_logprob_bwd = recorded
+  try:
+    yield
+  finally:
+    dec.decoder_logprob_bwd = real
 
 
 # K6/K7 at a bf16 size of 15 M values, whose last chunk of 8 holds 5: a
@@ -769,26 +943,31 @@ def check_mask_batch(dev, cfg, imul_rate):
   return result
 
 
-def expected_launches(cfg, path: str) -> dict:
-  """Kernel launches per call of `path` for model config cfg: an ELBO
-  ('eval'), a sampler step ('sample'), a train step ('train'), the latent
-  encoder ('encoder', once per ODE solve), one RHS evaluation of the ODE
-  likelihood ('ode_rhs': the score UNet's forward and its input gradient)
-  or of the ODE sampler ('ode_sample_rhs': the forward alone).
+def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
+  """Kernel launches per call of `path` for model config cfg, MuLAN's or
+  (`vdm`) the baseline VDM's: an ELBO ('eval'), a sampler step ('sample'),
+  a train step ('train'), the latent encoder ('encoder', once per ODE
+  solve), one RHS evaluation of the ODE likelihood ('ode_rhs': the score
+  UNet's forward and its input gradient) or of the ODE sampler
+  ('ode_sample_rhs': the forward alone).
 
-  Attention blocks: the middle one of the UNet and of the encoder, plus,
-  with `with_attention`, one after each of the UNet's 2 n_layer + 1 down
-  and up blocks and each of the encoder's down blocks. K8 runs twice in
-  each of the UNet's 2 n_layer + 3 ResNet blocks with `fused_gn_swish`.
-  In a train step K8's backward runs once per K8 site, and a checkpointed
-  block (remat) runs its forward again in the backward: K1 once more per
-  attention block, K8 twice and K6 once more per ResNet block. K6 makes a block's mask in the forward and again
-  in the backward; with `dropout_mask_batch`, one K7 launch makes the
-  UNet's masks instead and the encoder keeps K6.
+  Attention blocks: the middle one of the UNet and of the encoder (the VDM
+  has none), plus, with `with_attention`, one after each of the UNet's
+  2 n_layer + 1 down and up blocks and each of the encoder's down blocks.
+  K8 runs twice in each of the UNet's 2 n_layer + 3 ResNet blocks with
+  `fused_gn_swish`. In a train step K8's backward runs once per K8 site,
+  and a checkpointed block (remat) runs its forward again in the backward:
+  K1 once more per attention block, K8 twice and K6 once more per ResNet
+  block. K6 makes a block's mask in the forward and again in the backward;
+  with `dropout_mask_batch`, one K7 launch makes the UNet's masks instead
+  and the encoder keeps K6. K5 runs once in the VDM's step (its g0 is
+  learned) and never in MuLAN's (`poly_fixedend` pins g0).
   """
-  n_unet, n_enc = 2 * cfg.sm_n_layer + 3, cfg.forward_n_layer + 2
+  n_unet = 2 * cfg.sm_n_layer + 3
+  n_enc = 0 if vdm else cfg.forward_n_layer + 2
   unet_attn = 1 + (2 * cfg.sm_n_layer + 1 if cfg.with_attention else 0)
-  enc_attn = 1 + (cfg.forward_n_layer if cfg.with_attention else 0)
+  enc_attn = 0 if vdm else 1 + (cfg.forward_n_layer if cfg.with_attention
+                                else 0)
   counts = dict.fromkeys(kernel_counters(), 0)
   k8 = 2 * n_unet if cfg.fused_gn_swish else 0
   if path == 'eval':
@@ -818,7 +997,7 @@ def expected_launches(cfg, path: str) -> dict:
   counts.update(
       flash_attention=n_attn * (2 if cfg.remat_attn else 1),
       flash_attention_bwd_dkv=n_attn, flash_attention_bwd_dq=n_attn,
-      decoder_logprob=1,
+      decoder_logprob=1, decoder_logprob_bwd=int(vdm),
       dropout_mask=drop * ((0 if batched else 2 * n_unet + unet_remat)
                            + 2 * n_enc + enc_remat),
       dropout_mask_batch=int(batched),
@@ -1245,7 +1424,7 @@ def compare_remat(ex, cfg, state, batch, noise, dev, route_totals):
   for name, mode in (('none', 'none'), ('all', 'all'), ('attn', 'attn'),
                      ('alt', 'alt'), ('none_again', 'none')):
     mcfg = dataclasses.replace(cfg, remat=mode)
-    m = build_model(mcfg, device=dev, state=state)
+    m = build_model('mulan_velocity', mcfg, device=dev, state=state)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1428,7 +1607,8 @@ def run_dense_eval(ev, images, gen, dev, route_totals):
                     device=dev)
   topk = latents.gamma_variates(cfg.latent_k, (DENSE_ROWS, cfg.latent_size),
                                 generator=gen, device=dev)
-  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+  plain = build_model('mulan_velocity',
+                      dataclasses.replace(cfg, use_kernels=False),
                       device=dev, state=model.state_dict())
   with torch.inference_mode():
     got, want = (vlb.dense_chunk_bpd(m, images[:n_img], DENSE_T, u=u,
@@ -1450,12 +1630,13 @@ def run_dense_eval(ev, images, gen, dev, route_totals):
   return counts
 
 
-def ode_solve_launches(cfg, nfe: int, solves: int = 1) -> dict:
+def ode_solve_launches(cfg, nfe: int, solves: int = 1,
+                       vdm: bool = False) -> dict:
   """Launches of `solves` ODE-likelihood solves of `nfe` RHS evaluations
-  each: the encoder once a solve, the score UNet's forward and input
-  gradient once an evaluation."""
-  want = times(expected_launches(cfg, 'ode_rhs'), nfe)
-  for k, v in times(expected_launches(cfg, 'encoder'), solves).items():
+  each: the encoder once a solve (MuLAN's), the score UNet's forward and
+  input gradient once an evaluation."""
+  want = times(expected_launches(cfg, 'ode_rhs', vdm), nfe)
+  for k, v in times(expected_launches(cfg, 'encoder', vdm), solves).items():
     want[k] += v
   return want
 
@@ -1565,8 +1746,9 @@ def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
   for name, overrides in (('kernels', {}), ('plain', dict(use_kernels=False)),
                           ('f32', dict(use_kernels=False,
                                        compute_dtype='float32'))):
-    models[name] = build_model(dataclasses.replace(cfg, **overrides),
-                               device=dev, state=state).requires_grad_(False)
+    models[name] = build_model(
+        'mulan_velocity', dataclasses.replace(cfg, **overrides), device=dev,
+        state=state).requires_grad_(False)
     if name == 'kernels':
       ((runs[name], stats), secs), counts = counted(lambda: timed(
           lambda: solve(models[name])), route_totals)
@@ -1674,28 +1856,32 @@ def run_ode_dopri5(model, batch, gen, dev, route_totals):
   return total
 
 
-def ode_cli_config():
-  """The command lines' arguments for the flagship on synthetic data, one
-  eval batch of ODE_ROWS images."""
-  return ['--config=cifar10_conditioned', '--config.data.dataset=synthetic',
+def ode_cli_config(name: str = 'cifar10_conditioned'):
+  """The command lines' arguments for config `name` (the flagship) on
+  synthetic data, one eval batch of ODE_ROWS images."""
+  return [f'--config={name}', '--config.data.dataset=synthetic',
           f'--config.data.synthetic_examples={4 * ODE_ROWS}',
           f'--config.training.batch_size_eval={ODE_ROWS}']
 
 
-def run_ode_nll_cli(cfg, flax_path, route_totals):
+def run_ode_nll_cli(cfg, flax_path, route_totals, vdm: bool = False):
   """`eval_bpd --bpd_eval_method=ode --solver=rk4` on the exported
-  `ckpt-N.flax`, one batch of ODE_ROWS images, one importance sample:
-  finite bpd, launches of one solve. Returns the launches."""
+  `ckpt-N.flax` (of the flagship, or with `vdm` of vdm_cifar10), one batch
+  of ODE_ROWS images, one importance sample: finite bpd, launches of one
+  solve. Returns the launches."""
   from mulan_tpu_torch import eval_bpd
-  argv = [*ode_cli_config(), f'--checkpoint_directory={flax_path}',
+  name = 'vdm_cifar10' if vdm else 'cifar10_conditioned'
+  argv = [*ode_cli_config(name), f'--checkpoint_directory={flax_path}',
           '--bpd_eval_method=ode', '--solver=rk4',
           f'--rk4_steps={ODE_RK4_STEPS}', '--n_is=1']
   (bpd, secs), counts = counted(lambda: timed(lambda: eval_bpd.main(argv)),
                                 route_totals)
-  log('ode_nll', argv=' '.join(argv[-4:]), bpd=bpd, seconds=secs,
-      nfe=4 * ODE_RK4_STEPS, launches=counts)
+  log('vdm_ode_nll' if vdm else 'ode_nll', argv=' '.join(argv[-4:]),
+      config=name, bpd=bpd, seconds=secs, nfe=4 * ODE_RK4_STEPS,
+      launches=counts)
   assert math.isfinite(bpd), bpd
-  assert counts == ode_solve_launches(cfg, 4 * ODE_RK4_STEPS), counts
+  assert counts == ode_solve_launches(cfg, 4 * ODE_RK4_STEPS, vdm=vdm), (
+      counts)
   return counts
 
 
@@ -1756,8 +1942,10 @@ def compare_ode_fused(cfg, state, batch, gen, dev, route_totals):
   u, probe = ode_noise(cfg, gen, dev)
   out = {}
   for name, use_kernels in (('kernels', True), ('plain', False)):
-    m = build_model(dataclasses.replace(fused_cfg, use_kernels=use_kernels),
-                    device=dev, state=state).requires_grad_(False)
+    m = build_model(
+        'mulan_velocity',
+        dataclasses.replace(fused_cfg, use_kernels=use_kernels), device=dev,
+        state=state).requires_grad_(False)
     func, y0 = ode_rhs(m, batch, u, probe)
     if use_kernels:
       with no_plain_gn_bwd_on_cuda():
@@ -1790,6 +1978,216 @@ def check_score_jvp_raises(model, batch):
   raise AssertionError('score_jvp ran with the kernels on the card')
 
 
+def compare_vdm_step(ex, model, build_plain, batch, noise):
+  """One VDM train step through `model` (the kernels) and its plain twin
+  on the same batch, noise and dropout masks: |delta bpd| within
+  TRAIN_BPD_TOL, gradient norms within GRAD_NORM_RTOL, the cosine of each
+  leaf of the schedule (`gamma.*`) and of the mid attention block, and of
+  the schedule's whole gradient, to ATTN_LEAF_COS_MIN (see VDM_TRAIN_STEPS
+  for the schedule's one-number leaves); the attention block alone at the
+  step's input and cotangent to ATTN_ALONE_COS_MIN; and K5 alone at the
+  step's inputs (its one launch, recorded) to DECODER_BWD_ALONE_MIN on dz
+  and dg0, which K5 with dg0 = 0 and with dz's sign flipped must each
+  fail. Returns K5's recorded (x, z, g0, ct)."""
+  block = model.score_model.mid_attn_1
+  captured, hooks = capture_io({'unet': block})
+  calls = []
+  with recording_decoder_bwd(calls):
+    bpd_k, grads_k = step_grads(ex, model, batch, noise)
+  for h in hooks:
+    h.remove()
+  assert len(calls) == 1, len(calls)
+  x, z, g0, ct = calls[0]
+  assert g0.dim() == 0 and z.shape == (batch['images'].shape[0],
+                                       *model.config.image_shape)
+  bpds, grads = {'kernels': bpd_k}, {'kernels': grads_k}
+  for name, overrides in (('plain', {}), ('f32', {'compute_dtype':
+                                                  'float32'})):
+    other = build_plain(**overrides)
+    bpds[name], grads[name] = step_grads(ex, other, batch, noise)
+    del other
+  leaves = [n for n in grads_k
+            if n.startswith(('gamma.', 'score_model.mid_attn_1.'))]
+  gamma = [n for n in leaves if n.startswith('gamma.')]
+  step_cos = leaf_cosines(grads_k, grads['plain'], leaves)
+  step_cos['gamma'] = cosine(*(torch.cat([grads[m][n] for n in gamma])
+                               for m in ('kernels', 'plain')))
+
+  def rel(a, b, n):
+    return abs((grads[a][n] - grads[b][n]) / grads[b][n]).item()
+  one_number = {n: {f'{a}_vs_{b}': rel(a, b, n) for a, b in (
+      ('kernels', 'plain'), ('plain', 'f32'), ('kernels', 'f32'))}
+                for n in gamma if grads_k[n].numel() == 1}
+  alone = leaf_cosines(block_grads(block, *captured['unet'], True),
+                       block_grads(block, *captured['unet'], False))
+  k5 = decoder_bwd_alone(x, z, g0, ct)
+  faults = {}
+  for kind in ('dg0_zero', 'dz_sign'):
+    with planted_decoder_bwd_fault(kind):
+      faults[kind] = decoder_bwd_alone(x, z, g0, ct)
+
+  def k5_passes(agree):
+    return min(agree.values()) >= DECODER_BWD_ALONE_MIN
+  whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
+  norm_rel = abs(whole['kernels'].norm().item()
+                 / whole['plain'].norm().item() - 1)
+  log('vdm_train_kernels_vs_plain', bpd=bpds,
+      abs_delta=abs(bpds['kernels'] - bpds['plain']), tol=TRAIN_BPD_TOL,
+      grad_norm_rel_diff=norm_rel, norm_rtol=GRAD_NORM_RTOL,
+      gamma_leaf_cos={n: round(c, 7) for n, c in step_cos.items()
+                      if n.startswith('gamma')},
+      gamma_one_number_rel_diff=one_number,
+      attn_leaf_cos_min=min(c for n, c in step_cos.items()
+                            if not n.startswith('gamma')),
+      tol_leaf=ATTN_LEAF_COS_MIN, attn_alone_cos_min=min(alone.values()),
+      tol_alone=ATTN_ALONE_COS_MIN, decoder_bwd_alone=k5,
+      decoder_bwd_tol=DECODER_BWD_ALONE_MIN,
+      g0=g0.item(), decoder_bwd_planted_faults=faults,
+      planted_faults_rejected={k: not k5_passes(a) for k, a in faults.items()},
+      whole_cos=cosine(whole['kernels'], whole['plain']),
+      whole_cos_to_f32={k: cosine(whole[k], whole['f32'])
+                        for k in ('kernels', 'plain')},
+      gamma_cos_to_f32={k: cosine(*(torch.cat([grads[m][n] for n in gamma])
+                                     for m in (k, 'f32')))
+                        for k in ('kernels', 'plain')})
+  assert abs(bpds['kernels'] - bpds['plain']) <= TRAIN_BPD_TOL, bpds
+  assert norm_rel <= GRAD_NORM_RTOL, norm_rel
+  assert min(step_cos.values()) >= ATTN_LEAF_COS_MIN, step_cos
+  assert min(alone.values()) >= ATTN_ALONE_COS_MIN, alone
+  assert k5_passes(k5), k5
+  for kind, agree in faults.items():
+    assert not k5_passes(agree), (f'a planted K5 {kind} fault passed', agree)
+  return x, z, g0, ct
+
+
+def run_vdm(dev, gen, images, sfu_rate, online_lib, route_totals):
+  """The baseline VDM (vdm_cifar10: the flagship's score UNet at full width
+  and depth, the learned scalar schedule, no latent) through its entry
+  points, its weights seeded as the flagship's: VDM_TRAIN_STEPS steps of
+  `Experiment.train` at batch 128 (K5 once a step); one step kernels
+  against plain with K5 alone at its inputs (`compare_vdm_step`); K5 timed
+  there, at g0 per example and at gamma_max, beside the online K5
+  (`time_decoder_bwd`); `eval_bpd_sparse` over VDM_EVAL_BATCHES batches of
+  128 and one batch's ELBO kernels against plain; the ancestral sampler;
+  and, on a checkpoint of the trained state exported as `ckpt-N.flax`,
+  `eval_bpd --config=vdm_cifar10 --bpd_eval_method=ode --solver=rk4`.
+  Returns ({path: launches}, K5's timed cases, the Experiment)."""
+  from mulan_tpu_torch import compat, configs, data, params
+  from mulan_tpu_torch.evals import harness, vlb
+  from mulan_tpu_torch.models import build_model
+  from mulan_tpu_torch.ops.decoder_logprob import encode
+  from mulan_tpu_torch.models.vdm import sample_times
+  from mulan_tpu_torch.train import checkpoint as ckpt_lib
+  from mulan_tpu_torch.train.loop import Experiment
+  train_cfg = configs.replace(
+      configs.vdm_cifar10(), data={'dataset': 'synthetic'},
+      training={'steps_per_logging': VDM_TRAIN_STEPS})
+  cfg = train_cfg.model
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02, vdm_type='vdm')
+  paths = {}
+
+  # Training: the first update has lr 0, later ones move every leaf.
+  ex = Experiment(train_cfg, device=dev, state=state)
+  (history, first_s), counts = counted(lambda: timed(lambda: ex.train(1)),
+                                       route_totals)
+  (more, secs), more_counts = counted(lambda: timed(
+      lambda: ex.train(VDM_TRAIN_STEPS - 1)), route_totals)
+  history += more
+  paths['vdm_train'] = {k: v + more_counts[k] for k, v in counts.items()}
+  ms_per_step = 1e3 * secs / (VDM_TRAIN_STEPS - 1)
+  per_step = expected_launches(cfg, 'train', vdm=True)
+  log('vdm_train', steps=VDM_TRAIN_STEPS, batch=EVAL_BATCH,
+      bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms_per_step,
+      images_per_s=1e3 * EVAL_BATCH / ms_per_step,
+      first_step_s=first_s,
+      g0=ex.state.ema_model.apply_gamma(0.0).item(),
+      launches=paths['vdm_train'], launches_per_step=per_step)
+  assert per_step['decoder_logprob_bwd'] == 1, per_step
+  assert all(math.isfinite(h['bpd']) for h in history), history
+  assert paths['vdm_train'] == times(per_step, VDM_TRAIN_STEPS), (
+      paths['vdm_train'])
+
+  # One step, kernels against plain, and K5 alone at its inputs.
+  model = build_model('vdm', cfg, device=dev, state=state)
+  batch = torch.as_tensor(images[:EVAL_BATCH], device=dev)
+  t = sample_times(EVAL_BATCH, generator=gen, device=dev)
+  eps = torch.randn((EVAL_BATCH, *cfg.image_shape), generator=gen,
+                    device=dev)
+  step_noise = dict(t=t, eps0=eps, eps=eps, dropout_seed=1234)
+  step_inputs = compare_vdm_step(ex, model, lambda **kw: build_model(
+      'vdm', dataclasses.replace(cfg, use_kernels=False, **kw), device=dev,
+      state=state), {'images': batch}, step_noise)
+
+  # K5 timed at the step's inputs, at g0 per example and at gamma_max.
+  x = step_inputs[0]
+  e_x = encode(x, cfg.vocab_size)
+  span = cfg.gamma_max - cfg.gamma_min
+  per_example = cfg.gamma_min + span * torch.rand(
+      (EVAL_BATCH, 1, 1, 1), generator=gen, device=dev)
+  top = torch.tensor(cfg.gamma_max, device=dev)
+  cases = {'vdm_step': step_inputs}
+  for name, g0 in (('per_example', per_example), ('gamma_max', top)):
+    z = e_x + torch.exp(0.5 * g0) * torch.randn(
+        e_x.shape, generator=gen, device=dev)
+    cases[name] = (x, z, g0, torch.randn((EVAL_BATCH,), generator=gen,
+                                         device=dev))
+  k5 = time_decoder_bwd(cases, cfg, sfu_rate, online_lib)
+
+  # Evaluation: the sparse VLB, one batch kernels against plain, sampling.
+  (bpd, secs), paths['vdm_eval'] = counted(lambda: timed(
+      lambda: vlb.eval_bpd_sparse(
+          model, data.eval_batches(images, EVAL_BATCH), generator=gen,
+          max_batches=VDM_EVAL_BATCHES)), route_totals)
+  plain = build_model('vdm', dataclasses.replace(cfg, use_kernels=False),
+                      device=dev, state=state)
+  rates, bpds = {}, {}
+  for name, m in (('kernels', model), ('plain', plain)):
+    def run():
+      with torch.inference_mode():
+        out = m.elbo(batch, t, eps0=eps, eps=eps)
+        return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
+    run()
+    runs = [timed(run) for _ in range(3)]
+    bpds[name] = runs[0][0]
+    rates[name] = EVAL_BATCH / statistics.median(s for _, s in runs)
+  del plain
+  delta = abs(bpds['kernels'] - bpds['plain'])
+  log('vdm_eval_bpd_sparse', batches=VDM_EVAL_BATCHES, batch=EVAL_BATCH,
+      bpd=bpd, seconds=secs, images_per_s=EVAL_BATCH * VDM_EVAL_BATCHES
+      / secs, elbo_bpd=bpds, abs_delta=delta, tol=BPD_TOL,
+      elbo_images_per_s=rates, launches=paths['vdm_eval'])
+  assert math.isfinite(bpd), bpd
+  assert delta <= BPD_TOL, bpds
+  assert paths['vdm_eval'] == times(expected_launches(cfg, 'eval', True),
+                                    VDM_EVAL_BATCHES), paths['vdm_eval']
+  ((samples, z_0), secs), paths['vdm_sample'] = counted(lambda: timed(
+      lambda: harness.random_samples(model, SAMPLE_BATCH, SAMPLE_STEPS,
+                                     generator=gen)), route_totals)
+  log('vdm_random_samples', batch=SAMPLE_BATCH, steps=SAMPLE_STEPS,
+      ms_per_step=1e3 * secs / SAMPLE_STEPS, min=int(samples.min()),
+      max=int(samples.max()), z0_abs_max=z_0.abs().max().item(),
+      launches=paths['vdm_sample'])
+  assert samples.dtype.name == 'uint8' and torch.isfinite(z_0).all()
+  assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
+  assert paths['vdm_sample'] == times(expected_launches(cfg, 'sample', True),
+                                      SAMPLE_STEPS), paths['vdm_sample']
+  del model
+
+  # The ODE likelihood's command line on the trained state's export.
+  with tempfile.TemporaryDirectory() as workdir:
+    ckpt_dir = os.path.join(workdir, 'checkpoints')
+    _, save_s = timed(lambda: ckpt_lib.CheckpointManager(ckpt_dir).save(
+        ex.state.step, ex.state))
+    flax_path, export_s = timed(lambda: compat.export_reference_checkpoint(
+        ckpt_dir, os.path.join(workdir, 'reference')))
+    log('vdm_checkpoint', step=ex.state.step, save_s=save_s,
+        export_s=export_s, flax_bytes=os.path.getsize(flax_path))
+    paths['vdm_ode_nll_cli'] = run_ode_nll_cli(cfg, flax_path, route_totals,
+                                               vdm=True)
+  return paths, k5, ex
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
@@ -1810,6 +2208,11 @@ def main() -> None:
       ['nvidia-smi', '-i', '0', '--query-gpu=name,power.limit',
        '--format=csv,noheader'], capture_output=True, text=True, check=True)
   card = smi.stdout.strip()
+  # The online K5 (an ablation variant, `ops/ablations/k5_bwd.json`)
+  # builds beside the kernels' library.
+  k5_tmp = tempfile.TemporaryDirectory()
+  pool = concurrent.futures.ThreadPoolExecutor(1)
+  online_build = pool.submit(build_online_decoder_bwd, k5_tmp.name)
   t0 = time.perf_counter()
   _build.load_library()
   log('device', card=repr(card), torch=torch.__version__,
@@ -1830,7 +2233,7 @@ def main() -> None:
   imul_rate = sm_ops_per_s(IMUL_PER_CLOCK_PER_SM)
   results['decoder_logprob'], k4_gamma_min = check_decoder(dev, gen, cfg,
                                                            sfu_rate)
-  results['decoder_logprob_bwd'] = check_decoder_bwd(dev, gen, cfg, sfu_rate)
+  check_decoder_bwd(dev, gen, cfg)
   results['dropout_mask'] = check_dropout(dev, cfg, imul_rate)
   results['gn_swish'], gn_swish_c256 = check_gn_swish(dev, gen, sfu_rate)
   results['gn_swish_bwd'], gn_bwd_c256 = check_gn_swish_bwd(dev, gen,
@@ -1843,7 +2246,7 @@ def main() -> None:
   route_totals = {}
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
-  model = build_model(cfg, device=dev, state=state)
+  model = build_model('mulan_velocity', cfg, device=dev, state=state)
   images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
 
   def run_eval(m):
@@ -1908,7 +2311,8 @@ def main() -> None:
       secs.append(s)
     return bpd, EVAL_BATCH / statistics.median(secs)
 
-  plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+  plain = build_model('mulan_velocity',
+                      dataclasses.replace(cfg, use_kernels=False),
                       device=dev, state=state)
   rates, bpds = {}, {}
   for name, m in (('kernels', model), ('plain', plain)):
@@ -1949,8 +2353,8 @@ def main() -> None:
         launches=counts)
     assert len(history) == steps
     assert all(math.isfinite(h['bpd']) for h in history), history
-    assert counts == times(expected_launches(ex.config.model, 'train'),
-                           steps), counts
+    assert counts == times(expected_launches(
+        ex.config.model, 'train', ex.config.vdm_type == 'vdm'), steps), counts
     return counts
 
   ex = Experiment(train_cfg, device=dev, state=state)
@@ -1984,15 +2388,15 @@ def main() -> None:
   step_noise = dict(t=t, eps0=eps, eps=eps, topk_noise=noise,
                     dropout_seed=1234)
   compare_train_step(ex, model, lambda **kw: build_model(
-      dataclasses.replace(cfg, use_kernels=False, **kw), device=dev,
-      state=state), {'images': batch}, step_noise)
+      'mulan_velocity', dataclasses.replace(cfg, use_kernels=False, **kw),
+      device=dev, state=state), {'images': batch}, step_noise)
 
   # 8. The fused configuration (fused_gn_swish and dropout_mask_batch) on the
   # same weights: evaluation, sampling and training, then one fused train
   # step against its plain twin.
   fused_cfg = dataclasses.replace(cfg, fused_gn_swish=True,
                                   dropout_mask_batch=True)
-  model_f = build_model(fused_cfg, device=dev, state=state)
+  model_f = build_model('mulan_velocity', fused_cfg, device=dev, state=state)
   (bpd, secs), fused_eval_counts = run_eval(model_f)
   log('fused_eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH,
       bpd=bpd, seconds=secs, launches=fused_eval_counts)
@@ -2015,8 +2419,8 @@ def main() -> None:
   with no_plain_gn_bwd_on_cuda():
     fused_train_counts = run_train(ex_f, FUSED_TRAIN_STEPS, 'fused_train')
   compare_fused_step(ex_f, model_f, lambda: build_model(
-      dataclasses.replace(fused_cfg, use_kernels=False), device=dev,
-      state=state), {'images': batch}, step_noise)
+      'mulan_velocity', dataclasses.replace(fused_cfg, use_kernels=False),
+      device=dev, state=state), {'images': batch}, step_noise)
 
   # 9. bench.py --attention: with_attention and remat='attn', fresh weights.
   attn_cfg = dataclasses.replace(cfg, with_attention=True, remat='attn')
@@ -2067,6 +2471,20 @@ def main() -> None:
   check_score_jvp_raises(ode_model, ode_batch)
   torch.cuda.empty_cache()
 
+  # 13. The baseline VDM: training (K5 on its path), one step kernels
+  # against plain with K5 alone at its inputs, K5 timed there beside the
+  # online K5, evaluation, sampling, and the ODE likelihood's command line on
+  # its checkpoint.
+  online_lib, online_notes = online_build.result()
+  pool.shutdown()
+  log('decoder_logprob_bwd_online_build', ptxas=repr(online_notes[:400]))
+  vdm_paths, k5_cases, ex_v = run_vdm(dev, gen, images, sfu_rate, online_lib,
+                                      route_totals)
+  results['decoder_logprob_bwd'] = k5_cases['vdm_step']
+  k5_tmp.cleanup()
+  torch.cuda.empty_cache()
+  torch.cuda.empty_cache()
+
   if want_profile:
     ode_t = torch.tensor(0.5)
 
@@ -2089,7 +2507,8 @@ def main() -> None:
                      ('fused_elbo_b128', elbo(model_f)),
                      ('fused_train_step_b128', train_step(ex_f)),
                      ('attention_train_step_b128', train_step(ex_a)),
-                     ('ode_rhs_b128', lambda: ode_func(ode_t, ode_y0))):
+                     ('ode_rhs_b128', lambda: ode_func(ode_t, ode_y0)),
+                     ('vdm_train_step_b128', train_step(ex_v))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -2120,12 +2539,14 @@ def main() -> None:
            'workdir_train': workdir_counts, 'dense_eval': dense_counts,
            'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
-           'ode_fused_rhs': ode_fused_counts,
+           'ode_fused_rhs': ode_fused_counts, **vdm_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
   # Measured for some kernels only.
   extras = ('back_to_back_ms', 'host_ms', 'library_back_to_back_ms',
+            'c_call_ms', 'c_call_back_to_back_ms', 'online_kernel_ms',
+            'online_kernel_back_to_back_ms',
             'with_dkv', 'window_bins_per_pixel', 'bound_full_vocab_ms',
             'unfused_pair_ms', 'unfused_pair_bwd_ms')
   kernels = []
@@ -2140,7 +2561,7 @@ def main() -> None:
     if name in route_totals:
       kernels[-1]['launches_by_route'] = route_totals[name]
       assert sum(route_totals[name].values()) == kernels[-1]['launches']
-    assert kernels[-1]['launches'] > 0 or name == 'decoder_logprob_bwd', name
+    assert kernels[-1]['launches'] > 0, name
   k1 = kernels[0]
   k1['at_sampler_shape'] = {k: k1_sampler[k] for k in (
       'ms', 'plain_ms', 'library_ms', 'bound_ms', 'max_abs_err')}
@@ -2158,6 +2579,13 @@ def main() -> None:
   by_name['gn_swish']['at_c256'] = {k: gn_swish_c256[k] for k in (
       'ms', 'back_to_back_ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms',
       'max_abs_err')}
+  k5_keys = ('ms', 'back_to_back_ms', 'c_call_back_to_back_ms',
+             'online_kernel_ms', 'online_kernel_back_to_back_ms', 'plain_ms',
+             'bound_ms', 'bound_by', 'bound_full_vocab_ms',
+             'window_bins_per_pixel', 'max_abs_err')
+  for case in ('per_example', 'gamma_max'):
+    by_name['decoder_logprob_bwd'][f'at_{case}'] = {
+        k: k5_cases[case][k] for k in k5_keys}
   by_name['gn_swish_bwd']['at_c256'] = {k: gn_bwd_c256[k] for k in (
       'ms', 'back_to_back_ms', 'host_ms', 'plain_ms', 'unfused_pair_bwd_ms',
       'bound_ms', 'max_abs_err')}

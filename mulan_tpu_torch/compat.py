@@ -4,7 +4,10 @@ checkpoint side of `mulan_tpu/compat.py`.
 A `ckpt-N.flax` file is `flax.serialization.to_bytes` of {step, params,
 ema_params[, opt_state]} in the parameter layout of the reference MuLAN
 (s-sahoo/MuLAN): the layout of its released checkpoints, and what the JAX
-package's export writes. The port reads and writes it with its own
+package's export writes. The baseline VDM's tree is the same without
+`encoder_model`, its schedule under `gamma` as the reference names it; the
+model is the one of `config.vdm_type`, as JAX builds it
+(`mulan_tpu/compat.py:377`). The port reads and writes it with its own
 standard-library msgpack codec (`utils/msgpack.py`):
 
   * `convert_params` / `export_params` map the reference tree to the JAX
@@ -42,8 +45,7 @@ import torch
 
 from mulan_tpu_torch import configs as configs_lib
 from mulan_tpu_torch import params as params_lib
-from mulan_tpu_torch.models import resolve_device
-from mulan_tpu_torch.models.mulan import MuLAN
+from mulan_tpu_torch.models import make_model, resolve_device
 from mulan_tpu_torch.utils import msgpack
 
 _TOP = {'score_model', 'encoder_model', 'gamma'}
@@ -217,11 +219,13 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
   return tree
 
 
-def expected_shapes(model_config) -> Dict[str, tuple]:
-  """{state_dict name: shape} of the port's MuLAN for `model_config`."""
+def expected_shapes(model_config, vdm_type: str = 'mulan_velocity'
+                    ) -> Dict[str, tuple]:
+  """{state_dict name: shape} of the port's model of `vdm_type` for
+  `model_config`."""
   with torch.device('meta'):
     return {k: tuple(v.shape) for k, v in
-            MuLAN(model_config).state_dict().items()}
+            make_model(vdm_type, model_config).state_dict().items()}
 
 
 def assert_compatible(state: Dict[str, torch.Tensor],
@@ -246,12 +250,13 @@ def assert_compatible(state: Dict[str, torch.Tensor],
                      'model:\n  ' + '\n  '.join(lines))
 
 
-def reference_state_dict(ref_params: Dict[str, Any],
-                         model_config) -> Dict[str, torch.Tensor]:
+def reference_state_dict(ref_params: Dict[str, Any], model_config,
+                         vdm_type: str = 'mulan_velocity'
+                         ) -> Dict[str, torch.Tensor]:
   """A reference-layout param tree -> the port's state_dict, checked
-  against the port's MuLAN for `model_config`."""
+  against the port's model of `vdm_type` for `model_config`."""
   state = params_lib.from_flax(flatten(convert_params(ref_params)))
-  assert_compatible(state, expected_shapes(model_config))
+  assert_compatible(state, expected_shapes(model_config, vdm_type))
   return state
 
 
@@ -312,9 +317,10 @@ def import_reference_checkpoint(config, reference_checkpoint: str,
   device = resolve_device(device)
   ref = load_reference_state(reference_checkpoint)
   step = reference_step(ref, reference_checkpoint)
-  params = reference_state_dict(ref['params'], config.model)
+  params = reference_state_dict(ref['params'], config.model,
+                                config.vdm_type)
   ema = reference_state_dict(ref.get('ema_params', ref['params']),
-                             config.model)
+                             config.model, config.vdm_type)
   _, state = create_train_state(config, device, params)
   state.load_tensors('ema_params', ema)
   state.step = step

@@ -1,7 +1,8 @@
 """Experiment configurations for the PyTorch port (standard library only).
 
 Counterparts of the `ml_collections` files `mulan_tpu/configs/
-cifar10_conditioned.py` and `tiny_synthetic.py`, which cannot be imported
+cifar10_conditioned.py`, `vdm_cifar10.py` and `tiny_synthetic.py`, which
+cannot be imported
 where only PyTorch is installed. Field names and values are the JAX
 package's; `tests/test_torch_train.py` holds them against those files field
 by field. `lr_gamma_network_scale` and `optimizer.gradient_clip_norm` are
@@ -82,6 +83,16 @@ def cifar10_conditioned() -> Config:
   return Config(model=flagship_config())
 
 
+def vdm_cifar10() -> Config:
+  """The baseline VDM on CIFAR-10 (`mulan_tpu/configs/vdm_cifar10.py`): the
+  flagship's score UNet, training and optimizer, with the scalar monotone
+  MLP schedule and no latent."""
+  base = cifar10_conditioned()
+  return dataclasses.replace(
+      base, vdm_type='vdm', model=dataclasses.replace(
+          base.model, gamma_type='learnable_nnet', z_conditioning=False))
+
+
 def tiny_synthetic() -> Config:
   """`mulan_tpu/configs/tiny_synthetic.py`: 8x8 synthetic images, 16
   channels, 2 layers, float32, 4 steps of batch 8."""
@@ -108,6 +119,7 @@ def replace(config: Config, **sections) -> Config:
 
 
 CONFIGS = {'cifar10_conditioned': cifar10_conditioned,
+           'vdm_cifar10': vdm_cifar10,
            'tiny_synthetic': tiny_synthetic}
 
 

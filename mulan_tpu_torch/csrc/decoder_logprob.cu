@@ -34,16 +34,33 @@
 // partials in block order.
 //
 // The backward (decoder_logprob_bwd, K5) replaces the Pallas TPU kernel
-// mulan_tpu/ops/decoder_logprob.py:_bwd_kernel (launched by _bwd). It has a
-// closed form in the softmax moments of the vocab (p_v = softmax_v l_v,
+// mulan_tpu/ops/decoder_logprob.py:_bwd_kernel (launched by _bwd) and the
+// sum of dg0 back to g0's shape that _bwd does after it. It has a closed
+// form in the softmax moments of the vocab (p_v = softmax_v l_v,
 // inv_var = exp(-g0)):
 //   dz  = ct inv_var (e_x - E_p[e_v])
 //   dg0 = ct 0.5 inv_var ((z - e_x)^2 - E_p[(z - e_v)^2])
-// with ct the per-example cotangent. Each pixel is one thread's 256-step
-// online-softmax recurrence carrying (m, s, sum w e, sum w (z - e)^2), two
-// expf a step: ~2e8 expf at CIFAR train shapes against ~8 MB of traffic, so
-// it is bound by the SFUs' expf rate, not by memory. g0 is per pixel; the
-// wrapper expands a broadcast g0 and sums dg0 back in PyTorch.
+// with ct the per-example cotangent. The TPU kernel runs a 256-step online
+// softmax a pixel (a running max, two exp and a rescale of four sums a
+// step). Here the forward's two facts hold again: the maximum is at v*,
+// and only the window [v* - h, v* + h] contributes, so a bin costs one
+// exp2 of a pre-scaled argument and three independent sums, w, w e_v and
+// w (z - e_v)^2, with w = exp(l_v - l_v*); the moments are their ratios to
+// the first. The window is each pixel's own, from its g0.
+//
+// g0 is per pixel (g_mode 0: dg0 per pixel), per example (1) or one number
+// (2). A broadcast g0's dg0 is reduced in the kernel: each block sums its
+// pixels' terms in a fixed tree and writes one partial; a second kernel
+// sums an example's partials (g_mode 1) or all of them (2) in a fixed
+// order. No float atomics, so the result is the same on every run, and no
+// (batch, pixels) dg0 is written. dz is written only when the caller asks
+// for it (a non-null pointer).
+//
+// What bounds it on the H100: at the VDM's learned g0 near gamma_min each
+// pixel's window is 9 bins, and the work is x and z read and dz written
+// (3 x 1.57 MB at CIFAR shapes, 0.0014 ms); near gamma_max every bin is in
+// the window, ~1e8 exp2, bound by the special-function units (0.024 ms).
+// One pixel a thread, 256 a block, an example over ceil(n / 256) blocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -132,36 +149,94 @@ __global__ void sum_partials(const float* __restrict__ partial,
   out[b] = s;
 }
 
+// The sum of v over the block, in thread 0; fixed order. Every thread of
+// the block must call it.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kThreads / 32];
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kThreads / 32 ? warp_sums[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// One pixel a thread: grid (n_blocks, batch), n_blocks = ceil(n / kThreads).
 __global__ void __launch_bounds__(kThreads)
 decoder_logprob_bwd(const float* __restrict__ x, const float* __restrict__ z,
                     const float* __restrict__ g0,
                     const float* __restrict__ ct, float* __restrict__ dz,
-                    float* __restrict__ dg0, int n, size_t total, int vocab) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const float zz = z[i];
-  const float g = g0[i];
-  const float inv_var = expf(-g);
-  const float inv_stdev = expf(-0.5f * g);
-  const float e_x = bin_center(rintf(x[i]), vocab);
-  float m = -INFINITY, s = 0.0f, sum_e = 0.0f, sum_sq = 0.0f;
-  for (int v = 0; v < vocab; ++v) {
-    const float e_v = bin_center((float)v, vocab);
-    const float diff = zz - e_v;
-    const float d = diff * inv_stdev;
-    const float l = -0.5f * d * d;
-    const float m_new = fmaxf(m, l);
-    const float rescale = expf(m - m_new);
-    const float w = expf(l - m_new);
-    s = s * rescale + w;
-    sum_e = sum_e * rescale + w * e_v;
-    sum_sq = sum_sq * rescale + w * diff * diff;
-    m = m_new;
+                    float* __restrict__ dg0, float* __restrict__ partial,
+                    int n, int n_blocks, int g_mode, int vocab) {
+  const int blk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int p = blk * kThreads + threadIdx.x;
+  const size_t i = (size_t)b * n + p;
+  float dg_sum = 0.0f;
+  if (p < n) {
+    const float zz = z[i];
+    const float g = g_mode == 0 ? g0[i] : g0[g_mode == 1 ? b : 0];
+    const float c_t = ct[b];
+    const float inv_var = expf(-g);
+    const float bins_per_unit = 0.5f * (float)vocab;
+    const float v_star = fminf(
+        fmaxf(rintf(fmaf(zz + 1.0f, bins_per_unit, -0.5f)), 0.0f),
+        (float)(vocab - 1));
+    const float half =
+        ceilf(kWindowSigmas * expf(0.5f * g) * bins_per_unit) + 1.0f;
+    const int first = (int)fmaxf(v_star - half, 0.0f);
+    const int last = (int)fminf(v_star + half, (float)(vocab - 1));
+    const float d_star = zz - bin_center(v_star, vocab);
+    const float e_x = bin_center(rintf(x[i]), vocab);
+    const float step = 2.0f / (float)vocab;
+    const float e_0 = 1.0f / (float)vocab - 1.0f;
+    float dz_val, dg_val;
+    {
+      // exp(l_v - m) = 2^(c (z - e_v)^2 - m2), m = l_{v*}.
+      const float c = -0.5f * kLog2e * inv_var;
+      const float m2 = c * d_star * d_star;
+      float s = 0.0f, sum_e = 0.0f, sum_sq = 0.0f;
+      float v = (float)first;
+#pragma unroll 4
+      for (int k = first; k <= last; ++k, v += 1.0f) {
+        const float e_v = fmaf(v, step, e_0);
+        const float d = zz - e_v;
+        const float w = fast_exp2(fmaf(c * d, d, -m2));
+        s += w;
+        sum_e = fmaf(w, e_v, sum_e);
+        sum_sq = fmaf(w * d, d, sum_sq);
+      }
+      const float dx = zz - e_x;
+      dz_val = c_t * inv_var * (e_x - sum_e / s);
+      dg_val = c_t * 0.5f * inv_var * (dx * dx - sum_sq / s);
+    }
+    if (dz != nullptr) dz[i] = dz_val;
+    if (g_mode == 0) {
+      if (dg0 != nullptr) dg0[i] = dg_val;
+    } else {
+      dg_sum = dg_val;
+    }
   }
-  const float c = ct[i / n];
-  const float dx = zz - e_x;
-  dz[i] = c * inv_var * (e_x - sum_e / s);
-  dg0[i] = c * 0.5f * inv_var * (dx * dx - sum_sq / s);
+  if (g_mode != 0 && dg0 != nullptr) {
+    const float total = block_sum(dg_sum);
+    if (threadIdx.x == 0) partial[(size_t)b * n_blocks + blk] = total;
+  }
+}
+
+// out[r] = the sum of row r of partial (rows x cols), in a fixed order.
+__global__ void __launch_bounds__(kThreads)
+sum_rows(const float* __restrict__ partial, float* __restrict__ out,
+         int cols) {
+  const size_t row = (size_t)blockIdx.x * cols;
+  float s = 0.0f;
+  for (int c = threadIdx.x; c < cols; c += kThreads) s += partial[row + c];
+  s = block_sum(s);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
 }  // namespace
@@ -186,19 +261,29 @@ extern "C" int mulan_decoder_logprob_fwd(const void* x, const void* z,
   return (int)cudaGetLastError();
 }
 
-// (x, z, g0) (batch, n) float32, ct (batch,) -> dz, dg0 (batch, n).
+// (x, z) (batch, n) float32, g0 (batch, n) (g_mode 0), (batch,) (1) or (1,)
+// (2), ct (batch,) -> dz (batch, n) unless null, dg0 shaped like g0 unless
+// null; partial (batch, n_blocks) scratch for g_mode 1 and 2.
 extern "C" int mulan_decoder_logprob_bwd(const void* x, const void* z,
                                          const void* g0, const void* ct,
-                                         void* dz, void* dg0, int batch,
-                                         int n, int vocab, void* stream) {
-  if (batch <= 0 || n <= 0 || vocab <= 0) return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)batch * n;
-  const size_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
-  decoder_logprob_bwd<<<(unsigned)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(
+                                         void* dz, void* dg0, void* partial,
+                                         int batch, int n, int n_blocks,
+                                         int g_mode, int vocab,
+                                         void* stream) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || vocab <= 0 ||
+      n_blocks != (n + kThreads - 1) / kThreads || g_mode < 0 ||
+      g_mode > 2 || (g_mode != 0 && dg0 != nullptr && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid(n_blocks, batch);
+  decoder_logprob_bwd<<<grid, kThreads, 0, s>>>(
       (const float*)x, (const float*)z, (const float*)g0, (const float*)ct,
-      (float*)dz, (float*)dg0, n, total, vocab);
+      (float*)dz, (float*)dg0, (float*)partial, n, n_blocks, g_mode, vocab);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g_mode == 0 || dg0 == nullptr) return (int)err;
+  sum_rows<<<g_mode == 1 ? batch : 1, kThreads, 0, s>>>(
+      (const float*)partial, (float*)dg0,
+      g_mode == 1 ? n_blocks : batch * n_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """Checkpoint evaluation and ancestral sampling, counterpart of
-`mulan_tpu/evals/harness.py` (`EvalExperiment`, its `random_samples`)."""
+`mulan_tpu/evals/harness.py` (`EvalExperiment`, its `random_samples`).
+The samplers take a `MuLAN` or a `VDM`; the VDM ignores the embedding."""
 
 from __future__ import annotations
 
@@ -7,14 +8,15 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from torch import nn
+
 from mulan_tpu_torch import compat
 from mulan_tpu_torch.models import latents
-from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.loop import SAMPLE, Experiment, mean_scalars
 
 
-def _ancestral(model: MuLAN, emb, T: int, generator):
+def _ancestral(model: nn.Module, emb, T: int, generator):
   """T ancestral steps from a standard normal prior conditioned on `emb`
   (B, latent_size), then the argmax decode: (uint8 NHWC numpy images, the
   final float32 NHWC latent on the model's device)."""
@@ -26,7 +28,7 @@ def _ancestral(model: MuLAN, emb, T: int, generator):
 
 
 @torch.inference_mode()
-def random_samples(model: MuLAN, batch_size: int = 16, T: int = 1000,
+def random_samples(model: nn.Module, batch_size: int = 16, T: int = 1000,
                    generator: Optional[torch.Generator] = None):
   """T ancestral steps from the prior, each example conditioned on a random
   hard top-k embedding, then the argmax decode.
@@ -42,7 +44,7 @@ def random_samples(model: MuLAN, batch_size: int = 16, T: int = 1000,
 
 
 @torch.inference_mode()
-def conditional_samples(model: MuLAN, embedding, batch_size: int = 16,
+def conditional_samples(model: nn.Module, embedding, batch_size: int = 16,
                         T: int = 1000,
                         generator: Optional[torch.Generator] = None):
   """T ancestral steps from the prior, every example conditioned on one
@@ -62,7 +64,7 @@ def _checkpoint_ema(config, path: str, number: Optional[int]):
       path = compat.resolve_flax_path(f'{path}/ckpt-{number}')
     ref = compat.load_reference_state(path)
     return (compat.reference_state_dict(
-        ref.get('ema_params', ref['params']), config.model),
+        ref.get('ema_params', ref['params']), config.model, config.vdm_type),
             compat.reference_step(ref, path))
   restored = ckpt_lib.CheckpointManager(path).restore_dict(number)
   return restored['ema_params'], int(restored['step'])

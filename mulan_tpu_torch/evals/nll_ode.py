@@ -5,7 +5,9 @@ counterpart of `mulan_tpu/evals/nll_ode.py`.
     scaled by exp(gamma_min / 2), or uniform), infers the latent on the
     requantized image, and solves [x, delta log p] from t = 0 to 1 with
     DoPri5 or RK4 (`ops/ode.py`); log p(x) is the prior's log density at
-    x(1) plus delta log p.
+    x(1) plus delta log p. The VDM has no latent: its UNet is conditioned on
+    a zero column and its latent KL is 0 (`mulan_tpu/evals/nll_ode.py:
+    134-142`), and the ODE sampler conditions it on zeros too.
   * The divergence of the drift is Hutchinson's estimate eps^T (df/dx) eps,
     by one reverse-mode vector-Jacobian product per RHS evaluation
     (`torch.autograd.grad`). Forward mode would give the same number, but
@@ -40,6 +42,7 @@ import torch
 
 from mulan_tpu_torch import data as data_lib
 from mulan_tpu_torch.models import latents
+from mulan_tpu_torch.models.vdm import VDM
 from mulan_tpu_torch.ops.ode import odeint_dopri5, odeint_rk4
 from mulan_tpu_torch.train.loop import ODE, step_key
 
@@ -133,13 +136,17 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
         u = u * math.exp(0.5 * cfg.gamma_min)
       data = data + u
 
-      # The latent of the requantized dequantized image.
-      with torch.no_grad():
-        requant = torch.round(torch.clip(
-            (cfg.vocab_size / 2) * (data + 1) - 0.5, 0, cfg.vocab_size - 1))
-        logits = model.apply_encoder(requant)
-        aux_latent_loss = latents.gumbel_kl(logits, cfg.latent_size)
-        embeddings = latents.logits_to_embeddings(logits, cfg.latent_k)
+      if isinstance(model, VDM):
+        aux_latent_loss = torch.zeros((b,), device=dev)
+        embeddings = torch.zeros((b, 1), device=dev)
+      else:  # the latent of the requantized dequantized image
+        with torch.no_grad():
+          requant = torch.round(torch.clip(
+              (cfg.vocab_size / 2) * (data + 1) - 0.5, 0,
+              cfg.vocab_size - 1))
+          logits = model.apply_encoder(requant)
+          aux_latent_loss = latents.gumbel_kl(logits, cfg.latent_size)
+          embeddings = latents.logits_to_embeddings(logits, cfg.latent_k)
 
       def probe_at(t):
         if probe is not None:
@@ -315,19 +322,22 @@ def make_ode_sample_fn(model, *, rtol: float = 1e-5, atol: float = 1e-5,
   prior=None) -> (z_0, nfe): DoPri5 on the probability-flow ODE from t = 1
   to 0, from a standard normal prior (NHWC), each example conditioned on
   the hard top-k embedding of random normal logits (`logits`,
-  (sample_size, latent_size), and `prior` replace the draws). Decode z_0
-  with `model.generate_x`."""
+  (sample_size, latent_size), and `prior` replace the draws), or, for the
+  VDM, on zeros. Decode z_0 with `model.generate_x`."""
   cfg = model.config
   dev = model.device
 
   @torch.no_grad()
   def sample(sample_size: int, generator=None, *, logits=None, prior=None):
     shape = (sample_size, *cfg.image_shape)
-    if logits is None:
-      logits = torch.randn((sample_size, cfg.latent_size),
-                           generator=generator, device=dev)
-    embeddings = latents.logits_to_embeddings(
-        torch.as_tensor(logits, device=dev), cfg.latent_k)
+    if isinstance(model, VDM):
+      embeddings = torch.zeros((sample_size, 1), device=dev)
+    else:
+      if logits is None:
+        logits = torch.randn((sample_size, cfg.latent_size),
+                             generator=generator, device=dev)
+      embeddings = latents.logits_to_embeddings(
+          torch.as_tensor(logits, device=dev), cfg.latent_k)
     if prior is None:
       prior = torch.randn(shape, generator=generator, device=dev)
 

@@ -3,11 +3,14 @@
   * `eval_bpd_sparse`: one Monte-Carlo ELBO per test image, antithetic t
     across each batch.
   * `eval_bpd_dense`: each image on the stratified grid
-    t_j = (u_i + j / n_timesteps) mod 1 with one offset u_i per image. The
-    encoder runs once per image and its logits are repeated over the grid
-    (`MuLAN.elbo(encoder_logits=...)`); each (image, t) row still draws its
-    own top-k and diffusion noise. The rows go through the model in chunks
-    of `images_per_chunk` images, 512 rows by default.
+    t_j = (u_i + j / n_timesteps) mod 1 with one offset u_i per image. For
+    MuLAN the encoder runs once per image and its logits are repeated over
+    the grid (`MuLAN.elbo(encoder_logits=...)`); each (image, t) row still
+    draws its own top-k and diffusion noise. The VDM has no latent and takes
+    the plain path (`mulan_tpu/evals/vlb.py:111-117`). The rows go through
+    the model in chunks of `images_per_chunk` images, 512 rows by default.
+
+`model` is a `MuLAN` or a `VDM`.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import math
 from typing import Iterable, Optional
 
 import torch
+
+from torch import nn
 
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.models.outputs import ELBOOutput
@@ -28,7 +33,7 @@ def bpd_terms(outputs: ELBOOutput, n_pixels: int) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def eval_bpd_sparse(model: MuLAN, batches: Iterable,
+def eval_bpd_sparse(model: nn.Module, batches: Iterable,
                     generator: Optional[torch.Generator] = None,
                     max_batches: Optional[int] = None) -> float:
   """Mean bpd over uint8 NHWC image batches.
@@ -52,13 +57,13 @@ def eval_bpd_sparse(model: MuLAN, batches: Iterable,
 DENSE_ROWS_PER_CHUNK = 512
 
 
-def dense_chunk_bpd(model: MuLAN, images, n_timesteps: int, *,
+def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
                     generator: Optional[torch.Generator] = None, u=None,
                     **noise) -> torch.Tensor:
   """Per-image bpd (B,) averaged over the grid t_j = (u_i + j / n) mod 1,
-  on the device. `u` (B,) and the ELBO's `noise` (eps0, eps, topk_noise
-  for the B * n rows, image-major) are drawn from `generator` when not
-  given."""
+  on the device. `u` (B,) and the ELBO's `noise` (eps0, eps, and MuLAN's
+  topk_noise, for the B * n rows, image-major) are drawn from `generator`
+  when not given."""
   images = torch.as_tensor(images, device=model.device)
   b = images.shape[0]
   if u is None:
@@ -66,17 +71,17 @@ def dense_chunk_bpd(model: MuLAN, images, n_timesteps: int, *,
   steps = torch.arange(n_timesteps, device=model.device) / n_timesteps
   t = torch.remainder(torch.as_tensor(u, device=model.device)[:, None]
                       + steps, 1.0).reshape(-1)
-  logits = model.apply_encoder(images)
+  if isinstance(model, MuLAN):  # one encoder pass an image
+    noise['encoder_logits'] = model.apply_encoder(images).repeat_interleave(
+        n_timesteps, dim=0)
   out = model.elbo(images.repeat_interleave(n_timesteps, dim=0), t,
-                   encoder_logits=logits.repeat_interleave(n_timesteps,
-                                                           dim=0),
                    generator=generator, **noise)
   return bpd_terms(out, model.config.n_pixels).reshape(
       b, n_timesteps).mean(dim=1)
 
 
 @torch.inference_mode()
-def eval_bpd_dense(model: MuLAN, batches: Iterable, n_timesteps: int = 128,
+def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
                    images_per_chunk: Optional[int] = None,
                    generator: Optional[torch.Generator] = None,
                    max_batches: Optional[int] = None) -> float:

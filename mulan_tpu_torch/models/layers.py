@@ -101,6 +101,23 @@ def base2_fourier_features(x: torch.Tensor) -> torch.Tensor:
   return torch.cat([torch.sin(h), torch.cos(h)], dim=1)
 
 
+class DenseMonotone(nn.Module):
+  """x @ |kernel| + bias: monotone non-decreasing in its inputs
+  (`mulan_tpu/models/layers.py:DenseMonotone`). The kernel keeps flax's
+  (in, out) layout, so `params.from_flax` copies it as it is. float32."""
+
+  def __init__(self, in_features: int, out_features: int,
+               use_bias: bool = True):
+    super().__init__()
+    self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+    self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                 else None)
+
+  def forward(self, x):
+    y = x.float() @ self.kernel.abs()
+    return y if self.bias is None else y + self.bias
+
+
 def maybe_remat(fn, remat: bool, *args):
   """fn(*args), under activation checkpointing when `remat` is set and
   autograd is on: the forward keeps only fn's inputs, and the backward runs

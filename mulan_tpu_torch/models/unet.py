@@ -4,8 +4,11 @@
 No spatial down/upsampling: `sm_n_layer` ResNet blocks at full resolution
 with a skip stack, a ResNet-Attn-ResNet middle, `sm_n_layer + 1` up blocks
 over concatenated skips, and a final conv whose output is added to z in
-float32. Blocks run in `config.dtype` on float32 parameters cast at use; the
-conditioning trigonometry and the residual stay float32.
+float32. The conditioning beside the time embedding is MuLAN's latent
+embedding (`latent_size` wide, the default) or the VDM's one column of
+zeros (`conditioning_width=1`). Blocks run in `config.dtype` on float32
+parameters cast at use; the conditioning trigonometry and the residual
+stay float32.
 
 With a `dropout_seed`, each of the 2 n_layer + 3 ResNet blocks drops with
 `sm_pdrop` at its own site (down blocks first, then mid, then up), so its
@@ -28,6 +31,8 @@ the even-numbered ResNet blocks in site order ('alt').
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -42,13 +47,16 @@ from mulan_tpu_torch.ops import dropout as dropout_ops
 
 class UNet(nn.Module):
 
-  def __init__(self, config: ModelConfig):
+  def __init__(self, config: ModelConfig,
+               conditioning_width: Optional[int] = None):
     super().__init__()
     cfg = self.config = config
     n_embd = cfg.sm_n_embd
     c = cfg.image_channels
     cond_dim = 4 * n_embd
-    self.dense0 = Linear(n_embd + cfg.latent_size, cond_dim)
+    if conditioning_width is None:
+      conditioning_width = cfg.latent_size
+    self.dense0 = Linear(n_embd + conditioning_width, cond_dim)
     self.dense1 = Linear(cond_dim, cond_dim)
     in_ch = c * FOURIER_MULT if cfg.with_fourier_features else c
     self.conv_in = Conv2d(in_ch, n_embd, 3, padding=1)
@@ -84,8 +92,8 @@ class UNet(nn.Module):
     return 2 * config.sm_n_layer + 3
 
   def forward(self, z, g_t, conditioning, dropout_seed=None):
-    """z (B, C, H, W), g_t (B,) mean gamma, conditioning (B, latent);
-    dropout_seed None is the deterministic pass."""
+    """z (B, C, H, W), g_t (B,) mean gamma, conditioning (B,
+    conditioning_width); dropout_seed None is the deterministic pass."""
     cfg = self.config
     dtype = cfg.dtype
     z = z.float()

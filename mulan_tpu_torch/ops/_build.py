@@ -59,8 +59,11 @@ _SIGNATURES = {
                                           _I, _I, _F, _I, _P],
     # (x, z, g0, partial, out, batch, pixels, n_blocks, vocab_size, stream)
     'mulan_decoder_logprob_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (x, z, g0, ct, dz, dg0, batch, pixels, vocab_size, stream)
-    'mulan_decoder_logprob_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (x, z, g0, ct, dz or None, dg0 or None, partial, batch, pixels,
+    #  n_blocks, g_mode (0 per pixel, 1 per example, 2 one g0), vocab_size,
+    #  stream)
+    'mulan_decoder_logprob_bwd': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _P],
     # (out, n, seed, site, threshold16, scale, is_bf16, stream)
     'mulan_dropout_mask': [_P, ctypes.c_longlong, _U, _U, _U, _F, _I, _P],
     # (out, n per mask, n_masks, seed, first_site, threshold16, scale,

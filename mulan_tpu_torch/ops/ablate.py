@@ -7,11 +7,12 @@ SPEC (`ablations/*.json` beside this module) names the source under
 `mulan_tpu_torch/csrc/` (`file`), the C entry points to time (`entries`,
 names of `_build._SIGNATURES`: K1's `mulan_flash_attention_fwd_sm90`, K2's
 `mulan_flash_attention_bwd_dkv_sm90`, K3's
-`mulan_flash_attention_bwd_dq_sm90`, K4's `mulan_decoder_logprob_fwd`, K6's
-`mulan_dropout_mask`, K7's `mulan_dropout_mask_batch`, K8's `mulan_gn_swish`
-and `mulan_gn_swish_bwd`) and a dict of variants, each a list of
-[old, new] text substitutions applied to the sources (a variant whose `old`
-text is missing fails to build); "tree" with no substitution is the source
+`mulan_flash_attention_bwd_dq_sm90`, K4's `mulan_decoder_logprob_fwd`, K5's
+`mulan_decoder_logprob_bwd`, K6's `mulan_dropout_mask`, K7's
+`mulan_dropout_mask_batch`, K8's `mulan_gn_swish` and `mulan_gn_swish_bwd`)
+and a dict of variants, each a list of [old, new] text substitutions
+applied to the sources (a variant whose `old` text is missing fails to
+build); "tree" with no substitution is the source
 as it is. Every variant is built into a library of its own (one `nvcc`
 each, all started together, with `-Xptxas -v`: spills and ptxas
 performance warnings are printed), then each entry point of each variant is
@@ -20,7 +21,9 @@ kernels at (128, 1, 1024, 128) bf16, K6 at one (128, 128, 32, 32) bf16
 site, K7 at the score UNet's 67 such sites, K8 at its two bf16 sites
 (C = 128 and C = 256, 32 groups), K4 at (128, 32, 32, 3) with g0 per pixel
 uniform over [gamma_min, gamma_max] and with g0 = gamma_min (the cases of
-chip_smoke.py):
+chip_smoke.py), K5 at the same shape with one g0 at gamma_min (the VDM's
+train step) and at gamma_max, g0 per example, and g0 = gamma_min per pixel
+(how the online K5's wrapper handed a broadcast g0 to it):
 
   * single: CUDA events around one launch, median of 20 (as chip_smoke.py
     times a kernel; the host's launch cost is inside when the card idles);
@@ -129,6 +132,19 @@ def make_inputs(dev):
     z = (2 * (x + 0.5) / 256 - 1) + torch.exp(0.5 * g0) * randn(
         DECODER_SHAPE)
     inputs[f'decoder_{name}'] = (x, z, g0)
+  e_x = 2 * (x + 0.5) / 256 - 1
+  b = DECODER_SHAPE[0]
+  for name, g0 in (
+      ('one_gamma_min', torch.full((1,), GAMMA_MIN, device=dev)),
+      ('one_gamma_max', torch.full((1,), GAMMA_MAX, device=dev)),
+      ('per_example', GAMMA_MIN + (GAMMA_MAX - GAMMA_MIN) * torch.rand(
+          (b,), generator=gen, device=dev)),
+      ('per_pixel_gamma_min', torch.full(DECODER_SHAPE, GAMMA_MIN,
+                                         device=dev))):
+    sigma = torch.exp(0.5 * g0).reshape(-1, 1) if g0.dim() == 1 else (
+        torch.exp(0.5 * g0))
+    inputs[f'decoder_bwd_{name}'] = (x, e_x + sigma * randn(DECODER_SHAPE),
+                                     g0, randn((b,)))
   return inputs
 
 
@@ -186,6 +202,16 @@ def launchers(lib, entry, inputs):
       outs = (torch.empty((b,), device=x.device),)
       cases.append((name, outs, (x, z, g0, partial, *outs, b, n, n_blocks,
                                  256)))
+  elif entry == 'mulan_decoder_logprob_bwd':
+    for name, mode in (('one_gamma_min', 2), ('one_gamma_max', 2),
+                       ('per_example', 1), ('per_pixel_gamma_min', 0)):
+      x, z, g0, ct = inputs[f'decoder_bwd_{name}']
+      b, n = x.shape
+      n_blocks = -(-n // 256)
+      outs = (torch.empty_like(z), torch.empty_like(g0))
+      partial = torch.empty((b, n_blocks), device=x.device)
+      cases.append((name, outs, (x, z, g0, ct, *outs, partial, b, n,
+                                 n_blocks, mode, 256)))
   else:
     raise ValueError(f'ablate: no launcher for {entry}')
   result = []

@@ -1,5 +1,6 @@
-"""Experiment: train and evaluate MuLAN-velocity on one device, counterpart
-of `mulan_tpu/train/loop.py:Experiment` (its loss, train step, eval step,
+"""Experiment: train and evaluate the model of `config.vdm_type` (the
+baseline VDM or MuLAN-velocity) on one device, counterpart of
+`mulan_tpu/train/loop.py:Experiment` (its loss, train step, eval step,
 training loop with checkpoints, standalone evaluation and sampler).
 
 One call of `train_step` is one optimizer step: the ELBO in bits per
@@ -58,8 +59,10 @@ def create_train_state(config: Config, device, state=None):
   training = config.training
   if state is None:
     state = params_lib.init_params(
-        config.model, torch.Generator().manual_seed(training.seed))
-  model = build_model(config.model, device=device, state=state).train()
+        config.model, torch.Generator().manual_seed(training.seed),
+        vdm_type=config.vdm_type)
+  model = build_model(config.vdm_type, config.model, device=device,
+                      state=state).train()
   lr_schedule = make_lr_schedule(
       config.optimizer.learning_rate, training.num_steps_lr_warmup,
       training.num_steps_train, config.optimizer.lr_decay)
@@ -84,16 +87,14 @@ def _not_ported(what: str, entry: str):
 
 
 class Experiment:
-  """Train and evaluate a MuLAN-velocity model on `device` (the card unless
-  the caller asks for the CPU). `state` replaces the seeded initial
-  parameters (a state_dict, e.g. from `params.from_flax`)."""
+  """Train and evaluate the model of `config.vdm_type` on `device` (the
+  card unless the caller asks for the CPU). `state` replaces the seeded
+  initial parameters (a state_dict, e.g. from `params.from_flax`)."""
 
   def __init__(self, config: Config, *, device='cuda', state=None):
     self.config = config
     self.device = resolve_device(device)
     training = config.training
-    if config.vdm_type != 'mulan_velocity':
-      raise _not_ported(f'vdm_type={config.vdm_type!r}', 'model variants')
     if training.fsdp != 1 or training.tp != 1:
       raise _not_ported('fsdp / tp meshes', 'parallelism')
 
@@ -127,8 +128,8 @@ class Experiment:
               dropout_seed: Optional[int] = None):
     """(bpd, scalars): the mean ELBO in bits per dimension and its six
     terms (`loop.py:116-141`). `noise` may hold explicit `t`, `eps0`, `eps`,
-    `topk_noise` and `dropout_seed` for `MuLAN.elbo`; what it does not hold
-    is drawn from the experiment's generator."""
+    `topk_noise` (MuLAN) and `dropout_seed` for the model's `elbo`; what it
+    does not hold is drawn from the experiment's generator."""
     images = torch.as_tensor(batch['images'], device=self.device)
     noise = dict(noise or {})
     dropout_seed = noise.pop('dropout_seed', dropout_seed)
@@ -248,7 +249,7 @@ class Experiment:
                    T: int = 1000) -> np.ndarray:
     """An image grid of T unconditional ancestral steps of the EMA model
     (`mulan_tpu/train/loop.py:201-216`): from `sigma_prior` times a
-    standard normal, through `MuLAN.sample`, then the argmax decode. The
+    standard normal, through the model's `sample`, then the decode. The
     noise starts from the same key every call."""
     if batch_size is None:
       batch_size = min(64, self.config.training.batch_size_eval)

@@ -93,6 +93,7 @@ _ABLATIONS = sorted((pathlib.Path(_build.__file__).parent / 'ablations')
 def test_every_kernel_redesign_has_an_ablation_spec():
   names = {p.name for p in _ABLATIONS}
   assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k4_decoder.json',
+          'k5_bwd.json',
           'k6_mask.json', 'k8_gn.json'} <= names, names
 
 

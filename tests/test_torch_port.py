@@ -15,11 +15,11 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_config
-from mulan_tpu.configs import cifar10_conditioned
+from mulan_tpu.configs import cifar10_conditioned, vdm_cifar10
 from mulan_tpu.data import pipeline
 from mulan_tpu.models import model_config_from_dict
 from mulan_tpu.models.config import ModelConfig as JaxModelConfig
-from mulan_tpu_torch import data, params
+from mulan_tpu_torch import configs, data, params
 from mulan_tpu_torch.evals import harness, vlb
 from mulan_tpu_torch.models.config import (ModelConfig, flagship_config,
                                            tiny_config)
@@ -66,14 +66,17 @@ NOT_PORTED = {
 
 def test_every_jax_config_field_is_ported_or_listed():
   """Walks the JAX ModelConfig's fields: each is a port field with the same
-  flagship and tiny values, a rename, or a NOT_PORTED entry whose implied
-  value both JAX configs have. A JAX field added without a port fails."""
+  flagship, VDM and tiny values, a rename, or a NOT_PORTED entry whose
+  implied value every JAX config has. A JAX field added without a port
+  fails."""
   port_fields = {f.name for f in dataclasses.fields(ModelConfig)}
   jax_fields = [f.name for f in dataclasses.fields(JaxModelConfig)]
   assert not port_fields & NOT_PORTED.keys()
   assert NOT_PORTED.keys() <= set(jax_fields)
   pairs = ((flagship_config(), model_config_from_dict(
       cifar10_conditioned.get_config().model)),
+           (configs.vdm_cifar10().model, model_config_from_dict(
+               vdm_cifar10.get_config().model)),
            (tiny_config(), model_config_from_dict(
                dict(_flagship_config(tiny=True).model))))
   for name in jax_fields:

@@ -135,7 +135,7 @@ def test_bf16_forward_unchanged_by_float32_parameters():
   cfg = flagship_config(sm_n_layer=1, forward_n_layer=1)
   state = params.init_params(cfg, torch.Generator().manual_seed(0),
                              perturb_zero_init=0.02)
-  new = build_model(cfg, device='cpu', state=state)
+  new = build_model('mulan_velocity', cfg, device='cpu', state=state)
   old = MuLAN(cfg)
   old.score_model.to(cfg.dtype)
   old.encoder_model.trunk.to(cfg.dtype)
@@ -160,10 +160,10 @@ def test_build_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   cfg = configs.tiny_synthetic().model
   with pytest.raises(RuntimeError, match="device='cpu'"):
-    build_model(cfg)
+    build_model('mulan_velocity', cfg)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     Experiment(configs.tiny_synthetic())
-  model = build_model(cfg, device='cpu')
+  model = build_model('mulan_velocity', cfg, device='cpu')
   assert model.device.type == 'cpu'
   fresh = params.init_params(cfg, torch.Generator().manual_seed(0))
   assert all(torch.equal(model.state_dict()[k], v) for k, v in fresh.items())
@@ -173,8 +173,9 @@ def test_evaluation_is_deterministic_in_training_mode():
   """A model left in training mode (as nn.Module starts) never drops in
   eval_bpd_sparse or the sampler; the train-mode ELBO does."""
   cfg = configs.tiny_synthetic().model
-  model = build_model(cfg, device='cpu', state=params.init_params(
-      cfg, torch.Generator().manual_seed(0), perturb_zero_init=0.02))
+  state = params.init_params(cfg, torch.Generator().manual_seed(0),
+                             perturb_zero_init=0.02)
+  model = build_model('mulan_velocity', cfg, device='cpu', state=state)
   assert model.training
   images, _ = data.synthetic_split('eval', cfg.image_shape, examples=64)
 

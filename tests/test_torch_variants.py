@@ -375,7 +375,7 @@ def test_with_attention_train_gradients_match_jax(monkeypatch, tiny_params):
 
 def _port_step(cfg, state, images, t, noise, seed):
   """(loss, {name: grad}) of one train-mode ELBO of the port."""
-  model = build_model(cfg, device='cpu', state=state)
+  model = build_model('mulan_velocity', cfg, device='cpu', state=state)
   out = model.elbo(images, t, deterministic=False, dropout_seed=seed, **noise)
   loss = (out.loss_recon + out.loss_klz + out.loss_diff).mean()
   loss.backward()
@@ -413,9 +413,10 @@ def test_mask_batch_on_and_off_give_the_same_step(port_step_inputs,
   assert torch.equal(loss, loss_b)
   for name, g in grads.items():
     assert torch.equal(g, grads_b[name]), name
-  det = build_model(cfg, device='cpu', state=state).elbo(images, t, **noise)
+  det = build_model('mulan_velocity', cfg, device='cpu', state=state).elbo(
+      images, t, **noise)
   assert not torch.equal(det.loss_diff, build_model(
-      cfg, device='cpu', state=state).elbo(
+      'mulan_velocity', cfg, device='cpu', state=state).elbo(
           images, t, deterministic=False, dropout_seed=11,
           **noise).loss_diff)
 

@@ -58,7 +58,7 @@ def main() -> None:
   u, probe = chip_smoke.ode_noise(
       cfg, torch.Generator(device=dev).manual_seed(0), dev)
   for dtype in args.dtypes.split(','):
-    model = build_model(dataclasses.replace(
+    model = build_model('mulan_velocity', dataclasses.replace(
         cfg, compute_dtype=dtype, use_kernels=dtype == 'bfloat16'),
                         device=dev, state=state).requires_grad_(False)
     for tol in map(float, args.tols.split(',')):
