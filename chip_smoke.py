@@ -43,13 +43,23 @@ alone at that step's inputs (planted K5 faults must fail its gate); K5
 timed there, at g0 per example and at gamma_max, beside the earlier
 online-softmax K5 built from `ops/ablations/k5_bwd.json`; the sparse VLB,
 the ancestral sampler, and `eval_bpd --config=vdm_cifar10
---bpd_eval_method=ode` on its exported `ckpt-N.flax`. Every check raises on
+--bpd_eval_method=ode` on its exported `ckpt-N.flax`. Last, MuLAN-epsilon at
+ImageNet32's width (`imagenet32`: a 256-channel score UNet with one head,
+so the attention kernels run at head_dim 256, on their 'simt' route): K1,
+K2 and K3 alone at its shapes against their plain versions and beside
+SDPA; the sparse VLB at batch 512 (one batch kernels against plain); the
+ancestral sampler; a few steps of `Experiment.train` at batch 128 and one
+step held against its plain twin (planted K2 and K3 faults must fail its
+gates); `eval_bpd --config=imagenet32 --bpd_eval_method=ode` on its
+exported `ckpt-N.flax`; and K8 with its backward alone at the 256-wide
+UNet's channel counts. Every K1-K3 launch there must take the 'simt'
+route, as every one before it the 'sm90' route. Every check raises on
 failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
-step (unfused, fused, with `with_attention`, and the VDM's) and one ODE RHS
-evaluation by kernel category with `torch.profiler` and prints the tables as
-`[profile]` lines.
+step (unfused, fused, with `with_attention`, the VDM's and ImageNet32's)
+and one ODE RHS evaluation by kernel category with `torch.profiler` and
+prints the tables as `[profile]` lines.
 
 Output, one line per phase; the line before the last is the card's name and
 power limit, the one before that a JSON summary of the kernels, and the last
@@ -235,6 +245,27 @@ REMAT_COS_MIN = 0.9999
 VDM_TRAIN_STEPS = 6
 VDM_EVAL_BATCHES = 2
 DECODER_BWD_ALONE_MIN = 0.9999
+# MuLAN-epsilon at ImageNet32's width (phase 14): 256 channels and one head,
+# so every attention block runs at head_dim 256, which `attention_route`
+# sends to the 'simt' route in bf16. The evaluation runs the config's batch
+# of 512; training runs 128 a step on one card (512 is the global batch of
+# a data-parallel run). K1 alone at the evaluation's, the train step's, the
+# sampler's and a dense-VLB encoder chunk's shapes, K2 and K3 at the train
+# step's, each against its plain version with the tolerances above.
+IN32_EVAL_BATCH = 512
+IN32_EVAL_BATCHES = 2
+IN32_TRAIN_BATCH = 128
+IN32_TRAIN_STEPS = 4
+IN32_EVAL_ATTN = (IN32_EVAL_BATCH, 1, 1024, 256)
+IN32_TRAIN_ATTN = (IN32_TRAIN_BATCH, 1, 1024, 256)
+IN32_SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 256)
+IN32_ENCODER_ATTN = (4, 1, 1024, 256)
+# The route every K1-K3 launch of phase 14 must take, and the calls a
+# timing of its K1-K3 takes the median of (they run 9-52 ms a call).
+IN32_ROUTE = 'simt'
+IN32_TIMED_CALLS = 6
+# The train step's remat mode: the config's.
+IN32_REMAT = 'none'
 # The probability-flow ODE (phase 12): a likelihood solve takes ODE_ROWS
 # images at once; RK4 with ODE_RK4_STEPS steps is 16 RHS evaluations, each
 # the score UNet's forward and its input gradient (K1, K2 and K3 once). The
@@ -346,11 +377,11 @@ def rel_err(got, want) -> float:
           / want.abs().max().clamp_min(1e-30)).item()
 
 
-def attention_case(dev, gen, shape, dtype, tol, timed_case):
+def attention_case(dev, gen, shape, dtype, tol, timed_case, n: int = 20):
   """K1 at one shape against its plain version (the output and the row
   log-sum-exp written under autograd, which must leave the output
-  unchanged); with `timed_case`, timed beside the plain version, SDPA and
-  its bound. Logs and returns the result."""
+  unchanged); with `timed_case`, timed (median of n) beside the plain
+  version, SDPA and its bound. Logs and returns the result."""
   from mulan_tpu_torch.ops.flash_attention import (attention_route,
                                                    flash_attention_fwd,
                                                    flash_attention_plain)
@@ -365,22 +396,22 @@ def attention_case(dev, gen, shape, dtype, tol, timed_case):
   assert torch.equal(out, out_lse), 'the lse write changed the output'
   lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
   result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                lse_rel_err=lse_err.item())
+                lse_rel_err=lse_err.item(),
+                route=attention_route(dtype, shape[-1]))
   del ref, ref_lse
   if timed_case:
-    result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale))
+    result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale), n)
     result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
-        q, k, v, scale, return_lse=True))
+        q, k, v, scale, return_lse=True), n)
     result['plain_ms'] = cuda_ms(
-        lambda: flash_attention_plain(q, k, v, scale))
+        lambda: flash_attention_plain(q, k, v, scale), n)
     result['library_ms'] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), n)
     b, h, t, d = shape
     result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
                         dtype))
-  log('flash_attention', shape=list(shape), dtype=str(dtype),
-      route=attention_route(dtype, shape[-1]), tol=tol, lse_rtol=LSE_RTOL,
-      **result)
+  log('flash_attention', shape=list(shape), dtype=str(dtype), tol=tol,
+      lse_rtol=LSE_RTOL, **result)
   assert result['max_abs_err'] <= tol, (shape, dtype, result)
   assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
   return result
@@ -403,89 +434,104 @@ def check_attention(dev, gen):
   return results[0], results[1]
 
 
-def check_attention_bwd(dev, gen):
-  """K2 and K3 against the plain backward on the same inputs, on the same
-  shapes and routes as `check_attention`. The flagship shape is timed: K2,
-  K3 and the pair K2 + K3, one launch and back to back, the host's time a
-  K3 call, beside the plain backward and the backward of
+def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
+  """K2 and K3 at one shape against the plain backward on the same inputs;
+  with `timed_case`, K2, K3 and the pair K2 + K3 timed one launch (median
+  of n) and back to back (10 calls, median of n / 2), the host's time a K3
+  call, beside the plain backward and the backward of
   `F.scaled_dot_product_attention` (fwd + bwd minus fwd; one launch and
-  back to back)."""
+  back to back). Logs the result and returns (K2's, K3's) timings, None
+  untimed."""
   from mulan_tpu_torch.ops.flash_attention import (attention_route,
                                                    flash_attention_bwd_dkv,
                                                    flash_attention_bwd_dq,
                                                    flash_attention_bwd_plain,
                                                    flash_attention_fwd)
+  q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for _ in range(4))
+  scale = shape[-1] ** -0.5
+  o, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
+  di = (o.float() * do.float()).sum(-1)
+  dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+  dq_k = flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
+  torch.cuda.synchronize()
+  ref = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+  errs = {name: rel_err(got, want) for name, got, want in
+          (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
+  tol = ATTN_BWD_TOL[dtype]
+  route = attention_route(dtype, shape[-1])
+  log('flash_attention_bwd', shape=list(shape), dtype=str(dtype),
+      route=route, tol=tol,
+      max_abs_ref=max(r.float().abs().max().item() for r in ref),
+      **{f'{n}_rel_err': e for n, e in errs.items()})
+  assert max(errs.values()) <= tol, (shape, dtype, errs)
+  if not timed_case:
+    return None, None
+  b, h, t, d = shape
+  product = 2.0 * b * h * t * t * d
+  plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+      q, k, v, o, lse, do, scale), n=5)
+  qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+  def sdpa_fwd():
+    return F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+  def sdpa_fwd_bwd():
+    return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
+
+  def run_dkv():
+    return flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+
+  def run_dq():
+    return flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
+
+  def run_pair():
+    run_dkv()
+    run_dq()
+  def one(fn):
+    return cuda_ms(fn, n)
+
+  def b2b(fn):
+    return back_to_back_ms(fn, n=max(1, n // 2))
+  sdpa_bwd = one(sdpa_fwd_bwd) - one(sdpa_fwd)
+  sdpa_bwd_b2b = b2b(sdpa_fwd_bwd) - b2b(sdpa_fwd)
+  dkv = dict(max_abs_err=max((dk.float() - ref[1].float()).abs().max(),
+                             (dv.float() - ref[2].float()).abs().max())
+             .item(),
+             ms=one(run_dkv), back_to_back_ms=b2b(run_dkv),
+             plain_ms=plain_ms, library_ms=sdpa_bwd,
+             library_back_to_back_ms=sdpa_bwd_b2b, route=route,
+             **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
+                     dtype))
+  dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max().item(),
+            ms=one(run_dq), back_to_back_ms=b2b(run_dq),
+            host_ms=host_ms(run_dq, calls=5 * n // 2), plain_ms=plain_ms,
+            library_ms=None,
+            route=route,
+            **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k), dtype))
+  pair = dict(ms=one(run_pair), back_to_back_ms=b2b(run_pair))
+  dq['with_dkv'] = pair
+  log('flash_attention_bwd_timing', shape=list(shape), route=route,
+      dkv_ms=dkv['ms'], dkv_back_to_back_ms=dkv['back_to_back_ms'],
+      dkv_bound_ms=dkv['bound_ms'], dq_ms=dq['ms'],
+      dq_back_to_back_ms=dq['back_to_back_ms'], dq_host_ms=dq['host_ms'],
+      dq_bound_ms=dq['bound_ms'], dkv_dq_ms=pair['ms'],
+      dkv_dq_back_to_back_ms=pair['back_to_back_ms'], plain_ms=plain_ms,
+      sdpa_bwd_ms=sdpa_bwd, sdpa_bwd_back_to_back_ms=sdpa_bwd_b2b)
+  return dkv, dq
+
+
+def check_attention_bwd(dev, gen):
+  """K2 and K3 against the plain backward on the same inputs, on the same
+  shapes and routes as `check_attention`; the flagship shape is timed
+  (`attention_bwd_case`). Returns its (K2, K3) results."""
   cases = ((FLAGSHIP_ATTN, torch.bfloat16), (SAMPLER_ATTN, torch.bfloat16),
            ((3, 1, 60, 32), torch.float32), ((2, 2, 100, 40), torch.bfloat16),
            ((2, 2, 200, 64), torch.bfloat16),
            ((2, 1, 130, 256), torch.bfloat16))
-  dkv = dq = None
-  for shape, dtype in cases:
-    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for _ in range(4))
-    scale = shape[-1] ** -0.5
-    o, lse = flash_attention_fwd(q, k, v, scale, return_lse=True)
-    di = (o.float() * do.float()).sum(-1)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
-    dq_k = flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
-    torch.cuda.synchronize()
-    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
-    errs = {name: rel_err(got, want) for name, got, want in
-            (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
-    tol = ATTN_BWD_TOL[dtype]
-    log('flash_attention_bwd', shape=list(shape), dtype=str(dtype),
-        route=attention_route(dtype, shape[-1]), tol=tol,
-        max_abs_ref=max(r.float().abs().max().item() for r in ref),
-        **{f'{n}_rel_err': e for n, e in errs.items()})
-    assert max(errs.values()) <= tol, (shape, dtype, errs)
-    if dkv is None:
-      b, h, t, d = shape
-      product = 2.0 * b * h * t * t * d
-      plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
-          q, k, v, o, lse, do, scale), n=5)
-      qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-
-      def sdpa_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-
-      def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), do)
-
-      def run_dkv():
-        return flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
-
-      def run_dq():
-        return flash_attention_bwd_dq(q, k, v, do, lse, di, scale)
-
-      def run_pair():
-        run_dkv()
-        run_dq()
-      sdpa_bwd = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
-      sdpa_bwd_b2b = back_to_back_ms(sdpa_fwd_bwd) - back_to_back_ms(sdpa_fwd)
-      dkv = dict(max_abs_err=max((dk.float() - ref[1].float()).abs().max(),
-                                 (dv.float() - ref[2].float()).abs().max())
-                 .item(),
-                 ms=cuda_ms(run_dkv), back_to_back_ms=back_to_back_ms(run_dkv),
-                 plain_ms=plain_ms, library_ms=sdpa_bwd,
-                 library_back_to_back_ms=sdpa_bwd_b2b,
-                 **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
-                         dtype))
-      dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max()
-                .item(),
-                ms=cuda_ms(run_dq), back_to_back_ms=back_to_back_ms(run_dq),
-                host_ms=host_ms(run_dq), plain_ms=plain_ms, library_ms=None,
-                **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k),
-                        dtype))
-      pair = dict(ms=cuda_ms(run_pair), back_to_back_ms=back_to_back_ms(
-          run_pair))
-      dq['with_dkv'] = pair
-      log('flash_attention_bwd_timing', shape=list(shape),
-          dkv_ms=dkv['ms'], dkv_back_to_back_ms=dkv['back_to_back_ms'],
-          dq_ms=dq['ms'], dq_back_to_back_ms=dq['back_to_back_ms'],
-          dq_host_ms=dq['host_ms'], dkv_dq_ms=pair['ms'],
-          dkv_dq_back_to_back_ms=pair['back_to_back_ms'], plain_ms=plain_ms,
-          sdpa_bwd_ms=sdpa_bwd, sdpa_bwd_back_to_back_ms=sdpa_bwd_b2b)
-  return dkv, dq
+  timed_results = [attention_bwd_case(dev, gen, shape, dtype, i == 0)
+                   for i, (shape, dtype) in enumerate(cases)]
+  return timed_results[0]
 
 
 def check_decoder(dev, gen, cfg, sfu_rate, batch=EVAL_BATCH):
@@ -776,16 +822,28 @@ def check_dropout(dev, cfg, imul_rate):
   return result
 
 
-def check_gn_swish(dev, gen, sfu_rate):
-  """K8 against `gn_swish_plain` at the flagship's two shapes (C = 128 and
-  C = 256, bf16), in float32, at C = 48 (16 groups), and at an H x W that is
-  no multiple of 8 (the kernel's scalar path). The flagship shapes are timed
-  (one launch and back to back) beside the plain version and the unfused
-  path's two calls,
-  F.silu(F.group_norm(...)) (no single PyTorch call computes the function)."""
+# (shape, dtype, groups, timed): the flagship's two channel counts,
+# float32, 16 groups, and an H x W that is no multiple of 8 (the kernel's
+# scalar path). Phase 14 checks the 256-wide UNet's C = 256 and 512 (its up
+# blocks; 8 vectors a thread) at the end of the run, so that the draws of
+# the phases before it stay as they were.
+GN_CASES = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32, True),
+            ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32, True),
+            ((8, 128, 32, 32), torch.float32, 32, False),
+            ((4, 48, 16, 16), torch.bfloat16, 16, False),
+            ((3, 48, 5, 7), torch.float32, 16, False))
+IN32_GN_CASES = (((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32, True),
+                 ((EVAL_BATCH, 512, 32, 32), torch.bfloat16, 32, True))
+
+
+def check_gn_swish(dev, gen, sfu_rate, cases=GN_CASES):
+  """K8 against `gn_swish_plain` on `cases`. The timed ones are timed (one
+  launch and back to back) beside the plain version and the unfused path's
+  two calls, F.silu(F.group_norm(...)) (no single PyTorch call computes
+  the function). Returns the timed results."""
   from mulan_tpu_torch.ops.groupnorm_swish import gn_swish_fwd, gn_swish_plain
   results = []
-  for shape, dtype, groups in GN_CASES:
+  for shape, dtype, groups, timed_case in cases:
     c = shape[1]
     x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -798,7 +856,7 @@ def check_gn_swish(dev, gen, sfu_rate):
     diff = (out.float() - ref.float()).abs()
     excess = (diff - rtol * ref.float().abs()).max().item()
     result = dict(max_abs_err=diff.max().item(), max_excess_over_rtol=excess)
-    if len(results) < 2:
+    if timed_case:
       wl, bl = w.to(dtype), b.to(dtype)
       result.update(
           ms=cuda_ms(lambda: gn_swish_fwd(x, w, b, groups)),
@@ -814,28 +872,22 @@ def check_gn_swish(dev, gen, sfu_rate):
     log('gn_swish', shape=list(shape), dtype=str(dtype), groups=groups,
         rtol=rtol, atol=atol, **result)
     assert excess <= atol, (shape, dtype, result)
-    results.append(result)
-  return results[0], results[1]
+    if timed_case:
+      results.append(result)
+  return results
 
 
-GN_CASES = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
-            ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32),
-            ((8, 128, 32, 32), torch.float32, 32),
-            ((4, 48, 16, 16), torch.bfloat16, 16),
-            ((3, 48, 5, 7), torch.float32, 16))
-
-
-def check_gn_swish_bwd(dev, gen, sfu_rate):
-  """K8's backward against `gn_swish_bwd_plain` on the cases of
-  `check_gn_swish`: dx elementwise and dweight, dbias by their max-abs (see
-  GN_BWD_DX_TOL). The flagship shapes are timed (one launch, back to back,
-  the host's time a call) beside the plain version and the backward of the
-  unfused pair F.silu(F.group_norm(...)) in bf16 (forward and backward minus
-  forward; no single PyTorch call computes the function)."""
+def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
+  """K8's backward against `gn_swish_bwd_plain` on `cases`: dx
+  elementwise and dweight, dbias by their max-abs (see GN_BWD_DX_TOL). The
+  timed cases are timed (one launch, back to back, the host's time a call)
+  beside the plain version and the backward of the unfused pair
+  F.silu(F.group_norm(...)) in bf16 (forward and backward minus forward;
+  no single PyTorch call computes the function). Returns their results."""
   from mulan_tpu_torch.ops.groupnorm_swish import (gn_swish_bwd,
                                                    gn_swish_bwd_plain)
   results = []
-  for shape, dtype, groups in GN_CASES:
+  for shape, dtype, groups, timed_case in cases:
     c = shape[1]
     x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
     dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -856,7 +908,7 @@ def check_gn_swish_bwd(dev, gen, sfu_rate):
                 dbias_rel_err=rel_err(db, ref[2]))
     result = dict(max_abs_err=max(diff.max(), (dw - ref[1]).abs().max(),
                                   (db - ref[2]).abs().max()).item(), **errs)
-    if len(results) < 2:
+    if timed_case:
       xg = x.detach().requires_grad_()
       wl, bl = (t.to(dtype).requires_grad_() for t in (w, b))
 
@@ -883,8 +935,9 @@ def check_gn_swish_bwd(dev, gen, sfu_rate):
     assert dx_excess <= atol_frac, (shape, dtype, result)
     assert max(errs['dweight_rel_err'], errs['dbias_rel_err']) <= (
         GN_BWD_SUM_RTOL), (shape, dtype, result)
-    results.append(result)
-  return results[0], results[1]
+    if timed_case:
+      results.append(result)
+  return results
 
 
 def check_mask_batch(dev, cfg, imul_rate):
@@ -1035,9 +1088,10 @@ def kernel_counters():
           'gn_swish_bwd': gn.gn_swish_bwd}
 
 
-def counted(fn, route_totals):
+def counted(fn, route_totals, route: str = 'sm90'):
   """(fn(), {kernel: launches during fn}), every count set to 0 first.
-  Asserts that every launch of the SM90_KERNELS took the 'sm90' route, and
+  Asserts that every launch of the SM90_KERNELS took `route` ('sm90' on the
+  flagship's and the VDM's paths, 'simt' at ImageNet32's head_dim 256), and
   adds the launches by route to route_totals ({kernel: {route: n}})."""
   counters = kernel_counters()
   for f in counters.values():
@@ -1053,10 +1107,10 @@ def counted(fn, route_totals):
       continue
     assert sum(by_route.values()) == counts[name], (name, by_route)
     if name in SM90_KERNELS:
-      assert by_route['sm90'] == counts[name], (name, by_route)
+      assert by_route[route] == counts[name], (name, route, by_route)
     total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
-    for route, n in by_route.items():
-      total[route] += n
+    for r, n in by_route.items():
+      total[r] += n
   return out, counts
 
 
@@ -1262,12 +1316,13 @@ def capture_io(blocks: dict):
                     for n, b in blocks.items()]
 
 
-def compare_train_step(ex, model, build_plain, batch, noise):
+def compare_train_step(ex, model, build_plain, batch, noise, tag='train',
+                       with_f32=True):
   """One train step's loss and gradients through `model` (the kernels) and
   its plain twin on the same batch, noise and dropout masks, with the gates
   described at ATTN_LEAF_COS_MIN; the same gates must reject the step with a
-  planted fault. The cosines to a float32 twin's gradient, per part of the
-  model, are reported."""
+  planted fault. With `with_f32`, the cosines to a float32 twin's gradient,
+  per part of the model, are reported. Logs as `<tag>_...`."""
 
   blocks = {'unet': model.score_model.mid_attn_1,
             'encoder': model.encoder_model.trunk.mid_attn_1}
@@ -1276,8 +1331,8 @@ def compare_train_step(ex, model, build_plain, batch, noise):
   bpds['kernels'], grads['kernels'] = step_grads(ex, model, batch, noise)
   for h in hooks:
     h.remove()
-  for name, overrides in (('plain', {}), ('f32', {'compute_dtype':
-                                                  'float32'})):
+  twins = (('plain', {}), ('f32', {'compute_dtype': 'float32'}))
+  for name, overrides in twins[:2 if with_f32 else 1]:
     other = build_plain(**overrides)
     bpds[name], grads[name] = step_grads(ex, other, batch, noise)
     del other
@@ -1311,7 +1366,11 @@ def compare_train_step(ex, model, build_plain, batch, noise):
   whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
   norm_rel = abs(whole['kernels'].norm().item()
                  / whole['plain'].norm().item() - 1)
-  log('train_kernels_vs_plain', bpd=bpds,
+  to_f32 = {}
+  if with_f32:
+    to_f32['whole_cos_to_f32'] = {k: cosine(whole[k], whole['f32'])
+                                  for k in ('kernels', 'plain')}
+  log(f'{tag}_kernels_vs_plain', bpd=bpds,
       abs_delta=abs(bpds['kernels'] - bpds['plain']), tol=TRAIN_BPD_TOL,
       grad_norm_rel_diff=norm_rel, norm_rtol=GRAD_NORM_RTOL,
       unet_attn_leaf_cos_min=min(step_cos.values()),
@@ -1321,24 +1380,25 @@ def compare_train_step(ex, model, build_plain, batch, noise):
       planted_faults_rejected={k: not passes(*c) for k, c in faults.items()},
       fault_unet_attn_leaf_cos_min={k: min(c[0].values())
                                     for k, c in faults.items()},
-      whole_cos=cosine(whole['kernels'], whole['plain']),
-      whole_cos_to_f32={k: cosine(whole[k], whole['f32'])
-                        for k in ('kernels', 'plain')})
-  log('train_attn_leaf_cosines', **{n.split('mid_attn_1.')[1]: round(c, 6)
-                                    for n, c in step_cos.items()})
+      whole_cos=cosine(whole['kernels'], whole['plain']), **to_f32)
+  log(f'{tag}_attn_leaf_cosines', **{n.split('mid_attn_1.')[1]: round(c, 6)
+                                     for n, c in step_cos.items()})
 
-  # Where the bf16 gradients part from the float32 one, per part of MuLAN.
+  # Where the bf16 gradients part from the float32 one (or, without it,
+  # from each other), per part of MuLAN.
+  ref = 'f32' if with_f32 else 'plain'
+  pairs = ((('kernels', 'f32'), ('plain', 'f32'), ('kernels', 'plain'))
+           if with_f32 else (('kernels', 'plain'),))
   parts = {}
-  for n in grads['f32']:
+  for n in grads[ref]:
     parts.setdefault(grad_part(n), []).append(n)
-  total = whole['f32'].square().sum().item()
-  log('train_grad_parts', **{part: dict(
-      share_of_f32_norm2=round(sum(grads['f32'][n].square().sum().item()
-                                   for n in ns) / total, 6),
+  total = whole[ref].square().sum().item()
+  log(f'{tag}_grad_parts', **{part: dict(
+      **{f'share_of_{ref}_norm2': round(sum(
+          grads[ref][n].square().sum().item() for n in ns) / total, 6)},
       **{f'cos_{a}_{b}': round(cosine(
           *(torch.cat([grads[k][n] for n in ns]) for k in (a, b))), 6)
-         for a, b in (('kernels', 'f32'), ('plain', 'f32'),
-                      ('kernels', 'plain'))})
+         for a, b in pairs})
                               for part, ns in parts.items()})
 
   assert abs(bpds['kernels'] - bpds['plain']) <= TRAIN_BPD_TOL
@@ -1864,21 +1924,22 @@ def ode_cli_config(name: str = 'cifar10_conditioned'):
           f'--config.training.batch_size_eval={ODE_ROWS}']
 
 
-def run_ode_nll_cli(cfg, flax_path, route_totals, vdm: bool = False):
-  """`eval_bpd --bpd_eval_method=ode --solver=rk4` on the exported
-  `ckpt-N.flax` (of the flagship, or with `vdm` of vdm_cifar10), one batch
-  of ODE_ROWS images, one importance sample: finite bpd, launches of one
-  solve. Returns the launches."""
+def run_ode_nll_cli(cfg, flax_path, route_totals,
+                    name: str = 'cifar10_conditioned', route: str = 'sm90',
+                    phase: str = 'ode_nll'):
+  """`eval_bpd --config=<name> --bpd_eval_method=ode --solver=rk4` on the
+  exported `ckpt-N.flax` of that config's model, one batch of ODE_ROWS
+  images, one importance sample: finite bpd, launches of one solve, every
+  K1-K3 launch on `route`. Returns the launches."""
   from mulan_tpu_torch import eval_bpd
-  name = 'vdm_cifar10' if vdm else 'cifar10_conditioned'
+  vdm = name == 'vdm_cifar10'
   argv = [*ode_cli_config(name), f'--checkpoint_directory={flax_path}',
           '--bpd_eval_method=ode', '--solver=rk4',
           f'--rk4_steps={ODE_RK4_STEPS}', '--n_is=1']
   (bpd, secs), counts = counted(lambda: timed(lambda: eval_bpd.main(argv)),
-                                route_totals)
-  log('vdm_ode_nll' if vdm else 'ode_nll', argv=' '.join(argv[-4:]),
-      config=name, bpd=bpd, seconds=secs, nfe=4 * ODE_RK4_STEPS,
-      launches=counts)
+                                route_totals, route)
+  log(phase, argv=' '.join(argv[-4:]), config=name, bpd=bpd, seconds=secs,
+      nfe=4 * ODE_RK4_STEPS, launches=counts)
   assert math.isfinite(bpd), bpd
   assert counts == ode_solve_launches(cfg, 4 * ODE_RK4_STEPS, vdm=vdm), (
       counts)
@@ -2183,9 +2244,173 @@ def run_vdm(dev, gen, images, sfu_rate, online_lib, route_totals):
         ckpt_dir, os.path.join(workdir, 'reference')))
     log('vdm_checkpoint', step=ex.state.step, save_s=save_s,
         export_s=export_s, flax_bytes=os.path.getsize(flax_path))
-    paths['vdm_ode_nll_cli'] = run_ode_nll_cli(cfg, flax_path, route_totals,
-                                               vdm=True)
+    paths['vdm_ode_nll_cli'] = run_ode_nll_cli(
+        cfg, flax_path, route_totals, 'vdm_cifar10', phase='vdm_ode_nll')
   return paths, k5, ex
+
+
+def run_imagenet32(dev, gen, sfu_rate, route_totals):
+  """MuLAN-epsilon at ImageNet32's width and depth (`imagenet32`: a
+  256-channel score UNet with one head, so K1-K3 at head_dim 256 on the
+  'simt' route; synthetic 32x32x3 data; weights seeded as the flagship's)
+  through its entry points. K1 alone at IN32_EVAL_ATTN, IN32_TRAIN_ATTN
+  (both timed beside SDPA's forward), the sampler's and an encoder chunk's
+  shapes, K2 and K3 at IN32_TRAIN_ATTN (timed beside SDPA's backward);
+  `eval_bpd_sparse` over IN32_EVAL_BATCHES batches of 512 and one batch's
+  ELBO kernels against plain; the ancestral sampler; IN32_TRAIN_STEPS steps
+  of `Experiment.train` at batch 128 and one step kernels against plain
+  (the gates of phase 7, planted K2 and K3 faults rejected); and, on a
+  checkpoint of the trained state exported as `ckpt-N.flax`, `eval_bpd
+  --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every K1-K3
+  launch must take the 'simt' route. Last, K8 and its backward alone at
+  the 256-wide UNet's channel counts (IN32_GN_CASES; not on this path,
+  whose config leaves `fused_gn_swish` off). Returns ({path: launches},
+  {K1 shape / 'dkv' / 'dq' / 'gn_swish' / 'gn_swish_bwd': results}, the
+  Experiment)."""
+  from mulan_tpu_torch import compat, configs, data, params
+  from mulan_tpu_torch.evals import harness, vlb
+  from mulan_tpu_torch.models import build_model, latents
+  from mulan_tpu_torch.models.vdm import sample_times
+  from mulan_tpu_torch.train import checkpoint as ckpt_lib
+  from mulan_tpu_torch.train.loop import Experiment
+
+  def count(fn):
+    return counted(fn, route_totals, IN32_ROUTE)
+
+  # The kernels alone at the path's shapes.
+  kernels = {}
+  for shape, timed_case in ((IN32_EVAL_ATTN, True), (IN32_TRAIN_ATTN, True),
+                            (IN32_SAMPLER_ATTN, False),
+                            (IN32_ENCODER_ATTN, False)):
+    kernels['x'.join(map(str, shape))] = r = attention_case(
+        dev, gen, shape, torch.bfloat16, ATTN_TOL_BF16, timed_case,
+        IN32_TIMED_CALLS)
+    assert r['route'] == IN32_ROUTE, r
+  kernels['dkv'], kernels['dq'] = attention_bwd_case(
+      dev, gen, IN32_TRAIN_ATTN, torch.bfloat16, True, IN32_TIMED_CALLS)
+  torch.cuda.empty_cache()
+
+  train_cfg = configs.replace(
+      configs.imagenet32(), data={'dataset': 'synthetic'},
+      training={'batch_size_train': IN32_TRAIN_BATCH,
+                'steps_per_logging': IN32_TRAIN_STEPS},
+      model={'remat': IN32_REMAT})
+  cfg = train_cfg.model
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02, vdm_type='mulan_epsilon')
+  images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
+  model = build_model('mulan_epsilon', cfg, device=dev, state=state)
+  assert model.parameterization == 'epsilon'
+  paths = {}
+
+  # Evaluation: the sparse VLB at batch 512, one batch kernels against
+  # plain on the same noise, and the sampler.
+  (bpd, secs), paths['in32_eval'] = count(lambda: timed(
+      lambda: vlb.eval_bpd_sparse(
+          model, data.eval_batches(images, IN32_EVAL_BATCH), generator=gen,
+          max_batches=IN32_EVAL_BATCHES)))
+  batch = torch.as_tensor(images[:IN32_EVAL_BATCH], device=dev)
+  t = sample_times(IN32_EVAL_BATCH, generator=gen, device=dev)
+  eps = torch.randn((IN32_EVAL_BATCH, *cfg.image_shape), generator=gen,
+                    device=dev)
+  topk = latents.gamma_variates(cfg.latent_k,
+                                (IN32_EVAL_BATCH, cfg.latent_size),
+                                generator=gen, device=dev)
+  plain = build_model('mulan_epsilon',
+                      dataclasses.replace(cfg, use_kernels=False),
+                      device=dev, state=state)
+  bpds, rates = {}, {}
+  for name, m in (('kernels', model), ('plain', plain)):
+    def run():
+      with torch.inference_mode():
+        out = m.elbo(batch, t, eps0=eps, eps=eps, topk_noise=topk)
+        return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
+    bpds[name], _ = timed(run)
+    rates[name] = IN32_EVAL_BATCH / timed(run)[1]
+  del plain
+  delta = abs(bpds['kernels'] - bpds['plain'])
+  log('in32_eval_bpd_sparse', batches=IN32_EVAL_BATCHES,
+      batch=IN32_EVAL_BATCH, bpd=bpd, seconds=secs,
+      images_per_s=IN32_EVAL_BATCH * IN32_EVAL_BATCHES / secs,
+      elbo_bpd=bpds, abs_delta=delta, tol=BPD_TOL,
+      elbo_images_per_s=rates, launches=paths['in32_eval'])
+  assert math.isfinite(bpd), bpd
+  assert delta <= BPD_TOL, bpds
+  assert paths['in32_eval'] == times(expected_launches(cfg, 'eval'),
+                                     IN32_EVAL_BATCHES), paths['in32_eval']
+  ((samples, z_0), secs), paths['in32_sample'] = count(lambda: timed(
+      lambda: harness.random_samples(model, SAMPLE_BATCH, SAMPLE_STEPS,
+                                     generator=gen)))
+  log('in32_random_samples', batch=SAMPLE_BATCH, steps=SAMPLE_STEPS,
+      ms_per_step=1e3 * secs / SAMPLE_STEPS, dtype=str(samples.dtype),
+      min=int(samples.min()), max=int(samples.max()),
+      z0_abs_max=z_0.abs().max().item(), launches=paths['in32_sample'])
+  assert samples.dtype.name == 'uint8' and torch.isfinite(z_0).all()
+  assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
+  assert paths['in32_sample'] == times(expected_launches(cfg, 'sample'),
+                                       SAMPLE_STEPS), paths['in32_sample']
+  del batch, eps, topk
+  torch.cuda.empty_cache()
+
+  # Training at batch 128: the first update has lr 0, later ones move the
+  # parameters.
+  ex = Experiment(train_cfg, device=dev, state=state)
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  history, counts = count(lambda: ex.train(1))
+  (more, secs), more_counts = count(lambda: timed(
+      lambda: ex.train(IN32_TRAIN_STEPS - 1)))
+  peak = torch.cuda.max_memory_allocated()
+  history += more
+  paths['in32_train'] = {k: v + more_counts[k] for k, v in counts.items()}
+  per_step = expected_launches(cfg, 'train')
+  ms_per_step = 1e3 * secs / (IN32_TRAIN_STEPS - 1)
+  log('in32_train', steps=IN32_TRAIN_STEPS, batch=IN32_TRAIN_BATCH,
+      remat=cfg.remat, bpd=[round(h['bpd'], 4) for h in history],
+      ms_per_step=ms_per_step,
+      images_per_s=1e3 * IN32_TRAIN_BATCH / ms_per_step,
+      peak_memory_gb=peak / 1e9, peak_above_start_gb=(peak - base) / 1e9,
+      launches=paths['in32_train'], launches_per_step=per_step)
+  assert all(math.isfinite(h['bpd']) for h in history), history
+  assert paths['in32_train'] == times(per_step, IN32_TRAIN_STEPS), (
+      paths['in32_train'])
+
+  # One step kernels against plain (the gates of phase 7), without the
+  # float32 twin: its activations would be twice those of the bf16 step,
+  # which holds 40 GB above its start.
+  n = IN32_TRAIN_BATCH
+  step_batch = torch.as_tensor(images[:n], device=dev)
+  eps = torch.randn((n, *cfg.image_shape), generator=gen, device=dev)
+  step_noise = dict(
+      t=sample_times(n, generator=gen, device=dev), eps0=eps, eps=eps,
+      topk_noise=latents.gamma_variates(cfg.latent_k, (n, cfg.latent_size),
+                                        generator=gen, device=dev),
+      dropout_seed=1234)
+  compare_train_step(ex, model, lambda **kw: build_model(
+      'mulan_epsilon', dataclasses.replace(cfg, use_kernels=False, **kw),
+      device=dev, state=state), {'images': step_batch}, step_noise,
+                     tag='in32_train', with_f32=False)
+  del model, step_batch, step_noise, eps
+  torch.cuda.empty_cache()
+
+  # The ODE likelihood's command line on the trained state's export.
+  with tempfile.TemporaryDirectory() as workdir:
+    ckpt_dir = os.path.join(workdir, 'checkpoints')
+    _, save_s = timed(lambda: ckpt_lib.CheckpointManager(ckpt_dir).save(
+        ex.state.step, ex.state))
+    flax_path, export_s = timed(lambda: compat.export_reference_checkpoint(
+        ckpt_dir, os.path.join(workdir, 'reference')))
+    log('in32_checkpoint', step=ex.state.step, save_s=save_s,
+        export_s=export_s, flax_bytes=os.path.getsize(flax_path))
+    paths['in32_ode_nll_cli'] = run_ode_nll_cli(
+        cfg, flax_path, route_totals, 'imagenet32', IN32_ROUTE,
+        phase='in32_ode_nll')
+  torch.cuda.empty_cache()
+  kernels['gn_swish'] = check_gn_swish(dev, gen, sfu_rate, IN32_GN_CASES)
+  kernels['gn_swish_bwd'] = check_gn_swish_bwd(dev, gen, sfu_rate,
+                                               IN32_GN_CASES)
+  return paths, kernels, ex
 
 
 def main() -> None:
@@ -2483,10 +2708,18 @@ def main() -> None:
   results['decoder_logprob_bwd'] = k5_cases['vdm_step']
   k5_tmp.cleanup()
   torch.cuda.empty_cache()
+
+  # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 on the
+  # 'simt' route, alone and through evaluation, sampling, training and the
+  # ODE likelihood's command line. Its launches by route are kept apart.
+  in32_routes = {}
+  in32_paths, in32_kernels, ex_in32 = run_imagenet32(dev, gen, sfu_rate,
+                                                     in32_routes)
   torch.cuda.empty_cache()
 
   if want_profile:
     ode_t = torch.tensor(0.5)
+    in32_batch = torch.as_tensor(images[:IN32_TRAIN_BATCH], device=dev)
 
     def train_step(e):
       return lambda: e.train_step({'images': batch})
@@ -2508,7 +2741,9 @@ def main() -> None:
                      ('fused_train_step_b128', train_step(ex_f)),
                      ('attention_train_step_b128', train_step(ex_a)),
                      ('ode_rhs_b128', lambda: ode_func(ode_t, ode_y0)),
-                     ('vdm_train_step_b128', train_step(ex_v))):
+                     ('vdm_train_step_b128', train_step(ex_v)),
+                     ('in32_train_step_b128', lambda: ex_in32.train_step(
+                         {'images': in32_batch}))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -2552,6 +2787,8 @@ def main() -> None:
   kernels = []
   for name, (source, replaces) in sources.items():
     by_path = {path: counts[name] for path, counts in paths.items()}
+    if name not in SM90_KERNELS:  # phase 14's K1-K3 have rows of their own
+      by_path.update({path: c[name] for path, c in in32_paths.items()})
     kernels.append(dict(name=name, route='cuda', source=source,
                         replaces=replaces, launches=sum(by_path.values()),
                         launches_by_path=by_path,
@@ -2576,9 +2813,11 @@ def main() -> None:
   by_name['decoder_logprob']['at_gamma_min'] = {k: k4_gamma_min[k] for k in (
       'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_full_vocab_ms',
       'window_bins_per_pixel', 'max_abs_err')}
-  by_name['gn_swish']['at_c256'] = {k: gn_swish_c256[k] for k in (
-      'ms', 'back_to_back_ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms',
-      'max_abs_err')}
+  for c, r in (('c256', gn_swish_c256),
+               ('c512', in32_kernels['gn_swish'][1])):
+    by_name['gn_swish'][f'at_{c}'] = {k: r[k] for k in (
+        'ms', 'back_to_back_ms', 'plain_ms', 'unfused_pair_ms', 'bound_ms',
+        'max_abs_err')}
   k5_keys = ('ms', 'back_to_back_ms', 'c_call_back_to_back_ms',
              'online_kernel_ms', 'online_kernel_back_to_back_ms', 'plain_ms',
              'bound_ms', 'bound_by', 'bound_full_vocab_ms',
@@ -2586,9 +2825,36 @@ def main() -> None:
   for case in ('per_example', 'gamma_max'):
     by_name['decoder_logprob_bwd'][f'at_{case}'] = {
         k: k5_cases[case][k] for k in k5_keys}
-  by_name['gn_swish_bwd']['at_c256'] = {k: gn_bwd_c256[k] for k in (
-      'ms', 'back_to_back_ms', 'host_ms', 'plain_ms', 'unfused_pair_bwd_ms',
-      'bound_ms', 'max_abs_err')}
+  for c, r in (('c256', gn_bwd_c256),
+               ('c512', in32_kernels['gn_swish_bwd'][1])):
+    by_name['gn_swish_bwd'][f'at_{c}'] = {k: r[k] for k in (
+        'ms', 'back_to_back_ms', 'host_ms', 'plain_ms',
+        'unfused_pair_bwd_ms', 'bound_ms', 'max_abs_err')}
+  # K1-K3 at head_dim 256 (phase 14): their launches on its paths, all on
+  # the 'simt' route, and the kernels alone at its shapes.
+  in32_results = {'flash_attention': in32_kernels['x'.join(
+      map(str, IN32_EVAL_ATTN))], 'flash_attention_bwd_dkv':
+                  in32_kernels['dkv'], 'flash_attention_bwd_dq':
+                  in32_kernels['dq']}
+  for name in SM90_KERNELS:
+    source, replaces = sources[name]
+    r = in32_results[name]
+    by_path = {path: c[name] for path, c in in32_paths.items()}
+    row = dict(name=f'{name}_d256', route='cuda', source=source,
+               replaces=replaces, launches=sum(by_path.values()),
+               launches_by_path=by_path,
+               launches_by_route=in32_routes[name],
+               shape=list(IN32_EVAL_ATTN if name == 'flash_attention'
+                          else IN32_TRAIN_ATTN),
+               attention_route=r['route'], **{k: r[k] for k in keys},
+               **{k: r[k] for k in extras if k in r})
+    assert row['launches'] > 0 and in32_routes[name][IN32_ROUTE] == (
+        row['launches']), row
+    kernels.append(row)
+  kernels[-3]['at_train_shape'] = {k: in32_kernels['x'.join(
+      map(str, IN32_TRAIN_ATTN))][k] for k in (
+          'ms', 'ms_with_lse', 'plain_ms', 'library_ms', 'bound_ms',
+          'bound_by', 'max_abs_err')}
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

@@ -2,7 +2,8 @@
 
 Imports torch, numpy and the standard library only. The JAX package
 `mulan_tpu` is the reference it is tested against. Ported, for
-MuLAN-velocity and the baseline VDM with its scalar schedules: evaluation
+MuLAN-velocity (`cifar10_conditioned`), MuLAN-epsilon (`imagenet32`) and
+the baseline VDM with its scalar schedules (`vdm_cifar10`): evaluation
 (sparse and dense VLB, the exact NLL through the probability-flow ODE,
 `EvalExperiment`), ancestral and ODE sampling,
 train step and training loop with checkpoints (`train/`), the reference's

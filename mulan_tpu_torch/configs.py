@@ -1,8 +1,8 @@
 """Experiment configurations for the PyTorch port (standard library only).
 
 Counterparts of the `ml_collections` files `mulan_tpu/configs/
-cifar10_conditioned.py`, `vdm_cifar10.py` and `tiny_synthetic.py`, which
-cannot be imported
+cifar10_conditioned.py`, `vdm_cifar10.py`, `imagenet32.py` and
+`tiny_synthetic.py`, which cannot be imported
 where only PyTorch is installed. Field names and values are the JAX
 package's; `tests/test_torch_train.py` holds them against those files field
 by field. `lr_gamma_network_scale` and `optimizer.gradient_clip_norm` are
@@ -93,6 +93,23 @@ def vdm_cifar10() -> Config:
           base.model, gamma_type='learnable_nnet', z_conditioning=False))
 
 
+def imagenet32() -> Config:
+  """MuLAN-epsilon on ImageNet32 (`mulan_tpu/configs/imagenet32.py`): the
+  flagship with a 256-channel score UNet (one attention head, so head_dim
+  256), the epsilon parameterization and batch 512. The port cannot read
+  the TFDS dataset it names: pass `--config.data.dataset=synthetic` (or
+  `npz:<dir>` / `npy:<dir>`)."""
+  base = cifar10_conditioned()
+  return dataclasses.replace(
+      base, vdm_type='mulan_epsilon',
+      data=dataclasses.replace(base.data, dataset='imagenet32'),
+      model=dataclasses.replace(base.model, sm_n_embd=256, latent_k=15),
+      training=dataclasses.replace(
+          base.training, num_steps_train=2_000_000, batch_size_train=512,
+          batch_size_eval=512),
+      lr_gamma_network_scale=1.0)
+
+
 def tiny_synthetic() -> Config:
   """`mulan_tpu/configs/tiny_synthetic.py`: 8x8 synthetic images, 16
   channels, 2 layers, float32, 4 steps of batch 8."""
@@ -120,6 +137,7 @@ def replace(config: Config, **sections) -> Config:
 
 CONFIGS = {'cifar10_conditioned': cifar10_conditioned,
            'vdm_cifar10': vdm_cifar10,
+           'imagenet32': imagenet32,
            'tiny_synthetic': tiny_synthetic}
 
 

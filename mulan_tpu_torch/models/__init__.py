@@ -1,8 +1,10 @@
-"""The port's model zoo: the baseline VDM and MuLAN-velocity, and
-`build_model`, the counterpart of `mulan_tpu.models.build_model`."""
+"""The port's model zoo: the baseline VDM and MuLAN (epsilon and
+velocity), and `build_model`, the counterpart of
+`mulan_tpu.models.build_model`."""
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import torch
@@ -11,18 +13,17 @@ from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.models.vdm import VDM
 
-# `vdm_type` -> model class (`mulan_tpu/models/__init__.py:11-24`).
-# 'mulan_epsilon' is not ported (ROADMAP.md Queue A, model variants).
-MODELS = {'vdm': VDM, 'mulan_velocity': MuLAN}
+# `vdm_type` -> model class (`mulan_tpu/models/__init__.py:17-24`).
+MODELS = {'vdm': VDM,
+          'mulan_epsilon': functools.partial(MuLAN,
+                                             parameterization='epsilon'),
+          'mulan_velocity': functools.partial(MuLAN,
+                                              parameterization='velocity')}
 
 
 def make_model(vdm_type: str, config: ModelConfig) -> torch.nn.Module:
   """The model of `vdm_type` for `config`, its parameters uninitialized
   (build under `torch.device('meta')` for names and shapes alone)."""
-  if vdm_type == 'mulan_epsilon':
-    raise NotImplementedError(
-        "vdm_type='mulan_epsilon' is not ported yet; see ROADMAP.md Queue A, "
-        'model variants')
   if vdm_type not in MODELS:
     raise ValueError(f'unknown vdm_type: {vdm_type!r}')
   return MODELS[vdm_type](config)
@@ -41,7 +42,7 @@ def resolve_device(device) -> torch.device:
 def build_model(vdm_type: str, config: ModelConfig, *, device='cuda',
                 state: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> torch.nn.Module:
-  """The model of `vdm_type` ('vdm' or 'mulan_velocity') on `device` (the
+  """The model of `vdm_type` (a key of MODELS) on `device` (the
   card unless the caller asks for the CPU), with the parameters of `state`
   (a state_dict, e.g. from `params.from_flax`) or, without one,
   `params.init_params` from seed 0."""

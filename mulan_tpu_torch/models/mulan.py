@@ -1,6 +1,7 @@
-"""MuLAN-velocity: the ELBO (for evaluation and training) and ancestral
-sampling, counterpart of
-`mulan_tpu/models/mulan.py:MuLAN(parameterization='velocity')`.
+"""MuLAN: the ELBO (for evaluation and training), ancestral sampling and
+the probability-flow ODE, counterpart of `mulan_tpu/models/mulan.py:MuLAN`
+with `parameterization` 'velocity' (the flagship, `cifar10_conditioned`)
+or 'epsilon' (`imagenet32`).
 
 Public methods take and return the JAX package's NHWC layout; the networks
 run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
@@ -13,13 +14,18 @@ Every parameter is float32; the UNet and the encoder trunk cast theirs to
 `deterministic=False`, whatever `self.training` says, as in JAX: the
 sampler and the evaluation entry points are always deterministic.
 
-Only the flagship path is ported, under each of its execution-policy flags
-(`with_attention`, `remat`, `fused_gn_swish`, `dropout_mask_batch`). The
-epsilon parameterization, `velocity_from_epsilon`, the `ldm` UNet,
-gumbel/gaussian latents and the other schedules and encoders raise
-NotImplementedError at construction (ROADMAP.md Queue A, model variants).
-The SDE and probability-flow ODE methods (`sde`, `score_fn`, `score_jvp`,
-`reverse_ode`) are the velocity forms; `evals/nll_ode.py` solves the ODE.
+The two parameterizations differ only in how the score UNet's output is
+read: the epsilon model predicts the noise, the velocity model predicts
+v = alpha eps - sigma x, and with `velocity_from_epsilon` a velocity model's
+network predicts the noise, which is reinterpreted as a velocity
+(`mulan_tpu/models/mulan.py:123-137`). The epsilon loss takes continuous time
+(`sm_n_timesteps` 0) or T discrete steps, with t rounded up to the grid;
+the velocity loss is continuous-time only, and raises as JAX asserts.
+Both run under each execution-policy flag (`with_attention`, `remat`,
+`fused_gn_swish`, `dropout_mask_batch`). The `ldm` UNet, gumbel/gaussian
+latents and the other schedules and encoders raise NotImplementedError at
+construction (ROADMAP.md Queue A, model variants). `evals/nll_ode.py`
+solves the probability-flow ODE of `reverse_ode`.
 """
 
 from __future__ import annotations
@@ -43,9 +49,9 @@ _PORTED = {
     'unet_type': 'vdm', 'encoder': 'unet', 'latent_type': 'topk',
     'topk_noise_type': 'gamma', 'gamma_type': 'poly_fixedend',
     'reparam_type': 'true', 'z_conditioning': True,
-    'velocity_from_epsilon': False, 'sm_n_timesteps': 0,
     'sample_softmax': False, 'antithetic_time_sampling': True,
 }
+PARAMETERIZATIONS = ('epsilon', 'velocity')
 
 
 class MuLAN(nn.Module):
@@ -53,16 +59,15 @@ class MuLAN(nn.Module):
   def __init__(self, config: ModelConfig,
                parameterization: str = 'velocity'):
     super().__init__()
-    if parameterization != 'velocity':
-      raise NotImplementedError(
-          f'parameterization={parameterization!r} is not ported yet; see '
-          'ROADMAP.md Queue A, model variants')
+    if parameterization not in PARAMETERIZATIONS:
+      raise ValueError(f'unknown parameterization: {parameterization!r}')
     for field, value in _PORTED.items():
       if getattr(config, field) != value:
         raise NotImplementedError(
             f'{field}={getattr(config, field)!r} is not ported yet (only '
             f'{value!r}); see ROADMAP.md Queue A, model variants')
     self.config = config
+    self.parameterization = parameterization
     self.encdec = encdec_lib.EncDec(config)
     self.score_model = UNet(config)
     self.encoder_model = UnetEncoder(config)
@@ -81,13 +86,44 @@ class MuLAN(nn.Module):
                            g_t.mean(dim=(1, 2, 3)), embedding, dropout_seed)
     return out.permute(0, 2, 3, 1)
 
+  def _velocity(self, model_out, g_t, z_t):
+    """The velocity model's v-hat: the output itself, or with
+    `velocity_from_epsilon` the network's eps-hat reinterpreted as
+    -exp(g/2) z_t + sqrt(1 + exp(g)) eps-hat."""
+    if not self.config.velocity_from_epsilon:
+      return model_out
+    return (-torch.exp(0.5 * g_t) * z_t
+            + torch.sqrt(1 + torch.exp(g_t)) * model_out)
+
+  def _to_eps_hat(self, model_out, g_t, z_t):
+    """The model's output as eps-hat = alpha v-hat + sigma z_t (the
+    epsilon model's output is eps-hat)."""
+    if self.parameterization == 'epsilon':
+      return model_out
+    v_hat = self._velocity(model_out, g_t, z_t)
+    return (v_hat * torch.sqrt(torch.sigmoid(-g_t))
+            + torch.sqrt(torch.sigmoid(g_t)) * z_t)
+
+  def _score_of(self, model_out, g_t, z_t):
+    """The score -eps-hat / sigma of the model's output, in the form JAX
+    writes for each parameterization (`mulan_tpu/models/mulan.py:287-297`)."""
+    if self.parameterization == 'epsilon':
+      return -model_out / torch.sqrt(torch.sigmoid(g_t))
+    if self.config.velocity_from_epsilon:
+      return -model_out * torch.sqrt(1 + torch.exp(-g_t))
+    return -z_t - torch.exp(-0.5 * g_t) * model_out
+
   # -- ELBO -------------------------------------------------------------------
 
   def forward(self, images, *, generator: Optional[torch.Generator] = None,
               deterministic: bool = True, dropout_seed: Optional[int] = None):
-    """ELBO at antithetic times drawn from `generator`."""
+    """ELBO at antithetic times drawn from `generator`, rounded up to the
+    grid of `sm_n_timesteps` when that is > 0."""
     t = sample_times(images.shape[0], generator=generator,
                      device=self.device)
+    T = self.config.sm_n_timesteps
+    if T > 0:
+      t = torch.ceil(t * T) / T
     return self.elbo(images, t, generator=generator,
                      deterministic=deterministic, dropout_seed=dropout_seed)
 
@@ -114,8 +150,14 @@ class MuLAN(nn.Module):
     block's site. `encoder_logits` (B, latent_size), if given, stand in for
     the encoder UNet (the dense VLB computes them once per image and repeats
     them over its t-grid); the top-k noise is still drawn for every row.
+    The velocity loss is continuous-time only: with `sm_n_timesteps` > 0
+    it raises AssertionError, as JAX's assertion does.
     """
     cfg = self.config
+    T = cfg.sm_n_timesteps
+    if self.parameterization == 'velocity' and T > 0:
+      raise AssertionError('velocity parameterization is continuous-time '
+                           'only')
     x = torch.as_tensor(images, device=self.device).reshape(
         -1, *cfg.image_shape)
     img = x.shape
@@ -156,15 +198,25 @@ class MuLAN(nn.Module):
     loss_klz = 0.5 * torch.sum(mean1_sqr + var_1 - torch.log(var_1) - 1.0,
                                dim=(1, 2, 3))
 
-    # 3. diffusion loss, velocity parameterization.
+    # 3. diffusion loss.
     if eps is None:
       eps = self._randn(img, generator)
     z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
-    v_hat = self._score(z_t, g_t, embedding, dropout_seed)
-    v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
-    loss_diff = 0.5 * torch.sum(
-        (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),
-        dim=(1, 2, 3))
+    model_out = self._score(z_t, g_t, embedding, dropout_seed)
+    if self.parameterization == 'epsilon':
+      if T == 0:
+        weight = g_t_grad
+      else:
+        g_s = self.gamma(embedding, t - 1.0 / T).reshape(img)
+        weight = T * torch.expm1(g_t - g_s)
+      loss_diff = 0.5 * torch.sum(weight * torch.square(eps - model_out),
+                                  dim=(1, 2, 3))
+    else:
+      v_hat = self._velocity(model_out, g_t, z_t)
+      v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
+      loss_diff = 0.5 * torch.sum(
+          (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),
+          dim=(1, 2, 3))
 
     return ELBOOutput(loss_recon=loss_recon, loss_klz=kl_z + loss_klz,
                       loss_diff=loss_diff, var_0=var_0.mean(),
@@ -188,9 +240,7 @@ class MuLAN(nn.Module):
     s = torch.full((bsz,), (T - i - 1) / T, device=self.device)
     g_t = self.gamma(embedding, t).reshape(z_t.shape)
     g_s = self.gamma(embedding, s).reshape(z_t.shape)
-    v_hat = self._score(z_t, g_t, embedding)
-    eps_hat = (v_hat * torch.sqrt(torch.sigmoid(-g_t))
-               + torch.sqrt(torch.sigmoid(g_t)) * z_t)
+    eps_hat = self._to_eps_hat(self._score(z_t, g_t, embedding), g_t, z_t)
 
     a = torch.sigmoid(-g_s)
     b = torch.sigmoid(-g_t)
@@ -233,8 +283,10 @@ class MuLAN(nn.Module):
     return drift, diffusion
 
   def score_fn(self, xt, gt, embeddings):
-    """score(x_t) = -x_t - exp(-gamma/2) v_hat (the velocity form), NHWC."""
-    return -xt - torch.exp(-0.5 * gt) * self._score(xt, gt, embeddings)
+    """The score of NHWC x_t at the gamma map gt: -eps-hat / sigma
+    (epsilon), -x_t - exp(-gamma/2) v-hat (velocity), -eps-hat
+    sqrt(1 + exp(-gamma)) (`velocity_from_epsilon`)."""
+    return self._score_of(self._score(xt, gt, embeddings), gt, xt)
 
   def score_jvp(self, z_t, g_t, conditioning, v,
                 dropout_seed: Optional[int] = None):
@@ -252,20 +304,21 @@ class MuLAN(nn.Module):
           'have; build the model with use_kernels=False')
 
     def score(xt):
-      return -xt - torch.exp(-0.5 * g_t) * self._score(xt, g_t, conditioning,
-                                                       dropout_seed)
+      return self._score_of(
+          self._score(xt, g_t, conditioning, dropout_seed), g_t, xt)
     return torch.func.jvp(score, (z_t,), (v,))
 
   def reverse_ode(self, xt, embeddings, t, high_precision: bool = False):
-    """Probability-flow drift dx/dt = 0.5 alpha sigma dgamma/dt v_hat for
-    NHWC x_t at t (a scalar or (B,)).
+    """Probability-flow drift dx/dt for NHWC x_t at t (a scalar or (B,)):
+    0.5 (-sigma x_t + eps-hat) sigma dgamma/dt for the epsilon model,
+    0.5 alpha sigma dgamma/dt v-hat for the velocity model.
 
     `high_precision` takes sigma = exp(gamma/2) where sigma^2 <= 1e-3 and
     alpha = exp(-gamma/2) where alpha^2 <= 1e-3, the log-domain forms, in
     place of sqrt(sigmoid(+-gamma)) (`mulan_tpu/models/mulan.py:331-338`).
     """
     g_t, g_t_grad = self._gammas(embeddings, t, xt.shape)
-    v_hat = self._score(xt, g_t, embeddings)
+    model_out = self._score(xt, g_t, embeddings)
     var = torch.sigmoid(g_t)
     if high_precision:
       sigma = torch.where(var <= 1e-3, torch.exp(g_t / 2), torch.sqrt(var))
@@ -274,4 +327,7 @@ class MuLAN(nn.Module):
     else:
       sigma = torch.sqrt(var)
       alpha = torch.sqrt(1 - var)
+    if self.parameterization == 'epsilon':
+      return 0.5 * (-sigma * xt + model_out) * sigma * g_t_grad
+    v_hat = self._velocity(model_out, g_t, xt)
     return v_hat * 0.5 * alpha * sigma * g_t_grad

@@ -1,5 +1,5 @@
 """Experiment: train and evaluate the model of `config.vdm_type` (the
-baseline VDM or MuLAN-velocity) on one device, counterpart of
+baseline VDM, MuLAN-epsilon or MuLAN-velocity) on one device, counterpart of
 `mulan_tpu/train/loop.py:Experiment` (its loss, train step, eval step,
 training loop with checkpoints, standalone evaluation and sampler).
 

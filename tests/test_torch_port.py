@@ -178,8 +178,7 @@ def test_random_samples_runs_on_cpu():
 
 
 @pytest.mark.parametrize('field,value', [
-    ('latent_type', 'gumbel'), ('unet_type', 'ldm'),
-    ('velocity_from_epsilon', True), ('encoder', 'cnn')])
+    ('latent_type', 'gumbel'), ('unet_type', 'ldm'), ('encoder', 'cnn')])
 def test_unported_options_raise(field, value):
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     MuLAN(tiny_config(**{field: value}))

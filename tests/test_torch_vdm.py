@@ -500,8 +500,8 @@ def test_build_model_registry():
   assert isinstance(build_model('vdm', cfg, device='cpu'), VDM)
   assert isinstance(build_model('mulan_velocity', tiny_config(),
                                 device='cpu'), MuLAN)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    make_model('mulan_epsilon', tiny_config())
+  epsilon = make_model('mulan_epsilon', tiny_config())
+  assert isinstance(epsilon, MuLAN) and epsilon.parameterization == 'epsilon'
   with pytest.raises(ValueError, match='unknown vdm_type'):
     make_model('ldm', cfg)
   with pytest.raises(ValueError, match='scalar gamma_type'):
