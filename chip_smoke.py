@@ -44,17 +44,18 @@ timed there, at g0 per example and at gamma_max, beside the earlier
 online-softmax K5 built from `ops/ablations/k5_bwd.json`; the sparse VLB,
 the ancestral sampler, and `eval_bpd --config=vdm_cifar10
 --bpd_eval_method=ode` on its exported `ckpt-N.flax`. Last, MuLAN-epsilon at
-ImageNet32's width (`imagenet32`: a 256-channel score UNet with one head,
-so the attention kernels run at head_dim 256, on their 'simt' route): K1,
-K2 and K3 alone at its shapes against their plain versions and beside
-SDPA; the sparse VLB at batch 512 (one batch kernels against plain); the
-ancestral sampler; a few steps of `Experiment.train` at batch 128 and one
-step held against its plain twin (planted K2 and K3 faults must fail its
-gates); `eval_bpd --config=imagenet32 --bpd_eval_method=ode` on its
-exported `ckpt-N.flax`; and K8 with its backward alone at the 256-wide
-UNet's channel counts. Every K1-K3 launch there must take the 'simt'
-route, as every one before it the 'sm90' route. Every check raises on
-failure.
+ImageNet32's width (`imagenet32`: a 256-channel score UNet with one head, so
+the attention kernels run at head_dim 256: K1 on its 'simt' route, K2 and K3 on
+their 'sm90' one): K1, K2 and K3 alone at its shapes against their plain
+versions and beside SDPA (K2 and K3 also beside their 'simt' entry points); the
+sparse VLB at batch 512 (one batch kernels against plain); the ancestral
+sampler; a few steps of `Experiment.train` at batch 128 and one step held
+against its plain twin (planted K2 and K3 faults must fail its gates);
+`eval_bpd --config=imagenet32 --bpd_eval_method=ode` on its exported
+`ckpt-N.flax`; and K8 with its backward alone at the 256-wide UNet's channel
+counts. Every K1 launch there must take the 'simt' route and every K2 and K3
+launch the 'sm90' one, as every K1-K3 launch before it the 'sm90' route. Every
+check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
 step (unfused, fused, with `with_attention`, the VDM's and ImageNet32's)
@@ -109,9 +110,11 @@ DENSE_ENCODER_ATTN = (DENSE_ROWS // DENSE_T, 1, 1024, 128)
 WORKDIR_STEPS = 4
 WORKDIR_SAMPLER_ATTN = (64, 1, 1024, 128)
 # Kernels every one of whose launches on the flagship paths must take the
-# 'sm90' route (TMA-fed, warp-specialised wgmma kernels).
+# 'sm90' route (TMA-fed, warp-specialised wgmma kernels): the route each
+# counted run asserts, per kernel.
 SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
                 'flash_attention_bwd_dq')
+SM90_ROUTES = dict.fromkeys(SM90_KERNELS, 'sm90')
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -246,12 +249,13 @@ VDM_TRAIN_STEPS = 6
 VDM_EVAL_BATCHES = 2
 DECODER_BWD_ALONE_MIN = 0.9999
 # MuLAN-epsilon at ImageNet32's width (phase 14): 256 channels and one head,
-# so every attention block runs at head_dim 256, which `attention_route`
-# sends to the 'simt' route in bf16. The evaluation runs the config's batch
-# of 512; training runs 128 a step on one card (512 is the global batch of
-# a data-parallel run). K1 alone at the evaluation's, the train step's, the
-# sampler's and a dense-VLB encoder chunk's shapes, K2 and K3 at the train
-# step's, each against its plain version with the tolerances above.
+# so every attention block runs at head_dim 256, where `attention_route`
+# sends K1 to the 'simt' route and K2 and K3 to the 'sm90' one in bf16. The
+# evaluation runs the config's batch of 512; training runs 128 a step on one
+# card (512 is the global batch of a data-parallel run). K1 alone at the
+# evaluation's, the train step's, the sampler's and a dense-VLB encoder
+# chunk's shapes, K2 and K3 at the train step's, each against its plain
+# version with the tolerances above.
 IN32_EVAL_BATCH = 512
 IN32_EVAL_BATCHES = 2
 IN32_TRAIN_BATCH = 128
@@ -260,9 +264,11 @@ IN32_EVAL_ATTN = (IN32_EVAL_BATCH, 1, 1024, 256)
 IN32_TRAIN_ATTN = (IN32_TRAIN_BATCH, 1, 1024, 256)
 IN32_SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 256)
 IN32_ENCODER_ATTN = (4, 1, 1024, 256)
-# The route every K1-K3 launch of phase 14 must take, and the calls a
-# timing of its K1-K3 takes the median of (they run 9-52 ms a call).
-IN32_ROUTE = 'simt'
+# The route each K1-K3 launch of phase 14 must take, and the calls a
+# timing of its K1-K3 takes the median of (K1 and the 'simt' K2/K3 run 9-35
+# ms a call).
+IN32_ROUTES = {'flash_attention': 'simt', 'flash_attention_bwd_dkv': 'sm90',
+               'flash_attention_bwd_dq': 'sm90'}
 IN32_TIMED_CALLS = 6
 # The train step's remat mode: the config's.
 IN32_REMAT = 'none'
@@ -397,7 +403,7 @@ def attention_case(dev, gen, shape, dtype, tol, timed_case, n: int = 20):
   lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
   result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
                 lse_rel_err=lse_err.item(),
-                route=attention_route(dtype, shape[-1]))
+                route=attention_route(dtype, shape[-1], 'fwd'))
   del ref, ref_lse
   if timed_case:
     result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale), n)
@@ -434,13 +440,17 @@ def check_attention(dev, gen):
   return results[0], results[1]
 
 
-def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
+def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20,
+                       simt_n: int = 0):
   """K2 and K3 at one shape against the plain backward on the same inputs;
   with `timed_case`, K2, K3 and the pair K2 + K3 timed one launch (median
   of n) and back to back (10 calls, median of n / 2), the host's time a K3
   call, beside the plain backward and the backward of
   `F.scaled_dot_product_attention` (fwd + bwd minus fwd; one launch and
-  back to back). Logs the result and returns (K2's, K3's) timings, None
+  back to back). With `simt_n` (bf16 on the 'sm90' route), the 'simt' C
+  entry points are also checked on the same inputs and timed the same ways
+  over simt_n calls (`simt_ms`, `simt_back_to_back_ms`): the route's
+  earlier times. Logs the result and returns (K2's, K3's) timings, None
   untimed."""
   from mulan_tpu_torch.ops.flash_attention import (attention_route,
                                                    flash_attention_bwd_dkv,
@@ -459,9 +469,9 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
   errs = {name: rel_err(got, want) for name, got, want in
           (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
   tol = ATTN_BWD_TOL[dtype]
-  route = attention_route(dtype, shape[-1])
+  routes = {k: attention_route(dtype, shape[-1], k) for k in ('dkv', 'dq')}
   log('flash_attention_bwd', shape=list(shape), dtype=str(dtype),
-      route=route, tol=tol,
+      routes=routes, tol=tol,
       max_abs_ref=max(r.float().abs().max().item() for r in ref),
       **{f'{n}_rel_err': e for n, e in errs.items()})
   assert max(errs.values()) <= tol, (shape, dtype, errs)
@@ -488,6 +498,7 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
   def run_pair():
     run_dkv()
     run_dq()
+
   def one(fn):
     return cuda_ms(fn, n)
 
@@ -500,18 +511,39 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
              .item(),
              ms=one(run_dkv), back_to_back_ms=b2b(run_dkv),
              plain_ms=plain_ms, library_ms=sdpa_bwd,
-             library_back_to_back_ms=sdpa_bwd_b2b, route=route,
+             library_back_to_back_ms=sdpa_bwd_b2b, route=routes['dkv'],
              **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
                      dtype))
   dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max().item(),
             ms=one(run_dq), back_to_back_ms=b2b(run_dq),
             host_ms=host_ms(run_dq, calls=5 * n // 2), plain_ms=plain_ms,
-            library_ms=None,
-            route=route,
+            library_ms=None, route=routes['dq'],
             **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k), dtype))
   pair = dict(ms=one(run_pair), back_to_back_ms=b2b(run_pair))
   dq['with_dkv'] = pair
-  log('flash_attention_bwd_timing', shape=list(shape), route=route,
+  if simt_n:
+    simt_calls = simt_bwd_calls(q, k, v, do, lse, di, scale)
+
+    def simt_times(fn):
+      return dict(simt_ms=cuda_ms(fn, simt_n),
+                  simt_back_to_back_ms=back_to_back_ms(
+                      fn, n=max(1, simt_n // 2)))
+    for name, r, want in (('dkv', dkv, ref[1:]), ('dq', dq, ref[:1])):
+      got = simt_calls[name]()
+      err = max(rel_err(g, w) for g, w in zip(got, want))
+      assert err <= tol, ('simt', name, err)
+      r.update(simt_rel_err=err, **simt_times(simt_calls[name]))
+    pair.update(simt_times(simt_calls['pair']))
+    log('flash_attention_bwd_simt', shape=list(shape),
+        dkv_simt_rel_err=dkv['simt_rel_err'],
+        dq_simt_rel_err=dq['simt_rel_err'], tol=tol,
+        dkv_simt_ms=dkv['simt_ms'],
+        dkv_simt_back_to_back_ms=dkv['simt_back_to_back_ms'],
+        dq_simt_ms=dq['simt_ms'],
+        dq_simt_back_to_back_ms=dq['simt_back_to_back_ms'],
+        dkv_dq_simt_ms=pair['simt_ms'],
+        dkv_dq_simt_back_to_back_ms=pair['simt_back_to_back_ms'])
+  log('flash_attention_bwd_timing', shape=list(shape), routes=routes,
       dkv_ms=dkv['ms'], dkv_back_to_back_ms=dkv['back_to_back_ms'],
       dkv_bound_ms=dkv['bound_ms'], dq_ms=dq['ms'],
       dq_back_to_back_ms=dq['back_to_back_ms'], dq_host_ms=dq['host_ms'],
@@ -523,15 +555,53 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20):
 
 def check_attention_bwd(dev, gen):
   """K2 and K3 against the plain backward on the same inputs, on the same
-  shapes and routes as `check_attention`; the flagship shape is timed
-  (`attention_bwd_case`). Returns its (K2, K3) results."""
+  shapes as `check_attention` ((2, 1, 130, 256), ragged in T, on K2's and
+  K3's 'sm90' route at D <= 256), and at (2, 2, 100, 200), ragged in D (TMA
+  fills the last 64-column box past D with zeros), whose inputs come from a
+  generator of its own: a draw from `gen` here would move every later
+  phase's. The flagship shape is timed (`attention_bwd_case`). Returns its
+  (K2, K3) results."""
   cases = ((FLAGSHIP_ATTN, torch.bfloat16), (SAMPLER_ATTN, torch.bfloat16),
            ((3, 1, 60, 32), torch.float32), ((2, 2, 100, 40), torch.bfloat16),
            ((2, 2, 200, 64), torch.bfloat16),
            ((2, 1, 130, 256), torch.bfloat16))
   timed_results = [attention_bwd_case(dev, gen, shape, dtype, i == 0)
                    for i, (shape, dtype) in enumerate(cases)]
+  attention_bwd_case(dev, torch.Generator(device=dev).manual_seed(SEED + 1),
+                     (2, 2, 100, 200), torch.bfloat16, False)
   return timed_results[0]
+
+
+def simt_bwd_calls(q, k, v, do, lse, di, scale):
+  """{'dkv', 'dq', 'pair': a call of the 'simt' C entry points of K2, K3 or
+  both at these bf16 inputs, returning (dk, dv), (dq,) or None}. The calls
+  hold their input tensors (the C functions take raw pointers)."""
+  from mulan_tpu_torch.ops import _build
+  lib = _build.load_library()
+  b, h, t, d = q.shape
+  stream = torch.cuda.current_stream(q.device).cuda_stream
+  inputs = (q, k, v, do, lse, di)
+
+  def ins():
+    return tuple(x.data_ptr() for x in inputs)
+
+  def dkv():
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(lib.mulan_flash_attention_bwd_dkv_simt(
+        *ins(), dk.data_ptr(), dv.data_ptr(), b * h, t, d, scale, 1, stream),
+                 'dkv_simt')
+    return dk, dv
+
+  def dq():
+    out = torch.empty_like(q)
+    _build.check(lib.mulan_flash_attention_bwd_dq_simt(
+        *ins(), out.data_ptr(), b * h, t, d, scale, 1, stream), 'dq_simt')
+    return (out,)
+
+  def pair():
+    dkv()
+    dq()
+  return dict(dkv=dkv, dq=dq, pair=pair)
 
 
 def check_decoder(dev, gen, cfg, sfu_rate, batch=EVAL_BATCH):
@@ -1088,11 +1158,12 @@ def kernel_counters():
           'gn_swish_bwd': gn.gn_swish_bwd}
 
 
-def counted(fn, route_totals, route: str = 'sm90'):
+def counted(fn, route_totals, routes=SM90_ROUTES):
   """(fn(), {kernel: launches during fn}), every count set to 0 first.
-  Asserts that every launch of the SM90_KERNELS took `route` ('sm90' on the
-  flagship's and the VDM's paths, 'simt' at ImageNet32's head_dim 256), and
-  adds the launches by route to route_totals ({kernel: {route: n}})."""
+  Asserts that every launch of each of the SM90_KERNELS took its route in
+  `routes` ('sm90' for all three on the flagship's and the VDM's paths,
+  IN32_ROUTES at ImageNet32's head_dim 256), and adds the launches by route
+  to route_totals ({kernel: {route: n}})."""
   counters = kernel_counters()
   for f in counters.values():
     f.launches = 0
@@ -1107,7 +1178,7 @@ def counted(fn, route_totals, route: str = 'sm90'):
       continue
     assert sum(by_route.values()) == counts[name], (name, by_route)
     if name in SM90_KERNELS:
-      assert by_route[route] == counts[name], (name, route, by_route)
+      assert by_route[routes[name]] == counts[name], (name, routes, by_route)
     total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
     for r, n in by_route.items():
       total[r] += n
@@ -1190,7 +1261,8 @@ def planted_fault(kernel: str):
       return torch.zeros_like(dk), dv
     rows = torch.arange(out.shape[2], device=out.device) % 128 >= 64
     return out.masked_fill(rows[:, None], 0)
-  # The real wrapper counts on the module's name.
+  # The real wrapper counts on the module's name; its launches go back to
+  # the real wrapper's counts, so that a counted run sees their routes.
   faulty.launches = 0
   faulty.launches_by_route = dict.fromkeys(real.launches_by_route, 0)
   setattr(attn, name, faulty)
@@ -1198,6 +1270,9 @@ def planted_fault(kernel: str):
     yield
   finally:
     setattr(attn, name, real)
+    real.launches += faulty.launches
+    for route, n in faulty.launches_by_route.items():
+      real.launches_by_route[route] += n
 
 
 @contextlib.contextmanager
@@ -1925,19 +2000,19 @@ def ode_cli_config(name: str = 'cifar10_conditioned'):
 
 
 def run_ode_nll_cli(cfg, flax_path, route_totals,
-                    name: str = 'cifar10_conditioned', route: str = 'sm90',
+                    name: str = 'cifar10_conditioned', routes=SM90_ROUTES,
                     phase: str = 'ode_nll'):
   """`eval_bpd --config=<name> --bpd_eval_method=ode --solver=rk4` on the
   exported `ckpt-N.flax` of that config's model, one batch of ODE_ROWS
   images, one importance sample: finite bpd, launches of one solve, every
-  K1-K3 launch on `route`. Returns the launches."""
+  K1-K3 launch on its route in `routes`. Returns the launches."""
   from mulan_tpu_torch import eval_bpd
   vdm = name == 'vdm_cifar10'
   argv = [*ode_cli_config(name), f'--checkpoint_directory={flax_path}',
           '--bpd_eval_method=ode', '--solver=rk4',
           f'--rk4_steps={ODE_RK4_STEPS}', '--n_is=1']
   (bpd, secs), counts = counted(lambda: timed(lambda: eval_bpd.main(argv)),
-                                route_totals, route)
+                                route_totals, routes)
   log(phase, argv=' '.join(argv[-4:]), config=name, bpd=bpd, seconds=secs,
       nfe=4 * ODE_RK4_STEPS, launches=counts)
   assert math.isfinite(bpd), bpd
@@ -2250,23 +2325,25 @@ def run_vdm(dev, gen, images, sfu_rate, online_lib, route_totals):
 
 
 def run_imagenet32(dev, gen, sfu_rate, route_totals):
-  """MuLAN-epsilon at ImageNet32's width and depth (`imagenet32`: a
-  256-channel score UNet with one head, so K1-K3 at head_dim 256 on the
-  'simt' route; synthetic 32x32x3 data; weights seeded as the flagship's)
-  through its entry points. K1 alone at IN32_EVAL_ATTN, IN32_TRAIN_ATTN
-  (both timed beside SDPA's forward), the sampler's and an encoder chunk's
-  shapes, K2 and K3 at IN32_TRAIN_ATTN (timed beside SDPA's backward);
+  """MuLAN-epsilon at ImageNet32's width and depth (`imagenet32`: a 256-channel
+  score UNet with one head, so K1-K3 at head_dim 256, K1 on the 'simt'
+  route and K2 and K3 on the 'sm90' one; synthetic 32x32x3 data; weights
+  seeded as the flagship's) through its entry points. K1 alone at
+  IN32_EVAL_ATTN, IN32_TRAIN_ATTN (both timed beside SDPA's forward), the
+  sampler's and an encoder chunk's shapes, K2 and K3 at IN32_TRAIN_ATTN
+  (timed beside SDPA's backward and their 'simt' entry points);
   `eval_bpd_sparse` over IN32_EVAL_BATCHES batches of 512 and one batch's
-  ELBO kernels against plain; the ancestral sampler; IN32_TRAIN_STEPS steps
-  of `Experiment.train` at batch 128 and one step kernels against plain
-  (the gates of phase 7, planted K2 and K3 faults rejected); and, on a
-  checkpoint of the trained state exported as `ckpt-N.flax`, `eval_bpd
-  --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every K1-K3
-  launch must take the 'simt' route. Last, K8 and its backward alone at
-  the 256-wide UNet's channel counts (IN32_GN_CASES; not on this path,
-  whose config leaves `fused_gn_swish` off). Returns ({path: launches},
-  {K1 shape / 'dkv' / 'dq' / 'gn_swish' / 'gn_swish_bwd': results}, the
-  Experiment)."""
+  ELBO kernels against plain; the ancestral sampler; IN32_TRAIN_STEPS
+  steps of `Experiment.train` at batch 128 and one step kernels against
+  plain (the gates of phase 7, planted K2 and K3 faults rejected); and, on
+  a checkpoint of the trained state exported as `ckpt-N.flax`, `eval_bpd
+  --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every K1 launch
+  must take the 'simt' route and every K2 and K3 launch the 'sm90' one
+  (IN32_ROUTES), the kernels- vs-plain step's and its planted faults'
+  included. Last, K8 and its backward alone at the 256-wide UNet's channel
+  counts (IN32_GN_CASES; not on this path, whose config leaves
+  `fused_gn_swish` off). Returns ({path: launches}, {K1 shape / 'dkv' /
+  'dq' / 'gn_swish' / 'gn_swish_bwd': results}, the Experiment)."""
   from mulan_tpu_torch import compat, configs, data, params
   from mulan_tpu_torch.evals import harness, vlb
   from mulan_tpu_torch.models import build_model, latents
@@ -2275,7 +2352,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   from mulan_tpu_torch.train.loop import Experiment
 
   def count(fn):
-    return counted(fn, route_totals, IN32_ROUTE)
+    return counted(fn, route_totals, IN32_ROUTES)
 
   # The kernels alone at the path's shapes.
   kernels = {}
@@ -2285,9 +2362,11 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
     kernels['x'.join(map(str, shape))] = r = attention_case(
         dev, gen, shape, torch.bfloat16, ATTN_TOL_BF16, timed_case,
         IN32_TIMED_CALLS)
-    assert r['route'] == IN32_ROUTE, r
+    assert r['route'] == IN32_ROUTES['flash_attention'], r
   kernels['dkv'], kernels['dq'] = attention_bwd_case(
-      dev, gen, IN32_TRAIN_ATTN, torch.bfloat16, True, IN32_TIMED_CALLS)
+      dev, gen, IN32_TRAIN_ATTN, torch.bfloat16, True, simt_n=IN32_TIMED_CALLS)
+  assert kernels['dkv']['route'] == IN32_ROUTES['flash_attention_bwd_dkv']
+  assert kernels['dq']['route'] == IN32_ROUTES['flash_attention_bwd_dq']
   torch.cuda.empty_cache()
 
   train_cfg = configs.replace(
@@ -2387,10 +2466,15 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
       topk_noise=latents.gamma_variates(cfg.latent_k, (n, cfg.latent_size),
                                         generator=gen, device=dev),
       dropout_seed=1234)
-  compare_train_step(ex, model, lambda **kw: build_model(
-      'mulan_epsilon', dataclasses.replace(cfg, use_kernels=False, **kw),
-      device=dev, state=state), {'images': step_batch}, step_noise,
-                     tag='in32_train', with_f32=False)
+  # Counted: every K2 and K3 launch of the kernels' step, of the blocks
+  # alone and of the planted-fault steps must take 'sm90', every K1 'simt'.
+  _, paths['in32_train_vs_plain'] = count(lambda: compare_train_step(
+      ex, model, lambda **kw: build_model(
+          'mulan_epsilon', dataclasses.replace(cfg, use_kernels=False, **kw),
+          device=dev, state=state), {'images': step_batch}, step_noise,
+      tag='in32_train', with_f32=False))
+  assert all(paths['in32_train_vs_plain'][k] > 0 for k in SM90_KERNELS), (
+      paths['in32_train_vs_plain'])
   del model, step_batch, step_noise, eps
   torch.cuda.empty_cache()
 
@@ -2404,7 +2488,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
     log('in32_checkpoint', step=ex.state.step, save_s=save_s,
         export_s=export_s, flax_bytes=os.path.getsize(flax_path))
     paths['in32_ode_nll_cli'] = run_ode_nll_cli(
-        cfg, flax_path, route_totals, 'imagenet32', IN32_ROUTE,
+        cfg, flax_path, route_totals, 'imagenet32', IN32_ROUTES,
         phase='in32_ode_nll')
   torch.cuda.empty_cache()
   kernels['gn_swish'] = check_gn_swish(dev, gen, sfu_rate, IN32_GN_CASES)
@@ -2709,9 +2793,10 @@ def main() -> None:
   k5_tmp.cleanup()
   torch.cuda.empty_cache()
 
-  # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 on the
-  # 'simt' route, alone and through evaluation, sampling, training and the
-  # ODE likelihood's command line. Its launches by route are kept apart.
+  # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 (K1 on the
+  # 'simt' route, K2 and K3 on the 'sm90' one), alone and through evaluation,
+  # sampling, training and the ODE likelihood's command line. Its launches by
+  # route are kept apart.
   in32_routes = {}
   in32_paths, in32_kernels, ex_in32 = run_imagenet32(dev, gen, sfu_rate,
                                                      in32_routes)
@@ -2782,7 +2867,8 @@ def main() -> None:
   extras = ('back_to_back_ms', 'host_ms', 'library_back_to_back_ms',
             'c_call_ms', 'c_call_back_to_back_ms', 'online_kernel_ms',
             'online_kernel_back_to_back_ms',
-            'with_dkv', 'window_bins_per_pixel', 'bound_full_vocab_ms',
+            'with_dkv', 'simt_ms', 'simt_back_to_back_ms', 'simt_rel_err',
+            'window_bins_per_pixel', 'bound_full_vocab_ms',
             'unfused_pair_ms', 'unfused_pair_bwd_ms')
   kernels = []
   for name, (source, replaces) in sources.items():
@@ -2830,8 +2916,8 @@ def main() -> None:
     by_name['gn_swish_bwd'][f'at_{c}'] = {k: r[k] for k in (
         'ms', 'back_to_back_ms', 'host_ms', 'plain_ms',
         'unfused_pair_bwd_ms', 'bound_ms', 'max_abs_err')}
-  # K1-K3 at head_dim 256 (phase 14): their launches on its paths, all on
-  # the 'simt' route, and the kernels alone at its shapes.
+  # K1-K3 at head_dim 256 (phase 14): their launches on its paths, each on
+  # its route in IN32_ROUTES, and the kernels alone at its shapes.
   in32_results = {'flash_attention': in32_kernels['x'.join(
       map(str, IN32_EVAL_ATTN))], 'flash_attention_bwd_dkv':
                   in32_kernels['dkv'], 'flash_attention_bwd_dq':
@@ -2848,7 +2934,7 @@ def main() -> None:
                           else IN32_TRAIN_ATTN),
                attention_route=r['route'], **{k: r[k] for k in keys},
                **{k: r[k] for k in extras if k in r})
-    assert row['launches'] > 0 and in32_routes[name][IN32_ROUTE] == (
+    assert row['launches'] > 0 and in32_routes[name][IN32_ROUTES[name]] == (
         row['launches']), row
     kernels.append(row)
   kernels[-3]['at_train_shape'] = {k: in32_kernels['x'.join(

@@ -21,8 +21,9 @@
 // D=128, bf16) K2 does four T x T x D products a head (137 GFLOP, 0.14 ms at
 // 989 TFLOP/s) and K3 three (103 GFLOP) against ~170 MB of inputs and
 // outputs, so both are bound by arithmetic, and the (T, T) matrices never
-// leave the chip. One C entry point per route; ops/flash_attention.py picks
-// it from (dtype, D):
+// leave the chip; at imagenet32's (128, 1, 1024, 256) twice that (0.28 and
+// 0.21 ms). One C entry point per route; ops/flash_attention.py picks
+// it from (dtype, D) for each kernel:
 // * K2, bf16 with D <= 128 (mulan_flash_attention_bwd_dkv_sm90, the flagship
 //   path): flash_bwd_dkv_sm90, warp-specialised and persistent (one block
 //   per SM walking 128-key tiles). A block has one producer warpgroup,
@@ -64,11 +65,18 @@
 //   time (mulan_tpu_torch/ops/ablations/k3_dq.json). dQ is scaled by
 //   `scale` once at the end; keys past T get P = 0, and only rows < T and
 //   columns < D are stored.
-// * float32, and bf16 with D > 128 (mulan_flash_attention_bwd_{dkv,dq}_simt):
-//   the arithmetic runs on the CUDA cores in float32 (67 TFLOP/s peak):
-//   every thread keeps an R x R tile of scores and an R x (DMAX/16) tile of
-//   each accumulator in registers, so each shared-memory load feeds several
-//   FMAs. Tiles are 64 rows for D <= 128 and 32 rows for D <= 256 (the
+// * K2 and K3, bf16 with 128 < D <= 256 (the same entry points, imagenet32's
+//   head_dim 256): flash_bwd_dkv_sm90_d256 and flash_bwd_dq_sm90_d256,
+//   redesigned for the register and shared-memory budget of that width (see
+//   "The sm90 routes at 128 < D <= 256" below): K2 splits D between its two
+//   consumer warpgroups and exchanges P^T and dS^T through shared memory;
+//   K3 runs 32-key K/V tiles with dQ += dS K as one m64n256k16 a step.
+// * float32 (mulan_flash_attention_bwd_{dkv,dq}_simt; bf16 too, with
+//   is_bf16, which the 'sm90' route replaced at every D <= 256 but which
+//   stays callable for timing against it): the arithmetic runs on the CUDA
+//   cores in float32 (67 TFLOP/s peak): every thread keeps an R x R tile of
+//   scores and an R x (DMAX/16) tile of each accumulator in registers, so
+//   each shared-memory load feeds several FMAs. Tiles are 64 rows for D <= 128 and 32 rows for D <= 256 (the
 //   float32 staging must fit in 227 KB of shared memory).
 // Rows and keys past T are masked, so any T works.
 
@@ -403,7 +411,7 @@ int run_simt(const Args& a, int is_bf16, bool dkv) {
 }
 
 // ---------------------------------------------------------------------------
-// sm90 routes (K2 and K3): bf16, D <= 128.
+// sm90 routes (K2 and K3): bf16, D <= 128 (at D <= 256 see below).
 
 constexpr int kWgThreads = 128;
 constexpr int kSm90Threads = 3 * kWgThreads;  // producer + 2 consumers
@@ -414,9 +422,9 @@ constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The shapes both take: bf16 with d % 8 == 0 (16-byte rows, as TMA needs)
-// and d <= 128, in at most INT_MAX items of `rows` rows of one head.
+// and d <= 256, in at most INT_MAX items of `rows` rows of one head.
 bool sm90_shape_ok(const Args& a, int rows) {
-  return a.bh > 0 && a.seq > 0 && a.d > 0 && a.d <= 128 && a.d % 8 == 0 &&
+  return a.bh > 0 && a.seq > 0 && a.d > 0 && a.d <= 256 && a.d % 8 == 0 &&
          (long long)((a.seq + rows - 1) / rows) * a.bh <= INT_MAX;
 }
 
@@ -711,16 +719,14 @@ struct DqLayout {
   static constexpr int kSmem = kBars + 8 * (2 + 2 * kDqStages) + 1024;
 };
 
-// S = Q K^T and dP = dO V^T (64 queries x kDqKeys keys each) for the
-// consumer whose rows start at byte `row` of each Q and dO box: SS form,
-// all K-major, straight from the tiles.
-template <int DPAD>
-__device__ __forceinline__ void issue_s_dp(float (&s)[kDqKeys / 2],
-                                           float (&dp)[kDqKeys / 2],
+// S = Q K^T and dP = dO V^T (64 queries x the tile's 2 N keys each) for the
+// consumer whose rows start at byte `row` of each Q and dO box of layout L:
+// SS form, all K-major, straight from the tiles.
+template <int DPAD, typename L = DqLayout<DPAD>, int N>
+__device__ __forceinline__ void issue_s_dp(float (&s)[N], float (&dp)[N],
                                            uint32_t q_tile, uint32_t do_tile,
                                            int row, uint32_t k_tile,
                                            uint32_t v_tile) {
-  using L = DqLayout<DPAD>;
 #pragma unroll
   for (int ks = 0; ks < DPAD / 16; ++ks)
     sm90::wgmma_ss<0>(s, sm90::desc_k_major(q_tile, L::kQBox, row, ks),
@@ -734,28 +740,27 @@ __device__ __forceinline__ void issue_s_dp(float (&s)[kDqKeys / 2],
 // dQ += dS K: dS's bf16 A fragments, K the MN-major B operand (its rows,
 // the keys, are the k dimension) read with the transpose bit from the same
 // tile S read K-major.
-template <int DPAD>
+template <int DPAD, typename L = DqLayout<DPAD>, int KS>
 __device__ __forceinline__ void issue_dq(float (&acc)[DPAD / 2],
-                                         const uint32_t (&sa)[kDqKeys / 16][4],
+                                         const uint32_t (&sa)[KS][4],
                                          uint32_t k_tile) {
 #pragma unroll
-  for (int ks = 0; ks < kDqKeys / 16; ++ks)
-    sm90::wgmma_rs<1>(acc, sa[ks],
-                      sm90::desc_mn_major(k_tile, DqLayout<DPAD>::kKVBox, ks),
+  for (int ks = 0; ks < KS; ++ks)
+    sm90::wgmma_rs<1>(acc, sa[ks], sm90::desc_mn_major(k_tile, L::kKVBox, ks),
                       1);
 }
 
 // dS = P (dP - di), P = exp2(S scale log2 e - lse log2 e), in place of S,
 // for keys from key0 (P = 0 past seq); rows g and g + 8 of the warp's 16
 // (suffixes 0 and 1), lse in log2 units.
-__device__ __forceinline__ void compute_ds(float (&s)[kDqKeys / 2],
-                                           const float (&dp)[kDqKeys / 2],
+template <int N>
+__device__ __forceinline__ void compute_ds(float (&s)[N], const float (&dp)[N],
                                            int key0, int seq, int t4,
                                            float scale_log2, float lse0,
                                            float lse1, float di0, float di1) {
-  const bool ragged = key0 + kDqKeys > seq;
+  const bool ragged = key0 + 2 * N > seq;
 #pragma unroll
-  for (int j = 0; j < kDqKeys / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool hi = e >= 2;
@@ -769,10 +774,11 @@ __device__ __forceinline__ void compute_ds(float (&s)[kDqKeys / 2],
 // Chunks 2 ks and 2 ks + 1 of dS's accumulator layout are, packed to bf16
 // pairs (the rounding point of the Pallas kernel), the A fragment of keys
 // [16 ks, 16 ks + 16).
-__device__ __forceinline__ void pack_ds(uint32_t (&sa)[kDqKeys / 16][4],
-                                        const float (&s)[kDqKeys / 2]) {
+template <int N>
+__device__ __forceinline__ void pack_ds(uint32_t (&sa)[N / 8][4],
+                                        const float (&s)[N]) {
 #pragma unroll
-  for (int ks = 0; ks < kDqKeys / 16; ++ks)
+  for (int ks = 0; ks < N / 8; ++ks)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       sa[ks][r] = sm90::pack_bf16(s[8 * ks + 2 * r], s[8 * ks + 2 * r + 1]);
@@ -970,18 +976,502 @@ int launch_dq_sm90(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The sm90 routes at 128 < D <= 256 (imagenet32's head_dim 256), K2 and K3.
+// At DPAD = 256 the kernels above do not fit: K2's dK and dV of 64 keys
+// take 256 registers a thread in one warpgroup (setmaxnreg gives 240), and
+// K + V for 128 keys with its Q/dO ring take 256 KB of shared memory (227
+// KB a block); K3's dQ takes 128 registers, leaving too few for S and dP of
+// a 128-key tile, and its K/V ring alone would take 256 KB.
+
+// Encodes the four tensor maps (q, k, v, dout; `rows` a box each), gives
+// `kernel` its shared memory and launches min(n_items, SMs) persistent
+// blocks of `threads`.
+template <typename Kernel, typename... Outs>
+int launch_persistent(Kernel kernel, int smem, int threads,
+                      const int (&rows)[4], int n_items, const Args& a,
+                      Outs... outs) {
+  CUtensorMap maps[4];
+  const void* srcs[4] = {a.q, a.k, a.v, a.dout};
+  for (int i = 0; i < 4; ++i) {
+    const int err = sm90::make_map(&maps[i], srcs[i], a.bh, a.seq, a.d,
+                                   rows[i]);
+    if (err != 0) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  err = sm90::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_items < sms ? n_items : sms, threads, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.di, outs..., n_items,
+      a.seq, a.d, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// K2 at D <= 256 (flash_bwd_dkv_sm90_d256): a block owns 64 keys, and its
+// two consumer warpgroups
+// split the work by columns of D. Warpgroup w accumulates columns
+// [128 w, 128 w + 128) of dK and dV (64 + 64 registers). Per streamed
+// 64-query tile it computes S^T and dP^T of all 64 keys against its 32
+// queries [32 w, 32 w + 32) (wgmma m64n32k16 over the whole D, SS form),
+// turns them into P^T and dS^T and stores both, rounded to bf16 (where the
+// Pallas kernel casts them to the input type), into 128B-swizzled 64 x 64
+// tiles in shared memory. After a named barrier of both warpgroups, each
+// reads the whole tiles as the A operand of dV += P^T dO and dK += dS^T Q
+// over its columns (wgmma m64n128k16, SS form; dO and Q MN-major). So the
+// four products of a tile are each done once, split evenly between the
+// warpgroups. The P^T / dS^T tiles are double-buffered: a warpgroup
+// overwrites a buffer only after the next tile's barrier, which the other
+// passes only once its products that read the buffer are complete. Each
+// warpgroup computing the whole 64 x 64 S^T and dP^T itself (six products
+// a tile, P^T and dS^T as RS-form fragments, no exchange) is 6% slower
+// (ops/ablations/k2_dkv_d256.json).
+constexpr int kDkv256Keys = 64;   // keys a block: both consumers
+constexpr int kDkv256Rows = 64;   // queries a streamed Q / dO tile
+constexpr int kDkv256Stages = 2;  // Q / dO tiles in flight
+
+struct Dkv256Layout {
+  static constexpr int kBoxes = 4;
+  static constexpr int kKVBox = kDkv256Keys * 128;
+  static constexpr int kRowBox = kDkv256Rows * 128;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  static constexpr int kRowBytes = kBoxes * kRowBox;
+  static constexpr int kPBox = kDkv256Keys * 128;  // a 64 x 64 bf16 tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;                      // Q ring
+  static constexpr int kDO = kQ + kDkv256Stages * kRowBytes;   // dO ring
+  // [buffer][P^T | dS^T], two 64 x 64 bf16 tiles each
+  static constexpr int kP = kDO + kDkv256Stages * kRowBytes;
+  // [stage][lse (log2 units) 64 | di 64] float32
+  static constexpr int kStats = kP + 2 * 2 * kPBox;
+  static constexpr int kBars = kStats + kDkv256Stages * 2 * kDkv256Rows * 4;
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kDkv256Stages) + 1024;
+};
+static_assert(Dkv256Layout::kSmem <= 232448, "K2 at D <= 256: 227 KB");
+
+// Persistent as the K2 kernel above: items are 64-key tiles, head-major.
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dkv_sm90_d256(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int n_items, int seq, int d,
+                        float scale) {
+  using L = Dkv256Layout;
+  extern __shared__ uint8_t smem_tiles[];
+  uint8_t* smem = sm90::align_1024(smem_tiles);
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_empty = kv_full + 1;        // both consumers done with K, V
+  uint64_t* full = kv_empty + 1;           // [stage]: Q, dO, lse, di landed
+  uint64_t* empty = full + kDkv256Stages;  // [stage]: both consumers done
+  const int n_ktiles = (seq + kDkv256Keys - 1) / kDkv256Keys;
+  const int n_tiles = (seq + kDkv256Rows - 1) / kDkv256Rows;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(kv_empty, kConsumerWarps);
+    for (int s = 0; s < kDkv256Stages; ++s) {
+      sm90::mbar_init(&full[s], 33);  // expect_tx, then the 32 lanes' stats
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / kWgThreads;  // warpgroup
+  if (role == 0) {
+    // Producer: as the K2 kernel's above.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int n = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int head = item / n_ktiles;
+        const int k0 = item % n_ktiles * kDkv256Keys;
+        if (lane == 0) {
+          sm90::mbar_wait(kv_empty, (it & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kKVBytes);
+          for (int b = 0; b < L::kBoxes; ++b) {
+            sm90::tma_load(smem + L::kK + b * L::kKVBox, &k_map, kv_full,
+                           64 * b, k0, head);
+            sm90::tma_load(smem + L::kV + b * L::kKVBox, &v_map, kv_full,
+                           64 * b, k0, head);
+          }
+        }
+        const size_t rows = (size_t)head * seq;
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % kDkv256Stages;
+          float l_in[2], d_in[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int qi = i * kDkv256Rows + lane + 32 * h;
+            l_in[h] = qi < seq ? lse[rows + qi] * kLog2e : 0.0f;
+            d_in[h] = qi < seq ? di[rows + qi] : 0.0f;
+          }
+          sm90::mbar_wait(&empty[s], ((n / kDkv256Stages) & 1) ^ 1);
+          if (lane == 0) {
+            sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kRowBytes);
+            uint8_t* qt = smem + L::kQ + s * L::kRowBytes;
+            uint8_t* dot = smem + L::kDO + s * L::kRowBytes;
+            for (int b = 0; b < L::kBoxes; ++b) {
+              sm90::tma_load(qt + b * L::kRowBox, &q_map, &full[s], 64 * b,
+                             i * kDkv256Rows, head);
+              sm90::tma_load(dot + b * L::kRowBox, &do_map, &full[s],
+                             64 * b, i * kDkv256Rows, head);
+            }
+          }
+          float* st = stats + s * 2 * kDkv256Rows;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            st[lane + 32 * h] = l_in[h];
+            st[kDkv256Rows + lane + 32 * h] = d_in[h];
+          }
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: columns [128 wg, 128 wg + 128) of dK and dV,
+    // queries [32 wg, 32 wg + 32) of each tile's S^T and dP^T.
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = role - 1;
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t k_tile = sm90::smem_u32(smem + L::kK);
+    const uint32_t v_tile = sm90::smem_u32(smem + L::kV);
+    const int half = 2 * wg * L::kRowBox;  // this warpgroup's columns
+    const float scale_log2 = scale * kLog2e;
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+
+    int n = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int head = item / n_ktiles;
+      const int k0 = item % n_ktiles * kDkv256Keys;
+      float acc_k[64], acc_v[64];  // 64 keys x 128 columns each
+#pragma unroll
+      for (int r = 0; r < 64; ++r) acc_k[r] = acc_v[r] = 0.0f;
+
+      sm90::mbar_wait(kv_full, it & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = (n + i) % kDkv256Stages;
+        sm90::mbar_wait(&full[s], ((n + i) / kDkv256Stages) & 1);
+        const uint32_t q_tile =
+            sm90::smem_u32(smem + L::kQ + s * L::kRowBytes);
+        const uint32_t do_tile =
+            sm90::smem_u32(smem + L::kDO + s * L::kRowBytes);
+
+        // S^T and dP^T, 64 keys x this warpgroup's 32 queries.
+        float st[16], dpt[16];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 16; ++ks)
+          sm90::wgmma_ss<0>(
+              st, sm90::desc_k_major(k_tile, L::kKVBox, 0, ks),
+              sm90::desc_k_major(q_tile, L::kRowBox, wg * 32 * 128, ks),
+              ks > 0);
+#pragma unroll
+        for (int ks = 0; ks < 16; ++ks)
+          sm90::wgmma_ss<0>(
+              dpt, sm90::desc_k_major(v_tile, L::kKVBox, 0, ks),
+              sm90::desc_k_major(do_tile, L::kRowBox, wg * 32 * 128, ks),
+              ks > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        if (i == n_tiles - 1) release(kv_empty);
+
+        // P^T and dS^T in bf16 pairs: key rows 16 warp + g + 8 h, query
+        // columns 32 wg + 8 j + 2 t4 (+ 1), i.e. 16-byte chunk 4 wg + j of
+        // a 128-byte row, stored at its swizzled place (chunk ^ row % 8).
+        const float* lse_s = stats + s * 2 * kDkv256Rows;
+        const float* di_s = lse_s + kDkv256Rows;
+        const bool ragged = (i + 1) * kDkv256Rows > seq;
+        uint8_t* pt = smem + L::kP + ((n + i) & 1) * 2 * L::kPBox;
+        uint8_t* dst = pt + L::kPBox;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float p[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int qi = 32 * wg + 8 * j + 2 * t4 + e;
+              p[e] = exp2f(st[4 * j + 2 * h + e] * scale_log2 - lse_s[qi]);
+              if (ragged && i * kDkv256Rows + qi >= seq) p[e] = 0.0f;
+              ds[e] = p[e] * (dpt[4 * j + 2 * h + e] - di_s[qi]);
+            }
+            const int r = 16 * warp + g + 8 * h;
+            const int off = 128 * r + 16 * ((4 * wg + j) ^ (r & 7)) + 4 * t4;
+            *reinterpret_cast<uint32_t*>(pt + off) =
+                sm90::pack_bf16(p[0], p[1]);
+            *reinterpret_cast<uint32_t*>(dst + off) =
+                sm90::pack_bf16(ds[0], ds[1]);
+          }
+        }
+        sm90::fence_proxy_async();
+        sm90::bar_sync(1, 2 * kWgThreads);
+
+        // dV += P^T dO and dK += dS^T Q over this warpgroup's columns.
+        const uint32_t pt_tile = sm90::smem_u32(pt);
+        const uint32_t dst_tile = sm90::smem_u32(dst);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::wgmma_ss<1>(
+              acc_v, sm90::desc_k_major(pt_tile, L::kPBox, 0, ks),
+              sm90::desc_mn_major(do_tile + half, L::kRowBox, ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          sm90::wgmma_ss<1>(
+              acc_k, sm90::desc_k_major(dst_tile, L::kPBox, 0, ks),
+              sm90::desc_mn_major(q_tile + half, L::kRowBox, ks), 1);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc_v);
+        sm90::fence_regs(acc_k);
+        release(&empty[s]);
+      }
+      n += n_tiles;
+
+      const int row0 = k0 + warp * 16 + g, row1 = row0 + 8;
+      const size_t base = (size_t)head * seq * d;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * wg + 8 * j + 2 * t4;
+        if (col >= d) continue;
+        if (row0 < seq) {
+          const size_t o = base + (size_t)row0 * d + col;
+          *reinterpret_cast<uint32_t*>(dk + o) = sm90::pack_bf16(
+              acc_k[4 * j] * scale, acc_k[4 * j + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + o) =
+              sm90::pack_bf16(acc_v[4 * j], acc_v[4 * j + 1]);
+        }
+        if (row1 < seq) {
+          const size_t o = base + (size_t)row1 * d + col;
+          *reinterpret_cast<uint32_t*>(dk + o) = sm90::pack_bf16(
+              acc_k[4 * j + 2] * scale, acc_k[4 * j + 3] * scale);
+          *reinterpret_cast<uint32_t*>(dv + o) =
+              sm90::pack_bf16(acc_v[4 * j + 2], acc_v[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+int launch_dkv_sm90_d256(const Args& a) {
+  const int rows[4] = {kDkv256Rows, kDkv256Keys, kDkv256Keys, kDkv256Rows};
+  return launch_persistent(flash_bwd_dkv_sm90_d256, Dkv256Layout::kSmem,
+                           kSm90Threads, rows,
+                           (a.seq + kDkv256Keys - 1) / kDkv256Keys * a.bh, a,
+                           (bf16*)a.dk, (bf16*)a.dv);
+}
+
+// K3 at D <= 256: the K3 kernel above (two consumer warpgroups of 64
+// queries each) with 32-key K/V tiles and without its ping-pong. dQ takes
+// 128 registers a thread; S and dP of a 32-key tile take 16 each (wgmma
+// m64n32k16) and dS's bf16 fragments 8, and dQ += dS K is one wgmma
+// m64n256k16 a 16-key step (RS form). Shared memory: Q and dO of 128
+// queries (128 KB) and two stages of K/V (64 KB). Against the other
+// candidates at (128, 1, 1024, 256) (ops/ablations/k3_dq_d256.json): the
+// ping-pong of the kernel above costs 9% here (a turn handed over every
+// 32 keys); one consumer of 64 queries with 64-key tiles takes the same
+// time but streams each head's K and V from L2 twice as often; S and dP
+// double-buffered in registers, to overlap one tile's dS with the next
+// tile's products, spill (124 bytes) and serialise wgmma (C7514).
+constexpr int kDq256Consumers = 2;  // consumer warpgroups, 64 queries each
+constexpr int kDq256Keys = 32;      // keys a streamed K / V tile
+constexpr int kDq256Stages = 2;     // K / V tiles in flight
+constexpr int kDq256Rows = 64 * kDq256Consumers;  // queries an item
+constexpr int kDq256Threads = (1 + kDq256Consumers) * kWgThreads;
+
+struct Dq256Layout {
+  static constexpr int kBoxes = 4;
+  static constexpr int kQBox = kDq256Rows * 128;
+  static constexpr int kKVBox = kDq256Keys * 128;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;                     // K ring
+  static constexpr int kV = kK + kDq256Stages * kKVBytes;    // V ring
+  static constexpr int kBars = kV + kDq256Stages * kKVBytes;  // mbarriers
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kDq256Stages) + 1024;
+};
+static_assert(Dq256Layout::kSmem <= 232448, "K3 at D <= 256: 227 KB");
+
+// Persistent as the K3 kernel above: items are kDq256Rows-query tiles,
+// head-major; the consumers take their key tiles independently. (Bounds of
+// 384 threads keep ptxas's launch budget at or below the consumers'
+// setmaxnreg for either number of consumers.)
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dq_sm90_d256(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, bf16* __restrict__ dq,
+                       int n_items, int seq, int d, float scale) {
+  using L = Dq256Layout;
+  constexpr int kWarps = 4 * kDq256Consumers;
+  extern __shared__ uint8_t smem_tiles[];
+  uint8_t* smem = sm90::align_1024(smem_tiles);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;         // all consumers done with Q, dO
+  uint64_t* full = q_empty + 1;           // [stage]: K and V tiles landed
+  uint64_t* empty = full + kDq256Stages;  // [stage]: all consumers done
+  const int n_qtiles = (seq + kDq256Rows - 1) / kDq256Rows;
+  const int n_tiles = (seq + kDq256Keys - 1) / kDq256Keys;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, kWarps);
+    for (int s = 0; s < kDq256Stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = threadIdx.x / kWgThreads;  // warpgroup
+  if (role == 0) {
+    // Producer: as the K3 kernel's above.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int n = 0, it = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+        const int head = item / n_qtiles;
+        const int q0 = item % n_qtiles * kDq256Rows;
+        sm90::mbar_wait(q_empty, (it & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
+        for (int b = 0; b < L::kBoxes; ++b) {
+          sm90::tma_load(smem + L::kQ + b * L::kQBox, &q_map, q_full, 64 * b,
+                         q0, head);
+          sm90::tma_load(smem + L::kDO + b * L::kQBox, &do_map, q_full,
+                         64 * b, q0, head);
+        }
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int s = n % kDq256Stages;
+          sm90::mbar_wait(&empty[s], ((n / kDq256Stages) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKVBytes);
+          for (int b = 0; b < L::kBoxes; ++b) {
+            sm90::tma_load(smem + L::kK + s * L::kKVBytes + b * L::kKVBox,
+                           &k_map, &full[s], 64 * b, i * kDq256Keys, head);
+            sm90::tma_load(smem + L::kV + s * L::kKVBytes + b * L::kKVBox,
+                           &v_map, &full[s], 64 * b, i * kDq256Keys, head);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: queries q0 + 64 wg + [0, 64) of each item.
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int wg = role - 1;
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const uint32_t q_tile = sm90::smem_u32(smem + L::kQ);
+    const uint32_t do_tile = sm90::smem_u32(smem + L::kDO);
+    const int row = wg * 64 * 128;  // this warpgroup's rows in a Q/dO box
+    const float scale_log2 = scale * kLog2e;
+    auto k_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kK + s * L::kKVBytes);
+    };
+    auto v_tile = [&](int s) {
+      return sm90::smem_u32(smem + L::kV + s * L::kKVBytes);
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(bar);
+    };
+
+    int n = 0, it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++it) {
+      const int head = item / n_qtiles;
+      const int q0 = item % n_qtiles * kDq256Rows;
+      const int row0 = q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+      const size_t rows = (size_t)head * seq;
+      const float lse0 = row0 < seq ? lse[rows + row0] * kLog2e : 0.0f;
+      const float lse1 = row1 < seq ? lse[rows + row1] * kLog2e : 0.0f;
+      const float di0 = row0 < seq ? di[rows + row0] : 0.0f;
+      const float di1 = row1 < seq ? di[rows + row1] : 0.0f;
+      float acc[128];  // dQ / scale, 64 x 256
+#pragma unroll
+      for (int r = 0; r < 128; ++r) acc[r] = 0.0f;
+
+      sm90::mbar_wait(q_full, it & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = (n + i) % kDq256Stages;
+        float s[kDq256Keys / 2], dp[kDq256Keys / 2];  // S (then dS), dP
+        uint32_t sa[kDq256Keys / 16][4];  // dS in bf16, the A of dS K
+        sm90::mbar_wait(&full[st], ((n + i) / kDq256Stages) & 1);
+        sm90::wgmma_fence();
+        issue_s_dp<256, L>(s, dp, q_tile, do_tile, row, k_tile(st),
+                           v_tile(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        if (i == n_tiles - 1) release(q_empty);
+        compute_ds(s, dp, i * kDq256Keys, seq, t4, scale_log2, lse0, lse1,
+                   di0, di1);
+        pack_ds(sa, s);
+        sm90::wgmma_fence();
+        issue_dq<256, L>(acc, sa, k_tile(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        release(&empty[st]);
+      }
+      n += n_tiles;
+
+      const size_t base = (size_t)head * seq * d;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col >= d) continue;
+        if (row0 < seq)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)row0 * d + col) =
+              sm90::pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+        if (row1 < seq)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)row1 * d + col) =
+              sm90::pack_bf16(acc[4 * j + 2] * scale,
+                              acc[4 * j + 3] * scale);
+      }
+    }
+  }
+}
+
+int launch_dq_sm90_d256(const Args& a) {
+  const int rows[4] = {kDq256Rows, kDq256Keys, kDq256Keys, kDq256Rows};
+  return launch_persistent(flash_bwd_dq_sm90_d256, Dq256Layout::kSmem,
+                           kDq256Threads, rows,
+                           (a.seq + kDq256Rows - 1) / kDq256Rows * a.bh, a,
+                           (bf16*)a.dq);
+}
+
 }  // namespace
 
 // dK and dV (K2). q, k, v, dout, dk, dv: (bh, seq, d); lse and di:
 // (bh, seq) float32. The sm90 route takes bf16 with d % 8 == 0 and
-// d <= 128; the simt route float32 or bf16 with d <= 256.
+// d <= 256; the simt route float32 or bf16 with d <= 256.
 extern "C" int mulan_flash_attention_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* di, void* dk, void* dv, int bh, int seq,
     int d, float scale, void* stream) {
   const Args a{q, k, v, dout, (const float*)lse, (const float*)di, nullptr,
                dk, dv, bh, seq, d, scale, (cudaStream_t)stream};
-  if (!sm90_shape_ok(a, kBwdKeys)) return (int)cudaErrorInvalidValue;
+  if (!sm90_shape_ok(a, kDkv256Keys)) return (int)cudaErrorInvalidValue;
+  if (a.d > 128) return launch_dkv_sm90_d256(a);
   return a.d <= 64 ? launch_dkv_sm90<64>(a) : launch_dkv_sm90<128>(a);
 }
 
@@ -995,7 +1485,7 @@ extern "C" int mulan_flash_attention_bwd_dkv_simt(
 }
 
 // dQ (K3), the same arguments but dq for dk and dv. The sm90 route takes
-// bf16 with d % 8 == 0 and d <= 128; the simt route float32 or bf16 with
+// bf16 with d % 8 == 0 and d <= 256; the simt route float32 or bf16 with
 // d <= 256.
 extern "C" int mulan_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1003,7 +1493,8 @@ extern "C" int mulan_flash_attention_bwd_dq_sm90(
     float scale, void* stream) {
   const Args a{q, k, v, dout, (const float*)lse, (const float*)di, dq,
                nullptr, nullptr, bh, seq, d, scale, (cudaStream_t)stream};
-  if (!sm90_shape_ok(a, kDqRows)) return (int)cudaErrorInvalidValue;
+  if (!sm90_shape_ok(a, kDq256Rows)) return (int)cudaErrorInvalidValue;
+  if (a.d > 128) return launch_dq_sm90_d256(a);
   return a.d <= 64 ? launch_dq_sm90<64>(a) : launch_dq_sm90<128>(a);
 }
 

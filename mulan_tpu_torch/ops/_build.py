@@ -44,14 +44,14 @@ _SIGNATURES = {
     'mulan_flash_attention_fwd_simt': [_P, _P, _P, _P, _P, _I, _I, _I, _F,
                                        _I, _P],
     # (q, k, v, do, lse, di, dk, dv, batch*heads, tokens, head_dim,
-    #  sm_scale, stream); bf16, head_dim <= 128
+    #  sm_scale, stream); bf16, head_dim <= 256
     'mulan_flash_attention_bwd_dkv_sm90': [_P, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _F, _P],
     # the same, then is_bf16 before the stream
     'mulan_flash_attention_bwd_dkv_simt': [_P, _P, _P, _P, _P, _P, _P, _P,
                                            _I, _I, _I, _F, _I, _P],
     # (q, k, v, do, lse, di, dq, batch*heads, tokens, head_dim, sm_scale,
-    #  stream); bf16, head_dim <= 128
+    #  stream); bf16, head_dim <= 256
     'mulan_flash_attention_bwd_dq_sm90': [_P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _F, _P],
     # the same, then is_bf16 before the stream

@@ -12,18 +12,20 @@ names of `_build._SIGNATURES`: K1's `mulan_flash_attention_fwd_sm90`, K2's
 `mulan_dropout_mask_batch`, K8's `mulan_gn_swish` and `mulan_gn_swish_bwd`)
 and a dict of variants, each a list of [old, new] text substitutions
 applied to the sources (a variant whose `old` text is missing fails to
-build); "tree" with no substitution is the source
-as it is. Every variant is built into a library of its own (one `nvcc`
-each, all started together, with `-Xptxas -v`: spills and ptxas
-performance warnings are printed), then each entry point of each variant is
-timed at the flagship's shape in turns, three rounds: the attention
-kernels at (128, 1, 1024, 128) bf16, K6 at one (128, 128, 32, 32) bf16
-site, K7 at the score UNet's 67 such sites, K8 at its two bf16 sites
-(C = 128 and C = 256, 32 groups), K4 at (128, 32, 32, 3) with g0 per pixel
-uniform over [gamma_min, gamma_max] and with g0 = gamma_min (the cases of
-chip_smoke.py), K5 at the same shape with one g0 at gamma_min (the VDM's
-train step) and at gamma_max, g0 per example, and g0 = gamma_min per pixel
-(how the online K5's wrapper handed a broadcast g0 to it):
+build); "tree" with no substitution is the source as it is. An attention
+spec may name its own `shape` (B, H, T, D), e.g. the imagenet32 backward's
+(128, 1, 1024, 256) for the D <= 256 kernels. Every variant is built into a
+library of its own (one `nvcc` each, all started together, with
+`-Xptxas -v`: spills and ptxas performance warnings are printed), then each
+entry point of each variant is timed at the flagship's shape in turns,
+three rounds: the attention kernels at (128, 1, 1024, 128) bf16 (or the
+spec's `shape`), K6 at one (128, 128, 32, 32) bf16 site, K7 at the score
+UNet's 67 such sites, K8 at its two bf16 sites (C = 128 and C = 256, 32
+groups), K4 at (128, 32, 32, 3) with g0 per pixel uniform over [gamma_min,
+gamma_max] and with g0 = gamma_min (the cases of chip_smoke.py), K5 at the
+same shape with one g0 at gamma_min (the VDM's train step) and at
+gamma_max, g0 per example, and g0 = gamma_min per pixel (how the online
+K5's wrapper handed a broadcast g0 to it):
 
   * single: CUDA events around one launch, median of 20 (as chip_smoke.py
     times a kernel; the host's launch cost is inside when the card idles);
@@ -109,15 +111,16 @@ def load(path, entries):
   return lib
 
 
-def make_inputs(dev):
-  """The shared inputs of every entry point, from seed 0."""
+def make_inputs(dev, attn_shape=ATTN_SHAPE):
+  """The shared inputs of every entry point, from seed 0; the attention
+  kernels' at `attn_shape`."""
   gen = torch.Generator(device=dev).manual_seed(0)
 
   def randn(shape, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
-  q, k, v, do = (randn(ATTN_SHAPE, torch.bfloat16) for _ in range(4))
-  inputs = dict(attn=(q, k, v, do, randn(ATTN_SHAPE[:3]).abs() + 5,
-                      randn(ATTN_SHAPE[:3])))
+  q, k, v, do = (randn(attn_shape, torch.bfloat16) for _ in range(4))
+  inputs = dict(attn=(q, k, v, do, randn(attn_shape[:3]).abs() + 5,
+                      randn(attn_shape[:3])))
   for shape in GN_SHAPES:
     c = shape[1]
     inputs[f'gn_c{c}'] = ((2 * randn(shape) + 0.5).to(torch.bfloat16),
@@ -261,7 +264,8 @@ def main():
             flush=True)
       if path:
         libs[name] = load(path, entries)
-    inputs = make_inputs(torch.device('cuda', 0))
+    inputs = make_inputs(torch.device('cuda', 0),
+                         tuple(spec.get('shape', ATTN_SHAPE)))
     for entry in entries:
       runs = {(n, case): (launch, outs) for n, lib in libs.items()
               for case, launch, outs in launchers(lib, entry, inputs)}

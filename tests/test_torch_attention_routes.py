@@ -1,12 +1,13 @@
 """The attention kernels' routes, their C entry points, the build's cache
 key and the kernel ablation specs, on the CPU (no nvcc, no card).
 
-`attention_route(dtype, head_dim)` picks each wrapper's C entry point: the
-'sm90' route (TMA-fed, warp-specialised wgmma kernels for K1, K2 and K3)
-for bfloat16 with head_dim <= 128, the 'simt' route otherwise. The kernels
-themselves are held against the plain versions on the card by
-chip_smoke.py, which also asserts that every K1, K2 and K3 launch of the
-flagship paths took the 'sm90' route.
+`attention_route(dtype, head_dim, kernel)` picks each wrapper's C entry
+point: the 'sm90' route (TMA-fed, warp-specialised wgmma kernels) for
+bfloat16 with head_dim <= 128 for K1 and head_dim <= 256 for K2 and K3, the
+'simt' route otherwise. The kernels themselves are held against the plain
+versions on the card by chip_smoke.py, which also asserts that every K1, K2
+and K3 launch of the flagship paths took the 'sm90' route, and on
+imagenet32's (head_dim 256) K1 'simt', K2 and K3 'sm90'.
 """
 
 import json
@@ -25,19 +26,29 @@ WRAPPERS = (attn_ops.flash_attention, attn_ops.flash_attention_bwd_dkv,
             attn_ops.flash_attention_bwd_dq)
 
 
-@pytest.mark.parametrize('dtype, head_dim, route', [
-    (torch.bfloat16, 128, 'sm90'),  # the flagship's attention blocks
-    (torch.bfloat16, 64, 'sm90'),
-    (torch.bfloat16, 40, 'sm90'),   # padded to a 64-column box
-    (torch.bfloat16, 8, 'sm90'),
-    (torch.bfloat16, 136, 'simt'),
-    (torch.bfloat16, 256, 'simt'),  # imagenet32's 256 channels
-    (torch.float32, 128, 'simt'),
-    (torch.float32, 64, 'simt'),
+@pytest.mark.parametrize('kernel', attn_ops.KERNELS)
+@pytest.mark.parametrize('dtype, head_dim, routes', [
+    # (K1, K2, K3)
+    (torch.bfloat16, 128, ('sm90', 'sm90', 'sm90')),  # the flagship's
+    (torch.bfloat16, 64, ('sm90', 'sm90', 'sm90')),
+    (torch.bfloat16, 40, ('sm90', 'sm90', 'sm90')),  # a 64-column box
+    (torch.bfloat16, 8, ('sm90', 'sm90', 'sm90')),
+    (torch.bfloat16, 136, ('simt', 'sm90', 'sm90')),
+    (torch.bfloat16, 200, ('simt', 'sm90', 'sm90')),  # ragged in D
+    (torch.bfloat16, 256, ('simt', 'sm90', 'sm90')),  # imagenet32's
+    (torch.float32, 256, ('simt', 'simt', 'simt')),
+    (torch.float32, 128, ('simt', 'simt', 'simt')),
+    (torch.float32, 64, ('simt', 'simt', 'simt')),
 ])
-def test_route_table(dtype, head_dim, route):
-  assert attn_ops.attention_route(dtype, head_dim) == route
+def test_route_table(kernel, dtype, head_dim, routes):
+  route = routes[attn_ops.KERNELS.index(kernel)]
+  assert attn_ops.attention_route(dtype, head_dim, kernel) == route
   assert route in attn_ops.ROUTES
+
+
+def test_route_names_an_unknown_kernel():
+  with pytest.raises(KeyError):
+    attn_ops.attention_route(torch.bfloat16, 128, 'bwd')
 
 
 def test_every_wrapper_counts_by_route():
@@ -78,6 +89,7 @@ def test_tensor_core_kernels_are_the_sm90_ones():
                'mma.sync', 'mma_bf16', 'load_rows_t', 'kLdT'):
     assert gone not in text, gone
   for kernel in ('flash_fwd_sm90', 'flash_bwd_dkv_sm90', 'flash_bwd_dq_sm90',
+                 'flash_bwd_dkv_sm90_d256', 'flash_bwd_dq_sm90_d256',
                  'flash_fwd_simt', 'flash_bwd_dkv', 'flash_bwd_dq'):
     assert re.search(rf'\b{kernel}\s*\(', text), kernel
   assert '#include "sm90.cuh"' in (_build._CSRC /
@@ -92,8 +104,8 @@ _ABLATIONS = sorted((pathlib.Path(_build.__file__).parent / 'ablations')
 
 def test_every_kernel_redesign_has_an_ablation_spec():
   names = {p.name for p in _ABLATIONS}
-  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k4_decoder.json',
-          'k5_bwd.json',
+  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k2_dkv_d256.json',
+          'k3_dq_d256.json', 'k4_decoder.json', 'k5_bwd.json',
           'k6_mask.json', 'k8_gn.json'} <= names, names
 
 
@@ -117,6 +129,22 @@ def test_ablation_spec_matches_the_sources(spec_path):
       assert any(old in text for text in texts), (name, old[:60])
   if 'show' in spec:
     assert re.search(rf'\b{spec["show"]}\s*\(', source), spec['show']
+  if 'shape' in spec:  # (B, H, T, D) of the attention kernels' inputs
+    assert len(spec['shape']) == 4, spec['shape']
+    assert all(e.startswith('mulan_flash_attention') for e in
+               spec['entries']), spec['entries']
+
+
+def test_ablation_inputs_take_a_specs_shape():
+  """The D <= 256 specs time K2 and K3 at imagenet32's backward shape."""
+  from mulan_tpu_torch.ops import ablate
+  for name in ('k2_dkv_d256.json', 'k3_dq_d256.json'):
+    spec = json.loads((_ABLATIONS[0].parent / name).read_text())
+    assert spec['shape'] == [128, 1, 1024, 256], name
+  inputs = ablate.make_inputs(torch.device('cpu'), (2, 1, 16, 256))
+  q, k, v, do, lse, di = inputs['attn']
+  assert q.shape == do.shape == (2, 1, 16, 256) and q.dtype == torch.bfloat16
+  assert lse.shape == di.shape == (2, 1, 16)
 
 
 @pytest.fixture

@@ -42,11 +42,13 @@ def _blocks64():
       block_q_dkv=64, block_k_major_dq=64, block_k_dq=64, block_q_dq=64)
 
 
-@pytest.mark.parametrize('shape', [(2, 1, 128, 32), (1, 2, 64, 16)])
+@pytest.mark.parametrize('shape', [(2, 1, 128, 32), (1, 2, 64, 16),
+                                   (1, 1, 128, 256)])
 def test_flash_attention_backward_matches_jax(shape):
   """jax.vjp through the Pallas dK/dV and dQ kernels (interpret mode)
   against the port's autograd function (plain forward with its row
-  log-sum-exp, then `flash_attention_bwd_plain`)."""
+  log-sum-exp, then `flash_attention_bwd_plain`); head_dim 256 is
+  imagenet32's, where K2 and K3 take the 'sm90' route on the card."""
   q, k, v, do = (_rand(shape, i) for i in range(4))
   scale = shape[-1] ** -0.5
   out, vjp = jax.vjp(
