@@ -45,17 +45,16 @@ online-softmax K5 built from `ops/ablations/k5_bwd.json`; the sparse VLB,
 the ancestral sampler, and `eval_bpd --config=vdm_cifar10
 --bpd_eval_method=ode` on its exported `ckpt-N.flax`. Last, MuLAN-epsilon at
 ImageNet32's width (`imagenet32`: a 256-channel score UNet with one head, so
-the attention kernels run at head_dim 256: K1 on its 'simt' route, K2 and K3 on
-their 'sm90' one): K1, K2 and K3 alone at its shapes against their plain
-versions and beside SDPA (K2 and K3 also beside their 'simt' entry points); the
-sparse VLB at batch 512 (one batch kernels against plain); the ancestral
-sampler; a few steps of `Experiment.train` at batch 128 and one step held
-against its plain twin (planted K2 and K3 faults must fail its gates);
-`eval_bpd --config=imagenet32 --bpd_eval_method=ode` on its exported
-`ckpt-N.flax`; and K8 with its backward alone at the 256-wide UNet's channel
-counts. Every K1 launch there must take the 'simt' route and every K2 and K3
-launch the 'sm90' one, as every K1-K3 launch before it the 'sm90' route. Every
-check raises on failure.
+the attention kernels run at head_dim 256, all three on their 'sm90' route):
+K1, K2 and K3 alone at its shapes against their plain versions and beside
+SDPA and their 'simt' entry points; the sparse VLB at batch 512 (one batch
+kernels against plain); the ancestral sampler; a few steps of
+`Experiment.train` at batch 128 and one step held against its plain twin
+(planted K1, K2 and K3 faults must fail its gates); `eval_bpd
+--config=imagenet32 --bpd_eval_method=ode` on its exported `ckpt-N.flax`;
+and K8 with its backward alone at the 256-wide UNet's channel counts. Every
+K1-K3 launch there, as every one before it, must take the 'sm90' route.
+Every check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
 step (unfused, fused, with `with_attention`, the VDM's and ImageNet32's)
@@ -109,12 +108,11 @@ DENSE_ATTN = (DENSE_ROWS, 1, 1024, 128)
 DENSE_ENCODER_ATTN = (DENSE_ROWS // DENSE_T, 1, 1024, 128)
 WORKDIR_STEPS = 4
 WORKDIR_SAMPLER_ATTN = (64, 1, 1024, 128)
-# Kernels every one of whose launches on the flagship paths must take the
-# 'sm90' route (TMA-fed, warp-specialised wgmma kernels): the route each
-# counted run asserts, per kernel.
+# Kernels every one of whose launches on the paths must take the 'sm90'
+# route (TMA-fed, warp-specialised wgmma kernels): the route each counted
+# run asserts, per kernel.
 SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
                 'flash_attention_bwd_dq')
-SM90_ROUTES = dict.fromkeys(SM90_KERNELS, 'sm90')
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -140,6 +138,11 @@ PHILOX_MULS = 40
 # differs.
 ATTN_TOL_BF16 = 2e-2
 ATTN_TOL_F32 = 1e-5
+# bf16 K1 also as a fraction of max |o| of the plain version, as K2/K3 are
+# held (ATTN_BWD_TOL): at T = 1024 a typical |o| is ~0.04, so the absolute
+# limit alone would pass an error of half of it. Both round o to bf16, one
+# ulp of max |o| being 2^-8 to 2^-7 of it.
+ATTN_REL_TOL_BF16 = 2e-2
 # K1's row log-sum-exp, relative to max(1, |lse|): float32 both ways; the
 # tensor-core kernel keeps the running max in log2 units.
 LSE_RTOL = 1e-5
@@ -250,7 +253,7 @@ VDM_EVAL_BATCHES = 2
 DECODER_BWD_ALONE_MIN = 0.9999
 # MuLAN-epsilon at ImageNet32's width (phase 14): 256 channels and one head,
 # so every attention block runs at head_dim 256, where `attention_route`
-# sends K1 to the 'simt' route and K2 and K3 to the 'sm90' one in bf16. The
+# sends K1, K2 and K3 to their 'sm90' kernels for D <= 256 in bf16. The
 # evaluation runs the config's batch of 512; training runs 128 a step on one
 # card (512 is the global batch of a data-parallel run). K1 alone at the
 # evaluation's, the train step's, the sampler's and a dense-VLB encoder
@@ -264,11 +267,8 @@ IN32_EVAL_ATTN = (IN32_EVAL_BATCH, 1, 1024, 256)
 IN32_TRAIN_ATTN = (IN32_TRAIN_BATCH, 1, 1024, 256)
 IN32_SAMPLER_ATTN = (SAMPLE_BATCH, 1, 1024, 256)
 IN32_ENCODER_ATTN = (4, 1, 1024, 256)
-# The route each K1-K3 launch of phase 14 must take, and the calls a
-# timing of its K1-K3 takes the median of (K1 and the 'simt' K2/K3 run 9-35
-# ms a call).
-IN32_ROUTES = {'flash_attention': 'simt', 'flash_attention_bwd_dkv': 'sm90',
-               'flash_attention_bwd_dq': 'sm90'}
+# The calls a timing of phase 14's K1-K3 takes the median of (their 'simt'
+# entry points, timed beside them, run 9-35 ms a call).
 IN32_TIMED_CALLS = 6
 # The train step's remat mode: the config's.
 IN32_REMAT = 'none'
@@ -383,11 +383,25 @@ def rel_err(got, want) -> float:
           / want.abs().max().clamp_min(1e-30)).item()
 
 
-def attention_case(dev, gen, shape, dtype, tol, timed_case, n: int = 20):
-  """K1 at one shape against its plain version (the output and the row
-  log-sum-exp written under autograd, which must leave the output
-  unchanged); with `timed_case`, timed (median of n) beside the plain
-  version, SDPA and its bound. Logs and returns the result."""
+def k1_key_tile(head_dim: int) -> int:
+  """Keys a K/V tile of K1's 'sm90' kernel at this head_dim (kFwdKeys,
+  kFwd256Keys in csrc/flash_attention.cu)."""
+  return 128 if head_dim <= 128 else 80
+
+
+def attention_case(dev, gen, shape, dtype, tol, timed_case, n: int = 20,
+                   simt_n: int = 0):
+  """K1 at one shape against its plain version (the output, absolutely
+  and in bf16 also relative to max |o|, and the row log-sum-exp written
+  under autograd, which must leave the output unchanged). In bf16, where T
+  spans more than one key tile, a control reads what the gate would see
+  of a kernel that dropped its last key tile (the plain version without
+  those keys) and must fail the relative gate. With `timed_case`, timed
+  one launch (median of n) and back to back (10 calls, median of n / 2)
+  beside the plain version, SDPA and its bound. With `simt_n` (bf16 on the 'sm90' route), the 'simt' C entry
+  point is also checked on the same inputs and timed the same ways over
+  simt_n calls (`simt_ms`, `simt_back_to_back_ms`): the route's earlier
+  times. Logs and returns the result."""
   from mulan_tpu_torch.ops.flash_attention import (attention_route,
                                                    flash_attention_fwd,
                                                    flash_attention_plain)
@@ -402,24 +416,52 @@ def attention_case(dev, gen, shape, dtype, tol, timed_case, n: int = 20):
   assert torch.equal(out, out_lse), 'the lse write changed the output'
   lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()
   result = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                lse_rel_err=lse_err.item(),
-                route=attention_route(dtype, shape[-1], 'fwd'))
+                max_abs_ref=ref.float().abs().max().item(),
+                rel_err=rel_err(out, ref), lse_rel_err=lse_err.item(),
+                route=attention_route(dtype, shape[-1]))
+  tile = k1_key_tile(shape[-1])
+  kept = (shape[2] - 1) // tile * tile
+  if dtype == torch.bfloat16 and kept:
+    result['dropped_tile_rel_err'] = rel_err(flash_attention_plain(
+        q, k[:, :, :kept], v[:, :, :kept], scale), ref)
+  if simt_n:
+    simt = simt_fwd_call(q, k, v, scale)
+    result['simt_max_abs_err'] = (simt().float() - ref.float()).abs().max(
+    ).item()
+    assert result['simt_max_abs_err'] <= tol, ('simt', shape, result)
   del ref, ref_lse
+
+  def run():
+    return flash_attention_fwd(q, k, v, scale)
+
+  def sdpa():
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
   if timed_case:
-    result['ms'] = cuda_ms(lambda: flash_attention_fwd(q, k, v, scale), n)
+    result['ms'] = cuda_ms(run, n)
+    result['back_to_back_ms'] = back_to_back_ms(run, n=max(1, n // 2))
     result['ms_with_lse'] = cuda_ms(lambda: flash_attention_fwd(
         q, k, v, scale, return_lse=True), n)
     result['plain_ms'] = cuda_ms(
         lambda: flash_attention_plain(q, k, v, scale), n)
-    result['library_ms'] = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), n)
+    result['library_ms'] = cuda_ms(sdpa, n)
+    result['library_back_to_back_ms'] = back_to_back_ms(
+        sdpa, n=max(1, n // 2))
+    if simt_n:
+      result['simt_ms'] = cuda_ms(simt, simt_n)
+      result['simt_back_to_back_ms'] = back_to_back_ms(
+          simt, n=max(1, simt_n // 2))
     b, h, t, d = shape
     result.update(bound(4.0 * b * h * t * t * d, nbytes(q, k, v, out),
                         dtype))
   log('flash_attention', shape=list(shape), dtype=str(dtype), tol=tol,
+      rel_tol=ATTN_REL_TOL_BF16 if dtype == torch.bfloat16 else None,
       lse_rtol=LSE_RTOL, **result)
   assert result['max_abs_err'] <= tol, (shape, dtype, result)
   assert result['lse_rel_err'] <= LSE_RTOL, (shape, dtype, result)
+  if dtype == torch.bfloat16:
+    assert result['rel_err'] <= ATTN_REL_TOL_BF16, (shape, dtype, result)
+    assert result.get('dropped_tile_rel_err', 1.0) > ATTN_REL_TOL_BF16, (
+        'the gate does not see a dropped key tile', shape, result)
   return result
 
 
@@ -427,9 +469,12 @@ def check_attention(dev, gen):
   """K1. The flagship shape and the sampler's (bf16, sm90 route) and the
   tiny config's float32 with a ragged T (simt route) are checked and timed;
   the others cover the sm90 route at a head_dim that is not a multiple of 16
-  and at D = 64 with a T ragged across a 128-row tile, on two heads, and the
-  simt route for bf16 with head_dim > 128. Returns the flagship's and the
-  sampler's results."""
+  and at D = 64 with a T ragged across a 128-row tile, on two heads, and
+  its kernel for 128 < D <= 256 at a T ragged across an 80-key tile, and, on
+  inputs from a generator of their own (a draw from `gen` here would move
+  every later phase's), at D = 200 and 136, ragged in D (TMA fills the last
+  64-column box, or the last two, with zeros). Returns the flagship's and
+  the sampler's results."""
   cases = ((FLAGSHIP_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
            (SAMPLER_ATTN, torch.bfloat16, ATTN_TOL_BF16, True),
            ((3, 1, 60, 32), torch.float32, ATTN_TOL_F32, True),
@@ -437,6 +482,10 @@ def check_attention(dev, gen):
            ((2, 2, 200, 64), torch.bfloat16, ATTN_TOL_BF16, False),
            ((2, 1, 130, 256), torch.bfloat16, ATTN_TOL_BF16, False))
   results = [attention_case(dev, gen, *case) for case in cases]
+  own = torch.Generator(device=dev).manual_seed(SEED + 1)
+  for d in (200, 136):
+    attention_case(dev, own, (2, 2, 100, d), torch.bfloat16, ATTN_TOL_BF16,
+                   False)
   return results[0], results[1]
 
 
@@ -469,9 +518,9 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20,
   errs = {name: rel_err(got, want) for name, got, want in
           (('dq', dq_k, ref[0]), ('dk', dk, ref[1]), ('dv', dv, ref[2]))}
   tol = ATTN_BWD_TOL[dtype]
-  routes = {k: attention_route(dtype, shape[-1], k) for k in ('dkv', 'dq')}
+  route = attention_route(dtype, shape[-1])
   log('flash_attention_bwd', shape=list(shape), dtype=str(dtype),
-      routes=routes, tol=tol,
+      route=route, tol=tol,
       max_abs_ref=max(r.float().abs().max().item() for r in ref),
       **{f'{n}_rel_err': e for n, e in errs.items()})
   assert max(errs.values()) <= tol, (shape, dtype, errs)
@@ -511,13 +560,13 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20,
              .item(),
              ms=one(run_dkv), back_to_back_ms=b2b(run_dkv),
              plain_ms=plain_ms, library_ms=sdpa_bwd,
-             library_back_to_back_ms=sdpa_bwd_b2b, route=routes['dkv'],
+             library_back_to_back_ms=sdpa_bwd_b2b, route=route,
              **bound(4 * product, nbytes(q, k, v, do, lse, di, dk, dv),
                      dtype))
   dq = dict(max_abs_err=(dq_k.float() - ref[0].float()).abs().max().item(),
             ms=one(run_dq), back_to_back_ms=b2b(run_dq),
             host_ms=host_ms(run_dq, calls=5 * n // 2), plain_ms=plain_ms,
-            library_ms=None, route=routes['dq'],
+            library_ms=None, route=route,
             **bound(3 * product, nbytes(q, k, v, do, lse, di, dq_k), dtype))
   pair = dict(ms=one(run_pair), back_to_back_ms=b2b(run_pair))
   dq['with_dkv'] = pair
@@ -543,7 +592,7 @@ def attention_bwd_case(dev, gen, shape, dtype, timed_case, n: int = 20,
         dq_simt_back_to_back_ms=dq['simt_back_to_back_ms'],
         dkv_dq_simt_ms=pair['simt_ms'],
         dkv_dq_simt_back_to_back_ms=pair['simt_back_to_back_ms'])
-  log('flash_attention_bwd_timing', shape=list(shape), routes=routes,
+  log('flash_attention_bwd_timing', shape=list(shape), route=route,
       dkv_ms=dkv['ms'], dkv_back_to_back_ms=dkv['back_to_back_ms'],
       dkv_bound_ms=dkv['bound_ms'], dq_ms=dq['ms'],
       dq_back_to_back_ms=dq['back_to_back_ms'], dq_host_ms=dq['host_ms'],
@@ -570,6 +619,23 @@ def check_attention_bwd(dev, gen):
   attention_bwd_case(dev, torch.Generator(device=dev).manual_seed(SEED + 1),
                      (2, 2, 100, 200), torch.bfloat16, False)
   return timed_results[0]
+
+
+def simt_fwd_call(q, k, v, scale):
+  """A call of K1's 'simt' C entry point at these bf16 inputs, returning o.
+  The call holds its input tensors (the C function takes raw pointers)."""
+  from mulan_tpu_torch.ops import _build
+  lib = _build.load_library()
+  b, h, t, d = q.shape
+  stream = torch.cuda.current_stream(q.device).cuda_stream
+
+  def call():
+    o = torch.empty_like(q)
+    _build.check(lib.mulan_flash_attention_fwd_simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, b * h,
+        t, d, scale, 1, stream), 'fwd_simt')
+    return o
+  return call
 
 
 def simt_bwd_calls(q, k, v, do, lse, di, scale):
@@ -1158,12 +1224,11 @@ def kernel_counters():
           'gn_swish_bwd': gn.gn_swish_bwd}
 
 
-def counted(fn, route_totals, routes=SM90_ROUTES):
+def counted(fn, route_totals):
   """(fn(), {kernel: launches during fn}), every count set to 0 first.
-  Asserts that every launch of each of the SM90_KERNELS took its route in
-  `routes` ('sm90' for all three on the flagship's and the VDM's paths,
-  IN32_ROUTES at ImageNet32's head_dim 256), and adds the launches by route
-  to route_totals ({kernel: {route: n}})."""
+  Asserts that every launch of each of the SM90_KERNELS took the 'sm90'
+  route (at the flagship's head_dim 128 and at ImageNet32's 256 alike),
+  and adds the launches by route to route_totals ({kernel: {route: n}})."""
   counters = kernel_counters()
   for f in counters.values():
     f.launches = 0
@@ -1178,7 +1243,7 @@ def counted(fn, route_totals, routes=SM90_ROUTES):
       continue
     assert sum(by_route.values()) == counts[name], (name, by_route)
     if name in SM90_KERNELS:
-      assert by_route[routes[name]] == counts[name], (name, routes, by_route)
+      assert by_route['sm90'] == counts[name], (name, by_route)
     total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
     for r, n in by_route.items():
       total[r] += n
@@ -1246,33 +1311,43 @@ def profile(fn, n: int = 2):
 
 @contextlib.contextmanager
 def planted_fault(kernel: str):
-  """A wrong attention backward the train-step gates must reject: K2's dK
-  replaced by zeros ('dk'), or K3's dQ zeroed on one consumer warpgroup's
-  64 rows of every 128-query tile ('dq')."""
+  """A wrong attention kernel the train-step gates must reject: K1's output
+  zeroed on one consumer warpgroup's 64 rows of every 128-row query tile,
+  its lse left right ('fwd'); K2's dK replaced by zeros ('dk'); or K3's dQ
+  zeroed on one consumer warpgroup's 64 rows of every 128-query tile
+  ('dq')."""
   from mulan_tpu_torch.ops import flash_attention as attn
-  name = {'dk': 'flash_attention_bwd_dkv', 'dq': 'flash_attention_bwd_dq'}[
-      kernel]
+  name = {'fwd': 'flash_attention_fwd', 'dk': 'flash_attention_bwd_dkv',
+          'dq': 'flash_attention_bwd_dq'}[kernel]
   real = getattr(attn, name)
 
-  def faulty(*args):
-    out = real(*args)
+  def zero_rows(x):
+    rows = torch.arange(x.shape[2], device=x.device) % 128 >= 64
+    return x.masked_fill(rows[:, None], 0)
+
+  def faulty(*args, **kwargs):
+    out = real(*args, **kwargs)
     if kernel == 'dk':
       dk, dv = out
       return torch.zeros_like(dk), dv
-    rows = torch.arange(out.shape[2], device=out.device) % 128 >= 64
-    return out.masked_fill(rows[:, None], 0)
-  # The real wrapper counts on the module's name; its launches go back to
-  # the real wrapper's counts, so that a counted run sees their routes.
+    if kernel == 'fwd' and isinstance(out, tuple):
+      o, lse = out
+      return zero_rows(o), lse
+    return zero_rows(out)
+  # K2's and K3's wrappers count on their module names, so their launches
+  # go back to the real wrappers' counts, and a counted run sees their
+  # routes; K1's counts on `flash_attention`, which stays.
   faulty.launches = 0
-  faulty.launches_by_route = dict.fromkeys(real.launches_by_route, 0)
+  faulty.launches_by_route = dict.fromkeys(attn.ROUTES, 0)
   setattr(attn, name, faulty)
   try:
     yield
   finally:
     setattr(attn, name, real)
-    real.launches += faulty.launches
-    for route, n in faulty.launches_by_route.items():
-      real.launches_by_route[route] += n
+    if kernel != 'fwd':
+      real.launches += faulty.launches
+      for route, n in faulty.launches_by_route.items():
+        real.launches_by_route[route] += n
 
 
 @contextlib.contextmanager
@@ -1392,12 +1467,13 @@ def capture_io(blocks: dict):
 
 
 def compare_train_step(ex, model, build_plain, batch, noise, tag='train',
-                       with_f32=True):
+                       with_f32=True, planted=('dk', 'dq')):
   """One train step's loss and gradients through `model` (the kernels) and
   its plain twin on the same batch, noise and dropout masks, with the gates
-  described at ATTN_LEAF_COS_MIN; the same gates must reject the step with a
-  planted fault. With `with_f32`, the cosines to a float32 twin's gradient,
-  per part of the model, are reported. Logs as `<tag>_...`."""
+  described at ATTN_LEAF_COS_MIN; the same gates must reject the step with
+  each fault of `planted` (`planted_fault`'s kinds). With
+  `with_f32`, the cosines to a float32 twin's gradient, per part of the
+  model, are reported. Logs as `<tag>_...`."""
 
   blocks = {'unet': model.score_model.mid_attn_1,
             'encoder': model.encoder_model.trunk.mid_attn_1}
@@ -1433,11 +1509,12 @@ def compare_train_step(ex, model, build_plain, batch, noise, tag='train',
                     for c in cos.values()))
 
   step_cos, alone_cos = gates(grads['kernels'], alone(True))
-  faults = {}
-  for kernel in ('dk', 'dq'):
+  faults, fault_delta = {}, {}
+  for kernel in planted:
     with planted_fault(kernel):
-      faults[kernel] = gates(step_grads(ex, model, batch, noise)[1],
-                             alone(True))
+      bpd, fault_grads = step_grads(ex, model, batch, noise)
+      faults[kernel] = gates(fault_grads, alone(True))
+    fault_delta[kernel] = abs(bpd - bpds['plain'])
   whole = {k: torch.cat(list(g.values())) for k, g in grads.items()}
   norm_rel = abs(whole['kernels'].norm().item()
                  / whole['plain'].norm().item() - 1)
@@ -1455,6 +1532,10 @@ def compare_train_step(ex, model, build_plain, batch, noise, tag='train',
       planted_faults_rejected={k: not passes(*c) for k, c in faults.items()},
       fault_unet_attn_leaf_cos_min={k: min(c[0].values())
                                     for k, c in faults.items()},
+      fault_alone_leaf_cos_min={k: {b: min(cos.values())
+                                    for b, cos in c[1].items()}
+                                for k, c in faults.items()},
+      fault_abs_delta=fault_delta,
       whole_cos=cosine(whole['kernels'], whole['plain']), **to_f32)
   log(f'{tag}_attn_leaf_cosines', **{n.split('mid_attn_1.')[1]: round(c, 6)
                                      for n, c in step_cos.items()})
@@ -2000,19 +2081,19 @@ def ode_cli_config(name: str = 'cifar10_conditioned'):
 
 
 def run_ode_nll_cli(cfg, flax_path, route_totals,
-                    name: str = 'cifar10_conditioned', routes=SM90_ROUTES,
+                    name: str = 'cifar10_conditioned',
                     phase: str = 'ode_nll'):
   """`eval_bpd --config=<name> --bpd_eval_method=ode --solver=rk4` on the
   exported `ckpt-N.flax` of that config's model, one batch of ODE_ROWS
   images, one importance sample: finite bpd, launches of one solve, every
-  K1-K3 launch on its route in `routes`. Returns the launches."""
+  K1-K3 launch on 'sm90'. Returns the launches."""
   from mulan_tpu_torch import eval_bpd
   vdm = name == 'vdm_cifar10'
   argv = [*ode_cli_config(name), f'--checkpoint_directory={flax_path}',
           '--bpd_eval_method=ode', '--solver=rk4',
           f'--rk4_steps={ODE_RK4_STEPS}', '--n_is=1']
   (bpd, secs), counts = counted(lambda: timed(lambda: eval_bpd.main(argv)),
-                                route_totals, routes)
+                                route_totals)
   log(phase, argv=' '.join(argv[-4:]), config=name, bpd=bpd, seconds=secs,
       nfe=4 * ODE_RK4_STEPS, launches=counts)
   assert math.isfinite(bpd), bpd
@@ -2326,24 +2407,25 @@ def run_vdm(dev, gen, images, sfu_rate, online_lib, route_totals):
 
 def run_imagenet32(dev, gen, sfu_rate, route_totals):
   """MuLAN-epsilon at ImageNet32's width and depth (`imagenet32`: a 256-channel
-  score UNet with one head, so K1-K3 at head_dim 256, K1 on the 'simt'
-  route and K2 and K3 on the 'sm90' one; synthetic 32x32x3 data; weights
-  seeded as the flagship's) through its entry points. K1 alone at
-  IN32_EVAL_ATTN, IN32_TRAIN_ATTN (both timed beside SDPA's forward), the
-  sampler's and an encoder chunk's shapes, K2 and K3 at IN32_TRAIN_ATTN
-  (timed beside SDPA's backward and their 'simt' entry points);
+  score UNet with one head, so K1-K3 at head_dim 256, each on its 'sm90'
+  route; synthetic 32x32x3 data; weights seeded as the flagship's) through
+  its entry points. K1 alone at IN32_EVAL_ATTN, IN32_TRAIN_ATTN (both
+  timed beside SDPA's forward and K1's 'simt' entry point), the sampler's
+  and an encoder chunk's shapes (timed beside SDPA's forward), K2 and K3
+  at IN32_TRAIN_ATTN (timed beside SDPA's backward and their 'simt' entry
+  points);
   `eval_bpd_sparse` over IN32_EVAL_BATCHES batches of 512 and one batch's
   ELBO kernels against plain; the ancestral sampler; IN32_TRAIN_STEPS
   steps of `Experiment.train` at batch 128 and one step kernels against
-  plain (the gates of phase 7, planted K2 and K3 faults rejected); and, on
-  a checkpoint of the trained state exported as `ckpt-N.flax`, `eval_bpd
-  --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every K1 launch
-  must take the 'simt' route and every K2 and K3 launch the 'sm90' one
-  (IN32_ROUTES), the kernels- vs-plain step's and its planted faults'
-  included. Last, K8 and its backward alone at the 256-wide UNet's channel
-  counts (IN32_GN_CASES; not on this path, whose config leaves
-  `fused_gn_swish` off). Returns ({path: launches}, {K1 shape / 'dkv' /
-  'dq' / 'gn_swish' / 'gn_swish_bwd': results}, the Experiment)."""
+  plain (the gates of phase 7, planted K1, K2 and K3 faults rejected);
+  and, on a checkpoint of the trained state exported as `ckpt-N.flax`,
+  `eval_bpd --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every
+  K1, K2 and K3 launch must take the 'sm90' route, the kernels-vs-plain
+  step's and its planted faults' included. Last, K8 and its backward
+  alone at the 256-wide UNet's channel counts (IN32_GN_CASES; not on this
+  path, whose config leaves `fused_gn_swish` off). Returns ({path:
+  launches}, {K1 shape / 'dkv' / 'dq' / 'gn_swish' / 'gn_swish_bwd':
+  results}, the Experiment)."""
   from mulan_tpu_torch import compat, configs, data, params
   from mulan_tpu_torch.evals import harness, vlb
   from mulan_tpu_torch.models import build_model, latents
@@ -2352,21 +2434,22 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   from mulan_tpu_torch.train.loop import Experiment
 
   def count(fn):
-    return counted(fn, route_totals, IN32_ROUTES)
+    return counted(fn, route_totals)
 
   # The kernels alone at the path's shapes.
   kernels = {}
-  for shape, timed_case in ((IN32_EVAL_ATTN, True), (IN32_TRAIN_ATTN, True),
-                            (IN32_SAMPLER_ATTN, False),
-                            (IN32_ENCODER_ATTN, False)):
+  for shape, n, simt_n in ((IN32_EVAL_ATTN, IN32_TIMED_CALLS,
+                            IN32_TIMED_CALLS),
+                           (IN32_TRAIN_ATTN, IN32_TIMED_CALLS,
+                            IN32_TIMED_CALLS),
+                           (IN32_SAMPLER_ATTN, 20, 0),
+                           (IN32_ENCODER_ATTN, 20, 0)):
     kernels['x'.join(map(str, shape))] = r = attention_case(
-        dev, gen, shape, torch.bfloat16, ATTN_TOL_BF16, timed_case,
-        IN32_TIMED_CALLS)
-    assert r['route'] == IN32_ROUTES['flash_attention'], r
+        dev, gen, shape, torch.bfloat16, ATTN_TOL_BF16, True, n, simt_n)
+    assert r['route'] == 'sm90', r
   kernels['dkv'], kernels['dq'] = attention_bwd_case(
       dev, gen, IN32_TRAIN_ATTN, torch.bfloat16, True, simt_n=IN32_TIMED_CALLS)
-  assert kernels['dkv']['route'] == IN32_ROUTES['flash_attention_bwd_dkv']
-  assert kernels['dq']['route'] == IN32_ROUTES['flash_attention_bwd_dq']
+  assert kernels['dkv']['route'] == kernels['dq']['route'] == 'sm90'
   torch.cuda.empty_cache()
 
   train_cfg = configs.replace(
@@ -2466,13 +2549,13 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
       topk_noise=latents.gamma_variates(cfg.latent_k, (n, cfg.latent_size),
                                         generator=gen, device=dev),
       dropout_seed=1234)
-  # Counted: every K2 and K3 launch of the kernels' step, of the blocks
-  # alone and of the planted-fault steps must take 'sm90', every K1 'simt'.
+  # Counted: every K1, K2 and K3 launch of the kernels' step, of the blocks
+  # alone and of the planted-fault steps must take 'sm90'.
   _, paths['in32_train_vs_plain'] = count(lambda: compare_train_step(
       ex, model, lambda **kw: build_model(
           'mulan_epsilon', dataclasses.replace(cfg, use_kernels=False, **kw),
           device=dev, state=state), {'images': step_batch}, step_noise,
-      tag='in32_train', with_f32=False))
+      tag='in32_train', with_f32=False, planted=('fwd', 'dk', 'dq')))
   assert all(paths['in32_train_vs_plain'][k] > 0 for k in SM90_KERNELS), (
       paths['in32_train_vs_plain'])
   del model, step_batch, step_noise, eps
@@ -2488,8 +2571,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
     log('in32_checkpoint', step=ex.state.step, save_s=save_s,
         export_s=export_s, flax_bytes=os.path.getsize(flax_path))
     paths['in32_ode_nll_cli'] = run_ode_nll_cli(
-        cfg, flax_path, route_totals, 'imagenet32', IN32_ROUTES,
-        phase='in32_ode_nll')
+        cfg, flax_path, route_totals, 'imagenet32', phase='in32_ode_nll')
   torch.cuda.empty_cache()
   kernels['gn_swish'] = check_gn_swish(dev, gen, sfu_rate, IN32_GN_CASES)
   kernels['gn_swish_bwd'] = check_gn_swish_bwd(dev, gen, sfu_rate,
@@ -2793,10 +2875,10 @@ def main() -> None:
   k5_tmp.cleanup()
   torch.cuda.empty_cache()
 
-  # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 (K1 on the
-  # 'simt' route, K2 and K3 on the 'sm90' one), alone and through evaluation,
-  # sampling, training and the ODE likelihood's command line. Its launches by
-  # route are kept apart.
+  # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 (on their
+  # 'sm90' kernels for D <= 256), alone and through evaluation, sampling,
+  # training and the ODE likelihood's command line. Its launches by route
+  # are kept apart.
   in32_routes = {}
   in32_paths, in32_kernels, ex_in32 = run_imagenet32(dev, gen, sfu_rate,
                                                      in32_routes)
@@ -2868,6 +2950,7 @@ def main() -> None:
             'c_call_ms', 'c_call_back_to_back_ms', 'online_kernel_ms',
             'online_kernel_back_to_back_ms',
             'with_dkv', 'simt_ms', 'simt_back_to_back_ms', 'simt_rel_err',
+            'simt_max_abs_err',
             'window_bins_per_pixel', 'bound_full_vocab_ms',
             'unfused_pair_ms', 'unfused_pair_bwd_ms')
   kernels = []
@@ -2917,7 +3000,7 @@ def main() -> None:
         'ms', 'back_to_back_ms', 'host_ms', 'plain_ms',
         'unfused_pair_bwd_ms', 'bound_ms', 'max_abs_err')}
   # K1-K3 at head_dim 256 (phase 14): their launches on its paths, each on
-  # its route in IN32_ROUTES, and the kernels alone at its shapes.
+  # 'sm90', and the kernels alone at its shapes.
   in32_results = {'flash_attention': in32_kernels['x'.join(
       map(str, IN32_EVAL_ATTN))], 'flash_attention_bwd_dkv':
                   in32_kernels['dkv'], 'flash_attention_bwd_dq':
@@ -2934,13 +3017,17 @@ def main() -> None:
                           else IN32_TRAIN_ATTN),
                attention_route=r['route'], **{k: r[k] for k in keys},
                **{k: r[k] for k in extras if k in r})
-    assert row['launches'] > 0 and in32_routes[name][IN32_ROUTES[name]] == (
+    assert row['launches'] > 0 and in32_routes[name]['sm90'] == (
         row['launches']), row
     kernels.append(row)
-  kernels[-3]['at_train_shape'] = {k: in32_kernels['x'.join(
-      map(str, IN32_TRAIN_ATTN))][k] for k in (
-          'ms', 'ms_with_lse', 'plain_ms', 'library_ms', 'bound_ms',
-          'bound_by', 'max_abs_err')}
+  for at, shape in (('train', IN32_TRAIN_ATTN),
+                    ('sampler', IN32_SAMPLER_ATTN),
+                    ('encoder', IN32_ENCODER_ATTN)):
+    r = in32_kernels['x'.join(map(str, shape))]
+    kernels[-3][f'at_{at}_shape'] = {k: r[k] for k in (
+        'ms', 'back_to_back_ms', 'ms_with_lse', 'plain_ms', 'library_ms',
+        'library_back_to_back_ms', 'simt_ms', 'simt_back_to_back_ms',
+        'bound_ms', 'bound_by', 'max_abs_err') if k in r}
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     # (q, k, v, o, lse or None, batch*heads, tokens, head_dim, sm_scale,
-    #  stream); bf16, head_dim <= 128
+    #  stream); bf16, head_dim <= 256
     'mulan_flash_attention_fwd_sm90': [_P, _P, _P, _P, _P, _I, _I, _I, _F,
                                        _P],
     # the same, then is_bf16 before the stream

@@ -10,13 +10,13 @@ autograd, and the backward computes di = rowsum(o * dO) in PyTorch before
 the two kernels.
 
 Each kernel has two routes, one C entry point each (`<entry>_sm90`,
-`<entry>_simt`), chosen here per kernel by `attention_route(dtype, head_dim,
-kernel)`: 'sm90' (TMA-fed, warp-specialised, persistent `wgmma` kernels on
-`csrc/sm90.cuh`) for bfloat16 with head_dim <= 128 for K1 and with
-head_dim <= 256 for K2 and K3 (the flagship's path, and imagenet32's
-backward at head_dim 256), and 'simt' otherwise (float32 at any head_dim,
-and K1 in bfloat16 at head_dim > 128, on the CUDA cores). A wrapper counts
-its launches in `launches` and, by route, in `launches_by_route`.
+`<entry>_simt`), chosen here by `attention_route(dtype, head_dim)`, one rule
+for K1, K2 and K3: 'sm90' (TMA-fed, warp-specialised, persistent `wgmma`
+kernels on `csrc/sm90.cuh`) for bfloat16 with head_dim <= 256 (the
+flagship's path at 128 and imagenet32's at 256, where each C entry point
+dispatches to a kernel of its own above 128), and 'simt' for float32 at any
+head_dim (on the CUDA cores). A wrapper counts its launches in `launches`
+and, by route, in `launches_by_route`.
 
 The plain versions run for CPU tensors and are what the kernels are held
 against on the card. The plain forward is the einsum path of
@@ -37,17 +37,15 @@ from mulan_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ('sm90', 'simt')
-KERNELS = ('fwd', 'dkv', 'dq')  # K1, K2, K3
-# The largest head_dim each kernel's sm90 route takes (bfloat16 only).
-_SM90_MAX_HEAD_DIM = {'fwd': 128, 'dkv': 256, 'dq': 256}
+# The largest head_dim the sm90 route takes (bfloat16 only).
+_SM90_MAX_HEAD_DIM = 256
 
 
-def attention_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
-  """The route of `kernel` ('fwd', 'dkv' or 'dq': K1, K2, K3) for inputs of
-  this dtype and head_dim: 'sm90' (tensor cores) for bfloat16 with
-  head_dim <= 128 (K1) or <= 256 (K2, K3), else 'simt'."""
+def attention_route(dtype: torch.dtype, head_dim: int) -> str:
+  """The route of K1, K2 and K3 for inputs of this dtype and head_dim:
+  'sm90' (tensor cores) for bfloat16 with head_dim <= 256, else 'simt'."""
   return ('sm90' if dtype == torch.bfloat16
-          and head_dim <= _SM90_MAX_HEAD_DIM[kernel] else 'simt')
+          and head_dim <= _SM90_MAX_HEAD_DIM else 'simt')
 
 
 def flash_attention_plain(q, k, v, sm_scale: float, *,
@@ -108,13 +106,14 @@ def _stream(t):
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(entry, kernel, wrapper, q, *args):
-  """Calls the C entry point `{entry}_{route}` for `kernel`'s route at q's
-  dtype and head_dim (the simt one also takes is_bf16) on the current
-  stream, raises on its error, and counts the launch on `wrapper`."""
-  route = attention_route(q.dtype, q.shape[-1], kernel)
+def _launch(entry, wrapper, q, *args):
+  """Calls the C entry point `{entry}_{route}` for the route at q's dtype
+  and head_dim on the current stream, raises on its error, and counts the
+  launch on `wrapper`. The simt entry point also takes is_bf16: 0, as the
+  route is float32's (its bf16 kernels are kept to time against 'sm90')."""
+  route = attention_route(q.dtype, q.shape[-1])
   if route == 'simt':
-    args = (*args, int(q.dtype == torch.bfloat16))
+    args = (*args, 0)
   lib = _build.load_library()
   _build.check(getattr(lib, f'{entry}_{route}')(*args, _stream(q)),
                wrapper.__name__)
@@ -137,7 +136,7 @@ def flash_attention_fwd(q, k, v, sm_scale: float, *,
   o = torch.empty_like(q)
   lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
          if return_lse else None)
-  _launch('mulan_flash_attention_fwd', 'fwd', flash_attention, q,
+  _launch('mulan_flash_attention_fwd', flash_attention, q,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
           None if lse is None else lse.data_ptr(), b * h, t, d,
           float(sm_scale))
@@ -150,8 +149,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dkv', q, lse, di)
   b, h, t, d = q.shape
   dk, dv = torch.empty_like(k), torch.empty_like(v)
-  _launch('mulan_flash_attention_bwd_dkv', 'dkv', flash_attention_bwd_dkv,
-          q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+  _launch('mulan_flash_attention_bwd_dkv', flash_attention_bwd_dkv, q,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
           t, d, float(sm_scale))
   return dk, dv
@@ -163,7 +162,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dq', q, lse, di)
   b, h, t, d = q.shape
   dq = torch.empty_like(q)
-  _launch('mulan_flash_attention_bwd_dq', 'dq', flash_attention_bwd_dq, q,
+  _launch('mulan_flash_attention_bwd_dq', flash_attention_bwd_dq, q,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h, t, d,
           float(sm_scale))

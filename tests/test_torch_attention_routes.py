@@ -1,13 +1,13 @@
 """The attention kernels' routes, their C entry points, the build's cache
 key and the kernel ablation specs, on the CPU (no nvcc, no card).
 
-`attention_route(dtype, head_dim, kernel)` picks each wrapper's C entry
-point: the 'sm90' route (TMA-fed, warp-specialised wgmma kernels) for
-bfloat16 with head_dim <= 128 for K1 and head_dim <= 256 for K2 and K3, the
-'simt' route otherwise. The kernels themselves are held against the plain
-versions on the card by chip_smoke.py, which also asserts that every K1, K2
-and K3 launch of the flagship paths took the 'sm90' route, and on
-imagenet32's (head_dim 256) K1 'simt', K2 and K3 'sm90'.
+`attention_route(dtype, head_dim)` picks the C entry point of K1, K2 and K3
+alike: the 'sm90' route (TMA-fed, warp-specialised wgmma kernels) for
+bfloat16 with head_dim <= 256, the 'simt' route for float32. The kernels
+themselves are held against the plain versions on the card by
+chip_smoke.py, which also asserts that every K1, K2 and K3 launch of the
+flagship's paths (head_dim 128) and of imagenet32's (head_dim 256) took the
+'sm90' route.
 """
 
 import json
@@ -26,29 +26,78 @@ WRAPPERS = (attn_ops.flash_attention, attn_ops.flash_attention_bwd_dkv,
             attn_ops.flash_attention_bwd_dq)
 
 
-@pytest.mark.parametrize('kernel', attn_ops.KERNELS)
-@pytest.mark.parametrize('dtype, head_dim, routes', [
-    # (K1, K2, K3)
-    (torch.bfloat16, 128, ('sm90', 'sm90', 'sm90')),  # the flagship's
-    (torch.bfloat16, 64, ('sm90', 'sm90', 'sm90')),
-    (torch.bfloat16, 40, ('sm90', 'sm90', 'sm90')),  # a 64-column box
-    (torch.bfloat16, 8, ('sm90', 'sm90', 'sm90')),
-    (torch.bfloat16, 136, ('simt', 'sm90', 'sm90')),
-    (torch.bfloat16, 200, ('simt', 'sm90', 'sm90')),  # ragged in D
-    (torch.bfloat16, 256, ('simt', 'sm90', 'sm90')),  # imagenet32's
-    (torch.float32, 256, ('simt', 'simt', 'simt')),
-    (torch.float32, 128, ('simt', 'simt', 'simt')),
-    (torch.float32, 64, ('simt', 'simt', 'simt')),
-])
-def test_route_table(kernel, dtype, head_dim, routes):
-  route = routes[attn_ops.KERNELS.index(kernel)]
-  assert attn_ops.attention_route(dtype, head_dim, kernel) == route
+ROUTE_TABLE = [
+    (torch.bfloat16, 128, 'sm90'),  # the flagship's
+    (torch.bfloat16, 64, 'sm90'),
+    (torch.bfloat16, 40, 'sm90'),  # a 64-column box
+    (torch.bfloat16, 8, 'sm90'),
+    (torch.bfloat16, 136, 'sm90'),
+    (torch.bfloat16, 200, 'sm90'),  # ragged in D
+    (torch.bfloat16, 256, 'sm90'),  # imagenet32's
+    (torch.float32, 256, 'simt'),
+    (torch.float32, 128, 'simt'),
+    (torch.float32, 64, 'simt'),
+]
+
+
+@pytest.mark.parametrize('dtype, head_dim, route', ROUTE_TABLE)
+def test_route_table(dtype, head_dim, route):
+  assert attn_ops.attention_route(dtype, head_dim) == route
   assert route in attn_ops.ROUTES
 
 
-def test_route_names_an_unknown_kernel():
-  with pytest.raises(KeyError):
-    attn_ops.attention_route(torch.bfloat16, 128, 'bwd')
+def _call_fwd(q, rows):
+  return attn_ops.flash_attention_fwd(q, q, q, 0.5, return_lse=True)
+
+
+def _call_dkv(q, rows):
+  return attn_ops.flash_attention_bwd_dkv(q, q, q, q, rows, rows, 0.5)
+
+
+def _call_dq(q, rows):
+  return attn_ops.flash_attention_bwd_dq(q, q, q, q, rows, rows, 0.5)
+
+
+@pytest.mark.parametrize('entry, wrapper, call', [
+    ('mulan_flash_attention_fwd', attn_ops.flash_attention, _call_fwd),
+    ('mulan_flash_attention_bwd_dkv', attn_ops.flash_attention_bwd_dkv,
+     _call_dkv),
+    ('mulan_flash_attention_bwd_dq', attn_ops.flash_attention_bwd_dq,
+     _call_dq),
+], ids=('fwd', 'dkv', 'dq'))
+@pytest.mark.parametrize('dtype, head_dim, route', ROUTE_TABLE)
+def test_wrapper_calls_its_routes_entry_point(monkeypatch, entry, wrapper,
+                                              call, dtype, head_dim, route):
+  """Each wrapper calls `{entry}_{route}` once, with arguments that its
+  ctypes signature takes (is_bf16 = 0 on 'simt', which runs float32), and
+  counts the launch on that route. The card is stood in for by meta
+  tensors, a recording library and a null stream."""
+  calls = []
+
+  class Library:
+    def __getattr__(self, name):
+      return lambda *args: calls.append((name, args)) or 0
+  monkeypatch.setattr(_build, 'load_library', Library)
+  monkeypatch.setattr(attn_ops, '_check_inputs', lambda *a: None)
+  monkeypatch.setattr(attn_ops, '_check_rows', lambda *a: None)
+  monkeypatch.setattr(attn_ops, '_stream', lambda t: None)
+  monkeypatch.setattr(wrapper, 'launches', 0)
+  monkeypatch.setattr(wrapper, 'launches_by_route',
+                      dict.fromkeys(attn_ops.ROUTES, 0))
+  q = torch.empty((2, 3, 16, head_dim), dtype=dtype, device='meta')
+  call(q, torch.empty((2, 3, 16), device='meta'))
+  (name, args), = calls
+  assert name == f'{entry}_{route}'
+  argtypes = _build._SIGNATURES[name]
+  assert len(args) == len(argtypes), (name, args)
+  for arg, argtype in zip(args, argtypes):
+    argtype.from_param(arg)  # raises on an argument of the wrong type
+  scale_at = argtypes.index(_build._F)  # after batch*heads, tokens, head_dim
+  assert args[scale_at - 3:scale_at + 1] == (6, 16, head_dim, 0.5)
+  assert args[scale_at + 1:-1] == ((0,) if route == 'simt' else ())
+  assert wrapper.launches == 1
+  assert wrapper.launches_by_route == {r: int(r == route)
+                                       for r in attn_ops.ROUTES}
 
 
 def test_every_wrapper_counts_by_route():
@@ -89,8 +138,9 @@ def test_tensor_core_kernels_are_the_sm90_ones():
                'mma.sync', 'mma_bf16', 'load_rows_t', 'kLdT'):
     assert gone not in text, gone
   for kernel in ('flash_fwd_sm90', 'flash_bwd_dkv_sm90', 'flash_bwd_dq_sm90',
-                 'flash_bwd_dkv_sm90_d256', 'flash_bwd_dq_sm90_d256',
-                 'flash_fwd_simt', 'flash_bwd_dkv', 'flash_bwd_dq'):
+                 'flash_fwd_sm90_d256', 'flash_bwd_dkv_sm90_d256',
+                 'flash_bwd_dq_sm90_d256', 'flash_fwd_simt', 'flash_bwd_dkv',
+                 'flash_bwd_dq'):
     assert re.search(rf'\b{kernel}\s*\(', text), kernel
   assert '#include "sm90.cuh"' in (_build._CSRC /
                                    'flash_attention.cu').read_text()
@@ -104,9 +154,9 @@ _ABLATIONS = sorted((pathlib.Path(_build.__file__).parent / 'ablations')
 
 def test_every_kernel_redesign_has_an_ablation_spec():
   names = {p.name for p in _ABLATIONS}
-  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k2_dkv_d256.json',
-          'k3_dq_d256.json', 'k4_decoder.json', 'k5_bwd.json',
-          'k6_mask.json', 'k8_gn.json'} <= names, names
+  assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k1_fwd_d256.json',
+          'k2_dkv_d256.json', 'k3_dq_d256.json', 'k4_decoder.json',
+          'k5_bwd.json', 'k6_mask.json', 'k8_gn.json'} <= names, names
 
 
 @pytest.mark.parametrize('spec_path', _ABLATIONS, ids=lambda p: p.stem)
@@ -136,9 +186,10 @@ def test_ablation_spec_matches_the_sources(spec_path):
 
 
 def test_ablation_inputs_take_a_specs_shape():
-  """The D <= 256 specs time K2 and K3 at imagenet32's backward shape."""
+  """The D <= 256 specs time K1, K2 and K3 at imagenet32's train-step
+  shape."""
   from mulan_tpu_torch.ops import ablate
-  for name in ('k2_dkv_d256.json', 'k3_dq_d256.json'):
+  for name in ('k1_fwd_d256.json', 'k2_dkv_d256.json', 'k3_dq_d256.json'):
     spec = json.loads((_ABLATIONS[0].parent / name).read_text())
     assert spec['shape'] == [128, 1, 1024, 256], name
   inputs = ablate.make_inputs(torch.device('cpu'), (2, 1, 16, 256))

@@ -45,6 +45,27 @@ def test_flash_attention_plain_matches_jax(shape):
   assert attn_ops.flash_attention.launches == before  # no kernel on the CPU
 
 
+@pytest.mark.parametrize('shape', [(2, 1, 130, 256), (1, 2, 100, 256)])
+def test_flash_attention_plain_lse_matches_jax_reference_fwd(shape):
+  """The plain forward with its row log-sum-exp at head_dim 256, which K1's
+  kernel for 128 < D <= 256 is held against on the card, against JAX's
+  `_reference_fwd` (the interpret path of `_fwd`, which saves l and m under
+  AD): o, and the lse against m + log l. T = 130 and 100 leave a ragged last
+  80-key tile."""
+  rs = np.random.RandomState(1)
+  q, k, v = (rs.standard_normal(shape).astype(np.float32) for _ in range(3))
+  scale = shape[-1] ** -0.5
+  want_o, l, m = flash_bwd._reference_fwd(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), scale)
+  got_o, got_lse = attn_ops.flash_attention_plain(
+      *(torch.from_numpy(a) for a in (q, k, v)), scale, return_lse=True)
+  assert got_lse.shape == shape[:3] and got_lse.dtype == torch.float32
+  np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), rtol=RTOL,
+                             atol=ATOL)
+  np.testing.assert_allclose(got_lse.numpy(), np.asarray(m + jnp.log(l)),
+                             rtol=RTOL, atol=ATOL)
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
   """A tensor that is not on the CPU never takes the plain version."""
   q = torch.empty((1, 1, 8, 8), device='meta')
