@@ -54,10 +54,17 @@ kernels against plain); the ancestral sampler; a few steps of
 --config=imagenet32 --bpd_eval_method=ode` on its exported `ckpt-N.flax`;
 and K8 with its backward alone at the 256-wide UNet's channel counts. Every
 K1-K3 launch there, as every one before it, must take the 'sm90' route.
+Last, four MuLAN variants at the flagship's width and depth (`VARIANTS`):
+V1, the per-pixel-gamma 'ldm' UNet with the learned monotone schedule and
+the Gumbel latent, through a few train steps (its learned g0 puts K5 on
+the step), one step against its plain twin, the sparse VLB, the sampler
+and an RK4 likelihood; the Gaussian latent, the CNN encoder and the label
+embedding through two train steps and one ELBO batch against plain each.
 Every check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
-step (unfused, fused, with `with_attention`, the VDM's and ImageNet32's)
+step (unfused, fused, with `with_attention`, the VDM's, ImageNet32's and
+V1's below)
 and one ODE RHS evaluation by kernel category with `torch.profiler` and
 prints the tables as `[profile]` lines.
 
@@ -272,6 +279,27 @@ IN32_ENCODER_ATTN = (4, 1, 1024, 256)
 IN32_TIMED_CALLS = 6
 # The train step's remat mode: the config's.
 IN32_REMAT = 'none'
+# The MuLAN variants (phase 15) at the flagship's width and depth: V1 (the
+# per-pixel-gamma 'ldm' UNet, the 'learnable_nnet' schedule, the Gumbel
+# latent, `sample_softmax`, i.i.d. times) takes VARIANT_TRAIN_STEPS train
+# steps at batch 128, one batch of the sparse VLB, VARIANT_SAMPLE_STEPS
+# ancestral steps at batch SAMPLE_BATCH and an RK4 likelihood of
+# VARIANT_ODE_ROWS images (ODE_RK4_STEPS steps); V2-V4 take
+# VARIANT_SMALL_STEPS train steps and one ELBO batch each, kernels against
+# plain within BPD_TOL.
+VARIANTS = {
+    'v1': dict(unet_type='ldm', gamma_type='learnable_nnet',
+               latent_type='gumbel', sample_softmax=True,
+               antithetic_time_sampling=False),
+    'v2': dict(latent_type='gaussian', gamma_type='linear',
+               z_conditioning=False),
+    'v3': dict(encoder='cnn', topk_noise_type='gumbel'),
+    'v4': dict(reparam_type='none'),
+}
+VARIANT_TRAIN_STEPS = 4
+VARIANT_SMALL_STEPS = 2
+VARIANT_SAMPLE_STEPS = 10
+VARIANT_ODE_ROWS = 64
 # The probability-flow ODE (phase 12): a likelihood solve takes ODE_ROWS
 # images at once; RK4 with ODE_RK4_STEPS steps is 16 RHS evaluations, each
 # the score UNet's forward and its input gradient (K1, K2 and K3 once). The
@@ -1149,14 +1177,21 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
   K1 once more per attention block, K8 twice and K6 once more per ResNet
   block. K6 makes a block's mask in the forward and again in the backward;
   with `dropout_mask_batch`, one K7 launch makes the UNet's masks instead
-  and the encoder keeps K6. K5 runs once in the VDM's step (its g0 is
-  learned) and never in MuLAN's (`poly_fixedend` pins g0).
+  and the encoder keeps K6. K5 runs once a step where g0 is learned (the
+  VDM's schedule and MuLAN's `learnable_nnet`) and never where it is
+  pinned or fixed (`poly_fixedend`, `linear`). The encoder UNet (its
+  trunk) is there for MuLAN's logits or Gaussian latent with
+  `reparam_type` 'true'; the CNN encoder has neither attention nor
+  dropout.
   """
   n_unet = 2 * cfg.sm_n_layer + 3
-  n_enc = 0 if vdm else cfg.forward_n_layer + 2
+  trunk = not vdm and cfg.reparam_type == 'true' and (
+      cfg.encoder == 'unet' or cfg.latent_type == 'gaussian')
+  n_enc = cfg.forward_n_layer + 2 if trunk else 0
   unet_attn = 1 + (2 * cfg.sm_n_layer + 1 if cfg.with_attention else 0)
-  enc_attn = 0 if vdm else 1 + (cfg.forward_n_layer if cfg.with_attention
-                                else 0)
+  enc_attn = 1 + (cfg.forward_n_layer if cfg.with_attention
+                  else 0) if trunk else 0
+  learned_g0 = vdm or cfg.gamma_type == 'learnable_nnet'
   counts = dict.fromkeys(kernel_counters(), 0)
   k8 = 2 * n_unet if cfg.fused_gn_swish else 0
   if path == 'eval':
@@ -1186,7 +1221,7 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
   counts.update(
       flash_attention=n_attn * (2 if cfg.remat_attn else 1),
       flash_attention_bwd_dkv=n_attn, flash_attention_bwd_dq=n_attn,
-      decoder_logprob=1, decoder_logprob_bwd=int(vdm),
+      decoder_logprob=1, decoder_logprob_bwd=int(learned_g0),
       dropout_mask=drop * ((0 if batched else 2 * n_unet + unet_remat)
                            + 2 * n_enc + enc_remat),
       dropout_mask_batch=int(batched),
@@ -1828,7 +1863,7 @@ def run_dense_eval(ev, images, gen, dev, route_totals):
                       device=dev, state=model.state_dict())
   with torch.inference_mode():
     got, want = (vlb.dense_chunk_bpd(m, images[:n_img], DENSE_T, u=u,
-                                     eps0=eps, eps=eps, topk_noise=topk)
+                                     eps0=eps, eps=eps, latent_noise=topk)
                  for m in (model, plain))
   delta = abs(got.mean() - want.mean()).item()
   log('dense_eval', images=DENSE_IMAGES, n_timesteps=DENSE_T,
@@ -2485,7 +2520,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   for name, m in (('kernels', model), ('plain', plain)):
     def run():
       with torch.inference_mode():
-        out = m.elbo(batch, t, eps0=eps, eps=eps, topk_noise=topk)
+        out = m.elbo(batch, t, eps0=eps, eps=eps, latent_noise=topk)
         return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
     bpds[name], _ = timed(run)
     rates[name] = IN32_EVAL_BATCH / timed(run)[1]
@@ -2546,7 +2581,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   eps = torch.randn((n, *cfg.image_shape), generator=gen, device=dev)
   step_noise = dict(
       t=sample_times(n, generator=gen, device=dev), eps0=eps, eps=eps,
-      topk_noise=latents.gamma_variates(cfg.latent_k, (n, cfg.latent_size),
+      latent_noise=latents.gamma_variates(cfg.latent_k, (n, cfg.latent_size),
                                         generator=gen, device=dev),
       dropout_seed=1234)
   # Counted: every K1, K2 and K3 launch of the kernels' step, of the blocks
@@ -2577,6 +2612,153 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   kernels['gn_swish_bwd'] = check_gn_swish_bwd(dev, gen, sfu_rate,
                                                IN32_GN_CASES)
   return paths, kernels, ex
+
+
+def variant_elbo_vs_plain(name, cfg, state, batch, labels, gen, dev):
+  """One ELBO batch of a variant through the kernels and its plain twin on
+  the same noise: (bpds, images/s of each, median of 3 after a warm-up);
+  asserts |delta| <= BPD_TOL."""
+  from mulan_tpu_torch.evals import vlb
+  from mulan_tpu_torch.models import build_model, latents
+  from mulan_tpu_torch.models.vdm import sample_times
+  n = batch.shape[0]
+  t = sample_times(n, generator=gen, device=dev)
+  eps = torch.randn((n, *cfg.image_shape), generator=gen, device=dev)
+  noise = latents.latent_variates(cfg, n, generator=gen, device=dev)
+  bpds, rates = {}, {}
+  for kind, use_kernels in (('kernels', True), ('plain', False)):
+    m = build_model('mulan_velocity', dataclasses.replace(
+        cfg, use_kernels=use_kernels), device=dev, state=state)
+
+    def run():
+      with torch.inference_mode():
+        out = m.elbo(batch, t, labels=labels, eps0=eps, eps=eps,
+                     latent_noise=noise)
+        return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
+    run()
+    runs = [timed(run) for _ in range(3)]
+    bpds[kind] = runs[0][0]
+    rates[kind] = n / statistics.median(s for _, s in runs)
+    del m
+  delta = abs(bpds['kernels'] - bpds['plain'])
+  log(f'{name}_elbo_kernels_vs_plain', batch=n, bpd=bpds, abs_delta=delta,
+      tol=BPD_TOL, images_per_s=rates)
+  assert math.isfinite(bpds['kernels']) and delta <= BPD_TOL, bpds
+  return bpds, rates
+
+
+def run_variants(dev, gen, images, labels, flagship_ms, route_totals):
+  """Phase 15: MuLAN's model variants (VARIANTS) at the flagship's width
+  and depth, each through its entry points with its launches counted and
+  held against `expected_launches`. V1: VARIANT_TRAIN_STEPS steps of
+  `Experiment.train` at batch 128 (K5 once a step: its g0 is learned),
+  timed beside the flagship's step of phase 6 (`flagship_ms`); one step
+  kernels against plain (`compare_train_step`, the gates of phase 7); the
+  sparse VLB over one batch and one ELBO batch kernels against plain; the
+  ancestral sampler (`sample_softmax` decode); an RK4 likelihood. V2-V4:
+  VARIANT_SMALL_STEPS train steps and one ELBO batch kernels against plain
+  (V4 embeds the batch's labels). Returns ({path: launches}, the phase's
+  numbers, V1's Experiment)."""
+  from mulan_tpu_torch import configs, data, params
+  from mulan_tpu_torch.evals import harness, nll_ode, vlb
+  from mulan_tpu_torch.models import build_model, latents
+  from mulan_tpu_torch.models.vdm import sample_times
+  from mulan_tpu_torch.ops import ode
+  from mulan_tpu_torch.train.loop import Experiment
+  t0 = time.perf_counter()
+  base_cfg = configs.replace(
+      configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
+      training={'steps_per_logging': VARIANT_TRAIN_STEPS})
+  batch = torch.as_tensor(images[:EVAL_BATCH], device=dev)
+  batch_labels = torch.as_tensor(labels[:EVAL_BATCH], device=dev)
+  paths, numbers = {}, {}
+  for name, overrides in VARIANTS.items():
+    train_cfg = configs.replace(base_cfg, model=overrides)
+    cfg = train_cfg.model
+    state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               perturb_zero_init=0.02)
+    steps = VARIANT_TRAIN_STEPS if name == 'v1' else VARIANT_SMALL_STEPS
+    ex = Experiment(train_cfg, device=dev, state=state)
+    first, first_counts = counted(lambda: ex.train(1), route_totals)
+    (more, secs), more_counts = counted(lambda: timed(
+        lambda: ex.train(steps - 1)), route_totals)
+    history = first + more
+    counts = {k: v + more_counts[k] for k, v in first_counts.items()}
+    per_step = expected_launches(cfg, 'train')
+    ms = 1e3 * secs / (steps - 1)
+    paths[f'{name}_train'] = counts
+    log(f'{name}_train', model=overrides, steps=steps, batch=EVAL_BATCH,
+        bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms,
+        flagship_ms_per_step=flagship_ms, ratio_to_flagship=ms / flagship_ms,
+        launches=counts, launches_per_step=per_step)
+    assert all(math.isfinite(h['bpd']) for h in history), history
+    assert counts == times(per_step, steps), counts
+    numbers[name] = {'train_ms_per_step': ms}
+    bpds, rates = variant_elbo_vs_plain(
+        name, cfg, state, batch,
+        batch_labels if cfg.reparam_type != 'true' else None, gen, dev)
+    numbers[name]['elbo_images_per_s'] = rates['kernels']
+    if name != 'v1':
+      del ex
+      torch.cuda.empty_cache()
+      continue
+
+    # V1: every kernel of the flagship's paths, and K5 (g0 is learned).
+    for k in ('flash_attention', 'flash_attention_bwd_dkv',
+              'flash_attention_bwd_dq', 'decoder_logprob',
+              'decoder_logprob_bwd', 'dropout_mask'):
+      assert counts[k] > 0, (k, counts)
+    model = build_model('mulan_velocity', cfg, device=dev, state=state)
+    t = sample_times(EVAL_BATCH, generator=gen, device=dev)
+    eps = torch.randn((EVAL_BATCH, *cfg.image_shape), generator=gen,
+                      device=dev)
+    step_noise = dict(t=t, eps0=eps, eps=eps, dropout_seed=1234,
+                      latent_noise=latents.latent_variates(
+                          cfg, EVAL_BATCH, generator=gen, device=dev))
+    compare_train_step(ex, model, lambda **kw: build_model(
+        'mulan_velocity', dataclasses.replace(cfg, use_kernels=False, **kw),
+        device=dev, state=state), {'images': batch}, step_noise,
+                       tag='v1_train', with_f32=False, planted=())
+    ex_v1 = ex
+    (bpd, secs), paths['v1_eval'] = counted(lambda: timed(
+        lambda: vlb.eval_bpd_sparse(
+            model, data.eval_batches(images, EVAL_BATCH), generator=gen,
+            max_batches=1)), route_totals)
+    log('v1_eval_bpd_sparse', batch=EVAL_BATCH, bpd=bpd, seconds=secs,
+        launches=paths['v1_eval'])
+    assert math.isfinite(bpd), bpd
+    assert paths['v1_eval'] == expected_launches(cfg, 'eval'), (
+        paths['v1_eval'])
+    ((samples, z_0), secs), paths['v1_sample'] = counted(lambda: timed(
+        lambda: harness.random_samples(model, SAMPLE_BATCH,
+                                       VARIANT_SAMPLE_STEPS, generator=gen)),
+                                                        route_totals)
+    log('v1_random_samples', batch=SAMPLE_BATCH, steps=VARIANT_SAMPLE_STEPS,
+        ms_per_step=1e3 * secs / VARIANT_SAMPLE_STEPS,
+        min=int(samples.min()), max=int(samples.max()),
+        z0_abs_max=z_0.abs().max().item(), launches=paths['v1_sample'])
+    assert samples.dtype.name == 'uint8' and torch.isfinite(z_0).all()
+    assert samples.shape == (SAMPLE_BATCH, *cfg.image_shape)
+    assert paths['v1_sample'] == times(expected_launches(cfg, 'sample'),
+                                       VARIANT_SAMPLE_STEPS)
+    rk4 = functools.partial(ode.odeint_rk4, num_steps=ODE_RK4_STEPS)
+    model.requires_grad_(False)
+    ((log_p, _, aux, stats), secs), paths['v1_ode_nll'] = counted(
+        lambda: timed(lambda: nll_ode.make_ode_likelihood_fn(
+            model, odeint=rk4)(batch[:VARIANT_ODE_ROWS], key=SEED)),
+        route_totals)
+    ode_bpd_value = ode_bpd(cfg, log_p, aux)
+    log('v1_ode_nll', rows=VARIANT_ODE_ROWS, rk4_steps=ODE_RK4_STEPS,
+        nfe=stats['nfe'], bpd=ode_bpd_value, seconds=secs,
+        launches=paths['v1_ode_nll'])
+    assert stats['success'] and math.isfinite(ode_bpd_value), stats
+    assert paths['v1_ode_nll'] == ode_solve_launches(cfg, stats['nfe'])
+    del model
+    torch.cuda.empty_cache()
+  wall = time.perf_counter() - t0
+  numbers['wall_s'] = wall
+  log('variants', wall_s=wall, numbers=numbers)
+  return paths, numbers, ex_v1
 
 
 def main() -> None:
@@ -2638,7 +2820,7 @@ def main() -> None:
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
   model = build_model('mulan_velocity', cfg, device=dev, state=state)
-  images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
+  images, labels = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
 
   def run_eval(m):
     return counted(lambda: timed(lambda: vlb.eval_bpd_sparse(
@@ -2693,7 +2875,7 @@ def main() -> None:
     """bpd on the batch above and images/s, median of 3 after a warm-up."""
     def run():
       with torch.inference_mode():
-        out = m.elbo(batch, t, eps0=eps, eps=eps, topk_noise=noise)
+        out = m.elbo(batch, t, eps0=eps, eps=eps, latent_noise=noise)
         return vlb.bpd_terms(out, cfg.n_pixels).mean().item()
     run()
     secs = []
@@ -2719,6 +2901,8 @@ def main() -> None:
   # 6. Training: Experiment.train at batch 128 with dropout 0.1. The first
   # update has lr 0 (the warm-up is read before it), so step 1 leaves the
   # parameters as they were and later steps move them and the EMA.
+  train_ms = {}
+
   def run_train(ex, steps, name, after_first=None):
     """`steps` steps of ex.train, the first alone (then `after_first()`),
     the others timed; logs the bpds, ms a step, the peak memory (in all and
@@ -2735,7 +2919,7 @@ def main() -> None:
     history += more
     counts = {k: v + more_counts[k] for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated()
-    ms_per_step = 1e3 * secs / (steps - 1)
+    ms_per_step = train_ms[name] = 1e3 * secs / (steps - 1)
     batch_size = ex.config.training.batch_size_train
     log(name, steps=steps, batch=batch_size,
         bpd=[round(h['bpd'], 4) for h in history], ms_per_step=ms_per_step,
@@ -2776,7 +2960,7 @@ def main() -> None:
 
   # 7. One train step, kernels against plain and against float32.
   del start
-  step_noise = dict(t=t, eps0=eps, eps=eps, topk_noise=noise,
+  step_noise = dict(t=t, eps0=eps, eps=eps, latent_noise=noise,
                     dropout_seed=1234)
   compare_train_step(ex, model, lambda **kw: build_model(
       'mulan_velocity', dataclasses.replace(cfg, use_kernels=False, **kw),
@@ -2884,6 +3068,14 @@ def main() -> None:
                                                      in32_routes)
   torch.cuda.empty_cache()
 
+  # 15. The MuLAN variants at the flagship's width and depth: the 'ldm'
+  # UNet with the learned schedule and the Gumbel latent through training,
+  # evaluation, sampling and the ODE likelihood; the Gaussian latent, the
+  # CNN encoder and the label embedding through training and an ELBO.
+  variant_paths, _, ex_v1 = run_variants(dev, gen, images, labels,
+                                         train_ms['train'], route_totals)
+  torch.cuda.empty_cache()
+
   if want_profile:
     ode_t = torch.tensor(0.5)
     in32_batch = torch.as_tensor(images[:IN32_TRAIN_BATCH], device=dev)
@@ -2910,7 +3102,8 @@ def main() -> None:
                      ('ode_rhs_b128', lambda: ode_func(ode_t, ode_y0)),
                      ('vdm_train_step_b128', train_step(ex_v)),
                      ('in32_train_step_b128', lambda: ex_in32.train_step(
-                         {'images': in32_batch}))):
+                         {'images': in32_batch})),
+                     ('v1_train_step_b128', train_step(ex_v1))):
       log('profile', call=name, **profile(fn))
 
   sources = {
@@ -2941,7 +3134,7 @@ def main() -> None:
            'workdir_train': workdir_counts, 'dense_eval': dense_counts,
            'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
-           'ode_fused_rhs': ode_fused_counts, **vdm_paths,
+           'ode_fused_rhs': ode_fused_counts, **vdm_paths, **variant_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')

@@ -82,7 +82,7 @@ def main(argv=None) -> float:
   from mulan_tpu_torch.evals.harness import EvalExperiment
   ex = EvalExperiment(config, args.checkpoint_directory, args.checkpoint,
                       device=device)
-  batches = (b['images'] for b in data.create_one_time_eval_dataset(config))
+  batches = data.create_one_time_eval_dataset(config)
   generator = torch.Generator(device).manual_seed(0)
   model = ex.state.ema_model
   if args.bpd_eval_method == 'ode':

@@ -18,20 +18,22 @@ from mulan_tpu_torch.train.loop import SAMPLE, Experiment, mean_scalars
 
 def _ancestral(model: nn.Module, emb, T: int, generator):
   """T ancestral steps from a standard normal prior conditioned on `emb`
-  (B, latent_size), then the argmax decode: (uint8 NHWC numpy images, the
-  final float32 NHWC latent on the model's device)."""
+  (B, latent_size) and on zero conditioning (`harness.py:55`, `:86`), then
+  the decode: (uint8 NHWC numpy images, the final float32 NHWC latent on
+  the model's device)."""
   z = torch.randn((emb.shape[0], *model.config.image_shape),
                   generator=generator, device=model.device)
   for i in range(T):
     z = model.conditional_sample(i, T, z, emb, generator=generator)
-  return model.generate_x(z).to(torch.uint8).cpu().numpy(), z
+  return model.generate_x(z, generator).to(torch.uint8).cpu().numpy(), z
 
 
 @torch.inference_mode()
 def random_samples(model: nn.Module, batch_size: int = 16, T: int = 1000,
                    generator: Optional[torch.Generator] = None):
   """T ancestral steps from the prior, each example conditioned on a random
-  hard top-k embedding, then the argmax decode.
+  hard top-k embedding, then the decode (the argmax, or a categorical draw
+  with `sample_softmax`).
 
   Returns (images, z_0): uint8 NHWC numpy images and the final float32 NHWC
   latent on the model's device.

@@ -7,7 +7,13 @@ counterpart of `mulan_tpu/evals/nll_ode.py`.
     DoPri5 or RK4 (`ops/ode.py`); log p(x) is the prior's log density at
     x(1) plus delta log p. The VDM has no latent: its UNet is conditioned on
     a zero column and its latent KL is 0 (`mulan_tpu/evals/nll_ode.py:
-    134-142`), and the ODE sampler conditions it on zeros too.
+    134-142`), and the ODE sampler conditions it on zeros too. A MuLAN's
+    score UNet is conditioned on the hard top-k embedding of the encoder's
+    logits, whatever `z_conditioning` says, as in JAX. So the likelihood
+    refuses the variants where JAX's raises: no encoder (`reparam_type`
+    other than 'true') and the Gaussian latent (`_refuse_ode_latent`); with
+    `z_conditioning=False` the UNet refuses the embedding, in the
+    likelihood and the sampler alike (`models/unet.py`).
   * The divergence of the drift is Hutchinson's estimate eps^T (df/dx) eps,
     by one reverse-mode vector-Jacobian product per RHS evaluation
     (`torch.autograd.grad`). Forward mode would give the same number, but
@@ -88,6 +94,22 @@ def bpd_offset(dequantization: str, num_is: int,
   raise ValueError(f'unknown dequantization: {dequantization!r}')
 
 
+def _refuse_ode_latent(config) -> None:
+  """Raises for a MuLAN variant whose latent JAX's ODE likelihood cannot
+  read: it feeds `apply_encoder`'s output to `gumbel_kl` and
+  `logits_to_embeddings` (`mulan_tpu/evals/nll_ode.py:143-151`)."""
+  if config.reparam_type != 'true':
+    raise ValueError(
+        f'reparam_type={config.reparam_type!r}: the ODE likelihood runs the '
+        'latent encoder, which this model has none of (JAX raises '
+        'ScopeParamNotFoundError at mulan_tpu/evals/nll_ode.py:148)')
+  if config.latent_type == 'gaussian':
+    raise ValueError(
+        "latent_type='gaussian': the ODE likelihood reads the encoder's "
+        'output as top-k logits, not (mu, var) (JAX raises TypeError at '
+        'mulan_tpu/evals/nll_ode.py:150)')
+
+
 def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
                            rtol: float = 1e-5, atol: float = 1e-5,
                            dequantization: str = 'tn',
@@ -112,6 +134,8 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
   d = cfg.n_pixels
   if dequantization not in ('tn', 'uniform'):
     raise ValueError(f'unknown dequantization: {dequantization!r}')
+  if not isinstance(model, VDM):
+    _refuse_ode_latent(cfg)
   dev = model.device
 
   def likelihood(images, key: int = 0, *, u=None, probe=None):

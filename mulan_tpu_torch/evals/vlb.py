@@ -3,14 +3,20 @@
   * `eval_bpd_sparse`: one Monte-Carlo ELBO per test image, antithetic t
     across each batch.
   * `eval_bpd_dense`: each image on the stratified grid
-    t_j = (u_i + j / n_timesteps) mod 1 with one offset u_i per image. For
-    MuLAN the encoder runs once per image and its logits are repeated over
-    the grid (`MuLAN.elbo(encoder_logits=...)`); each (image, t) row still
-    draws its own top-k and diffusion noise. The VDM has no latent and takes
-    the plain path (`mulan_tpu/evals/vlb.py:111-117`). The rows go through
-    the model in chunks of `images_per_chunk` images, 512 rows by default.
+    t_j = (u_i + j / n_timesteps) mod 1 with one offset u_i per image, its
+    labels and conditioning repeated over the grid. For a MuLAN with a
+    logits encoder (top-k or Gumbel latent, `reparam_type` 'true') the
+    encoder runs once per image and its logits are repeated over the grid
+    (`MuLAN.elbo(encoder_logits=...)`); each (image, t) row still draws its
+    own latent and diffusion noise. The VDM, the Gaussian latent and the
+    models without an encoder take the plain path
+    (`mulan_tpu/evals/vlb.py:111-118`). The rows go through the model in
+    chunks of `images_per_chunk` images, 512 rows by default.
 
-`model` is a `MuLAN` or a `VDM`.
+`model` is a `MuLAN` or a `VDM`. A batch is a dict of `images` (uint8
+NHWC) and, when the model reads them, `labels` and `conditioning` (B,), as
+the data iterators yield it, or the images alone. The ELBO's step is 0, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -32,22 +38,40 @@ def bpd_terms(outputs: ELBOOutput, n_pixels: int) -> torch.Tensor:
   return nats / (n_pixels * math.log(2.0))
 
 
+def _split_batch(batch):
+  """(images, labels, conditioning) of a batch dict, or of images alone
+  (labels and conditioning None)."""
+  if isinstance(batch, dict):
+    return batch['images'], batch.get('labels'), batch.get('conditioning')
+  return batch, None, None
+
+
+def _shares_encoder(model: nn.Module) -> bool:
+  """Whether the dense VLB may run the encoder once per image: a MuLAN
+  whose encoder gives logits (`vlb.py:116-118`)."""
+  cfg = model.config
+  return (isinstance(model, MuLAN) and cfg.reparam_type == 'true'
+          and cfg.latent_type in ('topk', 'gumbel'))
+
+
 @torch.inference_mode()
 def eval_bpd_sparse(model: nn.Module, batches: Iterable,
                     generator: Optional[torch.Generator] = None,
                     max_batches: Optional[int] = None) -> float:
-  """Mean bpd over uint8 NHWC image batches.
+  """Mean bpd over batches (see the module's docstring).
 
   Per-batch means stay on the device and are read once at the end, so the
   host never waits on the device inside the loop.
   """
   n_pixels = model.config.n_pixels
   bpds = []
-  for i, images in enumerate(batches):
+  for i, batch in enumerate(batches):
     if max_batches is not None and i >= max_batches:
       break
-    bpds.append(bpd_terms(model(images, generator=generator),
-                          n_pixels).mean())
+    images, labels, conditioning = _split_batch(batch)
+    bpds.append(bpd_terms(model(images, labels=labels,
+                                conditioning=conditioning,
+                                generator=generator), n_pixels).mean())
   if not bpds:
     raise ValueError('eval_bpd_sparse saw zero batches')
   return float(torch.stack(bpds).mean())
@@ -58,24 +82,32 @@ DENSE_ROWS_PER_CHUNK = 512
 
 
 def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
+                    labels=None, conditioning=None,
                     generator: Optional[torch.Generator] = None, u=None,
                     **noise) -> torch.Tensor:
   """Per-image bpd (B,) averaged over the grid t_j = (u_i + j / n) mod 1,
-  on the device. `u` (B,) and the ELBO's `noise` (eps0, eps, and MuLAN's
-  topk_noise, for the B * n rows, image-major) are drawn from `generator`
+  on the device, the images' `labels` and `conditioning` (B,) repeated
+  over it. `u` (B,) and the ELBO's `noise` (eps0, eps, and MuLAN's
+  latent_noise, for the B * n rows, image-major) are drawn from `generator`
   when not given."""
-  images = torch.as_tensor(images, device=model.device)
+  dev = model.device
+  images = torch.as_tensor(images, device=dev)
   b = images.shape[0]
   if u is None:
-    u = torch.rand((b,), generator=generator, device=model.device)
-  steps = torch.arange(n_timesteps, device=model.device) / n_timesteps
-  t = torch.remainder(torch.as_tensor(u, device=model.device)[:, None]
+    u = torch.rand((b,), generator=generator, device=dev)
+  steps = torch.arange(n_timesteps, device=dev) / n_timesteps
+  t = torch.remainder(torch.as_tensor(u, device=dev)[:, None]
                       + steps, 1.0).reshape(-1)
-  if isinstance(model, MuLAN):  # one encoder pass an image
-    noise['encoder_logits'] = model.apply_encoder(images).repeat_interleave(
-        n_timesteps, dim=0)
-  out = model.elbo(images.repeat_interleave(n_timesteps, dim=0), t,
-                   generator=generator, **noise)
+
+  def repeat(a):
+    return (None if a is None else
+            torch.as_tensor(a, device=dev).repeat_interleave(n_timesteps,
+                                                             dim=0))
+  if _shares_encoder(model):  # one encoder pass an image
+    noise['encoder_logits'] = repeat(model.apply_encoder(images))
+  out = model.elbo(repeat(images), t, labels=repeat(labels),
+                   conditioning=repeat(conditioning), generator=generator,
+                   **noise)
   return bpd_terms(out, model.config.n_pixels).reshape(
       b, n_timesteps).mean(dim=1)
 
@@ -85,7 +117,8 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
                    images_per_chunk: Optional[int] = None,
                    generator: Optional[torch.Generator] = None,
                    max_batches: Optional[int] = None) -> float:
-  """Mean dense bpd over uint8 NHWC image batches (`vlb.py:71-182`).
+  """Mean dense bpd over batches (`vlb.py:71-182`; see the module's
+  docstring).
 
   Each batch is cut into chunks of `images_per_chunk` images (default
   `DENSE_ROWS_PER_CHUNK // n_timesteps`, at least 1). Per-image results
@@ -94,12 +127,17 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
   if images_per_chunk is None:
     images_per_chunk = max(1, DENSE_ROWS_PER_CHUNK // n_timesteps)
   bpds = []
-  for i, images in enumerate(batches):
+  for i, batch in enumerate(batches):
     if max_batches is not None and i >= max_batches:
       break
+    images, labels, conditioning = _split_batch(batch)
     for lo in range(0, len(images), images_per_chunk):
-      bpds.append(dense_chunk_bpd(model, images[lo:lo + images_per_chunk],
-                                  n_timesteps, generator=generator))
+      chunk = slice(lo, lo + images_per_chunk)
+      bpds.append(dense_chunk_bpd(
+          model, images[chunk], n_timesteps,
+          labels=None if labels is None else labels[chunk],
+          conditioning=None if conditioning is None else conditioning[chunk],
+          generator=generator))
   if not bpds:
     raise ValueError('eval_bpd_dense saw zero batches')
   return float(torch.cat(bpds).mean())

@@ -98,7 +98,8 @@ def _sample(args, config, device) -> None:
     z_0, nfe = nll_ode.make_ode_sample_fn(model)(args.sample_batch,
                                                  ex.generator)
     print(f'ode sampler nfe: {nfe}')
-    samples = model.generate_x(z_0).to(torch.uint8).cpu().numpy()
+    samples = model.generate_x(z_0, ex.generator).to(
+        torch.uint8).cpu().numpy()
   os.makedirs(args.workdir, exist_ok=True)
   path = os.path.join(args.workdir,
                       f'samples_ckpt{ex.checkpoint_step}_{args.sampler}.png')

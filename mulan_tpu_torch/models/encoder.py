@@ -1,5 +1,7 @@
-"""Latent-logit encoder q(z_x | x), counterpart of
-`mulan_tpu/models/encoder.py:UnetEncoder`.
+"""Latent encoders q(z_x | x), counterparts of `mulan_tpu/models/encoder.py`:
+`UnetEncoder` (latent logits), `UnetEncoderGaussian` (mu and a softplus
+variance from two heads on the same trunk) and `CNNEncoder` (two ReLU
+convolutions and a Dense layer, `encoder='cnn'`).
 
 The trunk embeds a constant t = 0 / conditioning = 0 vector through learned
 Dense layers, as the score UNet embeds its time, then runs conv_in,
@@ -104,3 +106,42 @@ class UnetEncoder(nn.Module):
 
   def forward(self, z, dropout_seed=None):
     return self.dense_layer_final(self.trunk(z, dropout_seed))
+
+
+class UnetEncoderGaussian(nn.Module):
+  """The trunk with two float32 heads: (mu, softplus(sigma)), the second
+  used as the latent's variance (`encoder.py:90-101`)."""
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    self.trunk = UnetTrunk(config)
+    self.dense_layer_final_mu = nn.Linear(config.image_size ** 2,
+                                          config.latent_size)
+    self.dense_layer_final_sigma = nn.Linear(config.image_size ** 2,
+                                             config.latent_size)
+
+  def forward(self, z, dropout_seed=None):
+    h = self.trunk(z, dropout_seed)
+    return (self.dense_layer_final_mu(h),
+            F.softplus(self.dense_layer_final_sigma(h)))
+
+
+class CNNEncoder(nn.Module):
+  """conv3x3 (32) - ReLU - conv3x3 (16) - ReLU, flattened in NHWC order,
+  then a Dense layer to the latent logits; float32 throughout, as flax's
+  modules without a `dtype` run (`encoder.py:104-114`). It has no dropout."""
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    self.conv1 = nn.Conv2d(config.image_channels, 32, 3, padding=1)
+    self.conv2 = nn.Conv2d(32, 16, 3, padding=1)
+    self.dense = nn.Linear(16 * config.image_size ** 2, config.latent_size)
+
+  def forward(self, z, dropout_seed=None):
+    del dropout_seed
+    h = F.relu(self.conv2(F.relu(self.conv1(z.float()))))
+    return self.dense(h.permute(0, 2, 3, 1).flatten(1))
+
+
+# `encoder` -> the logits encoder (`encoder.py:117`).
+ENCODERS = {'cnn': CNNEncoder, 'unet': UnetEncoder}

@@ -1,7 +1,11 @@
-"""Top-k latent machinery, counterpart of `mulan_tpu/models/latents.py`.
+"""Latent machinery, counterpart of `mulan_tpu/models/latents.py`: the
+straight-through top-k (Gamma or Gumbel noise), the straight-through Gumbel
+argmax and the reparameterized Gaussian, with the canonical embeddings the
+unconditional sampler uses.
 
-Random draws take an explicit `torch.Generator`, or the variates themselves,
-so that tests can feed both packages the same numbers.
+Random draws are explicit tensor arguments; `latent_variates` draws them
+from a `torch.Generator` when the caller has none, so that tests can feed
+both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 N_GAMMA_TERMS = 10
 GAMMA_TAU = 10.0
@@ -30,6 +35,30 @@ def gamma_variates(k: int, shape, *, generator: Optional[torch.Generator],
   """
   alpha = torch.full((N_GAMMA_TERMS, *shape), 1.0 / k, device=device)
   return torch._standard_gamma(alpha, generator=generator)
+
+
+def gumbel_variates(shape, *, generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
+  """Standard Gumbel draws -log(-log u), u uniform on [tiny, 1), as
+  `jax.random.gumbel` makes them."""
+  u = torch.rand(shape, generator=generator, device=device)
+  return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def latent_variates(config, batch: int, *,
+                    generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
+  """The draw `embedding_and_kl` takes for `config.latent_type`: Gamma(1/k)
+  variates (N_GAMMA_TERMS, B, latent_size) for the top-k with Gamma noise,
+  standard Gumbels (B, latent_size) for the top-k with Gumbel noise and for
+  the Gumbel latent, standard normals (B, latent_size) for the Gaussian."""
+  shape = (batch, config.latent_size)
+  if config.latent_type == 'topk' and config.topk_noise_type == 'gamma':
+    return gamma_variates(config.latent_k, shape, generator=generator,
+                          device=device)
+  if config.latent_type == 'gaussian':
+    return torch.randn(shape, generator=generator, device=device)
+  return gumbel_variates(shape, generator=generator, device=device)
 
 
 def gamma_noise(k: int, variates: torch.Tensor) -> torch.Tensor:
@@ -57,11 +86,58 @@ def topk_embedding(logits: torch.Tensor, k: int, noise: torch.Tensor):
   return (hard - soft).detach() + soft, kl
 
 
+def gumbel_embedding(logits: torch.Tensor, step,
+                     gumbels: torch.Tensor) -> torch.Tensor:
+  """Straight-through Gumbel argmax: the one-hot argmax of (logits +
+  gumbels) / tau in the forward, the softmax's gradient in the backward;
+  tau = max(0.5, exp(-1e-5 step)) anneals from 1 to 0.5."""
+  noisy = (logits + gumbels) / max(0.5, math.exp(-1e-5 * float(step)))
+  soft = torch.softmax(noisy, dim=-1)
+  hard = F.one_hot(noisy.argmax(dim=-1), logits.shape[-1]).float()
+  return (hard - soft).detach() + soft
+
+
+def gaussian_embedding(mu: torch.Tensor, var: torch.Tensor,
+                       eps: torch.Tensor):
+  """Reparameterized Gaussian latent mu + sqrt(var) eps, and its KL to
+  N(0, I), (B,)."""
+  embedding = mu + torch.sqrt(var) * eps
+  kl = 0.5 * torch.sum(mu ** 2 + var - torch.log(var) - 1.0, dim=-1)
+  return embedding, kl
+
+
+def embedding_and_kl(config, heads, noise: torch.Tensor, step=0):
+  """(embedding, kl) of the encoder's output for `config.latent_type`
+  (`mulan_tpu/models/mulan.py:_embedding_and_kl`): `heads` are the logits,
+  or (mu, var) for the Gaussian latent; `noise` is `latent_variates`'
+  draw."""
+  if config.latent_type == 'topk':
+    if config.topk_noise_type == 'gamma':
+      noise = gamma_noise(config.latent_k, noise)
+    elif config.topk_noise_type != 'gumbel':
+      raise ValueError(
+          f'unknown topk_noise_type: {config.topk_noise_type!r}')
+    return topk_embedding(heads, config.latent_k, noise)
+  if config.latent_type == 'gumbel':
+    return (gumbel_embedding(heads, step, noise),
+            gumbel_kl(heads, config.latent_size))
+  if config.latent_type == 'gaussian':
+    return gaussian_embedding(*heads, noise)
+  raise ValueError(f'unknown latent_type: {config.latent_type!r}')
+
+
 def deterministic_embedding(batch_size: int, latent_size: int, latent_k: int,
+                            latent_type: str = 'topk',
                             device=None) -> torch.Tensor:
-  """Canonical top-k embedding for unconditional sampling: k ones first."""
+  """Canonical embedding for unconditional sampling: the first `latent_k`
+  latents on (top-k), latent 1 on (Gumbel), zeros (Gaussian)."""
   emb = torch.zeros((batch_size, latent_size), device=device)
-  emb[:, :latent_k] = 1.0
+  if latent_type == 'topk':
+    emb[:, :latent_k] = 1.0
+  elif latent_type == 'gumbel':
+    emb[:, 1] = 1.0
+  elif latent_type != 'gaussian':
+    raise ValueError(f'unknown latent_type: {latent_type!r}')
   return emb
 
 

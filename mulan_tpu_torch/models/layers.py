@@ -170,7 +170,10 @@ class GroupNormF32(nn.Module):
 
 class ResnetBlock(nn.Module):
   """GN-swish-conv3x3 (+ projected conditioning) GN-swish-dropout-conv3x3,
-  plus a 1x1 `nin_shortcut` when the channel count changes.
+  plus a 1x1 `nin_shortcut` when the channel count changes. The
+  conditioning is one vector an example (B, D), added over all pixels, or
+  a map (B, H, W, D) projected and added pixel by pixel
+  (`mulan_tpu/models/layers.py:187-195`).
 
   Dropout runs only when `forward` gets a `dropout_seed`: the mask is keyed
   by (dropout_seed, site), `site` being the block's fixed index in its
@@ -209,7 +212,11 @@ class ResnetBlock(nn.Module):
 
   def _forward(self, x, cond, dropout_seed, dropout_mask):
     h = self.conv1(self._gn_swish(self.GroupNormF32_0, x))
-    h = h + self.cond_proj(cond)[:, :, None, None]
+    proj = self.cond_proj(cond)
+    if cond.dim() == 2:  # (B, D): broadcast over H, W
+      h = h + proj[:, :, None, None]
+    else:  # (B, H, W, D): a bias per pixel (the 'ldm' UNet)
+      h = h + proj.permute(0, 3, 1, 2)
     h = self._gn_swish(self.GroupNormF32_1, h)
     if dropout_mask is not None:
       h = h * dropout_mask.to(h.dtype)

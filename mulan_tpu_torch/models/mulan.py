@@ -5,9 +5,31 @@ or 'epsilon' (`imagenet32`).
 
 Public methods take and return the JAX package's NHWC layout; the networks
 run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
-`topk_noise`, `dropout_seed`); what is not passed is drawn from `generator`,
-which must live on the model's device. Gamma maps come out of the schedule
-as (B, n_pixels) in NHWC order and are reshaped to the NHWC image shape.
+`latent_noise`, `dropout_seed`); what is not passed is drawn from
+`generator`, which must live on the model's device. Gamma maps come out of
+the schedule as (B, n_pixels) in NHWC order and are reshaped to the NHWC
+image shape.
+
+Every model variant that JAX builds is built here, from the config:
+  * `latent_type` 'topk' (with `topk_noise_type` 'gamma' or 'gumbel'),
+    'gumbel' (its temperature annealed by `step`) or 'gaussian' (the
+    two-head `UnetEncoderGaussian`, whatever `encoder` says); `encoder`
+    'unet' or 'cnn';
+  * `reparam_type` other than 'true': no encoder; the embedding is
+    one_hot(labels, 10) and the latent KL 0, so the schedule and the score
+    UNet are sized for 10 inputs, as JAX's init sizes them (it never calls
+    the encoder and creates none of its parameters);
+  * `z_conditioning=False`: the score UNet is conditioned on the batch's
+    `conditioning` column instead of the embedding;
+  * `gamma_type` 'poly_fixedend', 'learnable_nnet' or 'linear'
+    (`schedules.py:MULAN_SCHEDULES`);
+  * `unet_type` 'vdm' (the UNet sees the mean of the gamma map) or 'ldm'
+    (it sees the whole map);
+  * `antithetic_time_sampling` and `sample_softmax` (a categorical draw in
+    `generate_x`, by Gumbel-max).
+As in JAX, the probability-flow methods (`sde`, `score_fn`, `score_jvp`,
+`reverse_ode`) hand their `embeddings` to the score UNet as its
+conditioning, whatever `z_conditioning` says.
 
 Every parameter is float32; the UNet and the encoder trunk cast theirs to
 `config.dtype` at use. Dropout runs only in `forward` / `elbo` with
@@ -22,10 +44,8 @@ network predicts the noise, which is reinterpreted as a velocity
 (`sm_n_timesteps` 0) or T discrete steps, with t rounded up to the grid;
 the velocity loss is continuous-time only, and raises as JAX asserts.
 Both run under each execution-policy flag (`with_attention`, `remat`,
-`fused_gn_swish`, `dropout_mask_batch`). The `ldm` UNet, gumbel/gaussian
-latents and the other schedules and encoders raise NotImplementedError at
-construction (ROADMAP.md Queue A, model variants). `evals/nll_ode.py`
-solves the probability-flow ODE of `reverse_ode`.
+`fused_gn_swish`, `dropout_mask_batch`). `evals/nll_ode.py` solves the
+probability-flow ODE of `reverse_ode`.
 """
 
 from __future__ import annotations
@@ -34,24 +54,28 @@ from typing import Optional
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
 from mulan_tpu_torch.models import encdec as encdec_lib
 from mulan_tpu_torch.models import latents
 from mulan_tpu_torch.models.config import ModelConfig
-from mulan_tpu_torch.models.encoder import UnetEncoder
+from mulan_tpu_torch.models.encoder import ENCODERS, UnetEncoderGaussian
 from mulan_tpu_torch.models.outputs import ELBOOutput
-from mulan_tpu_torch.models.schedules import NoiseSchedulePolynomialFixedend
+from mulan_tpu_torch.models.schedules import MULAN_SCHEDULES
 from mulan_tpu_torch.models.unet import UNet
 from mulan_tpu_torch.models.vdm import sample_times
 
-# Fields whose flagship value is the only one ported, with that value.
-_PORTED = {
-    'unet_type': 'vdm', 'encoder': 'unet', 'latent_type': 'topk',
-    'topk_noise_type': 'gamma', 'gamma_type': 'poly_fixedend',
-    'reparam_type': 'true', 'z_conditioning': True,
-    'sample_softmax': False, 'antithetic_time_sampling': True,
-}
 PARAMETERIZATIONS = ('epsilon', 'velocity')
+# The label classes of the one-hot embedding without an encoder
+# (`mulan_tpu/models/mulan.py:174`).
+LABEL_CLASSES = 10
+
+
+def embedding_width(config: ModelConfig) -> int:
+  """The width of the latent embedding: `latent_size`, or the label
+  classes when `reparam_type` is not 'true'."""
+  return config.latent_size if config.reparam_type == 'true' else (
+      LABEL_CLASSES)
 
 
 class MuLAN(nn.Module):
@@ -61,30 +85,53 @@ class MuLAN(nn.Module):
     super().__init__()
     if parameterization not in PARAMETERIZATIONS:
       raise ValueError(f'unknown parameterization: {parameterization!r}')
-    for field, value in _PORTED.items():
-      if getattr(config, field) != value:
-        raise NotImplementedError(
-            f'{field}={getattr(config, field)!r} is not ported yet (only '
-            f'{value!r}); see ROADMAP.md Queue A, model variants')
+    if config.unet_type not in ('vdm', 'ldm'):
+      raise ValueError(f'unknown unet_type: {config.unet_type!r}')
+    if config.gamma_type not in MULAN_SCHEDULES:
+      raise ValueError(f'unknown gamma_type: {config.gamma_type!r}')
     self.config = config
     self.parameterization = parameterization
     self.encdec = encdec_lib.EncDec(config)
-    self.score_model = UNet(config)
-    self.encoder_model = UnetEncoder(config)
-    self.gamma = NoiseSchedulePolynomialFixedend(config)
+    width = embedding_width(config)
+    self.score_model = UNet(
+        config, conditioning_width=width if config.z_conditioning else 1,
+        per_pixel_gamma=config.unet_type == 'ldm')
+    if config.latent_type == 'gaussian':
+      encoder = UnetEncoderGaussian
+    elif config.latent_type in ('topk', 'gumbel'):
+      encoder = ENCODERS[config.encoder]
+    else:
+      raise ValueError(f'unknown latent_type: {config.latent_type!r}')
+    self.encoder_model = (encoder(config) if config.reparam_type == 'true'
+                          else None)
+    self.gamma = MULAN_SCHEDULES[config.gamma_type](config, width)
 
   @property
   def device(self) -> torch.device:
-    return self.gamma.dense_1.weight.device
+    return self.score_model.dense0.weight.device
 
   def _randn(self, shape, generator):
     return torch.randn(shape, generator=generator, device=self.device)
 
-  def _score(self, z_t, g_t, embedding, dropout_seed=None):
-    """Score UNet on NHWC z_t, conditioned on mean(g_t); NHWC out."""
-    out = self.score_model(z_t.permute(0, 3, 1, 2),
-                           g_t.mean(dim=(1, 2, 3)), embedding, dropout_seed)
+  def _score(self, z_t, g_t, conditioning, dropout_seed=None):
+    """Score UNet on NHWC z_t, conditioned on the gamma map g_t (its mean
+    for the 'vdm' UNet, `mulan.py:_score_gt`); NHWC out."""
+    if self.config.unet_type == 'vdm':
+      g_t = g_t.mean(dim=(1, 2, 3))
+    out = self.score_model(z_t.permute(0, 3, 1, 2), g_t, conditioning,
+                           dropout_seed)
     return out.permute(0, 2, 3, 1)
+
+  def _conditioning(self, conditioning, embedding) -> torch.Tensor:
+    """The score UNet's conditioning in the ELBO and the ancestral sampler:
+    the embedding, or without `z_conditioning` the batch's conditioning
+    column (zeros when None)."""
+    if self.config.z_conditioning:
+      return embedding
+    if conditioning is None:
+      return torch.zeros((embedding.shape[0], 1), device=self.device)
+    return torch.as_tensor(conditioning, device=self.device).float().reshape(
+        -1, 1)
 
   def _velocity(self, model_out, g_t, z_t):
     """The velocity model's v-hat: the output itself, or with
@@ -115,41 +162,81 @@ class MuLAN(nn.Module):
 
   # -- ELBO -------------------------------------------------------------------
 
-  def forward(self, images, *, generator: Optional[torch.Generator] = None,
+  def forward(self, images, *, labels=None, conditioning=None, step=0,
+              generator: Optional[torch.Generator] = None,
               deterministic: bool = True, dropout_seed: Optional[int] = None):
-    """ELBO at antithetic times drawn from `generator`, rounded up to the
-    grid of `sm_n_timesteps` when that is > 0."""
-    t = sample_times(images.shape[0], generator=generator,
-                     device=self.device)
-    T = self.config.sm_n_timesteps
+    """ELBO at times drawn from `generator` (antithetic or i.i.d., as the
+    config says), rounded up to the grid of `sm_n_timesteps` when that is
+    > 0; the other arguments as `elbo`'s."""
+    cfg = self.config
+    t = sample_times(images.shape[0],
+                     antithetic=cfg.antithetic_time_sampling,
+                     generator=generator, device=self.device)
+    T = cfg.sm_n_timesteps
     if T > 0:
       t = torch.ceil(t * T) / T
-    return self.elbo(images, t, generator=generator,
+    return self.elbo(images, t, labels=labels, conditioning=conditioning,
+                     step=step, generator=generator,
                      deterministic=deterministic, dropout_seed=dropout_seed)
 
-  def apply_encoder(self, images) -> torch.Tensor:
-    """uint8 NHWC images -> the latent logits (B, latent_size), without
-    dropout (`mulan_tpu/models/mulan.py:apply_encoder`)."""
-    cfg = self.config
-    x = torch.as_tensor(images, device=self.device).reshape(
-        -1, *cfg.image_shape)
-    return self.encoder_model(self.encdec.encode(x).permute(0, 3, 1, 2))
+  def _encoder(self, f, dropout_seed=None):
+    """The encoder on NHWC features f in [-1, 1]: logits (B, latent_size),
+    or (mu, var) for the Gaussian latent."""
+    if self.encoder_model is None:
+      raise ValueError(
+          f'reparam_type={self.config.reparam_type!r}: the model has no '
+          'latent encoder (JAX never creates its parameters, and flax raises '
+          'ScopeParamNotFoundError when it is called, mulan_tpu/models/'
+          'mulan.py:66)')
+    return self.encoder_model(f.permute(0, 3, 1, 2), dropout_seed)
 
-  def elbo(self, images, t, *, eps0=None, eps=None, topk_noise=None,
-           encoder_logits=None,
+  def apply_encoder(self, images):
+    """uint8 NHWC images -> the encoder's output without dropout: the latent
+    logits (B, latent_size), or (mu, var) for the Gaussian latent
+    (`mulan_tpu/models/mulan.py:apply_encoder`)."""
+    x = torch.as_tensor(images, device=self.device).reshape(
+        -1, *self.config.image_shape)
+    return self._encoder(self.encdec.encode(x))
+
+  def _embedding_and_kl(self, f, step, dropout_seed=None,
+                        encoder_logits=None, latent_noise=None,
+                        generator=None):
+    """(embedding, latent KL) of NHWC features f (`mulan.py:69-89`)."""
+    cfg = self.config
+    if encoder_logits is not None:
+      if cfg.latent_type not in ('topk', 'gumbel'):
+        raise ValueError('encoder_logits stand in for a logits encoder, not '
+                         f'latent_type={cfg.latent_type!r}')
+      heads = torch.as_tensor(encoder_logits, device=self.device)
+    else:
+      heads = self._encoder(f, dropout_seed)
+    if latent_noise is None:
+      latent_noise = latents.latent_variates(cfg, f.shape[0],
+                                             generator=generator,
+                                             device=self.device)
+    return latents.embedding_and_kl(cfg, heads, latent_noise, step)
+
+  def elbo(self, images, t, *, labels=None, conditioning=None, step=0,
+           eps0=None, eps=None, latent_noise=None, encoder_logits=None,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True,
            dropout_seed: Optional[int] = None) -> ELBOOutput:
     """ELBO terms at explicit times t (B,) for uint8 NHWC images.
 
-    eps0, eps: (B, H, W, C) standard normals for the reconstruction and
-    diffusion terms. topk_noise: (latents.N_GAMMA_TERMS, B, latent_size)
-    Gamma(1/latent_k) variates for the top-k perturbation. With
-    `deterministic=False` the ResNet blocks drop with `sm_pdrop`, their
+    labels (B,) give the one-hot embedding when `reparam_type` is not
+    'true'; conditioning (B,) is the score UNet's input without
+    `z_conditioning` (zeros when None); `step` anneals the Gumbel latent's
+    temperature. eps0, eps: (B, H, W, C) standard normals for the
+    reconstruction and diffusion terms. latent_noise: the latent's draw
+    (`latents.latent_variates`): Gamma(1/latent_k) variates
+    (latents.N_GAMMA_TERMS, B, latent_size) for the top-k with Gamma noise,
+    standard Gumbels (B, latent_size) for the top-k with Gumbel noise and
+    the Gumbel latent, standard normals (B, latent_size) for the Gaussian.
+    With `deterministic=False` the ResNet blocks drop with `sm_pdrop`, their
     masks keyed by `dropout_seed` (drawn from `generator` if None) and the
     block's site. `encoder_logits` (B, latent_size), if given, stand in for
-    the encoder UNet (the dense VLB computes them once per image and repeats
-    them over its t-grid); the top-k noise is still drawn for every row.
+    the encoder (the dense VLB computes them once per image and repeats
+    them over its t-grid); the latent's noise is still drawn for every row.
     The velocity loss is continuous-time only: with `sm_n_timesteps` > 0
     it raises AssertionError, as JAX's assertion does.
     """
@@ -170,16 +257,17 @@ class MuLAN(nn.Module):
           device=self.device if generator is None else generator.device))
 
     orig_f = self.encdec.encode(x)
-    if encoder_logits is None:
-      logits = self.encoder_model(orig_f.permute(0, 3, 1, 2), dropout_seed)
+    if cfg.reparam_type == 'true':
+      embedding, kl_z = self._embedding_and_kl(
+          orig_f, step, dropout_seed, encoder_logits, latent_noise, generator)
     else:
-      logits = torch.as_tensor(encoder_logits, device=self.device)
-    if topk_noise is None:
-      topk_noise = latents.gamma_variates(cfg.latent_k, logits.shape,
-                                          generator=generator,
-                                          device=self.device)
-    embedding, kl_z = latents.topk_embedding(
-        logits, cfg.latent_k, latents.gamma_noise(cfg.latent_k, topk_noise))
+      if labels is None:
+        raise ValueError(f'reparam_type={cfg.reparam_type!r} embeds the '
+                         'labels: pass labels')
+      embedding = F.one_hot(
+          torch.as_tensor(labels, device=self.device).long(),
+          LABEL_CLASSES).float()
+      kl_z = 0.0
 
     g_0, g_1, g_t, g_t_grad = (
         g.reshape(img) for g in self.gamma.elbo_gammas(embedding, t))
@@ -202,7 +290,9 @@ class MuLAN(nn.Module):
     if eps is None:
       eps = self._randn(img, generator)
     z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
-    model_out = self._score(z_t, g_t, embedding, dropout_seed)
+    model_out = self._score(z_t, g_t,
+                            self._conditioning(conditioning, embedding),
+                            dropout_seed)
     if self.parameterization == 'epsilon':
       if T == 0:
         weight = g_t_grad
@@ -222,17 +312,42 @@ class MuLAN(nn.Module):
                       loss_diff=loss_diff, var_0=var_0.mean(),
                       var_1=var_1.mean())
 
+  def apply_gamma(self, t, x_zero=None, *, step=0, latent_noise=None,
+                  dropout_seed: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None):
+    """gamma (B, n_pixels) at t (a number or (B,)), conditioned on the
+    latent of the uint8 NHWC images `x_zero` (drawn as in `elbo`; with a
+    `dropout_seed` the encoder drops, as JAX's default
+    `deterministic=False` does), or on a zero embedding
+    (`mulan_tpu/models/mulan.py:98-107`)."""
+    t = torch.atleast_1d(torch.as_tensor(t, dtype=torch.float32,
+                                         device=self.device))
+    if x_zero is None:
+      embedding = torch.zeros((t.shape[0], self.config.latent_size),
+                              device=self.device)
+    else:
+      x = torch.as_tensor(x_zero, device=self.device).reshape(
+          -1, *self.config.image_shape)
+      embedding, _ = self._embedding_and_kl(
+          self.encdec.encode(x), step, dropout_seed,
+          latent_noise=latent_noise, generator=generator)
+    return self.gamma(embedding, t)
+
   # -- ancestral sampling -----------------------------------------------------
 
   def deterministic_embedding(self, batch_size: int) -> torch.Tensor:
+    """The canonical embedding of `latent_type` (`latents.py:87-99`)."""
     cfg = self.config
     return latents.deterministic_embedding(batch_size, cfg.latent_size,
-                                           cfg.latent_k, device=self.device)
+                                           cfg.latent_k, cfg.latent_type,
+                                           device=self.device)
 
-  def conditional_sample(self, i: int, T: int, z_t, embedding, *, eps=None,
+  def conditional_sample(self, i: int, T: int, z_t, embedding, *,
+                         conditioning=None, eps=None,
                          generator: Optional[torch.Generator] = None):
     """One ancestral step from t = (T - i) / T to s = (T - i - 1) / T given a
-    fixed latent embedding; z_t is NHWC float32."""
+    fixed latent embedding; z_t is NHWC float32, `conditioning` (B,) the
+    UNet's input without `z_conditioning` (zeros when None)."""
     if eps is None:
       eps = self._randn(z_t.shape, generator)
     bsz = z_t.shape[0]
@@ -240,7 +355,9 @@ class MuLAN(nn.Module):
     s = torch.full((bsz,), (T - i - 1) / T, device=self.device)
     g_t = self.gamma(embedding, t).reshape(z_t.shape)
     g_s = self.gamma(embedding, s).reshape(z_t.shape)
-    eps_hat = self._to_eps_hat(self._score(z_t, g_t, embedding), g_t, z_t)
+    model_out = self._score(z_t, g_t,
+                            self._conditioning(conditioning, embedding))
+    eps_hat = self._to_eps_hat(model_out, g_t, z_t)
 
     a = torch.sigmoid(-g_s)
     b = torch.sigmoid(-g_t)
@@ -249,22 +366,33 @@ class MuLAN(nn.Module):
     z_s_mean = torch.sqrt(a / b) * (z_t - sigma_t * c * eps_hat)
     return z_s_mean + torch.sqrt((1.0 - a) * c) * eps
 
-  def sample(self, i: int, T: int, z_t, *, eps=None,
+  def sample(self, i: int, T: int, z_t, *, conditioning=None, eps=None,
              generator: Optional[torch.Generator] = None):
     """One unconditional ancestral step: `conditional_sample` with the
-    canonical `deterministic_embedding` (the first `latent_k` latents on)."""
+    canonical `deterministic_embedding`."""
     return self.conditional_sample(
-        i, T, z_t, self.deterministic_embedding(z_t.shape[0]), eps=eps,
-        generator=generator)
+        i, T, z_t, self.deterministic_embedding(z_t.shape[0]),
+        conditioning=conditioning, eps=eps, generator=generator)
 
-  def generate_x(self, z_0) -> torch.Tensor:
-    """z_0 (B, H, W, C) -> argmax pixel values (B, H, W, C) int64."""
+  def generate_x(self, z_0, generator: Optional[torch.Generator] = None, *,
+                 gumbel=None) -> torch.Tensor:
+    """z_0 (B, H, W, C) -> pixel values (B, H, W, C) int64: the argmax of
+    the decoder's logits, or with `sample_softmax` a categorical draw by
+    Gumbel-max, the argmax of logits + `gumbel` (standard Gumbels shaped
+    like the logits, (B, H, W, C, vocab_size), drawn from `generator` when
+    None), as `jax.random.categorical` draws it."""
     bsz = z_0.shape[0]
     g_0 = self.gamma(self.deterministic_embedding(bsz),
                      torch.zeros((bsz,), device=self.device)).reshape(
                          z_0.shape)
     z_0_rescaled = z_0 / torch.sqrt(1.0 - torch.sigmoid(g_0))
-    return self.encdec.decode_logits(z_0_rescaled, g_0).argmax(dim=-1)
+    logits = self.encdec.decode_logits(z_0_rescaled, g_0)
+    if self.config.sample_softmax:
+      if gumbel is None:
+        gumbel = latents.gumbel_variates(logits.shape, generator=generator,
+                                         device=self.device)
+      logits = logits + torch.as_tensor(gumbel, device=self.device)
+    return logits.argmax(dim=-1)
 
   # -- SDE / probability-flow ODE ---------------------------------------------
 

@@ -6,10 +6,14 @@
     BDM shapes), the closed form is written out here, built from the same
     tensors, so that autograd differentiates it with respect to the
     parameters (the VDM's loss weight 0.5 dgamma/dt mse needs that).
-  * MuLAN's per-pixel `poly_fixedend`: gamma(z, t) = gmin + (gmax - gmin)
-    P(t) / P(1), with P(t) = integral_0^t (a u^2 + b u + c)^2 du and
-    per-pixel (a, b, c) from an MLP on the latent embedding; dgamma/dt has a
-    closed form.
+  * MuLAN's per-pixel schedules (`MULAN_SCHEDULES`): gamma: (B, width),
+    (B,) -> (B, n_pixels), conditioned on the latent embedding, `width`
+    wide. `poly_fixedend`: gmin + (gmax - gmin) P(t) / P(1), with
+    P(t) = integral_0^t (a u^2 + b u + c)^2 du and per-pixel (a, b, c) from
+    an MLP on the embedding, pinned at both ends; `learnable_nnet`: a
+    monotone MLP on (embedding, t) whose ends are learned; `linear`: the
+    fixed linear schedule at every pixel. dgamma/dt is in closed form for
+    each, the MLP's through the chain rule (JAX takes it by `jax.jvp`).
 
 Everything here is float32: gamma spans [-13.3, 5] and sigmoid(gamma)
 reaches e^-13.3, far below bf16 resolution. The matmuls must not run in
@@ -138,13 +142,29 @@ SCALAR_SCHEDULES = {
 }
 
 
-class NoiseSchedulePolynomialFixedend(nn.Module):
+class MulanSchedule(nn.Module):
+  """Base of the per-pixel schedules: `forward` is gamma alone, and
+  `elbo_gammas` evaluates the schedule at 0, at 1 and (with dgamma/dt) at
+  t, three passes as in JAX (`schedules.py:187-197`)."""
 
-  def __init__(self, config: ModelConfig):
+  def forward(self, embedding, t):
+    """(B, width), (B,) -> gamma (B, n_pixels), pixels in NHWC order."""
+    return self.gamma_and_dgamma(embedding, t)[0]
+
+  def elbo_gammas(self, embedding, t):
+    """(gamma_0, gamma_1, gamma_t, dgamma_t/dt), each (B, n_pixels)."""
+    g_t, dg_t = self.gamma_and_dgamma(embedding, t)
+    return (self(embedding, torch.zeros_like(t)),
+            self(embedding, torch.ones_like(t)), g_t, dg_t)
+
+
+class NoiseSchedulePolynomialFixedend(MulanSchedule):
+
+  def __init__(self, config: ModelConfig, embedding_width: int):
     super().__init__()
     self.config = config
     n = config.n_pixels
-    self.dense_1 = nn.Linear(config.latent_size, n)
+    self.dense_1 = nn.Linear(embedding_width, n)
     self.dense_2 = nn.Linear(n, n)
     self.dense_out_a = nn.Linear(n, n)
     self.dense_out_b = nn.Linear(n, n)
@@ -174,10 +194,6 @@ class NoiseSchedulePolynomialFixedend(nn.Module):
   def _span(self):
     return self.config.gamma_max - self.config.gamma_min
 
-  def forward(self, embedding, t):
-    """(B, latent), (B,) -> gamma (B, n_pixels), pixels in NHWC order."""
-    return self.gamma_and_dgamma(embedding, t)[0]
-
   def gamma_and_dgamma(self, embedding, t):
     a, b, c = self._coefficients(embedding)
     t = t.reshape(-1, 1).float()
@@ -188,12 +204,74 @@ class NoiseSchedulePolynomialFixedend(nn.Module):
     return gamma, self._span() * (quad * quad) * inv_scale
 
   def elbo_gammas(self, embedding, t):
-    """(gamma_0, gamma_1, gamma_t, dgamma_t/dt), each (B, n_pixels).
-
-    The endpoints are pinned by construction (P(0) = 0, P(1)/P(1) = 1), so
-    they are constants and the MLP runs once.
-    """
+    """The endpoints are pinned by construction (P(0) = 0, P(1)/P(1) = 1),
+    so they are constants and the MLP runs once."""
     g_t, dg_t = self.gamma_and_dgamma(embedding, t)
     g_0 = torch.full_like(g_t, self.config.gamma_min)
     g_1 = torch.full_like(g_t, self.config.gamma_max)
     return g_0, g_1, g_t, dg_t
+
+
+class MulanScheduleNNet(MulanSchedule):
+  """The monotone MLP on (embedding, t) (`schedules.py:319-356`):
+    gamma = l1(t) + l3(s(l_int(s(l2(2 ((z, t) - 1/2)))))) / n,
+  s(a) = 2 (sigmoid(a) - 1/2), with `DenseMonotone` layers 1 -> 1 (`l1`),
+  (width + 1) -> n (`l2`), n -> n (`l_int`) and n -> n_pixels without a
+  bias (`l3`), n = n_pixels. Its ends are not pinned: g_0 and g_1 carry
+  gradient. dgamma/dt by the chain rule, from the same tensors:
+    |w1| + (s'(a_int) * ((s'(a2) * 2 |W2[t]|) @ |W_int|)) @ |W3| / n,
+  s' = 2 sigmoid', W2[t] the t row of l2's kernel."""
+
+  def __init__(self, config: ModelConfig, embedding_width: int):
+    super().__init__()
+    self.config = config
+    n = self.n_features = config.n_pixels
+    self.l1 = DenseMonotone(1, 1)
+    self.l2 = DenseMonotone(embedding_width + 1, n)
+    self.l_int = DenseMonotone(n, n)
+    self.l3 = DenseMonotone(n, n, use_bias=False)
+
+  def _forward(self, embedding, t):
+    """(gamma, l2's and l_int's pre-activations)."""
+    t = t.reshape(-1, 1).float()
+    a2 = self.l2(2.0 * (torch.cat([embedding.float(), t], dim=1) - 0.5))
+    a_int = self.l_int(2.0 * (torch.sigmoid(a2) - 0.5))
+    gamma = self.l1(t) + self.l3(2.0 * (torch.sigmoid(a_int) - 0.5)) / (
+        self.n_features)
+    return gamma, a2, a_int
+
+  def forward(self, embedding, t):
+    return self._forward(embedding, t)[0]
+
+  def gamma_and_dgamma(self, embedding, t):
+    gamma, a2, a_int = self._forward(embedding, t)
+    d2 = 2.0 * _dsigmoid(a2) * (2.0 * self.l2.kernel[-1].abs())
+    d_int = 2.0 * _dsigmoid(a_int) * (d2 @ self.l_int.kernel.abs())
+    dgamma = self.l1.kernel.abs() + d_int @ self.l3.kernel.abs() / (
+        self.n_features)
+    return gamma, dgamma
+
+
+class MulanScheduleLinear(MulanSchedule):
+  """gmin + (gmax - gmin) t at every pixel (`schedules.py:359-376`); no
+  parameters."""
+
+  def __init__(self, config: ModelConfig, embedding_width: int):
+    super().__init__()
+    del embedding_width
+    self.config = config
+
+  def gamma_and_dgamma(self, embedding, t):
+    c = self.config
+    ones = torch.ones((embedding.shape[0], c.n_pixels), device=t.device)
+    span = c.gamma_max - c.gamma_min
+    return (c.gamma_min + span * t.reshape(-1, 1).float()) * ones, (
+        span * ones)
+
+
+# `gamma_type` -> MuLAN's schedule (`schedules.py:379`).
+MULAN_SCHEDULES = {
+    'linear': MulanScheduleLinear,
+    'learnable_nnet': MulanScheduleNNet,
+    'poly_fixedend': NoiseSchedulePolynomialFixedend,
+}

@@ -1,14 +1,19 @@
-"""Score UNet with a scalar gamma per example, counterpart of
-`mulan_tpu/models/unet.py:UNet(per_pixel_gamma=False)`.
+"""Score UNet, counterpart of `mulan_tpu/models/unet.py:UNet`: conditioned
+on a scalar gamma per example (the 'vdm' UNet) or, with
+`per_pixel_gamma` (`unet_type='ldm'`), on the whole gamma map.
 
 No spatial down/upsampling: `sm_n_layer` ResNet blocks at full resolution
 with a skip stack, a ResNet-Attn-ResNet middle, `sm_n_layer + 1` up blocks
 over concatenated skips, and a final conv whose output is added to z in
 float32. The conditioning beside the time embedding is MuLAN's latent
 embedding (`latent_size` wide, the default) or the VDM's one column of
-zeros (`conditioning_width=1`). Blocks run in `config.dtype` on float32
-parameters cast at use; the conditioning trigonometry and the residual
-stay float32.
+zeros (`conditioning_width=1`). With `per_pixel_gamma` each pixel's
+gamma is embedded on its own: the map (B, H, W, C) becomes (B, H, W,
+C n_embd), each channel's n_embd features together, as JAX lays them out
+(`unet.py:57-67`); the conditioning is broadcast over the pixels beside it,
+and `dense0` and `dense1` run per pixel, so each ResNet block adds a bias
+per pixel. Blocks run in `config.dtype` on float32 parameters cast at use;
+the conditioning trigonometry and the residual stay float32.
 
 With a `dropout_seed`, each of the 2 n_layer + 3 ResNet blocks drops with
 `sm_pdrop` at its own site (down blocks first, then mid, then up), so its
@@ -48,7 +53,8 @@ from mulan_tpu_torch.ops import dropout as dropout_ops
 class UNet(nn.Module):
 
   def __init__(self, config: ModelConfig,
-               conditioning_width: Optional[int] = None):
+               conditioning_width: Optional[int] = None,
+               per_pixel_gamma: bool = False):
     super().__init__()
     cfg = self.config = config
     n_embd = cfg.sm_n_embd
@@ -56,7 +62,10 @@ class UNet(nn.Module):
     cond_dim = 4 * n_embd
     if conditioning_width is None:
       conditioning_width = cfg.latent_size
-    self.dense0 = Linear(n_embd + conditioning_width, cond_dim)
+    self.conditioning_width = conditioning_width
+    self.per_pixel_gamma = per_pixel_gamma
+    temb_width = c * n_embd if per_pixel_gamma else n_embd
+    self.dense0 = Linear(temb_width + conditioning_width, cond_dim)
     self.dense1 = Linear(cond_dim, cond_dim)
     in_ch = c * FOURIER_MULT if cfg.with_fourier_features else c
     self.conv_in = Conv2d(in_ch, n_embd, 3, padding=1)
@@ -92,14 +101,28 @@ class UNet(nn.Module):
     return 2 * config.sm_n_layer + 3
 
   def forward(self, z, g_t, conditioning, dropout_seed=None):
-    """z (B, C, H, W), g_t (B,) mean gamma, conditioning (B,
-    conditioning_width); dropout_seed None is the deterministic pass."""
+    """z (B, C, H, W); g_t (B,), the mean gamma, or with `per_pixel_gamma`
+    the gamma map (B, H, W, C); conditioning (B, conditioning_width);
+    dropout_seed None is the deterministic pass."""
     cfg = self.config
     dtype = cfg.dtype
     z = z.float()
+    if conditioning.shape[-1] != self.conditioning_width:
+      raise ValueError(
+          f'the score UNet takes conditioning {self.conditioning_width} '
+          f'wide, got {tuple(conditioning.shape)}: flax refuses it at '
+          'dense0 (ScopeParamShapeError, mulan_tpu/models/unet.py:76)')
     t = (g_t.float() - cfg.gamma_min) / (cfg.gamma_max - cfg.gamma_min)
-    cond = torch.cat([timestep_embedding(t, cfg.sm_n_embd),
-                      conditioning.float()], dim=-1)
+    if self.per_pixel_gamma:
+      b, c, hgt, wid = z.shape
+      assert t.shape == (b, hgt, wid, c), (t.shape, z.shape)
+      temb = timestep_embedding(t.reshape(-1), cfg.sm_n_embd).reshape(
+          b, hgt, wid, c * cfg.sm_n_embd)
+      cond = torch.cat([temb, conditioning.float()[:, None, None, :].expand(
+          b, hgt, wid, -1)], dim=-1)
+    else:
+      cond = torch.cat([timestep_embedding(t, cfg.sm_n_embd),
+                        conditioning.float()], dim=-1)
     cond = F.silu(self.dense0(cond.to(dtype)))
     cond = F.silu(self.dense1(cond))
 

@@ -83,11 +83,13 @@ class VDM(nn.Module):
 
   # -- ELBO -------------------------------------------------------------------
 
-  def forward(self, images, *, conditioning=None,
+  def forward(self, images, *, labels=None, conditioning=None, step=0,
               generator: Optional[torch.Generator] = None,
               deterministic: bool = True, dropout_seed: Optional[int] = None):
     """ELBO at times drawn from `generator` (antithetic or i.i.d., as the
-    config says; rounded up to the grid of `sm_n_timesteps` when > 0)."""
+    config says; rounded up to the grid of `sm_n_timesteps` when > 0).
+    `labels` and `step` are ignored, as in JAX: the VDM has no latent."""
+    del labels, step
     cfg = self.config
     t = sample_times(images.shape[0],
                      antithetic=cfg.antithetic_time_sampling,
@@ -98,17 +100,20 @@ class VDM(nn.Module):
                      generator=generator, deterministic=deterministic,
                      dropout_seed=dropout_seed)
 
-  def elbo(self, images, t, *, conditioning=None, eps0=None, eps=None,
+  def elbo(self, images, t, *, labels=None, conditioning=None, step=0,
+           eps0=None, eps=None,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True,
            dropout_seed: Optional[int] = None) -> ELBOOutput:
-    """ELBO terms at explicit times t (B,) for uint8 NHWC images.
+    """ELBO terms at explicit times t (B,) for uint8 NHWC images
+    (`labels` and `step` ignored).
 
     eps0, eps: (B, H, W, C) standard normals for the reconstruction and
     diffusion terms. With `deterministic=False` the ResNet blocks drop with
     `sm_pdrop`, their masks keyed by `dropout_seed` (drawn from `generator`
     if None) and the block's site.
     """
+    del labels, step
     cfg = self.config
     x = torch.as_tensor(images, device=self.device).reshape(
         -1, *cfg.image_shape)

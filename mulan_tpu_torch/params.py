@@ -2,9 +2,10 @@
 
 Both functions return a float32 `state_dict` for the model's
 `load_state_dict` (`MuLAN` or `VDM`); every parameter of a model is float32
-(the UNets cast theirs to `config.dtype` at use). The VDM's learned schedule
-(`gamma/l1`, `l2`, `l3`, `DenseMonotone`) keeps flax's (in, out) kernels
-and their name, `kernel`; its scalar schedule has `gamma/w` and `gamma/b`.
+(the UNets cast theirs to `config.dtype` at use). The learned monotone
+schedules, the VDM's and MuLAN's `learnable_nnet` (`gamma/l1`, `l2`,
+`l_int`, `l3`, `DenseMonotone`), keep flax's (in, out) kernels and their
+name, `kernel`; the VDM's scalar schedule has `gamma/w` and `gamma/b`.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ from mulan_tpu_torch.models.config import ModelConfig
 
 # Layers the JAX package zero-initializes (so a fresh block is the identity).
 ZERO_INIT = ('cond_proj', 'conv2', 'proj_out', 'conv_out', 'dense_out_a')
-# The VDM's `DenseMonotone` layers (`gamma/l1|l2|l3`): (in, out) kernels.
-MONOTONE = ('l1', 'l2', 'l3')
+# The `DenseMonotone` layers of the learned schedules (`gamma/l1|l2|l_int|
+# l3`): (in, out) kernels.
+MONOTONE = ('l1', 'l2', 'l_int', 'l3')
 # `flax.linen.initializers.normal()`'s stddev (`jax.nn.initializers.normal`,
-# whose default is 1e-2), the init of `l2` and `l3`'s kernels
-# (`mulan_tpu/models/schedules.py:95-106`).
+# whose default is 1e-2), the init of the kernels of `l2`, `l_int` and `l3`
+# (`mulan_tpu/models/schedules.py:95-106`, `:330-341`).
 FLAX_NORMAL_STDDEV = 1e-2
 
 
@@ -96,11 +98,11 @@ def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
               for name, value in state.items())
 
 
-def _scalar_gamma_init(config: ModelConfig, name: str, shape, generator):
-  """The JAX initializers of the VDM's schedules
-  (`mulan_tpu/models/schedules.py:58-59`, `:95-106`): the linear term at
-  gamma_min + (gamma_max - gamma_min) t, the MLP's kernels normal(0, 1e-2),
-  its biases 0."""
+def _learned_gamma_init(config: ModelConfig, name: str, shape, generator):
+  """The JAX initializers of the VDM's schedules and of MuLAN's
+  `learnable_nnet` (`mulan_tpu/models/schedules.py:58-59`, `:95-106`,
+  `:330-341`): the linear term at gamma_min + (gamma_max - gamma_min) t, the
+  MLP's kernels normal(0, 1e-2), its biases 0."""
   span, gmin = config.gamma_max - config.gamma_min, config.gamma_min
   constant = {'gamma.w': span, 'gamma.l1.kernel': span, 'gamma.b': gmin,
               'gamma.l1.bias': gmin}
@@ -116,10 +118,11 @@ def init_params(config: ModelConfig, generator: torch.Generator,
                 vdm_type: str = 'mulan_velocity') -> dict:
   """A seeded fresh model of `vdm_type`: normal(0, 1/fan_in) weights (the
   variance of flax's lecun_normal), zero biases, unit GroupNorm scales, the
-  layers in ZERO_INIT at zero, and the VDM's scalar schedule as JAX
-  initializes it. With perturb_zero_init > 0, every all-zero tensor then
-  gets normal(0, perturb_zero_init) noise, so that no block is the identity
-  and a wrong kernel shows in the output.
+  layers in ZERO_INIT at zero, and the learned schedules (the VDM's,
+  MuLAN's `learnable_nnet`) as JAX initializes them. With
+  perturb_zero_init > 0, every all-zero tensor then gets normal(0,
+  perturb_zero_init) noise, so that no block is the identity and a wrong
+  kernel shows in the output.
   """
   with torch.device('meta'):
     shapes = {name: p.shape for name, p in
@@ -127,8 +130,9 @@ def init_params(config: ModelConfig, generator: torch.Generator,
   state = {}
   for name, shape in sorted(shapes.items()):
     module, leaf = name.rsplit('.', 1)
-    if vdm_type == 'vdm' and module.split('.', 1)[0] == 'gamma':
-      value = _scalar_gamma_init(config, name, shape, generator)
+    if module.split('.', 1)[0] == 'gamma' and (
+        vdm_type == 'vdm' or config.gamma_type == 'learnable_nnet'):
+      value = _learned_gamma_init(config, name, shape, generator)
     elif leaf == 'bias' or module.rsplit('.', 1)[-1] in ZERO_INIT:
       value = torch.zeros(shape)
     elif 'GroupNormF32' in module:

@@ -125,15 +125,19 @@ class Experiment:
     return key % (2 ** 31 - 1)
 
   def loss_fn(self, model, batch, *, train: bool, noise=None,
-              dropout_seed: Optional[int] = None):
+              dropout_seed: Optional[int] = None, step: int = 0):
     """(bpd, scalars): the mean ELBO in bits per dimension and its six
-    terms (`loop.py:116-141`). `noise` may hold explicit `t`, `eps0`, `eps`,
-    `topk_noise` (MuLAN) and `dropout_seed` for the model's `elbo`; what it
-    does not hold is drawn from the experiment's generator."""
+    terms (`loop.py:116-141`), with the batch's `labels` and
+    `conditioning` (when it has them) and `step`. `noise` may hold explicit
+    `t`, `eps0`, `eps`, `latent_noise` (MuLAN) and `dropout_seed` for the
+    model's `elbo`; what it does not hold is drawn from the experiment's
+    generator."""
     images = torch.as_tensor(batch['images'], device=self.device)
     noise = dict(noise or {})
     dropout_seed = noise.pop('dropout_seed', dropout_seed)
-    kwargs = dict(generator=self.generator, deterministic=not train,
+    kwargs = dict(labels=batch.get('labels'),
+                  conditioning=batch.get('conditioning'), step=step,
+                  generator=self.generator, deterministic=not train,
                   dropout_seed=dropout_seed if train else None)
     if 't' in noise:
       out = model.elbo(images, noise.pop('t'), **kwargs, **noise)
@@ -149,11 +153,14 @@ class Experiment:
     return bpd, scalars
 
   def train_step(self, batch, noise=None) -> Dict[str, torch.Tensor]:
-    """One optimizer step on one batch (images (B, H, W, C) uint8), its
-    noise keyed by the step; the scalars stay on the device."""
-    seed = self.reseed(TRAIN, self.state.step)
+    """One optimizer step on one batch (images (B, H, W, C) uint8, and
+    labels and conditioning (B,) when the model reads them), its noise
+    keyed by the step, the ELBO at the step before the update
+    (`loop.py:150-152`); the scalars stay on the device."""
+    step = self.state.step
+    seed = self.reseed(TRAIN, step)
     bpd, scalars = self.loss_fn(self.model, batch, train=True, noise=noise,
-                                dropout_seed=seed)
+                                dropout_seed=seed, step=step)
     self.state.optimizer.zero_grad()
     bpd.backward()
     self.state.apply_gradients(self.config.optimizer.ema_rate)
@@ -163,10 +170,11 @@ class Experiment:
   def eval_step(self, batch, index: int = 0,
                 noise=None) -> Dict[str, torch.Tensor]:
     """The scalars of the EMA model on one batch, deterministic, the noise
-    keyed by the batch's index within its evaluation."""
+    keyed by the batch's index within its evaluation, which is also the
+    ELBO's step, as JAX's eval step passes it (`loop.py:199-202`)."""
     self.reseed(EVAL, index)
     return self.loss_fn(self.state.ema_model, batch, train=False,
-                        noise=noise)[1]
+                        noise=noise, step=index)[1]
 
   # -- loops ----------------------------------------------------------------------
 
@@ -260,7 +268,8 @@ class Experiment:
                                        self.generator)
     for i in range(T):
       z = model.sample(i, T, z, generator=self.generator)
-    images = model.generate_x(z).to(torch.uint8).cpu().numpy()
+    images = model.generate_x(z, self.generator).to(
+        torch.uint8).cpu().numpy()
     grid = image_grid(images)
     self.writer.write_images(self.state.step, {'samples': grid[None]})
     return grid

@@ -294,7 +294,7 @@ def test_velocity_from_epsilon_is_the_epsilon_model(pair):
     with torch.no_grad():
       outs[name] = (
           m.elbo(torch.from_numpy(IMAGES), t, eps0=eps, eps=eps,
-                 topk_noise=topk).loss_diff,
+                 latent_noise=topk).loss_diff,
           m.sample(3, 10, z, eps=eps),
           m.reverse_ode(z, emb, ode.f32(0.5)),
           m.score_fn(z, torch.full_like(z, -2.0), emb))
@@ -330,7 +330,7 @@ def test_imagenet32_width_shallow_elbo_matches_jax(monkeypatch):
       latents.N_GAMMA_TERMS, B, cfg.latent_size)))
   with torch.no_grad():
     got = port.elbo(torch.from_numpy(images), to_torch(t), eps0=eps, eps=eps,
-                    topk_noise=noise)
+                    latent_noise=noise)
   for field in ('loss_recon', 'loss_klz', 'loss_diff', 'var_0', 'var_1'):
     np.testing.assert_allclose(getattr(got, field).numpy(),
                                np.asarray(getattr(want, field)),

@@ -118,7 +118,7 @@ def _port_noise(sm_n_timesteps: int = 0):
     t = jnp.ceil(t * sm_n_timesteps) / sm_n_timesteps
   eps = to_torch(shaped_normal((B, *TINY.image_shape)))
   return dict(t=to_torch(t), eps0=eps, eps=eps, dropout_seed=0,
-              topk_noise=to_torch(shaped_gamma(1 / TINY.latent_k, (
+              latent_noise=to_torch(shaped_gamma(1 / TINY.latent_k, (
                   latents.N_GAMMA_TERMS, B, TINY.latent_size))))
 
 
@@ -302,7 +302,7 @@ def test_sparse_and_dense_vlb_through_eval_experiment(pair, tmp_path,
   with torch.no_grad():
     got = vlb.dense_chunk_bpd(port, torch.from_numpy(images), n,
                               u=to_torch(u), eps0=eps, eps=eps,
-                              topk_noise=topk)
+                              latent_noise=topk)
   np.testing.assert_allclose(got.numpy(), want, rtol=ELBO_RTOL)
 
   batches = [np.random.RandomState(31).randint(

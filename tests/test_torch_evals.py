@@ -64,7 +64,7 @@ def _jax_elbo(model, params, images, t, encoder_logits=None):
 def _noise(cfg, rows):
   """What the frozen jax.random draws in an ELBO of `rows` rows."""
   eps = to_torch(shaped_normal((rows, *cfg.image_shape)))
-  return dict(eps0=eps, eps=eps, topk_noise=to_torch(shaped_gamma(
+  return dict(eps0=eps, eps=eps, latent_noise=to_torch(shaped_gamma(
       1.0 / cfg.latent_k, (latents.N_GAMMA_TERMS, rows, cfg.latent_size))))
 
 

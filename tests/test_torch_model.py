@@ -128,7 +128,7 @@ def _elbo_pair(model, params, port, images, t, monkeypatch):
                                 (latents.N_GAMMA_TERMS, b, cfg.latent_size)))
   with torch.no_grad():
     got = port.elbo(torch.from_numpy(images), to_torch(t), eps0=eps, eps=eps,
-                    topk_noise=noise)
+                    latent_noise=noise)
   for name in ('loss_recon', 'loss_klz', 'loss_diff', 'var_0', 'var_1'):
     np.testing.assert_allclose(getattr(got, name).numpy(),
                                np.asarray(getattr(want, name)),

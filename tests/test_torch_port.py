@@ -10,6 +10,8 @@ import pathlib
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ from mulan_tpu_torch.evals import harness, vlb
 from mulan_tpu_torch.models.config import (ModelConfig, flagship_config,
                                            tiny_config)
 from mulan_tpu_torch.models.mulan import MuLAN
-from torch_port_helpers import mulan_pair
+from torch_port_helpers import (frozen_latent_randomness, latent_noise_for,
+                                mulan_pair, seeded_pair, shaped_normal)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -179,9 +182,30 @@ def test_random_samples_runs_on_cpu():
 
 @pytest.mark.parametrize('field,value', [
     ('latent_type', 'gumbel'), ('unet_type', 'ldm'), ('encoder', 'cnn')])
-def test_unported_options_raise(field, value):
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    MuLAN(tiny_config(**{field: value}))
+def test_once_refused_options_build_and_match_jax(monkeypatch, field, value):
+  """The options the port refused before it built every MuLAN variant:
+  each builds, and its ELBO terms match JAX's on the same parameters and
+  frozen noise (every variant: tests/test_torch_model_variants.py)."""
+  cfg = tiny_config(**{field: value})
+  model, jax_params, port = seeded_pair(cfg)
+  b = 2
+  images = np.random.RandomState(0).randint(
+      0, 256, size=(b, *cfg.image_shape)).astype(np.uint8)
+  t = np.array([0.2, 0.7], np.float32)
+  frozen_latent_randomness(monkeypatch)
+  want = jax.jit(lambda p: model.apply(
+      {'params': p}, jnp.asarray(images), jnp.zeros((b,), jnp.int32),
+      jnp.zeros((b,)), 0, jnp.asarray(t),
+      rngs={'sample': jax.random.PRNGKey(0)}, deterministic=True,
+      method=model.elbo))(jax_params)
+  eps = torch.from_numpy(shaped_normal(images.shape))
+  with torch.no_grad():
+    got = port.elbo(torch.from_numpy(images), torch.from_numpy(t), eps0=eps,
+                    eps=eps, latent_noise=latent_noise_for(cfg, b))
+  for name in ('loss_recon', 'loss_klz', 'loss_diff'):
+    np.testing.assert_allclose(getattr(got, name).numpy(),
+                               np.asarray(getattr(want, name)), rtol=1e-4,
+                               atol=1e-3, err_msg=name)
 
 
 def test_port_imports_without_jax():

@@ -144,7 +144,7 @@ def test_bf16_forward_unchanged_by_float32_parameters():
   images = torch.from_numpy(
       rs.randint(0, 256, size=(2, *cfg.image_shape)).astype(np.uint8))
   noise = dict(eps0=to_torch(shaped_normal((2, *cfg.image_shape))),
-               topk_noise=to_torch(shaped_gamma(
+               latent_noise=to_torch(shaped_gamma(
                    1 / cfg.latent_k,
                    (latents.N_GAMMA_TERMS, 2, cfg.latent_size))))
   noise['eps'] = noise['eps0']
@@ -275,7 +275,7 @@ def _port_noise(cfg):
   return dict(
       t=to_torch(jnp.mod(0.375 + jnp.arange(0.0, 1.0, step=1.0 / B), 1.0)),
       eps0=eps, eps=eps, dropout_seed=0,
-      topk_noise=to_torch(shaped_gamma(1 / m.latent_k, (
+      latent_noise=to_torch(shaped_gamma(1 / m.latent_k, (
           latents.N_GAMMA_TERMS, B, m.latent_size))))
 
 

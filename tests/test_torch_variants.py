@@ -393,7 +393,7 @@ def port_step_inputs():
   t = torch.tensor([0.2, 0.5, 0.9])
   noise = dict(eps0=to_torch(_rand((3, *cfg.image_shape), 5)),
                eps=to_torch(_rand((3, *cfg.image_shape), 6)),
-               topk_noise=to_torch(np.random.RandomState(7).gamma(
+               latent_noise=to_torch(np.random.RandomState(7).gamma(
                    1.0 / cfg.latent_k, size=(2, 3, cfg.latent_size))
                                    .astype(np.float32)))
   return cfg, state, images, t, noise

@@ -22,7 +22,7 @@ from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.params import from_flax
-from parity_helpers import shape_seed
+from parity_helpers import frozen_randomness, shape_seed
 
 # The tier-1 run uses several xdist workers on a shared host: keep torch
 # from starting one thread per core in each.
@@ -124,3 +124,58 @@ def nchw(a) -> torch.Tensor:
 def nhwc(t: torch.Tensor) -> np.ndarray:
   """NCHW torch tensor -> NHWC numpy array."""
   return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def shaped_gumbel(shape) -> np.ndarray:
+  """What the patched jax.random.gumbel returns for this shape."""
+  rs = np.random.RandomState(shape_seed(shape) ^ 0x6B6B6B)
+  return rs.gumbel(size=shape).astype(np.float32)
+
+
+def frozen_latent_randomness(monkeypatch):
+  """`parity_helpers.frozen_randomness`, and jax.random.gumbel and
+  jax.random.categorical frozen in the same way: gumbel returns
+  `shaped_gumbel(shape)`, categorical the Gumbel-max argmax(logits +
+  shaped_gumbel(logits.shape)), as JAX draws it. The port is handed the
+  same arrays."""
+  frozen_randomness(monkeypatch)
+
+  def fake_gumbel(key, shape=(), dtype=jnp.float32, **unused):
+    del key
+    return jnp.asarray(shaped_gumbel(tuple(shape)), dtype)
+
+  def fake_categorical(key, logits, axis=-1, **unused):
+    del key
+    return jnp.argmax(logits + shaped_gumbel(logits.shape), axis=axis)
+
+  monkeypatch.setattr(jax.random, 'gumbel', fake_gumbel)
+  monkeypatch.setattr(jax.random, 'categorical', fake_categorical)
+
+
+def latent_noise_for(cfg: ModelConfig, batch: int) -> torch.Tensor:
+  """The port's `latent_noise` equal to what the frozen jax.random draws
+  for `cfg.latent_type` in JAX's ELBO: Gamma variates, Gumbels or
+  normals."""
+  shape = (batch, cfg.latent_size)
+  if cfg.latent_type == 'topk' and cfg.topk_noise_type == 'gamma':
+    from mulan_tpu_torch.models.latents import N_GAMMA_TERMS
+    return to_torch(shaped_gamma(1.0 / cfg.latent_k,
+                                 (N_GAMMA_TERMS, *shape)))
+  if cfg.latent_type == 'gaussian':
+    return to_torch(shaped_normal(shape))
+  return to_torch(shaped_gumbel(shape))
+
+
+# The MuLAN variants beside the flagship's: {id: tiny_config overrides}.
+VARIANTS = {
+    'learnable_nnet': dict(gamma_type='learnable_nnet'),
+    'linear': dict(gamma_type='linear'),
+    'topk_gumbel_noise': dict(topk_noise_type='gumbel'),
+    'gumbel': dict(latent_type='gumbel'),
+    'gaussian': dict(latent_type='gaussian'),
+    'cnn': dict(encoder='cnn'),
+    'reparam_none': dict(reparam_type='none'),
+    'no_z_conditioning': dict(z_conditioning=False),
+    'ldm': dict(unet_type='ldm'),
+    'ldm_learnable_nnet': dict(unet_type='ldm', gamma_type='learnable_nnet'),
+}
