@@ -60,11 +60,22 @@ the Gumbel latent, through a few train steps (its learned g0 puts K5 on
 the step), one step against its plain twin, the sparse VLB, the sampler
 and an RK4 likelihood; the Gaussian latent, the CNN encoder and the label
 embedding through two train steps and one ELBO batch against plain each.
+Last (phase 16), data parallelism and FSDP: the flagship's train step at
+batch 128 through the unwrapped `Experiment` and, in a process group of
+one rank over NCCL, under DDP and under FSDP2 (a ('data', 'fsdp') mesh of
+one rank), each held against the unwrapped steps; an evaluation after an
+optimizer step under FSDP2 against the plain model loaded with its
+gathered EMA (and the bf16 casts counted), and 10 sampler steps under it.
+Then two ranks, spawned by the script, share the card over gloo (NCCL
+refuses two ranks on one device): two train steps at 64 rows each under DDP
+and under `training.fsdp` = 2 against one process on the global batch, each
+rank's K6 and K7 masks at its `first_index` against the rows of the global
+masks, and K1-K3 on 'sm90' at 64 rows. Every phase logs its wall time.
 Every check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
 step (unfused, fused, with `with_attention`, the VDM's, ImageNet32's and
-V1's below)
+V1's below, and in phase 16 unwrapped, under DDP and under FSDP2)
 and one ODE RHS evaluation by kernel category with `torch.profiler` and
 prints the tables as `[profile]` lines.
 
@@ -120,6 +131,21 @@ WORKDIR_SAMPLER_ATTN = (64, 1, 1024, 128)
 # run asserts, per kernel.
 SM90_KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
                 'flash_attention_bwd_dq')
+
+# Phase 16 (data parallelism and FSDP): PAR_STEPS train steps at batch
+# EVAL_BATCH through the unwrapped Experiment, DDP and FSDP2 at world size 1
+# over NCCL (the first step alone, the others timed), PAR_SAMPLE_STEPS
+# sampler steps under FSDP2; then PAR_RANKS ranks that share the card over
+# gloo take PAR_GLOO_STEPS steps under DDP and under training.fsdp =
+# PAR_RANKS, at EVAL_BATCH // PAR_RANKS rows each, within
+# PAR_WORKER_TIMEOUT_S seconds.
+PAR_STEPS = 4
+PAR_SAMPLE_STEPS = 10
+PAR_RANKS = 2
+PAR_GLOO_STEPS = 2
+PAR_WORKER_TIMEOUT_S = 420
+# The dropout site and seed of the rank-mask gates.
+PAR_MASK_SEED, PAR_MASK_SITE = 1234, 5
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -337,6 +363,22 @@ ODE_FUSED_COS_MIN = 0.998
 def log(phase: str, **fields) -> None:
   print(f'[{phase}] ' + ' '.join(f'{k}={v}' for k, v in fields.items()),
         flush=True)
+
+
+class PhaseClock:
+  """Logs each phase's wall time, from the end of the one before (the
+  script's start for phase 1)."""
+
+  def __init__(self):
+    self.last = time.perf_counter()
+    self.seconds = {}
+
+  def done(self, phase: int, name: str) -> None:
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    self.seconds[phase] = now - self.last
+    log('phase_time', number=phase, name=name, seconds=self.seconds[phase])
+    self.last = now
 
 
 def cuda_ms(fn, n: int = 20) -> float:
@@ -1301,6 +1343,8 @@ _CATEGORIES = (
                    'ComputeFused', 'compute_stats', 'GammaBeta',
                    'ComputeInternalGradients', 'ComputeBackwardFused')),
     ('optimizer and EMA', ('multi_tensor', 'foreach', 'lerp')),
+    ('collectives and FSDP2 copies', ('nccl', 'chunk_cat',
+                                      'split_with_sizes')),
     ('concat', ('CatArray',)),
     ('reductions', ('reduce',)),
     ('elementwise', ('elementwise', 'vectorized', 'unrolled')),
@@ -2761,6 +2805,390 @@ def run_variants(dev, gen, images, labels, flagship_ms, route_totals):
   return paths, numbers, ex_v1
 
 
+# -- phase 16: data parallelism and FSDP -----------------------------------------
+
+
+def free_port() -> int:
+  import socket
+  with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+    sock.bind(('127.0.0.1', 0))
+    return sock.getsockname()[1]
+
+
+def par_batches(images, steps: int):
+  """The phase's global train batches: consecutive EVAL_BATCH-image slices
+  of the synthetic eval images."""
+  return [{'images': images[s * EVAL_BATCH:(s + 1) * EVAL_BATCH]}
+          for s in range(steps)]
+
+
+def par_train(ex, batches, route_totals, after_first=None):
+  """Runs ex.train_step on each batch (the first alone, then
+  `after_first(ex)`, the others timed): (bpds, ms a step, peak memory
+  above the start in GB, launches)."""
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  bpds = []
+  first, counts = counted(lambda: ex.train_step(batches[0]), route_totals)
+  bpds.append(float(first['bpd']))
+  if after_first is not None:
+    after_first(ex)
+  (rest, secs), more = counted(lambda: timed(lambda: [
+      float(ex.train_step(b)['bpd']) for b in batches[1:]]), route_totals)
+  bpds += rest
+  peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+  counts = {k: v + more[k] for k, v in counts.items()}
+  assert counts == times(expected_launches(ex.config.model, 'train'),
+                         len(batches)), counts
+  return bpds, 1e3 * secs / (len(batches) - 1), peak, counts
+
+
+def par_grads(ex):
+  """(the global gradient norm, {leaf: whole gradient} of the attention
+  blocks) of the experiment's last train step (its first, from the seeded
+  state, where every run's parameters are alike: the encoder's top-k makes
+  later gradients depend on any rounding in the updates before)."""
+  from mulan_tpu_torch.parallel.wrap import full
+  from mulan_tpu_torch.train.optimizer import global_norm
+  params = ex.state.params
+  norm = float(global_norm([p.grad for p in params.values()
+                            if p.grad is not None]))
+  leaves = {n: full(p.grad).flatten().double() for n, p in params.items()
+            if '_attn' in n and p.grad is not None}
+  return norm, leaves
+
+
+def run_parallel(dev, train_cfg, images, route_totals,
+                 want_profile: bool = False):
+  """Phase 16. Returns ({path: launches}, the phase's numbers). With
+  `want_profile`, profiles the train step unwrapped, under DDP and under
+  FSDP2 at world 1 (`[profile]` lines)."""
+  import torch.distributed as dist
+  from torch.distributed.device_mesh import init_device_mesh
+  from mulan_tpu_torch import params
+  from mulan_tpu_torch.models import build_model, layers
+  from mulan_tpu_torch.parallel import mesh as mesh_lib
+  from mulan_tpu_torch.parallel.wrap import full, is_sharded
+  from mulan_tpu_torch.train.loop import EVAL, Experiment
+  cfg = train_cfg.model
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+  batches = par_batches(images, PAR_STEPS)
+  numbers, paths = {}, {}
+
+  # 1. One rank: the unwrapped Experiment (twice: how far its own steps
+  # repeat), then DDP and FSDP2 in a process group of one over NCCL.
+  grads = {}
+  ex0 = Experiment(train_cfg, device=dev, state=state)
+  bpd0, ms0, peak0, paths['parallel_unwrapped'] = par_train(
+      ex0, batches, route_totals, lambda ex: grads.update(one=par_grads(ex)))
+  norm0, leaves0 = grads['one']
+
+  def profile_step(ex, name):
+    if want_profile:
+      log('profile', call=f'{name}_train_step_b128',
+          **profile(lambda: ex.train_step(batches[0])))
+  profile_step(ex0, 'parallel_unwrapped')
+  again = Experiment(train_cfg, device=dev, state=state)
+  bpd_again = par_train(again, batches, {})[0]  # not a path: a repeat
+  del again
+  repeats = bpd_again == bpd0
+  dist.init_process_group('nccl' if dev.type == 'cuda' else 'gloo',
+                          init_method=f'tcp://127.0.0.1:{free_port()}',
+                          rank=0, world_size=1)
+  try:
+    exd = Experiment(train_cfg, device=dev, state=state)
+    assert isinstance(exd.train_model,
+                      torch.nn.parallel.DistributedDataParallel)
+    bpd_d, ms_d, peak_d, paths['parallel_ddp_w1'] = par_train(
+        exd, batches, route_totals)
+    profile_step(exd, 'parallel_ddp_w1')
+    del exd
+    ddp_delta = max(abs(a - b) for a, b in zip(bpd_d, bpd0))
+    log('parallel_ddp_world1', bpd=bpd_d, unwrapped_bpd=bpd0,
+        bit_for_bit=bpd_d == bpd0, unwrapped_repeats_bit_for_bit=repeats,
+        unwrapped_repeat_bpd=bpd_again, max_abs_delta=ddp_delta,
+        ms_per_step=ms_d, unwrapped_ms_per_step=ms0,
+        peak_above_start_gb=peak_d, unwrapped_peak_above_start_gb=peak0)
+    # Bit for bit wherever the unwrapped steps repeat themselves bit for
+    # bit; else within the train gate (the kernels' own run-to-run spread).
+    assert bpd_d == bpd0 if repeats else ddp_delta <= TRAIN_BPD_TOL, (
+        bpd_d, bpd0, bpd_again)
+
+    fsdp_mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=(
+        mesh_lib.DATA_AXIS, mesh_lib.FSDP_AXIS))
+    exf = Experiment(train_cfg, device=dev, state=state, mesh=fsdp_mesh)
+    sharded = [n for n, p in exf.state.params.items() if is_sharded(p)]
+    assert sharded and all(not n.startswith('gamma.') for n in sharded)
+    assert all(is_sharded(p) or n.startswith('gamma.')
+               for n, p in exf.state.params.items())
+    bpd_f, ms_f, peak_f, paths['parallel_fsdp_w1'] = par_train(
+        exf, batches, route_totals,
+        lambda ex: grads.update(fsdp=par_grads(ex)))
+    norm_f, leaves_f = grads['fsdp']
+    profile_step(exf, 'parallel_fsdp_w1')
+    cos = leaf_cosines(leaves_f, leaves0)
+    fsdp_delta = max(abs(a - b) for a, b in zip(bpd_f, bpd0))
+    log('parallel_fsdp_world1', bpd=bpd_f, max_abs_delta=fsdp_delta,
+        tol=TRAIN_BPD_TOL, first_step_grad_norm=norm_f,
+        unwrapped_first_step_grad_norm=norm0,
+        attention_leaf_cos_min=min(cos.values()), ms_per_step=ms_f,
+        peak_above_start_gb=peak_f, sharded_leaves=len(sharded))
+    assert fsdp_delta <= TRAIN_BPD_TOL, (bpd_f, bpd0)
+    assert abs(norm_f - norm0) <= GRAD_NORM_RTOL * norm0, (norm_f, norm0)
+    assert min(cos.values()) >= ATTN_LEAF_COS_MIN, cos
+
+    # An evaluation, an optimizer step, the evaluation again: the FSDP2
+    # EMA's bf16 casts are made afresh every call (none is cached across
+    # its all-gathers), and the evaluation after the step is the plain
+    # model's on the EMA gathered then, within BPD_TOL: their bf16
+    # forwards round apart (2.5e-5 and 1.1e-4 bpd in two runs on an H100
+    # 80GB HBM3 at 700 W).
+    def evaluate():
+      before = layers.cast_param.casts
+      (scalars, secs), counts = counted(lambda: timed(
+          lambda: exf.eval_step(batches[0], 0)), route_totals)
+      assert counts == expected_launches(cfg, 'eval'), counts
+      return float(scalars['bpd']), layers.cast_param.casts - before, secs
+    bpd_e1, casts_e1, eval_s = evaluate()
+    exf.train_step(batches[0])
+    bpd_e2, casts_e2, _ = evaluate()
+    paths['parallel_fsdp_eval'] = times(expected_launches(cfg, 'eval'), 2)
+    ema = {k: full(v) for k, v in exf.state.ema_params.items()}
+    plain = build_model(train_cfg.vdm_type, cfg, device=dev, state=ema)
+    exf.reseed(EVAL, 0)
+    with torch.no_grad():
+      bpd_plain = float(exf.loss_fn(plain, batches[0], train=False)[0])
+    del plain, ema
+    log('parallel_fsdp_eval', bpd_before_step=bpd_e1, bpd_after_step=bpd_e2,
+        plain_on_gathered_ema=bpd_plain,
+        after_step_from_plain=abs(bpd_e2 - bpd_plain),
+        before_step_from_plain=abs(bpd_e1 - bpd_plain),
+        casts_before_step=casts_e1, casts_after_step=casts_e2,
+        eval_seconds=eval_s)
+    # The casts are the check that nothing stale is reused: one step moves
+    # the EMA's bpd by less than BPD_TOL (2.7e-3 on the same card).
+    assert casts_e1 > 0 and casts_e2 == casts_e1, (casts_e1, casts_e2)
+    assert abs(bpd_e2 - bpd_plain) <= BPD_TOL, (bpd_e2, bpd_plain)
+
+    # PAR_SAMPLE_STEPS sampler steps under FSDP2 and unwrapped: the bf16
+    # casts and the time a step.
+    sampled = {}
+    for name, ex in (('fsdp', exf), ('unwrapped', ex0)):
+      before = layers.cast_param.casts
+      ((grid, secs)), counts = counted(lambda: timed(lambda: ex.draw_samples(
+          SAMPLE_BATCH, T=PAR_SAMPLE_STEPS)), route_totals)
+      assert counts == times(expected_launches(cfg, 'sample'),
+                             PAR_SAMPLE_STEPS), counts
+      assert grid.dtype.name == 'uint8' and grid.size > 0
+      sampled[name] = dict(
+          casts=layers.cast_param.casts - before,
+          ms_per_step=1e3 * secs / PAR_SAMPLE_STEPS)
+      paths[f'parallel_{name}_sample'] = counts
+    log('parallel_fsdp_sampler', steps=PAR_SAMPLE_STEPS, batch=SAMPLE_BATCH,
+        **{f'{k}_{name}': v for name, r in sampled.items()
+           for k, v in r.items()})
+    # Unwrapped, the first step casts the score UNet's weights and the
+    # others reuse the casts; under FSDP2 every step casts them.
+    assert sampled['unwrapped']['casts'] > 0 and sampled['fsdp']['casts'] == (
+        PAR_SAMPLE_STEPS * sampled['unwrapped']['casts']), sampled
+    del exf
+  finally:
+    dist.destroy_process_group()
+  del ex0
+  torch.cuda.empty_cache()
+  numbers.update(
+      unwrapped_ms_per_step=ms0, ddp_w1_ms_per_step=ms_d,
+      fsdp_w1_ms_per_step=ms_f, unwrapped_peak_gb=peak0, ddp_w1_peak_gb=peak_d,
+      fsdp_w1_peak_gb=peak_f, ddp_w1_bit_for_bit=bpd_d == bpd0,
+      unwrapped_repeats_bit_for_bit=repeats, fsdp_w1_max_abs_delta=fsdp_delta,
+      fsdp_eval_casts=casts_e1, sampler=sampled)
+
+  # 2. PAR_RANKS ranks on the one card over gloo, against the unwrapped
+  # steps on the same global batches and noise.
+  out_dir = tempfile.mkdtemp()
+  port = free_port()
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), '--parallel-rank', str(r),
+       '--port', str(port), '--out', out_dir], stdout=subprocess.PIPE,
+      stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
+  outs = []
+  try:
+    for proc in procs:
+      try:
+        outs.append(proc.communicate(timeout=PAR_WORKER_TIMEOUT_S)[0])
+      except subprocess.TimeoutExpired:
+        for p in procs:
+          p.kill()
+        outs.append(proc.communicate()[0] + '\n<<< timed out >>>')
+  finally:
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+  for r, (proc, out) in enumerate(zip(procs, outs)):
+    for line in out.splitlines():
+      if line.startswith('['):
+        print(f'[rank {r}] {line}', flush=True)
+    assert proc.returncode == 0, f'rank {r} failed:\n{out[-6000:]}'
+  ranks = [json.loads(pathlib.Path(out_dir, f'rank{r}.json').read_text())
+           for r in range(PAR_RANKS)]
+  for mode in ('ddp', 'fsdp'):
+    got = ranks[0][mode]['bpd']
+    assert all(r[mode]['bpd'] == got for r in ranks), ranks
+    delta = max(abs(a - b) for a, b in zip(got, bpd0))
+    log(f'parallel_gloo_{mode}', ranks=PAR_RANKS, rows_a_rank=EVAL_BATCH //
+        PAR_RANKS, bpd=got, one_process_bpd=bpd0[:PAR_GLOO_STEPS],
+        max_abs_delta=delta, tol=TRAIN_BPD_TOL,
+        ms_per_step_two_ranks_on_one_card=[r[mode]['ms_per_step']
+                                           for r in ranks],
+        peak_gb=[r[mode]['peak_gb'] for r in ranks])
+    assert delta <= TRAIN_BPD_TOL, (mode, got, bpd0)
+    paths[f'parallel_gloo_{mode}_rank0'] = ranks[0][mode]['launches']
+    for name, by_route in ranks[0][mode]['routes'].items():
+      total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
+      for r, n in by_route.items():
+        total[r] += n
+    numbers[f'gloo_{mode}'] = dict(
+        bpd=got, max_abs_delta=delta,
+        ms_per_step_two_ranks_on_one_card=[r[mode]['ms_per_step']
+                                           for r in ranks],
+        peak_gb=[r[mode]['peak_gb'] for r in ranks])
+  numbers['rank_masks'] = [r['masks'] for r in ranks]
+  return paths, numbers
+
+
+def rank_mask_times(dev, cfg, imul_rate):
+  """K6 at one site and K7 at the score UNet's sites, at a rank's rows
+  (EVAL_BATCH // PAR_RANKS) and rank 1's first_index, timed beside their
+  plain versions and bounds; bit for bit the rows of the global masks."""
+  from mulan_tpu_torch.ops.dropout import (dropout_mask, dropout_mask_batch,
+                                           dropout_mask_batch_plain,
+                                           dropout_mask_plain)
+  rate = cfg.sm_pdrop
+  rows = EVAL_BATCH // PAR_RANKS
+  shape = (rows, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
+  first = rows * math.prod(shape[1:])
+  n_sites = 2 * cfg.sm_n_layer + 3
+  out = {}
+  for name, run, plain, n_masks in (
+      ('dropout_mask', lambda: dropout_mask(
+          PAR_MASK_SEED, PAR_MASK_SITE, shape, rate, torch.bfloat16, dev,
+          first_index=first), lambda: dropout_mask_plain(
+              PAR_MASK_SEED, PAR_MASK_SITE, shape, rate, torch.bfloat16,
+              dev, first_index=first), 1),
+      ('dropout_mask_batch', lambda: dropout_mask_batch(
+          PAR_MASK_SEED, 0, n_sites, shape, rate, torch.bfloat16, dev,
+          first_index=first), lambda: dropout_mask_batch_plain(
+              PAR_MASK_SEED, 0, n_sites, shape, rate, torch.bfloat16, dev,
+              first_index=first), n_sites)):
+    mask = run()
+    ref = plain()
+    assert torch.equal(mask, ref), name
+    counters = n_masks * ((math.prod(shape) + 7) // 8)
+    out[name] = dict(
+        shape=list(shape), first_index=first, ms=cuda_ms(run),
+        back_to_back_ms=back_to_back_ms(run, n=5),
+        plain_ms=cuda_ms(plain, n=3 if n_masks > 1 else 20),
+        max_abs_err=(mask.float() - ref.float()).abs().max().item(),
+        **bound(0.0, nbytes(mask), imuls=PHILOX_MULS * counters,
+                imul_rate=imul_rate))
+    del mask, ref
+    log(f'{name}_at_rank_rows', **out[name])
+  return out
+
+
+def parallel_worker() -> None:
+  """One of PAR_RANKS ranks of phase 16 that share the card over gloo
+  (`--parallel-rank R --port P --out DIR`); see `gloo_rank`."""
+  import torch.distributed as dist
+  from mulan_tpu_torch.ops import _build
+  if not torch.cuda.is_available():
+    raise SystemExit('chip_smoke: the parallel worker needs a CUDA device')
+  argv = sys.argv[1:]
+  rank = int(argv[argv.index('--parallel-rank') + 1])
+  port = int(argv[argv.index('--port') + 1])
+  out_dir = argv[argv.index('--out') + 1]
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device('cuda', 0)
+  torch.cuda.set_device(dev)
+  _build.load_library()  # built by the parent: loaded, not rebuilt
+  dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                          rank=rank, world_size=PAR_RANKS)
+  try:
+    gloo_rank(rank, dev, out_dir)
+  finally:
+    dist.destroy_process_group()
+
+
+def gloo_rank(rank: int, dev, out_dir: str) -> None:
+  """Rank `rank` of phase 16's gloo pod: PAR_GLOO_STEPS flagship train
+  steps at its EVAL_BATCH // PAR_RANKS rows of each global batch under DDP,
+  then under training.fsdp = PAR_RANKS; its K6 and K7 masks at its
+  first_index against the rows of the global masks; the attention blocks'
+  inputs and K1-K3's routes. Writes OUT_DIR/rank<R>.json."""
+  from mulan_tpu_torch import configs, data, params
+  from mulan_tpu_torch.models import layers
+  from mulan_tpu_torch.ops.dropout import dropout_mask, dropout_mask_batch
+  from mulan_tpu_torch.ops.flash_attention import attention_route
+  from mulan_tpu_torch.train.loop import Experiment
+  train_cfg = configs.replace(
+      configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
+      training={'steps_per_logging': TRAIN_STEPS})
+  cfg = train_cfg.model
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+  images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
+  rows = EVAL_BATCH // PAR_RANKS
+  batches = [{'images': b['images'][rank * rows:(rank + 1) * rows]}
+             for b in par_batches(images, PAR_GLOO_STEPS)]
+  result = {}
+  attn_inputs = set()
+  for mode, fsdp in (('ddp', 1), ('fsdp', PAR_RANKS)):
+    ex = Experiment(configs.replace(train_cfg, training={'fsdp': fsdp}),
+                    device=dev, state=state)
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: attn_inputs.add(tuple(a[0].shape)))
+             for m in ex.model.modules() if isinstance(m, layers.AttnBlock)]
+    route_totals = {}
+    bpds, ms, peak, counts = par_train(ex, batches, route_totals)
+    for h in hooks:
+      h.remove()
+    result[mode] = dict(bpd=bpds, ms_per_step=ms, peak_gb=peak,
+                        launches=counts, routes=route_totals)
+    log(f'gloo_{mode}', rank=rank, **result[mode])
+    del ex
+    torch.cuda.empty_cache()
+  # K1-K3 saw the rank's rows: the attention blocks' inputs, one
+  # (rows, C, H, W) shape, (rows, 1, H W, C) in the kernels.
+  assert attn_inputs == {(rows, cfg.sm_n_embd, cfg.image_size,
+                          cfg.image_size)}, attn_inputs
+  assert attention_route(torch.bfloat16, cfg.sm_n_embd) == 'sm90'
+  # The rank's K6 and K7 masks at its first_index: the global masks'
+  # rows, bit for bit.
+  shape = (rows, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
+  first = rank * rows * math.prod(shape[1:])
+  n_sites = 2 * cfg.sm_n_layer + 3
+  args = (cfg.sm_pdrop, torch.bfloat16, dev)
+  glob = (EVAL_BATCH, *shape[1:])
+  k6 = torch.equal(
+      dropout_mask(PAR_MASK_SEED, PAR_MASK_SITE, shape, *args,
+                   first_index=first),
+      dropout_mask(PAR_MASK_SEED, PAR_MASK_SITE, glob, *args)[
+          rank * rows:(rank + 1) * rows])
+  k7 = torch.equal(
+      dropout_mask_batch(PAR_MASK_SEED, 0, n_sites, shape, *args,
+                         first_index=first),
+      dropout_mask_batch(PAR_MASK_SEED, 0, n_sites, glob, *args)[
+          :, rank * rows:(rank + 1) * rows])
+  result['masks'] = dict(first_index=first, k6_rows_equal=k6,
+                         k7_rows_equal=k7)
+  log('gloo_masks', rank=rank, **result['masks'])
+  assert k6 and k7, result['masks']
+  pathlib.Path(out_dir, f'rank{rank}.json').write_text(json.dumps(result))
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
@@ -2772,6 +3200,7 @@ def main() -> None:
   from mulan_tpu_torch.ops import _build
   from mulan_tpu_torch.train.loop import Experiment
   want_profile = '--profile' in sys.argv[1:]
+  clock = PhaseClock()
 
   # 1. Device and build.
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -2796,6 +3225,7 @@ def main() -> None:
       configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
       training={'steps_per_logging': TRAIN_STEPS})
   cfg = train_cfg.model
+  clock.done(1, 'device and build')
 
   # 2. Each kernel against its plain version.
   results = {}
@@ -2812,7 +3242,9 @@ def main() -> None:
   results['gn_swish_bwd'], gn_bwd_c256 = check_gn_swish_bwd(dev, gen,
                                                            sfu_rate)
   results['dropout_mask_batch'] = check_mask_batch(dev, cfg, imul_rate)
+  rank_masks = rank_mask_times(dev, cfg, imul_rate)
   torch.cuda.empty_cache()
+  clock.done(2, 'kernels against plain')
 
   # 3. Evaluation: sparse VLB over synthetic eval batches. Every counted
   # run of a main path adds its launches by route to route_totals.
@@ -2839,6 +3271,7 @@ def main() -> None:
       decoder_logprob_bwd=0, dropout_mask=0, dropout_mask_batch=0,
       gn_swish=0, gn_swish_bwd=0), eval_counts
   assert eval_counts == times(expected_launches(cfg, 'eval'), EVAL_BATCHES)
+  clock.done(3, 'sparse VLB')
 
   # 4. Sampling: T cut to SAMPLE_STEPS; every step is a full-size UNet pass.
   def run_sampler(m):
@@ -2861,6 +3294,7 @@ def main() -> None:
   sample_counts = run_sampler(model)
   assert sample_counts['flash_attention'] == SAMPLE_STEPS, sample_counts
   assert sum(sample_counts.values()) == SAMPLE_STEPS, sample_counts
+  clock.done(4, 'sampler')
 
   # 5. The ELBO, kernels against the plain path, on one batch with the same
   # noise (outside the counted runs).
@@ -2897,6 +3331,7 @@ def main() -> None:
       images_per_s_plain=rates['plain'])
   assert delta <= BPD_TOL, delta
   del plain
+  clock.done(5, 'ELBO kernels against plain')
 
   # 6. Training: Experiment.train at batch 128 with dropout 0.1. The first
   # update has lr 0 (the warm-up is read before it), so step 1 leaves the
@@ -2957,6 +3392,7 @@ def main() -> None:
       train_counts)
   eval_scalars = ex.run_eval(1)
   assert math.isfinite(eval_scalars['eval_bpd']), eval_scalars
+  clock.done(6, 'training')
 
   # 7. One train step, kernels against plain and against float32.
   del start
@@ -2965,6 +3401,7 @@ def main() -> None:
   compare_train_step(ex, model, lambda **kw: build_model(
       'mulan_velocity', dataclasses.replace(cfg, use_kernels=False, **kw),
       device=dev, state=state), {'images': batch}, step_noise)
+  clock.done(7, 'train step kernels against plain')
 
   # 8. The fused configuration (fused_gn_swish and dropout_mask_batch) on the
   # same weights: evaluation, sampling and training, then one fused train
@@ -2996,6 +3433,7 @@ def main() -> None:
   compare_fused_step(ex_f, model_f, lambda: build_model(
       'mulan_velocity', dataclasses.replace(fused_cfg, use_kernels=False),
       device=dev, state=state), {'images': batch}, step_noise)
+  clock.done(8, 'fused')
 
   # 9. bench.py --attention: with_attention and remat='attn', fresh weights.
   attn_cfg = dataclasses.replace(cfg, with_attention=True, remat='attn')
@@ -3005,6 +3443,7 @@ def main() -> None:
   ex_a = Experiment(configs.replace(train_cfg, model={
       'with_attention': True, 'remat': 'attn'}), device=dev, state=attn_state)
   attn_train_counts = run_train(ex_a, ATTN_TRAIN_STEPS, 'attention_train')
+  clock.done(9, 'with_attention')
 
   # 10. Every remat mode gives the step without remat, with attention blocks
   # and the fused GroupNorm+swish (so that a checkpointed ResNet block
@@ -3014,6 +3453,7 @@ def main() -> None:
         ex_a, dataclasses.replace(attn_cfg, fused_gn_swish=True), attn_state,
         {'images': batch}, step_noise, dev, route_totals)
   torch.cuda.empty_cache()
+  clock.done(10, 'remat')
 
   # 11. Checkpoints and their evaluation: K1 and K4 at the dense VLB's
   # shapes; a workdir run that saves, restores, exports and imports its
@@ -3026,6 +3466,7 @@ def main() -> None:
     dense_counts = run_dense_eval(ev, images, gen, dev, route_totals)
     del ev
     torch.cuda.empty_cache()
+    clock.done(11, 'checkpoints and the dense VLB')
 
     # 12. The probability-flow ODE: the solvers on the card against the CPU;
     # an RK4 likelihood kernels against plain, with one RHS evaluation's
@@ -3045,6 +3486,7 @@ def main() -> None:
                                        route_totals)
   check_score_jvp_raises(ode_model, ode_batch)
   torch.cuda.empty_cache()
+  clock.done(12, 'the probability-flow ODE')
 
   # 13. The baseline VDM: training (K5 on its path), one step kernels
   # against plain with K5 alone at its inputs, K5 timed there beside the
@@ -3058,6 +3500,7 @@ def main() -> None:
   results['decoder_logprob_bwd'] = k5_cases['vdm_step']
   k5_tmp.cleanup()
   torch.cuda.empty_cache()
+  clock.done(13, 'the baseline VDM')
 
   # 14. MuLAN-epsilon at ImageNet32's width: K1-K3 at head_dim 256 (on their
   # 'sm90' kernels for D <= 256), alone and through evaluation, sampling,
@@ -3067,6 +3510,7 @@ def main() -> None:
   in32_paths, in32_kernels, ex_in32 = run_imagenet32(dev, gen, sfu_rate,
                                                      in32_routes)
   torch.cuda.empty_cache()
+  clock.done(14, 'MuLAN-epsilon at ImageNet32 width')
 
   # 15. The MuLAN variants at the flagship's width and depth: the 'ldm'
   # UNet with the learned schedule and the Gumbel latent through training,
@@ -3075,6 +3519,15 @@ def main() -> None:
   variant_paths, _, ex_v1 = run_variants(dev, gen, images, labels,
                                          train_ms['train'], route_totals)
   torch.cuda.empty_cache()
+  clock.done(15, 'the MuLAN variants')
+
+  # 16. Data parallelism and FSDP: the train step unwrapped, under DDP and
+  # under FSDP2 in a process group of one over NCCL, an evaluation and the
+  # sampler under FSDP2; then two ranks on the card over gloo.
+  parallel_paths, parallel = run_parallel(dev, train_cfg, images,
+                                          route_totals, want_profile)
+  torch.cuda.empty_cache()
+  clock.done(16, 'data parallelism and FSDP')
 
   if want_profile:
     ode_t = torch.tensor(0.5)
@@ -3135,6 +3588,7 @@ def main() -> None:
            'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
            'ode_fused_rhs': ode_fused_counts, **vdm_paths, **variant_paths,
+           **parallel_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
@@ -3221,6 +3675,11 @@ def main() -> None:
         'ms', 'back_to_back_ms', 'ms_with_lse', 'plain_ms', 'library_ms',
         'library_back_to_back_ms', 'simt_ms', 'simt_back_to_back_ms',
         'bound_ms', 'bound_by', 'max_abs_err') if k in r}
+  for name in ('dropout_mask', 'dropout_mask_batch'):
+    by_name[name]['at_rank_rows'] = rank_masks[name]
+  log('parallel_summary', **{k: json.dumps(v) for k, v in parallel.items()})
+  log('phase_seconds', total=sum(clock.seconds.values()),
+      **{f'phase_{k}': v for k, v in clock.seconds.items()})
   print(json.dumps({'kernels': kernels}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
@@ -3229,4 +3688,7 @@ def main() -> None:
 
 
 if __name__ == '__main__':
-  main()
+  if '--parallel-rank' in sys.argv[1:]:
+    parallel_worker()
+  else:
+    main()

@@ -10,5 +10,6 @@ train step and training loop with checkpoints (`train/`), the reference's
 `ckpt-N.flax` files (`compat.py`) and the command lines (`main.py`,
 `eval_bpd.py`), with the flash-attention forward and backward, the decoder
 log-likelihood forward and backward, the dropout masks and the fused
-GroupNorm+swish as CUDA kernels (`ops/`, sources in `csrc/`).
+GroupNorm+swish as CUDA kernels (`ops/`, sources in `csrc/`), on one
+card or on N processes (`parallel/`: data parallelism and FSDP).
 """

@@ -15,8 +15,9 @@
 // The TPU kernel draws from the TPU's hardware PRNG, reseeded per grid tile.
 // Here the bits come from Philox4x32-10 (Salmon et al., SC'11; Random123's
 // constants) written into the kernel: the key is (seed, site) and the counter
-// is the element index divided by 8, so the stream depends only on
-// (seed, site, index), never on the launch's tiling. Each of the four 32-bit
+// is the element's index in the site's global mask divided by 8, so the
+// stream depends only on (seed, site, index), never on the launch's tiling
+// or on how the batch is split over data-parallel ranks (first_index). Each of the four 32-bit
 // output words gives two 16-bit draws, low half first: element i uses word
 // (i / 2) % 4 of counter i / 8, and is kept iff its draw >= threshold16 =
 // min(round(p * 65536), 65535), the quantization of the TPU kernel.
@@ -69,26 +70,59 @@ __device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Word i (0..7) of the eight 32-bit words of two consecutive counters, by
+// selects (no local-memory array for a runtime index).
+__device__ __forceinline__ uint32_t word_of(const uint4& a, const uint4& b,
+                                            unsigned i) {
+  const uint4 v = i < 4 ? a : b;
+  const unsigned j = i & 3u;
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
 // The mask of site first_site + blockIdx.y goes to out + blockIdx.y * n.
+// Local element i is element first_index + i of the site's global mask (a
+// data-parallel rank's rows of the global batch start at first_index =
+// rank * rows * C * H * W), so its counter is (first_index + i) / 8 and its
+// draw (first_index + i) % 8 of that counter. first_index % 8 is the same
+// for every thread of a launch: 0 (every flagship and encoder site, and one
+// process) takes one Philox call a thread as before; otherwise a thread's
+// eight values straddle two counters and it runs both.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
-             uint32_t first_site, uint32_t threshold16, float scale) {
-  const size_t ctr = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  const size_t first = ctr * 8;
+             uint32_t first_site, uint32_t threshold16, float scale,
+             unsigned long long first_index) {
+  const size_t first = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 8;
   if (first >= n) return;
   out += (size_t)blockIdx.y * n;
+  const uint32_t site = first_site + blockIdx.y;
+  const unsigned long long g = first_index + first;
+  const unsigned long long ctr = g >> 3;
+  const unsigned shift = (unsigned)(g & 7u);
   const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed,
-      first_site + blockIdx.y);
-  const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed, site);
   const T keep = cvt<T>(scale), drop = cvt<T>(0.0f);
   __align__(16) T vals[8];
+  if (shift == 0) {
+    const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const uint32_t w = words[e / 2];
-    const uint32_t u16 = (e % 2 == 0) ? (w & 0xFFFFu) : (w >> 16);
-    vals[e] = u16 >= threshold16 ? keep : drop;
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t w = words[e / 2];
+      const uint32_t u16 = (e % 2 == 0) ? (w & 0xFFFFu) : (w >> 16);
+      vals[e] = u16 >= threshold16 ? keep : drop;
+    }
+  } else {
+    const unsigned long long next = ctr + 1;
+    const uint4 r1 = philox4x32_10(
+        make_uint4((uint32_t)next, (uint32_t)(next >> 32), 0u, 0u), seed,
+        site);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const unsigned d = shift + (unsigned)e;  // 1 .. 14
+      const uint32_t w = word_of(r, r1, d / 2);
+      const uint32_t u16 = (d % 2 == 0) ? (w & 0xFFFFu) : (w >> 16);
+      vals[e] = u16 >= threshold16 ? keep : drop;
+    }
   }
   if (first + 8 <= n && (uintptr_t)(out + first) % 16 == 0) {
     // 8 values are 16 bytes (bf16) or 32 bytes (f32). A slot after the
@@ -106,45 +140,53 @@ dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
 template <typename T>
 int launch(void* out, size_t n, unsigned n_masks, uint32_t seed,
            uint32_t first_site, uint32_t threshold16, float scale,
-           cudaStream_t stream) {
+           unsigned long long first_index, cudaStream_t stream) {
   const size_t counters = (n + 7) / 8;
   const size_t blocks = (counters + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, n_masks);
   dropout_mask<T><<<grid, kThreads, 0, stream>>>(
-      (T*)out, n, seed, first_site, threshold16, scale);
+      (T*)out, n, seed, first_site, threshold16, scale, first_index);
   return (int)cudaGetLastError();
 }
 
 int launch_masks(void* out, long long n, unsigned n_masks, unsigned seed,
                  unsigned first_site, unsigned threshold16, float scale,
-                 int is_bf16, void* stream) {
+                 unsigned long long first_index, int is_bf16, void* stream) {
   if (n <= 0 || n_masks == 0 || n_masks > 65535u || threshold16 > 65535u)
+    return (int)cudaErrorInvalidValue;
+  // The last counter, (first_index + n - 1) / 8, must fit in 64 bits.
+  if (first_index > ~0ull - (unsigned long long)n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(out, (size_t)n, n_masks, seed,
-                                         first_site, threshold16, scale, s)
+                                         first_site, threshold16, scale,
+                                         first_index, s)
                  : launch<float>(out, (size_t)n, n_masks, seed, first_site,
-                                 threshold16, scale, s);
+                                 threshold16, scale, first_index, s);
 }
 
 }  // namespace
 
-// K6. out: n contiguous, 16-byte aligned values (float32 or bfloat16).
+// K6. out: n contiguous, 16-byte aligned values (float32 or bfloat16):
+// elements [first_index, first_index + n) of the site's mask.
 extern "C" int mulan_dropout_mask(void* out, long long n, unsigned seed,
                                   unsigned site, unsigned threshold16,
-                                  float scale, int is_bf16, void* stream) {
-  return launch_masks(out, n, 1u, seed, site, threshold16, scale, is_bf16,
-                      stream);
+                                  float scale, unsigned long long first_index,
+                                  int is_bf16, void* stream) {
+  return launch_masks(out, n, 1u, seed, site, threshold16, scale, first_index,
+                      is_bf16, stream);
 }
 
-// K7. out: n_masks * n contiguous values, 16-byte aligned; slot i holds the
-// mask of site first_site + i. n_masks <= 65535 (the grid's y extent).
+// K7. out: n_masks * n contiguous values, 16-byte aligned; slot i holds
+// elements [first_index, first_index + n) of the mask of site
+// first_site + i. n_masks <= 65535 (the grid's y extent).
 extern "C" int mulan_dropout_mask_batch(void* out, long long n,
                                         unsigned n_masks, unsigned seed,
                                         unsigned first_site,
                                         unsigned threshold16, float scale,
+                                        unsigned long long first_index,
                                         int is_bf16, void* stream) {
   return launch_masks(out, n, n_masks, seed, first_site, threshold16, scale,
-                      is_bf16, stream);
+                      first_index, is_bf16, stream);
 }

@@ -7,6 +7,11 @@ module cannot serve where JAX is absent: the same seed gives the same
 permutation stream and the same batches. Images stay uint8 NHWC; there is no
 augmentation (the flagship dataset has none), no prefetch thread, and no
 TFDS source (it needs `tensorflow_datasets` and a download).
+
+Under `torch.distributed` every rank reads its own contiguous shard of
+each split (`host_shard`, `pipeline.py:60-65`) in per-rank batches of the
+global batch size over the world (`pipeline.py:455-490`), so that the
+global batch is the ranks' batches concatenated in rank order.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import os
 from typing import Iterator, Optional
 
 import numpy as np
+
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 
 
 def synthetic(seed: int, n: int, image_shape):
@@ -82,11 +89,41 @@ def source(dataset: str, split: str, image_shape, *, seed: int = 0,
       'npz:<dir> and npy:<dir>; TFDS needs its package and a download)')
 
 
+def host_shard(images: np.ndarray, labels: np.ndarray, rank: int,
+               world: int):
+  """Rank `rank`'s equal contiguous slice of a split of n examples, n //
+  world of them (`pipeline.py:ArraySource.host_shard`)."""
+  n = len(images) // world
+  lo = rank * n
+  return images[lo:lo + n], np.asarray(labels)[lo:lo + n]
+
+
 def config_source(config, split: str):
-  """(images, labels) of a split of `config.data` for `config.model`."""
-  return source(config.data.dataset, split, config.model.image_shape,
-                seed=config.data.synthetic_seed,
-                examples=config.data.synthetic_examples)
+  """(images, labels) of this rank's shard of a split of `config.data` for
+  `config.model` (the whole split in one process)."""
+  return host_shard(*source(config.data.dataset, split,
+                            config.model.image_shape,
+                            seed=config.data.synthetic_seed,
+                            examples=config.data.synthetic_examples),
+                    mesh_lib.rank(), mesh_lib.world_size())
+
+
+def create_dataset(config, seed: int):
+  """(train_iter, eval_iter) of this rank's batches
+  (`pipeline.py:create_dataset`): `batch_size_train` and `batch_size_eval`
+  over the world, a train iterator seeded `seed + rank` and an eval
+  iterator seeded `seed + 7919 + rank`."""
+  training = config.training
+  r = mesh_lib.rank()
+  train_iter = train_iterator(
+      *config_source(config, 'train'),
+      batch_size=mesh_lib.local_batch_size(training.batch_size_train),
+      substeps=1, seed=seed + r)
+  eval_iter = eval_iterator(
+      *config_source(config, 'eval'),
+      batch_size=mesh_lib.local_batch_size(training.batch_size_eval),
+      seed=seed + 7919 + r)
+  return train_iter, eval_iter
 
 
 def train_iterator(images: np.ndarray, labels: np.ndarray, *,
@@ -136,9 +173,11 @@ def one_time_eval_iterator(images: np.ndarray, labels: np.ndarray, *,
 
 def create_one_time_eval_dataset(config, batch_size: Optional[int] = None
                                  ) -> Iterator[dict]:
-  """`one_time_eval_iterator` over the config's eval split, in batches of
-  `batch_size` (default `training.batch_size_eval`)."""
+  """`one_time_eval_iterator` over this rank's shard of the config's eval
+  split, in batches of `batch_size` (default `training.batch_size_eval`)
+  over the world."""
   if batch_size is None:
     batch_size = config.training.batch_size_eval
-  return one_time_eval_iterator(*config_source(config, 'eval'),
-                                batch_size=batch_size)
+  return one_time_eval_iterator(
+      *config_source(config, 'eval'),
+      batch_size=batch_size // mesh_lib.world_size())

@@ -13,7 +13,11 @@ split and prints `Test BPD:<bpd> ckpt:<step>`. `ode` (the default) is the
 importance-weighted exact NLL through the probability-flow ODE of
 `evals/nll_ode.py:eval_bpd_ode`, `dense` the stratified t-grid of
 `evals/vlb.py:eval_bpd_dense`, `sparse` one ELBO per image. Runs on the
-card unless `--device=cpu` is given.
+card unless `--device=cpu` is given. `--multiprocess` runs it on the ranks
+of torchrun's process group (`torchrun --nproc_per_node=N -m
+mulan_tpu_torch.eval_bpd --multiprocess ...`): each rank evaluates its
+shard of the split, every rank computes the same global bpd, and rank 0
+prints it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from mulan_tpu_torch import configs
 from mulan_tpu_torch.models import resolve_device
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,6 +74,8 @@ def parser() -> argparse.ArgumentParser:
   ode.add_argument('--is_batch', type=int, default=0,
                    help='importance samples a solve (0: ~128 rows)')
   p.add_argument('--device', default='cuda')
+  p.add_argument('--multiprocess', action='store_true',
+                 help="join torchrun's process group (one rank a card)")
   return p
 
 
@@ -76,7 +83,8 @@ def main(argv=None) -> float:
   argv = sys.argv[1:] if argv is None else list(argv)
   args, overrides = parser().parse_known_args(argv)
   config = configs.from_command_line(args.config, overrides)
-  device = resolve_device(args.device)
+  device = (mesh_lib.init_distributed(args.device) if args.multiprocess
+            else resolve_device(args.device))
   from mulan_tpu_torch import data
   from mulan_tpu_torch.evals import nll_ode, vlb
   from mulan_tpu_torch.evals.harness import EvalExperiment
@@ -102,7 +110,8 @@ def main(argv=None) -> float:
     bpd = vlb.eval_bpd_dense(model, batches, n_timesteps=args.n_timesteps,
                              images_per_chunk=args.images_per_chunk or None,
                              generator=generator)
-  print(f'Test BPD:{bpd} ckpt:{ex.checkpoint_step}')
+  if mesh_lib.rank() == 0:
+    print(f'Test BPD:{bpd} ckpt:{ex.checkpoint_step}')
   return bpd
 
 

@@ -29,6 +29,15 @@ counterpart of `mulan_tpu/evals/nll_ode.py`.
     (iteration, batch, importance-sample group). Both draws can also be
     handed in, as `MuLAN.elbo` takes its noise.
 
+Under `torch.distributed` each rank evaluates its shard of the eval split
+(`data.create_one_time_eval_dataset`): a solve's global state is the ranks'
+rows concatenated (each importance-sample copy of the global batch in
+turn, as JAX tiles it), every rank draws its rows of the global
+dequantization and probe (`parallel.mesh.Rows`), DoPri5's error norm is the
+global state's (`ops/ode.py`, `across_ranks`), and the per-image bpd is
+gathered, so every rank returns the same value (`mulan_tpu/evals/
+nll_ode.py:285-340`). The ODE sampler splits its samples the same way.
+
 The likelihood builds an autograd graph in every RHS evaluation, so it runs
 outside inference mode (a tensor made inside it cannot be saved for a
 backward) and each evaluation enables grad; the encoder runs under
@@ -39,6 +48,7 @@ in JAX.
 from __future__ import annotations
 
 import functools
+import itertools
 import logging
 import math
 from typing import Callable, Optional
@@ -50,6 +60,7 @@ from mulan_tpu_torch import data as data_lib
 from mulan_tpu_torch.models import latents
 from mulan_tpu_torch.models.vdm import VDM
 from mulan_tpu_torch.ops.ode import odeint_dopri5, odeint_rk4
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 from mulan_tpu_torch.train.loop import ODE, step_key
 
 logger = logging.getLogger(__name__)
@@ -117,7 +128,7 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
                            max_steps: int = 5000, first_step: float = 0.01,
                            odeint: Callable = odeint_dopri5,
                            redraw_noise: bool = False):
-  """Returns likelihood(images, key=0, *, u=None, probe=None) ->
+  """Returns likelihood(images, key=0, *, u=None, probe=None, rows=None) ->
   (log_p, log_q_eps, aux_latent_loss, stats) for uint8 NHWC images: the
   first three (B,) on the model's device, `stats` the solver's {nfe,
   num_steps, num_rejected, success}. Callers must check `success` (a solve
@@ -126,7 +137,10 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
   log_q_eps is 0 for uniform dequantization (its correction is the constant
   `bpd_offset`). `u` (the images' shape) replaces the dequantization draw
   before scaling: TN(-3, 3) samples for 'tn', U(0, 1) for 'uniform'.
-  `probe` replaces the Hutchinson probe at every RHS evaluation.
+  `probe` replaces the Hutchinson probe at every RHS evaluation. With
+  `rows` the images are those rows of a global solve, split over the
+  ranks: the draws are the global state's, cut to them, and the solver's
+  error norm is the global state's.
   `odeint` is injectable (e.g. `functools.partial(odeint_rk4,
   num_steps=...)`).
   """
@@ -138,7 +152,8 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
     _refuse_ode_latent(cfg)
   dev = model.device
 
-  def likelihood(images, key: int = 0, *, u=None, probe=None):
+  def likelihood(images, key: int = 0, *, u=None, probe=None,
+                 rows: Optional[mesh_lib.Rows] = None):
     with torch.inference_mode(False):
       images = torch.as_tensor(images, device=dev).reshape(
           -1, *cfg.image_shape).float()
@@ -146,11 +161,13 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
       data = 2 * ((torch.round(images) + 0.5) / cfg.vocab_size) - 1
       if u is None:
         gen = _generator(dev, step_key(key, _DEQUANT))
-        u = torch.empty(data.shape, device=dev)
-        if dequantization == 'uniform':
-          u.uniform_(generator=gen)
-        else:
-          torch.nn.init.trunc_normal_(u, a=-3.0, b=3.0, generator=gen)
+
+        def dequant(shape):
+          u = torch.empty(shape, device=dev)
+          if dequantization == 'uniform':
+            return u.uniform_(generator=gen)
+          return torch.nn.init.trunc_normal_(u, a=-3.0, b=3.0, generator=gen)
+        u = mesh_lib.draw_rows(dequant, data.shape, rows)
       u = torch.as_tensor(u, dtype=torch.float32, device=dev)
       if dequantization == 'uniform':
         u = (u - 0.5) * 2 / cfg.vocab_size
@@ -179,8 +196,9 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
         if redraw_noise:
           words += (int(torch.as_tensor(t, dtype=torch.float32)
                         .view(torch.int32)),)
-        return _hutchinson_noise(_generator(dev, step_key(key, *words)),
-                                 data.shape, hutchinson_type, dev)
+        gen = _generator(dev, step_key(key, *words))
+        return mesh_lib.draw_rows(lambda shape: _hutchinson_noise(
+            gen, shape, hutchinson_type, dev), data.shape, rows)
       fixed = None if redraw_noise else probe_at(None)
 
       # State (B, D + 1): each example's latent row and its delta log p.
@@ -195,8 +213,9 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
 
       y0 = torch.cat([data.reshape(b, d), torch.zeros((b, 1), device=dev)],
                      dim=1)
+      across = {} if rows is None else {'across_ranks': True}
       sol = odeint(ode_func, y0, 0.0, 1.0, rtol=rtol, atol=atol,
-                   max_steps=max_steps, first_step=first_step)
+                   max_steps=max_steps, first_step=first_step, **across)
       log_p = _prior_logp(sol.y[:, :d].reshape(data.shape)) + sol.y[:, d]
     stats = {'nfe': sol.nfe, 'num_steps': sol.num_steps,
              'num_rejected': sol.num_rejected, 'success': sol.success}
@@ -234,7 +253,8 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
 
   The importance samples of a batch are solved in groups: the batch tiled
   `group` times along its axis is one solve (`is_batch=0`: the divisor of
-  num_is nearest to 128 rows a solve; `is_batch=1`: one sample a solve).
+  num_is nearest to 128 rows a solve on each rank; `is_batch=1`: one
+  sample a solve).
   Each solve's randomness is keyed by (iteration, batch, group). A batch's
   per-image estimate is log-mean-exp over the samples of log p - log q
   (log p alone for one sample) minus the latent KL averaged over the
@@ -279,13 +299,15 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
   for it in range(num_iters):
     bpds, n_excluded = [], 0
     loader = data_lib.create_one_time_eval_dataset(config, batch_size)
-    for bi, batch in enumerate(loader):
-      if max_batches is not None and bi >= max_batches:
-        break
+    chunks = [{'images': batch['images']}
+              for batch in itertools.islice(loader, max_batches)]
+    for bi, (batch, _) in enumerate(mesh_lib.even_chunks(chunks)):
       images = torch.as_tensor(batch['images'], device=model.device)
       b = images.shape[0]
       mask = torch.as_tensor(batch.get('mask', np.ones(b, bool)),
                              device=model.device)
+      rows = (mesh_lib.row_window(b) if mesh_lib.is_distributed()
+              else None)
       if is_batch <= 0:
         group = auto_is_group(num_is, max(1, min(num_is, IS_ROWS // b)))
       else:
@@ -298,7 +320,8 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
       batch_nfe = 0
       for gi, n_rep in enumerate(groups):
         log_p, log_q, aux, stats = likelihood(
-            images.repeat(n_rep, 1, 1, 1), step_key(0, ODE, it, bi, gi))
+            images.repeat(n_rep, 1, 1, 1), step_key(0, ODE, it, bi, gi),
+            **({} if rows is None else {'rows': rows.tiled(n_rep)}))
         if not stats['success']:
           break
         batch_nfe += stats['nfe']
@@ -318,12 +341,12 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
         iws = log_ps[0]
       else:
         iws = torch.logsumexp(log_ps - log_qs, dim=0) - math.log(num_is)
-      per_example = -iws + aux
-      bpds.append(per_example[mask].mean().item()
+      per_example = mesh_lib.all_gather_rows(-iws + aux, mask)
+      bpds.append(per_example.mean().item()
                   / (cfg.n_pixels * math.log(2.0)) + offset)
       logger.info('ode eval batch %d: cum bpd %.4f (nfe %d over %d grouped '
                   'solves; %d images x %d IS)', bi, np.mean(bpds),
-                  batch_nfe, len(groups), int(mask.sum()), num_is)
+                  batch_nfe, len(groups), len(per_example), num_is)
     if not bpds:
       raise RuntimeError('every ODE batch failed to converge; raise '
                          'max_steps or loosen rtol/atol.')
@@ -343,27 +366,34 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
 def make_ode_sample_fn(model, *, rtol: float = 1e-5, atol: float = 1e-5,
                        high_precision: bool = True, max_steps: int = 5000):
   """Returns sample(sample_size, generator=None, *, logits=None,
-  prior=None) -> (z_0, nfe): DoPri5 on the probability-flow ODE from t = 1
-  to 0, from a standard normal prior (NHWC), each example conditioned on
-  the hard top-k embedding of random normal logits (`logits`,
-  (sample_size, latent_size), and `prior` replace the draws), or, for the
-  VDM, on zeros. Decode z_0 with `model.generate_x`."""
+  prior=None, rows=None) -> (z_0, nfe): DoPri5 on the probability-flow ODE
+  from t = 1 to 0, from a standard normal prior (NHWC), each example
+  conditioned on the hard top-k embedding of random normal logits
+  (`logits`, (sample_size, latent_size), and `prior` replace the draws),
+  or, for the VDM, on zeros. With `rows`, sample_size is this rank's rows
+  of the global samples: the draws are the global ones cut to them and the
+  solver's error norm is the global state's. Decode z_0 with
+  `model.generate_x`."""
   cfg = model.config
   dev = model.device
 
   @torch.no_grad()
-  def sample(sample_size: int, generator=None, *, logits=None, prior=None):
+  def sample(sample_size: int, generator=None, *, logits=None, prior=None,
+             rows: Optional[mesh_lib.Rows] = None):
     shape = (sample_size, *cfg.image_shape)
+
+    def randn(s):
+      return torch.randn(s, generator=generator, device=dev)
     if isinstance(model, VDM):
       embeddings = torch.zeros((sample_size, 1), device=dev)
     else:
       if logits is None:
-        logits = torch.randn((sample_size, cfg.latent_size),
-                             generator=generator, device=dev)
+        logits = mesh_lib.draw_rows(randn, (sample_size, cfg.latent_size),
+                                    rows)
       embeddings = latents.logits_to_embeddings(
           torch.as_tensor(logits, device=dev), cfg.latent_k)
     if prior is None:
-      prior = torch.randn(shape, generator=generator, device=dev)
+      prior = mesh_lib.draw_rows(randn, shape, rows)
 
     def ode_func(t, y):
       return model.reverse_ode(y.reshape(shape), embeddings, t,
@@ -371,7 +401,7 @@ def make_ode_sample_fn(model, *, rtol: float = 1e-5, atol: float = 1e-5,
 
     sol = odeint_dopri5(ode_func, torch.as_tensor(prior, device=dev)
                         .reshape(-1), 1.0, 0.0, rtol=rtol, atol=atol,
-                        max_steps=max_steps)
+                        max_steps=max_steps, across_ranks=rows is not None)
     return sol.y.reshape(shape), sol.nfe
 
   return sample

@@ -17,10 +17,20 @@
 NHWC) and, when the model reads them, `labels` and `conditioning` (B,), as
 the data iterators yield it, or the images alone. The ELBO's step is 0, as
 in JAX.
+
+Under `torch.distributed` each rank passes its shard of the eval split
+(`data.create_one_time_eval_dataset`). The global batch (or dense chunk)
+is the ranks' concatenated in rank order, as JAX assembles it, and each
+rank draws its rows of the global batch's noise. Every rank runs as many
+batches, padded to one size (`parallel.mesh.even_chunks`, the wrap-around
+padding and mask of `shard_host_padded`), and the per-image bpd is
+gathered, so every rank returns the same global mean
+(`mulan_tpu/evals/vlb.py:120-180`).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Iterable, Optional
 
@@ -30,6 +40,7 @@ from torch import nn
 
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.models.outputs import ELBOOutput
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 
 
 def bpd_terms(outputs: ELBOOutput, n_pixels: int) -> torch.Tensor:
@@ -38,12 +49,20 @@ def bpd_terms(outputs: ELBOOutput, n_pixels: int) -> torch.Tensor:
   return nats / (n_pixels * math.log(2.0))
 
 
-def _split_batch(batch):
-  """(images, labels, conditioning) of a batch dict, or of images alone
-  (labels and conditioning None)."""
-  if isinstance(batch, dict):
-    return batch['images'], batch.get('labels'), batch.get('conditioning')
-  return batch, None, None
+def _as_dict(batch):
+  """The images, and the labels and conditioning it has, of a batch dict or
+  of images alone."""
+  if not isinstance(batch, dict):
+    return {'images': batch}
+  return {k: batch[k] for k in ('images', 'labels', 'conditioning')
+          if batch.get(k) is not None}
+
+
+def _rows(chunk) -> Optional[mesh_lib.Rows]:
+  """This rank's rows of a global chunk (None in one process)."""
+  if not mesh_lib.is_distributed():
+    return None
+  return mesh_lib.row_window(len(chunk['images']))
 
 
 def _shares_encoder(model: nn.Module) -> bool:
@@ -60,21 +79,20 @@ def eval_bpd_sparse(model: nn.Module, batches: Iterable,
                     max_batches: Optional[int] = None) -> float:
   """Mean bpd over batches (see the module's docstring).
 
-  Per-batch means stay on the device and are read once at the end, so the
-  host never waits on the device inside the loop.
+  Per-image results stay on the device and are read once at the end, so
+  the host never waits on the device inside the loop (in one process).
   """
   n_pixels = model.config.n_pixels
   bpds = []
-  for i, batch in enumerate(batches):
-    if max_batches is not None and i >= max_batches:
-      break
-    images, labels, conditioning = _split_batch(batch)
-    bpds.append(bpd_terms(model(images, labels=labels,
-                                conditioning=conditioning,
-                                generator=generator), n_pixels).mean())
+  chunks = [_as_dict(b) for b in itertools.islice(batches, max_batches)]
+  for chunk, _ in mesh_lib.even_chunks(chunks):
+    bpd = bpd_terms(model(chunk['images'], labels=chunk.get('labels'),
+                          conditioning=chunk.get('conditioning'),
+                          generator=generator, rows=_rows(chunk)), n_pixels)
+    bpds.append(mesh_lib.all_gather_rows(bpd, chunk.get('mask')))
   if not bpds:
     raise ValueError('eval_bpd_sparse saw zero batches')
-  return float(torch.stack(bpds).mean())
+  return float(torch.cat(bpds).mean())
 
 
 # (image, t) rows per dense chunk by default (`vlb.py:106` on one device).
@@ -84,17 +102,19 @@ DENSE_ROWS_PER_CHUNK = 512
 def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
                     labels=None, conditioning=None,
                     generator: Optional[torch.Generator] = None, u=None,
+                    rows: Optional[mesh_lib.Rows] = None,
                     **noise) -> torch.Tensor:
   """Per-image bpd (B,) averaged over the grid t_j = (u_i + j / n) mod 1,
   on the device, the images' `labels` and `conditioning` (B,) repeated
   over it. `u` (B,) and the ELBO's `noise` (eps0, eps, and MuLAN's
   latent_noise, for the B * n rows, image-major) are drawn from `generator`
-  when not given."""
+  when not given, as `rows` of the global chunk's draws when given."""
   dev = model.device
   images = torch.as_tensor(images, device=dev)
   b = images.shape[0]
   if u is None:
-    u = torch.rand((b,), generator=generator, device=dev)
+    u = mesh_lib.draw_rows(lambda s: torch.rand(s, generator=generator,
+                                                device=dev), (b,), rows)
   steps = torch.arange(n_timesteps, device=dev) / n_timesteps
   t = torch.remainder(torch.as_tensor(u, device=dev)[:, None]
                       + steps, 1.0).reshape(-1)
@@ -107,7 +127,8 @@ def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
     noise['encoder_logits'] = repeat(model.apply_encoder(images))
   out = model.elbo(repeat(images), t, labels=repeat(labels),
                    conditioning=repeat(conditioning), generator=generator,
-                   **noise)
+                   rows=None if rows is None else rows.interleaved(
+                       n_timesteps), **noise)
   return bpd_terms(out, model.config.n_pixels).reshape(
       b, n_timesteps).mean(dim=1)
 
@@ -121,23 +142,24 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
   docstring).
 
   Each batch is cut into chunks of `images_per_chunk` images (default
-  `DENSE_ROWS_PER_CHUNK // n_timesteps`, at least 1). Per-image results
-  stay on the device and are read once at the end.
+  `DENSE_ROWS_PER_CHUNK // n_timesteps`, at least 1; on each rank, as
+  JAX's count is per host). Per-image results stay on the device and are
+  read once at the end (in one process).
   """
   if images_per_chunk is None:
     images_per_chunk = max(1, DENSE_ROWS_PER_CHUNK // n_timesteps)
+  chunks = []
+  for batch in itertools.islice(batches, max_batches):
+    batch = _as_dict(batch)
+    for lo in range(0, len(batch['images']), images_per_chunk):
+      chunks.append({k: v[lo:lo + images_per_chunk]
+                     for k, v in batch.items()})
   bpds = []
-  for i, batch in enumerate(batches):
-    if max_batches is not None and i >= max_batches:
-      break
-    images, labels, conditioning = _split_batch(batch)
-    for lo in range(0, len(images), images_per_chunk):
-      chunk = slice(lo, lo + images_per_chunk)
-      bpds.append(dense_chunk_bpd(
-          model, images[chunk], n_timesteps,
-          labels=None if labels is None else labels[chunk],
-          conditioning=None if conditioning is None else conditioning[chunk],
-          generator=generator))
+  for chunk, _ in mesh_lib.even_chunks(chunks):
+    bpds.append(mesh_lib.all_gather_rows(dense_chunk_bpd(
+        model, chunk['images'], n_timesteps, labels=chunk.get('labels'),
+        conditioning=chunk.get('conditioning'), generator=generator,
+        rows=_rows(chunk)), chunk.get('mask')))
   if not bpds:
     raise ValueError('eval_bpd_dense saw zero batches')
   return float(torch.cat(bpds).mean())

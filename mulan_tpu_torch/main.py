@@ -17,6 +17,16 @@ its checkpoints; `eval` evaluates a checkpoint's EMA weights; `sample` draws
 a grid of samples from a checkpoint, ancestral or by the probability-flow
 ODE (`evals/nll_ode.py:make_ode_sample_fn`), and writes it as a PNG. Runs
 on the card unless `--device=cpu` is given.
+
+`--multiprocess` joins the process group that torchrun's environment
+describes, one rank a card (`cuda:<LOCAL_RANK>`) or CPU ranks over gloo
+with `--device=cpu`:
+
+    torchrun --nproc_per_node=N -m mulan_tpu_torch.main --multiprocess \
+        --mode train --config=... --workdir=<dir>
+
+The ranks run one data-parallel program (`training.fsdp` > 1 shards the
+train state, `train/loop.py`); rank 0 alone logs and writes files.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 
 from mulan_tpu_torch import configs
 from mulan_tpu_torch.models import resolve_device
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 
 
 def parser() -> argparse.ArgumentParser:
@@ -47,6 +58,8 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument('--sampler', default='ancestral',
                  choices=('ancestral', 'ode'))
   p.add_argument('--device', default='cuda')
+  p.add_argument('--multiprocess', action='store_true',
+                 help="join torchrun's process group (one rank a card)")
   return p
 
 
@@ -54,10 +67,11 @@ def main(argv=None) -> None:
   argv = sys.argv[1:] if argv is None else list(argv)
   args, overrides = parser().parse_known_args(argv)
   config = configs.from_command_line(args.config, overrides)
-  device = resolve_device(args.device)
   if args.mode == 'analyze':
     raise NotImplementedError('--mode analyze is not ported yet; see '
-                              'ROADMAP.md Queue A, item 7')
+                              'ROADMAP.md Queue A, item 4')
+  device = (mesh_lib.init_distributed(args.device) if args.multiprocess
+            else resolve_device(args.device))
   if args.mode == 'sample':
     _sample(args, config, device)
     return
@@ -66,8 +80,11 @@ def main(argv=None) -> None:
   from mulan_tpu_torch.utils.workdir import get_workdir
   experiment = Experiment(config, device=device)
   if args.mode == 'train':
-    workdir = os.path.join(args.workdir, get_workdir(['main', *argv]))
-    print(f'Training at workdir: {workdir}', flush=True)
+    # Rank 0's time stamp names every rank's workdir.
+    workdir = os.path.join(args.workdir, mesh_lib.broadcast_object(
+        get_workdir(['main', *argv])))
+    if mesh_lib.rank() == 0:
+      print(f'Training at workdir: {workdir}', flush=True)
     experiment.train_and_evaluate(workdir)
   else:
     if not args.checkpoint:
@@ -95,11 +112,16 @@ def _sample(args, config, device) -> None:
   else:
     model = ex.state.ema_model
     ex.reseed(SAMPLE, 0)
-    z_0, nfe = nll_ode.make_ode_sample_fn(model)(args.sample_batch,
-                                                 ex.generator)
-    print(f'ode sampler nfe: {nfe}')
-    samples = model.generate_x(z_0, ex.generator).to(
-        torch.uint8).cpu().numpy()
+    rows = ex.rows(args.sample_batch)
+    z_0, nfe = nll_ode.make_ode_sample_fn(model)(
+        args.sample_batch if rows is None else rows.count, ex.generator,
+        rows=rows)
+    samples = mesh_lib.all_gather_rows(model.generate_x(
+        z_0, ex.generator, rows=rows).to(torch.uint8)).cpu().numpy()
+    if mesh_lib.rank() == 0:
+      print(f'ode sampler nfe: {nfe}')
+  if mesh_lib.rank() != 0:
+    return
   os.makedirs(args.workdir, exist_ok=True)
   path = os.path.join(args.workdir,
                       f'samples_ckpt{ex.checkpoint_step}_{args.sampler}.png')

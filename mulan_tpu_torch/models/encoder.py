@@ -68,8 +68,9 @@ class UnetTrunk(nn.Module):
   def n_sites(config: ModelConfig) -> int:
     return config.forward_n_layer + 2
 
-  def forward(self, z, dropout_seed=None):
-    """z (B, C, H, W) float32 -> (B, H * W) float32."""
+  def forward(self, z, dropout_seed=None, dropout_row: int = 0):
+    """z (B, C, H, W) float32 -> (B, H * W) float32; z holds rows
+    `dropout_row` on of the global batch."""
     cfg = self.config
     dtype = cfg.dtype
     b = z.shape[0]
@@ -84,12 +85,13 @@ class UnetTrunk(nn.Module):
       h = torch.cat([z, base2_fourier_features(z)], dim=1)
     h = self.conv_in(h.to(dtype))
     for i in range(cfg.forward_n_layer):
-      h = getattr(self, f'down_block_{i}')(h, cond, dropout_seed)
+      h = getattr(self, f'down_block_{i}')(h, cond, dropout_seed,
+                                             dropout_row=dropout_row)
       if cfg.with_attention:
         h = getattr(self, f'down_attn_{i}')(h)
-    h = self.mid_block_1(h, cond, dropout_seed)
+    h = self.mid_block_1(h, cond, dropout_seed, dropout_row=dropout_row)
     h = self.mid_attn_1(h)
-    h = self.mid_block_2(h, cond, dropout_seed)
+    h = self.mid_block_2(h, cond, dropout_seed, dropout_row=dropout_row)
     h = self.conv_out(F.silu(self.GroupNormF32_0(h)))
     # NHWC flatten, as the JAX trunk does (the same order for one channel).
     return F.silu(h.permute(0, 2, 3, 1).reshape(b, -1).float())
@@ -104,8 +106,8 @@ class UnetEncoder(nn.Module):
     self.dense_layer_final = nn.Linear(config.image_size ** 2,
                                        config.latent_size)
 
-  def forward(self, z, dropout_seed=None):
-    return self.dense_layer_final(self.trunk(z, dropout_seed))
+  def forward(self, z, dropout_seed=None, dropout_row: int = 0):
+    return self.dense_layer_final(self.trunk(z, dropout_seed, dropout_row))
 
 
 class UnetEncoderGaussian(nn.Module):
@@ -120,8 +122,8 @@ class UnetEncoderGaussian(nn.Module):
     self.dense_layer_final_sigma = nn.Linear(config.image_size ** 2,
                                              config.latent_size)
 
-  def forward(self, z, dropout_seed=None):
-    h = self.trunk(z, dropout_seed)
+  def forward(self, z, dropout_seed=None, dropout_row: int = 0):
+    h = self.trunk(z, dropout_seed, dropout_row)
     return (self.dense_layer_final_mu(h),
             F.softplus(self.dense_layer_final_sigma(h)))
 
@@ -137,8 +139,8 @@ class CNNEncoder(nn.Module):
     self.conv2 = nn.Conv2d(32, 16, 3, padding=1)
     self.dense = nn.Linear(16 * config.image_size ** 2, config.latent_size)
 
-  def forward(self, z, dropout_seed=None):
-    del dropout_seed
+  def forward(self, z, dropout_seed=None, dropout_row: int = 0):
+    del dropout_seed, dropout_row
     h = F.relu(self.conv2(F.relu(self.conv1(z.float()))))
     return self.dense(h.permute(0, 2, 3, 1).flatten(1))
 

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from mulan_tpu_torch.parallel.mesh import Rows, draw_rows
+
 N_GAMMA_TERMS = 10
 GAMMA_TAU = 10.0
 
@@ -28,37 +30,44 @@ def gumbel_kl(logits: torch.Tensor, latent_size: int) -> torch.Tensor:
 
 
 def gamma_variates(k: int, shape, *, generator: Optional[torch.Generator],
-                   device) -> torch.Tensor:
-  """Gamma(1/k) draws of shape (N_GAMMA_TERMS, *shape).
+                   device, rows: Optional[Rows] = None) -> torch.Tensor:
+  """Gamma(1/k) draws of shape (N_GAMMA_TERMS, *shape); with `rows`,
+  shape[0] is the local rows of the global batch's draw.
 
   `torch.distributions.Gamma` takes no generator; its sampler does.
   """
-  alpha = torch.full((N_GAMMA_TERMS, *shape), 1.0 / k, device=device)
-  return torch._standard_gamma(alpha, generator=generator)
+  def draw(full):
+    alpha = torch.full(full, 1.0 / k, device=device)
+    return torch._standard_gamma(alpha, generator=generator)
+  return draw_rows(draw, (N_GAMMA_TERMS, *shape), rows, dim=1)
 
 
 def gumbel_variates(shape, *, generator: Optional[torch.Generator],
-                    device) -> torch.Tensor:
+                    device, rows: Optional[Rows] = None) -> torch.Tensor:
   """Standard Gumbel draws -log(-log u), u uniform on [tiny, 1), as
-  `jax.random.gumbel` makes them."""
-  u = torch.rand(shape, generator=generator, device=device)
+  `jax.random.gumbel` makes them; `rows` as `gamma_variates`'."""
+  u = draw_rows(lambda full: torch.rand(full, generator=generator,
+                                        device=device), shape, rows)
   return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
 def latent_variates(config, batch: int, *,
                     generator: Optional[torch.Generator],
-                    device) -> torch.Tensor:
+                    device, rows: Optional[Rows] = None) -> torch.Tensor:
   """The draw `embedding_and_kl` takes for `config.latent_type`: Gamma(1/k)
   variates (N_GAMMA_TERMS, B, latent_size) for the top-k with Gamma noise,
   standard Gumbels (B, latent_size) for the top-k with Gumbel noise and for
-  the Gumbel latent, standard normals (B, latent_size) for the Gaussian."""
+  the Gumbel latent, standard normals (B, latent_size) for the Gaussian.
+  With `rows`, B is the local rows of the global batch's draw."""
   shape = (batch, config.latent_size)
   if config.latent_type == 'topk' and config.topk_noise_type == 'gamma':
     return gamma_variates(config.latent_k, shape, generator=generator,
-                          device=device)
+                          device=device, rows=rows)
   if config.latent_type == 'gaussian':
-    return torch.randn(shape, generator=generator, device=device)
-  return gumbel_variates(shape, generator=generator, device=device)
+    return draw_rows(lambda full: torch.randn(full, generator=generator,
+                                              device=device), shape, rows)
+  return gumbel_variates(shape, generator=generator, device=device,
+                         rows=rows)
 
 
 def gamma_noise(k: int, variates: torch.Tensor) -> torch.Tensor:

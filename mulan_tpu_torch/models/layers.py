@@ -35,18 +35,26 @@ def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
   parameter changes: every in-place update (an optimizer step, the EMA's
   lerp, `load_state_dict`) moves its version counter and `Module.to` gives
   it new storage, and either makes the next call cast afresh. So the
-  sampler's UNet passes do not recast every weight on every step.
+  sampler's UNet passes do not recast every weight on every step. A module
+  with `cache_casts = False` (every module under FSDP, whose all-gathers
+  reuse storage and keep the version, `parallel/wrap.py`) always casts.
+  `cast_param.casts` counts the casts made.
   """
   p = getattr(module, name)
   if p is None or p.dtype == dtype:
     return p
-  if torch.is_grad_enabled():
+  if torch.is_grad_enabled() or not getattr(module, 'cache_casts', True):
+    cast_param.casts += 1
     return p.to(dtype)
   key = (dtype, p.data_ptr(), p._version)
   cache = module.__dict__.setdefault('_casts', {})
   if name not in cache or cache[name][0] != key:
+    cast_param.casts += 1
     cache[name] = (key, p.to(dtype))
   return cache[name][1]
+
+
+cast_param.casts = 0
 
 
 class Conv2d(nn.Conv2d):
@@ -178,7 +186,8 @@ class ResnetBlock(nn.Module):
   Dropout runs only when `forward` gets a `dropout_seed`: the mask is keyed
   by (dropout_seed, site), `site` being the block's fixed index in its
   model, and comes from the K6 kernel when `use_kernels` is set
-  (`ops/dropout.py`). An explicit pre-scaled `dropout_mask` (NCHW, shaped
+  (`ops/dropout.py`); x holds rows `dropout_row` on of the global batch,
+  whose mask rows it takes. An explicit pre-scaled `dropout_mask` (NCHW, shaped
   like the activation) replaces it, as the JAX block's `dropout_mask`
   argument does; the product saves it for the backward.
 
@@ -206,11 +215,12 @@ class ResnetBlock(nn.Module):
   def _gn_swish(self, norm: GroupNormF32, h):
     return norm(h) if self.fused_gn else F.silu(norm(h))
 
-  def forward(self, x, cond, dropout_seed=None, dropout_mask=None):
+  def forward(self, x, cond, dropout_seed=None, dropout_mask=None,
+              dropout_row: int = 0):
     return maybe_remat(self._forward, self.remat, x, cond, dropout_seed,
-                       dropout_mask)
+                       dropout_mask, dropout_row)
 
-  def _forward(self, x, cond, dropout_seed, dropout_mask):
+  def _forward(self, x, cond, dropout_seed, dropout_mask, dropout_row):
     h = self.conv1(self._gn_swish(self.GroupNormF32_0, x))
     proj = self.cond_proj(cond)
     if cond.dim() == 2:  # (B, D): broadcast over H, W
@@ -222,7 +232,7 @@ class ResnetBlock(nn.Module):
       h = h * dropout_mask.to(h.dtype)
     elif dropout_seed is not None and self.pdrop > 0:
       h = dropout_ops.dropout(h, dropout_seed, self.site, self.pdrop,
-                              self.use_kernels)
+                              self.use_kernels, dropout_row)
     h = self.conv2(h)
     shortcut = x if self.nin_shortcut is None else self.nin_shortcut(x)
     return shortcut + h

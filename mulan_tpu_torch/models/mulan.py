@@ -6,7 +6,10 @@ or 'epsilon' (`imagenet32`).
 Public methods take and return the JAX package's NHWC layout; the networks
 run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
 `latent_noise`, `dropout_seed`); what is not passed is drawn from
-`generator`, which must live on the model's device. Gamma maps come out of
+`generator`, which must live on the model's device. With `rows` (a
+data-parallel rank's `parallel.mesh.Rows` of the global batch) every draw
+is made at the global shape, in the order one process draws it, and cut to
+those rows; the dropout masks are the global batch's rows too. Gamma maps come out of
 the schedule as (B, n_pixels) in NHWC order and are reshaped to the NHWC
 image shape.
 
@@ -64,6 +67,7 @@ from mulan_tpu_torch.models.outputs import ELBOOutput
 from mulan_tpu_torch.models.schedules import MULAN_SCHEDULES
 from mulan_tpu_torch.models.unet import UNet
 from mulan_tpu_torch.models.vdm import sample_times
+from mulan_tpu_torch.parallel.mesh import Rows, draw_rows
 
 PARAMETERIZATIONS = ('epsilon', 'velocity')
 # The label classes of the one-hot embedding without an encoder
@@ -113,13 +117,18 @@ class MuLAN(nn.Module):
   def _randn(self, shape, generator):
     return torch.randn(shape, generator=generator, device=self.device)
 
-  def _score(self, z_t, g_t, conditioning, dropout_seed=None):
+  def _noise(self, shape, generator, rows: Optional[Rows] = None):
+    """Standard normals of `shape` (`rows` of the global batch's draw)."""
+    return draw_rows(lambda s: self._randn(s, generator), shape, rows)
+
+  def _score(self, z_t, g_t, conditioning, dropout_seed=None,
+             dropout_row: int = 0):
     """Score UNet on NHWC z_t, conditioned on the gamma map g_t (its mean
     for the 'vdm' UNet, `mulan.py:_score_gt`); NHWC out."""
     if self.config.unet_type == 'vdm':
       g_t = g_t.mean(dim=(1, 2, 3))
     out = self.score_model(z_t.permute(0, 3, 1, 2), g_t, conditioning,
-                           dropout_seed)
+                           dropout_seed, dropout_row)
     return out.permute(0, 2, 3, 1)
 
   def _conditioning(self, conditioning, embedding) -> torch.Tensor:
@@ -162,24 +171,28 @@ class MuLAN(nn.Module):
 
   # -- ELBO -------------------------------------------------------------------
 
-  def forward(self, images, *, labels=None, conditioning=None, step=0,
-              generator: Optional[torch.Generator] = None,
-              deterministic: bool = True, dropout_seed: Optional[int] = None):
-    """ELBO at times drawn from `generator` (antithetic or i.i.d., as the
-    config says), rounded up to the grid of `sm_n_timesteps` when that is
-    > 0; the other arguments as `elbo`'s."""
+  def forward(self, images, t=None, *, labels=None, conditioning=None,
+              step=0, generator: Optional[torch.Generator] = None,
+              deterministic: bool = True, dropout_seed: Optional[int] = None,
+              rows: Optional[Rows] = None, **noise):
+    """ELBO at times `t`, or at times drawn from `generator` (antithetic or
+    i.i.d., as the config says), rounded up to the grid of
+    `sm_n_timesteps` when that is > 0; `noise` and the other arguments as
+    `elbo`'s. Data-parallel wrappers call the model through here."""
     cfg = self.config
-    t = sample_times(images.shape[0],
-                     antithetic=cfg.antithetic_time_sampling,
-                     generator=generator, device=self.device)
-    T = cfg.sm_n_timesteps
-    if T > 0:
-      t = torch.ceil(t * T) / T
+    if t is None:
+      t = sample_times(torch.as_tensor(images).shape[0],
+                       antithetic=cfg.antithetic_time_sampling,
+                       generator=generator, device=self.device, rows=rows)
+      T = cfg.sm_n_timesteps
+      if T > 0:
+        t = torch.ceil(t * T) / T
     return self.elbo(images, t, labels=labels, conditioning=conditioning,
                      step=step, generator=generator,
-                     deterministic=deterministic, dropout_seed=dropout_seed)
+                     deterministic=deterministic, dropout_seed=dropout_seed,
+                     rows=rows, **noise)
 
-  def _encoder(self, f, dropout_seed=None):
+  def _encoder(self, f, dropout_seed=None, dropout_row: int = 0):
     """The encoder on NHWC features f in [-1, 1]: logits (B, latent_size),
     or (mu, var) for the Gaussian latent."""
     if self.encoder_model is None:
@@ -188,7 +201,8 @@ class MuLAN(nn.Module):
           'latent encoder (JAX never creates its parameters, and flax raises '
           'ScopeParamNotFoundError when it is called, mulan_tpu/models/'
           'mulan.py:66)')
-    return self.encoder_model(f.permute(0, 3, 1, 2), dropout_seed)
+    return self.encoder_model(f.permute(0, 3, 1, 2), dropout_seed,
+                              dropout_row)
 
   def apply_encoder(self, images):
     """uint8 NHWC images -> the encoder's output without dropout: the latent
@@ -200,8 +214,9 @@ class MuLAN(nn.Module):
 
   def _embedding_and_kl(self, f, step, dropout_seed=None,
                         encoder_logits=None, latent_noise=None,
-                        generator=None):
-    """(embedding, latent KL) of NHWC features f (`mulan.py:69-89`)."""
+                        generator=None, rows: Optional[Rows] = None):
+    """(embedding, latent KL) of NHWC features f (`mulan.py:69-89`), f
+    being `rows` of the global batch."""
     cfg = self.config
     if encoder_logits is not None:
       if cfg.latent_type not in ('topk', 'gumbel'):
@@ -209,18 +224,20 @@ class MuLAN(nn.Module):
                          f'latent_type={cfg.latent_type!r}')
       heads = torch.as_tensor(encoder_logits, device=self.device)
     else:
-      heads = self._encoder(f, dropout_seed)
+      heads = self._encoder(f, dropout_seed,
+                            0 if rows is None else rows.start)
     if latent_noise is None:
       latent_noise = latents.latent_variates(cfg, f.shape[0],
                                              generator=generator,
-                                             device=self.device)
+                                             device=self.device, rows=rows)
     return latents.embedding_and_kl(cfg, heads, latent_noise, step)
 
   def elbo(self, images, t, *, labels=None, conditioning=None, step=0,
            eps0=None, eps=None, latent_noise=None, encoder_logits=None,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True,
-           dropout_seed: Optional[int] = None) -> ELBOOutput:
+           dropout_seed: Optional[int] = None,
+           rows: Optional[Rows] = None) -> ELBOOutput:
     """ELBO terms at explicit times t (B,) for uint8 NHWC images.
 
     labels (B,) give the one-hot embedding when `reparam_type` is not
@@ -238,7 +255,9 @@ class MuLAN(nn.Module):
     the encoder (the dense VLB computes them once per image and repeats
     them over its t-grid); the latent's noise is still drawn for every row.
     The velocity loss is continuous-time only: with `sm_n_timesteps` > 0
-    it raises AssertionError, as JAX's assertion does.
+    it raises AssertionError, as JAX's assertion does. With `rows` the
+    images are those rows of the global batch: what is drawn here, and the
+    dropout masks, are the global batch's, cut to them.
     """
     cfg = self.config
     T = cfg.sm_n_timesteps
@@ -259,7 +278,8 @@ class MuLAN(nn.Module):
     orig_f = self.encdec.encode(x)
     if cfg.reparam_type == 'true':
       embedding, kl_z = self._embedding_and_kl(
-          orig_f, step, dropout_seed, encoder_logits, latent_noise, generator)
+          orig_f, step, dropout_seed, encoder_logits, latent_noise, generator,
+          rows)
     else:
       if labels is None:
         raise ValueError(f'reparam_type={cfg.reparam_type!r} embeds the '
@@ -277,7 +297,7 @@ class MuLAN(nn.Module):
 
     # 1. reconstruction.
     if eps0 is None:
-      eps0 = self._randn(img, generator)
+      eps0 = self._noise(img, generator, rows)
     z_0_rescaled = orig_f + torch.exp(0.5 * g_0) * eps0
     loss_recon = -self.encdec.logprob(x, z_0_rescaled, g_0)
 
@@ -288,11 +308,11 @@ class MuLAN(nn.Module):
 
     # 3. diffusion loss.
     if eps is None:
-      eps = self._randn(img, generator)
+      eps = self._noise(img, generator, rows)
     z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
     model_out = self._score(z_t, g_t,
                             self._conditioning(conditioning, embedding),
-                            dropout_seed)
+                            dropout_seed, 0 if rows is None else rows.start)
     if self.parameterization == 'epsilon':
       if T == 0:
         weight = g_t_grad
@@ -344,12 +364,14 @@ class MuLAN(nn.Module):
 
   def conditional_sample(self, i: int, T: int, z_t, embedding, *,
                          conditioning=None, eps=None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         rows: Optional[Rows] = None):
     """One ancestral step from t = (T - i) / T to s = (T - i - 1) / T given a
-    fixed latent embedding; z_t is NHWC float32, `conditioning` (B,) the
-    UNet's input without `z_conditioning` (zeros when None)."""
+    fixed latent embedding; z_t is NHWC float32 (`rows` of the global
+    batch), `conditioning` (B,) the UNet's input without `z_conditioning`
+    (zeros when None)."""
     if eps is None:
-      eps = self._randn(z_t.shape, generator)
+      eps = self._noise(z_t.shape, generator, rows)
     bsz = z_t.shape[0]
     t = torch.full((bsz,), (T - i) / T, device=self.device)
     s = torch.full((bsz,), (T - i - 1) / T, device=self.device)
@@ -367,15 +389,16 @@ class MuLAN(nn.Module):
     return z_s_mean + torch.sqrt((1.0 - a) * c) * eps
 
   def sample(self, i: int, T: int, z_t, *, conditioning=None, eps=None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             rows: Optional[Rows] = None):
     """One unconditional ancestral step: `conditional_sample` with the
     canonical `deterministic_embedding`."""
     return self.conditional_sample(
         i, T, z_t, self.deterministic_embedding(z_t.shape[0]),
-        conditioning=conditioning, eps=eps, generator=generator)
+        conditioning=conditioning, eps=eps, generator=generator, rows=rows)
 
   def generate_x(self, z_0, generator: Optional[torch.Generator] = None, *,
-                 gumbel=None) -> torch.Tensor:
+                 gumbel=None, rows: Optional[Rows] = None) -> torch.Tensor:
     """z_0 (B, H, W, C) -> pixel values (B, H, W, C) int64: the argmax of
     the decoder's logits, or with `sample_softmax` a categorical draw by
     Gumbel-max, the argmax of logits + `gumbel` (standard Gumbels shaped
@@ -390,7 +413,7 @@ class MuLAN(nn.Module):
     if self.config.sample_softmax:
       if gumbel is None:
         gumbel = latents.gumbel_variates(logits.shape, generator=generator,
-                                         device=self.device)
+                                         device=self.device, rows=rows)
       logits = logits + torch.as_tensor(gumbel, device=self.device)
     return logits.argmax(dim=-1)
 

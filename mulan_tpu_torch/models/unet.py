@@ -100,10 +100,13 @@ class UNet(nn.Module):
     """Dropout sites: one per ResNet block."""
     return 2 * config.sm_n_layer + 3
 
-  def forward(self, z, g_t, conditioning, dropout_seed=None):
+  def forward(self, z, g_t, conditioning, dropout_seed=None,
+              dropout_row: int = 0):
     """z (B, C, H, W); g_t (B,), the mean gamma, or with `per_pixel_gamma`
     the gamma map (B, H, W, C); conditioning (B, conditioning_width);
-    dropout_seed None is the deterministic pass."""
+    dropout_seed None is the deterministic pass. z holds rows
+    `dropout_row` on of the global batch (a data-parallel rank's), whose
+    rows of each site's mask the blocks take."""
     cfg = self.config
     dtype = cfg.dtype
     z = z.float()
@@ -139,7 +142,7 @@ class UNet(nn.Module):
       masks = dropout_ops.dropout_masks(
           dropout_seed, 0, self.n_sites(cfg),
           (z.shape[0], cfg.sm_n_embd, *z.shape[2:]), cfg.sm_pdrop, dtype,
-          z.device, cfg.use_kernels)
+          z.device, cfg.use_kernels, dropout_row)
     used = []
 
     def res_block(name, h):
@@ -148,7 +151,7 @@ class UNet(nn.Module):
       if masks is not None:
         mask = masks[block.site]
         used.append(block.site)
-      return block(h, cond, dropout_seed, mask)
+      return block(h, cond, dropout_seed, mask, dropout_row)
 
     def attn_block(name, h):
       return getattr(self, name)(h) if cfg.with_attention else h

@@ -9,7 +9,10 @@ there). There is no latent: `apply_encoder` returns zero logits and
 
 Public methods take and return NHWC, as `MuLAN`'s do. Noise can be passed
 in (`eps0`, `eps`, `dropout_seed`); what is not passed is drawn from
-`generator`, which must live on the model's device. The reconstruction term
+`generator`, which must live on the model's device. With `rows` (a
+data-parallel rank's `parallel.mesh.Rows` of the global batch) every draw
+is made at the global shape and cut to those rows, as one process fed the
+global batch would draw it. The reconstruction term
 hands the decoder log-likelihood g_0 = gamma(0) as one number that needs a
 gradient (the schedule's parameters are trained), so a train step runs the
 decoder backward (K5) with a broadcast g_0, reduced in the kernel.
@@ -32,18 +35,25 @@ from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.outputs import ELBOOutput
 from mulan_tpu_torch.models.schedules import SCALAR_SCHEDULES
 from mulan_tpu_torch.models.unet import UNet
+from mulan_tpu_torch.parallel.mesh import Rows, draw_rows
 
 
 def sample_times(n: int, *, antithetic: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 device=None) -> torch.Tensor:
+                 device=None, rows: Optional[Rows] = None) -> torch.Tensor:
   """n diffusion times in [0, 1): antithetic (low-discrepancy), t_i = (u +
-  i / n) mod 1 for one uniform u, or i.i.d. uniform."""
-  if not antithetic:
-    return torch.rand((n,), generator=generator, device=device)
-  u = torch.rand((), generator=generator, device=device)
-  return torch.remainder(
-      u + torch.arange(n, dtype=torch.float32, device=device) / n, 1.0)
+  i / n) mod 1 for one uniform u, or i.i.d. uniform. With `rows`, n is
+  the local rows and the times are those rows of the global batch's (the
+  antithetic grid spans the global batch, `mulan_tpu/models/mulan.py:143`)."""
+  def draw(shape):
+    (size,) = shape
+    if not antithetic:
+      return torch.rand((size,), generator=generator, device=device)
+    u = torch.rand((), generator=generator, device=device)
+    return torch.remainder(
+        u + torch.arange(size, dtype=torch.float32, device=device) / size,
+        1.0)
+  return draw_rows(draw, (n,), rows)
 
 
 class VDM(nn.Module):
@@ -64,6 +74,10 @@ class VDM(nn.Module):
   def _randn(self, shape, generator):
     return torch.randn(shape, generator=generator, device=self.device)
 
+  def _noise(self, shape, generator, rows: Optional[Rows] = None):
+    """Standard normals of `shape` (`rows` of the global batch's draw)."""
+    return draw_rows(lambda s: self._randn(s, generator), shape, rows)
+
   def _gamma_at(self, t: float) -> torch.Tensor:
     """gamma at one time, a 0-d tensor."""
     return self.gamma(torch.full((1,), t, device=self.device))[0]
@@ -75,43 +89,50 @@ class VDM(nn.Module):
     return torch.as_tensor(conditioning, device=self.device).float().reshape(
         batch, 1)
 
-  def _score(self, z_t, g_t, conditioning, dropout_seed=None):
+  def _score(self, z_t, g_t, conditioning, dropout_seed=None,
+             dropout_row: int = 0):
     """Score UNet on NHWC z_t at gamma g_t (B,); NHWC out."""
     out = self.score_model(z_t.permute(0, 3, 1, 2), g_t, conditioning,
-                           dropout_seed)
+                           dropout_seed, dropout_row)
     return out.permute(0, 2, 3, 1)
 
   # -- ELBO -------------------------------------------------------------------
 
-  def forward(self, images, *, labels=None, conditioning=None, step=0,
-              generator: Optional[torch.Generator] = None,
-              deterministic: bool = True, dropout_seed: Optional[int] = None):
-    """ELBO at times drawn from `generator` (antithetic or i.i.d., as the
-    config says; rounded up to the grid of `sm_n_timesteps` when > 0).
-    `labels` and `step` are ignored, as in JAX: the VDM has no latent."""
+  def forward(self, images, t=None, *, labels=None, conditioning=None,
+              step=0, generator: Optional[torch.Generator] = None,
+              deterministic: bool = True, dropout_seed: Optional[int] = None,
+              rows: Optional[Rows] = None, **noise):
+    """ELBO at times `t`, or drawn from `generator` (antithetic or i.i.d.,
+    as the config says; rounded up to the grid of `sm_n_timesteps` when >
+    0); `noise` and the rest as `elbo`'s. `labels` and `step` are ignored,
+    as in JAX: the VDM has no latent."""
     del labels, step
     cfg = self.config
-    t = sample_times(images.shape[0],
-                     antithetic=cfg.antithetic_time_sampling,
-                     generator=generator, device=self.device)
-    if cfg.sm_n_timesteps > 0:
-      t = torch.ceil(t * cfg.sm_n_timesteps) / cfg.sm_n_timesteps
+    if t is None:
+      t = sample_times(torch.as_tensor(images).shape[0],
+                       antithetic=cfg.antithetic_time_sampling,
+                       generator=generator, device=self.device, rows=rows)
+      if cfg.sm_n_timesteps > 0:
+        t = torch.ceil(t * cfg.sm_n_timesteps) / cfg.sm_n_timesteps
     return self.elbo(images, t, conditioning=conditioning,
                      generator=generator, deterministic=deterministic,
-                     dropout_seed=dropout_seed)
+                     dropout_seed=dropout_seed, rows=rows, **noise)
 
   def elbo(self, images, t, *, labels=None, conditioning=None, step=0,
            eps0=None, eps=None,
            generator: Optional[torch.Generator] = None,
            deterministic: bool = True,
-           dropout_seed: Optional[int] = None) -> ELBOOutput:
+           dropout_seed: Optional[int] = None,
+           rows: Optional[Rows] = None) -> ELBOOutput:
     """ELBO terms at explicit times t (B,) for uint8 NHWC images
     (`labels` and `step` ignored).
 
     eps0, eps: (B, H, W, C) standard normals for the reconstruction and
     diffusion terms. With `deterministic=False` the ResNet blocks drop with
     `sm_pdrop`, their masks keyed by `dropout_seed` (drawn from `generator`
-    if None) and the block's site.
+    if None) and the block's site. With `rows` the images are those rows of
+    the global batch: the noise drawn here and the dropout masks are the
+    global batch's, cut to them.
     """
     del labels, step
     cfg = self.config
@@ -134,7 +155,7 @@ class VDM(nn.Module):
 
     # 1. reconstruction, z_0 rescaled by 1 / alpha_0.
     if eps0 is None:
-      eps0 = self._randn(f.shape, generator)
+      eps0 = self._noise(f.shape, generator, rows)
     z_0_rescaled = f + torch.exp(0.5 * g_0) * eps0
     loss_recon = -self.encdec.logprob(x, z_0_rescaled, g_0)
 
@@ -147,10 +168,10 @@ class VDM(nn.Module):
     g_t, g_t_grad = self.gamma.gamma_and_dgamma(t)
     var_t = torch.sigmoid(g_t)[:, None, None, None]
     if eps is None:
-      eps = self._randn(f.shape, generator)
+      eps = self._noise(f.shape, generator, rows)
     z_t = torch.sqrt(1.0 - var_t) * f + torch.sqrt(var_t) * eps
     model_output = self._score(z_t, g_t, self._conditioning(conditioning, n),
-                               dropout_seed)
+                               dropout_seed, 0 if rows is None else rows.start)
     mse = torch.sum(torch.square(eps - model_output), dim=(1, 2, 3))
     if T == 0:
       loss_diff = 0.5 * g_t_grad * mse
@@ -177,11 +198,12 @@ class VDM(nn.Module):
     return (z_t - torch.sqrt(1.0 - var_t) * model_output) / torch.sqrt(var_t)
 
   def sample(self, i: int, T: int, z_t, *, conditioning=None, eps=None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             rows: Optional[Rows] = None):
     """One ancestral step from t = (T - i) / T to s = (T - i - 1) / T;
-    z_t is NHWC float32."""
+    z_t is NHWC float32 (`rows` of the global batch)."""
     if eps is None:
-      eps = self._randn(z_t.shape, generator)
+      eps = self._noise(z_t.shape, generator, rows)
     g_s = self._gamma_at((T - i - 1) / T)
     g_t = self._gamma_at((T - i) / T)
     n = z_t.shape[0]
@@ -198,15 +220,16 @@ class VDM(nn.Module):
 
   def conditional_sample(self, i: int, T: int, z_t, embedding, *,
                          conditioning=None, eps=None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         rows: Optional[Rows] = None):
     """`sample`, for the harness's API: the VDM has no latent, so the
     embedding is ignored."""
     del embedding
     return self.sample(i, T, z_t, conditioning=conditioning, eps=eps,
-                       generator=generator)
+                       generator=generator, rows=rows)
 
-  def generate_x(self, z_0, generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+  def generate_x(self, z_0, generator: Optional[torch.Generator] = None, *,
+                 rows: Optional[Rows] = None) -> torch.Tensor:
     """z_0 (B, H, W, C) -> pixel values (B, H, W, C) int64: the argmax of
     the decoder's logits, or with `sample_softmax` a categorical draw
     (Gumbel-max, as `jax.random.categorical`)."""
@@ -214,7 +237,9 @@ class VDM(nn.Module):
     z_0_rescaled = z_0 / torch.sqrt(1.0 - torch.sigmoid(g_0))
     logits = self.encdec.decode_logits(z_0_rescaled, g_0)
     if self.config.sample_softmax:
-      u = torch.rand(logits.shape, generator=generator, device=self.device)
+      u = draw_rows(lambda s: torch.rand(s, generator=generator,
+                                         device=self.device),
+                    logits.shape, rows)
       logits = logits - torch.log(-torch.log(u))
     return logits.argmax(dim=-1)
 

@@ -23,11 +23,20 @@ element is kept iff its draw >= threshold16 = min(round(rate * 65536),
 version runs the same Philox on int64 tensors (every 32-bit product split in
 16-bit halves, so no step overflows), so kernel and plain agree bit for bit
 on the card, and a model's masks do not depend on `use_kernels`.
+
+Both take `first_index`: the mask is then elements [first_index,
+first_index + n) of the site's global mask, the counter formed from the
+global index. A data-parallel rank holding rows [r b, (r + 1) b) of the
+global batch passes r b times a row's elements, so every rank drops its
+own rows of the mask one process would draw (`mulan_tpu/ops/dropout.py`
+computes the mask whole at the global shape and the partitioner slices
+it).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -90,7 +99,10 @@ def philox4x32_10(counter, key):
   return c0, c1, c2, c3
 
 
-def _check(shape, rate, dtype):
+def _check(shape, rate, dtype, first_index=0):
+  if not 0 <= first_index < 2 ** 63:
+    raise ValueError(f'dropout mask first_index {first_index} must be in '
+                     '[0, 2^63)')
   if not 0.0 <= rate < 1.0:
     raise ValueError(f'dropout rate {rate} must be in [0, 1)')
   if dtype not in _DTYPES:
@@ -99,38 +111,44 @@ def _check(shape, rate, dtype):
 
 
 def dropout_mask_plain(seed: int, site: int, shape, rate: float, dtype,
-                       device=None) -> torch.Tensor:
-  """The keep mask of `shape` for (seed, site), values in {0, scale}."""
-  _check(shape, rate, dtype)
+                       device=None, first_index: int = 0) -> torch.Tensor:
+  """The keep mask of `shape` for (seed, site), values in {0, scale}:
+  elements [first_index, first_index + numel) of the site's global mask
+  (a data-parallel rank's rows of the global batch)."""
+  _check(shape, rate, dtype, first_index)
   device = torch.device('cpu' if device is None else device)
   n = 1
   for dim in shape:
     n *= int(dim)
-  ctr = torch.arange((n + 7) // 8, dtype=torch.int64, device=device)
+  lo = first_index // 8
+  ctr = torch.arange(lo, (first_index + n + 7) // 8, dtype=torch.int64,
+                     device=device)
   zero = torch.zeros_like(ctr)
   words = philox4x32_10((ctr & _MASK32, ctr >> 32, zero, zero),
                         (seed, site))
   words = torch.stack(words, dim=-1)                     # (ctr, 4)
   draws = torch.stack([words & 0xFFFF, words >> 16], -1)  # (ctr, 4, 2)
-  keep = draws.reshape(-1)[:n] >= threshold16(rate)
+  skip = first_index - 8 * lo
+  keep = draws.reshape(-1)[skip:skip + n] >= threshold16(rate)
   scale = torch.tensor(keep_scale(rate), dtype=torch.float32).to(dtype)
   zeros = torch.zeros((), dtype=dtype, device=device)
   return torch.where(keep, scale.to(device), zeros).reshape(shape)
 
 
 def dropout_mask(seed: int, site: int, shape, rate: float, dtype,
-                 device=None) -> torch.Tensor:
+                 device=None, first_index: int = 0) -> torch.Tensor:
   """`dropout_mask_plain` on the CPU; the K6 kernel on a CUDA device."""
   device = torch.device('cpu' if device is None else device)
   if device.type == 'cpu':
-    return dropout_mask_plain(seed, site, shape, rate, dtype, device)
+    return dropout_mask_plain(seed, site, shape, rate, dtype, device,
+                              first_index)
   if device.type != 'cuda':
     raise ValueError(f'dropout_mask: unsupported device {device}')
-  _check(shape, rate, dtype)
+  _check(shape, rate, dtype, first_index)
   out = torch.empty(shape, dtype=dtype, device=device)
   status = _build.load_library().mulan_dropout_mask(
       out.data_ptr(), out.numel(), seed & _MASK32, site & _MASK32,
-      *kernel_constants(rate), int(dtype == torch.bfloat16),
+      *kernel_constants(rate), first_index, int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask')
   dropout_mask.launches += 1
@@ -141,31 +159,33 @@ dropout_mask.launches = 0
 
 
 def dropout_mask_batch_plain(seed: int, first_site: int, n_masks: int, shape,
-                             rate: float, dtype, device=None) -> torch.Tensor:
+                             rate: float, dtype, device=None,
+                             first_index: int = 0) -> torch.Tensor:
   """(n_masks, *shape): slot i is `dropout_mask_plain(seed, first_site + i,
-  shape, ...)`."""
+  shape, ..., first_index)`: every slot at the same offset in its site."""
   return torch.stack([dropout_mask_plain(seed, first_site + i, shape, rate,
-                                         dtype, device)
+                                         dtype, device, first_index)
                       for i in range(n_masks)])
 
 
 def dropout_mask_batch(seed: int, first_site: int, n_masks: int, shape,
-                       rate: float, dtype, device=None) -> torch.Tensor:
+                       rate: float, dtype, device=None,
+                       first_index: int = 0) -> torch.Tensor:
   """`dropout_mask_batch_plain` on the CPU; the K7 kernel, one launch for
   all slots, on a CUDA device."""
   device = torch.device('cpu' if device is None else device)
   if device.type == 'cpu':
     return dropout_mask_batch_plain(seed, first_site, n_masks, shape, rate,
-                                    dtype, device)
+                                    dtype, device, first_index)
   if device.type != 'cuda':
     raise ValueError(f'dropout_mask_batch: unsupported device {device}')
-  _check(shape, rate, dtype)
+  _check(shape, rate, dtype, first_index)
   if not 1 <= n_masks <= 65535:
     raise ValueError(f'dropout_mask_batch: {n_masks} masks, not 1 to 65535')
   out = torch.empty((n_masks, *shape), dtype=dtype, device=device)
   status = _build.load_library().mulan_dropout_mask_batch(
       out.data_ptr(), out[0].numel(), n_masks, seed & _MASK32,
-      first_site & _MASK32, *kernel_constants(rate),
+      first_site & _MASK32, *kernel_constants(rate), first_index,
       int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask_batch')
@@ -177,38 +197,51 @@ dropout_mask_batch.launches = 0
 
 
 def dropout_masks(seed: int, first_site: int, n_masks: int, shape,
-                  rate: float, dtype, device, use_kernel: bool):
+                  rate: float, dtype, device, use_kernel: bool,
+                  first_row: int = 0):
   """The masks of sites first_site .. first_site + n_masks - 1 at once: from
   K7 (`dropout_mask_batch`) with `use_kernel`, else from
-  `dropout_mask_batch_plain`; both give the same bits."""
+  `dropout_mask_batch_plain`; both give the same bits. `shape` holds this
+  rank's rows of the global batch, which start at row `first_row`."""
   # Looked up at call time, so that tests can substitute the plain masks.
   fn = dropout_mask_batch if use_kernel else dropout_mask_batch_plain
-  return fn(seed, first_site, n_masks, shape, rate, dtype, device)
+  return fn(seed, first_site, n_masks, shape, rate, dtype, device,
+            **_offset(first_row, shape))
 
 
-def _make_mask(seed, site, like, rate, use_kernel):
+def _offset(first_row, shape):
+  """The `first_index` keyword of a mask whose rows start at `first_row`;
+  none at row 0, so that one process calls the mask functions as it always
+  has (and stand-ins of that signature keep working)."""
+  return {'first_index': first_row * math.prod(shape[1:])} if first_row else {}
+
+
+def _make_mask(seed, site, like, rate, use_kernel, first_row=0):
   # Looked up at call time, so that tests can substitute the plain mask.
   fn = dropout_mask if use_kernel else dropout_mask_plain
-  return fn(seed, site, like.shape, rate, like.dtype, like.device)
+  return fn(seed, site, like.shape, rate, like.dtype, like.device,
+            **_offset(first_row, like.shape))
 
 
 class _Dropout(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, x, seed, site, rate, use_kernel):
-    ctx.args = (seed, site, rate, use_kernel)
-    return x * _make_mask(seed, site, x, rate, use_kernel)
+  def forward(ctx, x, seed, site, rate, use_kernel, first_row):
+    ctx.args = (seed, site, rate, use_kernel, first_row)
+    return x * _make_mask(seed, site, x, rate, use_kernel, first_row)
 
   @staticmethod
   def backward(ctx, ct):
-    seed, site, rate, use_kernel = ctx.args
-    return (ct * _make_mask(seed, site, ct, rate, use_kernel), None, None,
-            None, None)
+    seed, site, rate, use_kernel, first_row = ctx.args
+    return (ct * _make_mask(seed, site, ct, rate, use_kernel, first_row),
+            None, None, None, None, None)
 
 
 def dropout(x: torch.Tensor, seed: int, site: int, rate: float,
-            use_kernel: bool) -> torch.Tensor:
+            use_kernel: bool, first_row: int = 0) -> torch.Tensor:
   """x * mask(seed, site); the backward regenerates the same mask. The
   mask comes from the K6 kernel (`dropout_mask`) with `use_kernel`, else
-  from `dropout_mask_plain`; both give the same bits."""
-  return _Dropout.apply(x, seed, site, rate, use_kernel)
+  from `dropout_mask_plain`; both give the same bits. x holds this rank's
+  rows of the global batch, from row `first_row` on: its mask is those
+  rows of the global site's mask."""
+  return _Dropout.apply(x, seed, site, rate, use_kernel, first_row)

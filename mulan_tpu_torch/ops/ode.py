@@ -19,7 +19,13 @@ The RHS gets `t` as a 0-d float32 CPU tensor.
     err / (atol + rtol max(|y0|, |y1|)), accept when err_norm <= 1, step
     factor 0.9 err^(-1/5) clipped to [0.2, 10] (10 when err_norm == 0),
     never below `min_step`;
-  * one error norm for the whole state;
+  * one error norm for the whole state; with `across_ranks` the state is
+    split over the ranks of the default process group (each holds its
+    rows), and the norm is the whole state's: the ranks' sums of squares
+    and element counts are all-reduced (in float64) before the square
+    root, so every rank accepts the same steps and runs as many RHS
+    evaluations (`mulan_tpu/ops/ode.py:14-17`, `:114`, where the norm
+    runs over the global array);
   * the solve is done when direction (t1 - t) <= 1e-12 |t1 - t0|, and has
     failed when accepted plus rejected steps reach `max_steps`.
 """
@@ -30,6 +36,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 
 # Dormand-Prince 5(4) Butcher tableau.
 _C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0])
@@ -75,12 +83,15 @@ def _fma(a, b, c):
 def odeint_dopri5(func: Callable, y0: torch.Tensor, t0: float, t1: float, *,
                   rtol: float = 1e-5, atol: float = 1e-5,
                   first_step: float = 0.01, max_steps: int = 10_000,
-                  min_step: float = 1e-8) -> ODESolution:
+                  min_step: float = 1e-8,
+                  across_ranks: bool = False) -> ODESolution:
   """Integrate dy/dt = func(t, y) from t0 to t1 (either direction).
 
   `y0` is one float tensor, flat or shaped; callers pack structured state
   (e.g. [z, delta_logp]) themselves. `func(t, y)` gets t as a 0-d float32
-  CPU tensor and returns a tensor of y's shape.
+  CPU tensor and returns a tensor of y's shape. With `across_ranks`, y0 is
+  this rank's part of a state split over the default process group, and
+  the error norm is the whole state's.
   """
   y = y0.float()
   direction = torch.sign(f32(t1 - t0))
@@ -119,7 +130,14 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, t0: float, t1: float, *,
         err = _axpy(err, hc * e[i], k[i])
     scale = _axpy(atol, rtol, torch.maximum(torch.abs(y), torch.abs(y1)))
     # The one device-to-host read of the attempt.
-    err_norm = torch.sqrt(torch.mean(torch.square(err / scale))).cpu()
+    if across_ranks:
+      sums = mesh_lib.all_reduce_sum(torch.stack([
+          torch.sum(torch.square(err / scale)).double(),
+          torch.tensor(float(err.numel()), dtype=torch.float64,
+                       device=err.device)]))
+      err_norm = torch.sqrt(sums[0] / sums[1]).float().cpu()
+    else:
+      err_norm = torch.sqrt(torch.mean(torch.square(err / scale))).cpu()
     nfe += 6
     accept = bool(err_norm <= 1.0)
     if err_norm == 0.0:

@@ -11,6 +11,11 @@ three restore paths as JAX's:
   2. partial warm-start: `restore_partial_into` copies only the keys the
      checkpoint holds (`merge_restored`);
   3. evaluation: `restore_dict` reads the saved dict (tensors on the CPU).
+
+Under `torch.distributed` every rank calls `save` (the state's whole
+tensors are gathered from every rank's shards), rank 0 alone writes the
+file a single process writes, and a barrier follows; every rank restores
+from it, at any world size and `training.fsdp`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from mulan_tpu_torch.parallel import mesh as mesh_lib
 from mulan_tpu_torch.train.state import TrainState, merge_restored
 
 _NAME = re.compile(r'^ckpt_(\d+)\.pt$')
@@ -55,14 +61,17 @@ class CheckpointManager:
 
   def save(self, step: int, state: TrainState) -> str:
     """Writes the state as step `step`, then deletes the oldest checkpoints
-    beyond `max_to_keep`. Returns the path written."""
-    os.makedirs(self.directory, exist_ok=True)
+    beyond `max_to_keep`. Returns the path written. Every rank calls it."""
     path = self.path(step)
-    tmp = path + '.tmp'
-    torch.save(state.state_dict(), tmp)
-    os.replace(tmp, path)
-    for old in self.steps()[:-self.max_to_keep]:
-      os.remove(self.path(old))
+    state_dict = state.state_dict()
+    if mesh_lib.rank() == 0:
+      os.makedirs(self.directory, exist_ok=True)
+      tmp = path + '.tmp'
+      torch.save(state_dict, tmp)
+      os.replace(tmp, path)
+      for old in self.steps()[:-self.max_to_keep]:
+        os.remove(self.path(old))
+    mesh_lib.barrier()
     return path
 
   def _step(self, step: Optional[int]) -> int:

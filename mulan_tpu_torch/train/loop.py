@@ -1,15 +1,26 @@
 """Experiment: train and evaluate the model of `config.vdm_type` (the
-baseline VDM, MuLAN-epsilon or MuLAN-velocity) on one device, counterpart of
-`mulan_tpu/train/loop.py:Experiment` (its loss, train step, eval step,
-training loop with checkpoints, standalone evaluation and sampler).
+baseline VDM, MuLAN-epsilon or MuLAN-velocity) on one device or across
+processes, counterpart of `mulan_tpu/train/loop.py:Experiment` (its loss,
+train step, eval step, training loop with checkpoints, standalone
+evaluation and sampler).
 
 One call of `train_step` is one optimizer step: the ELBO in bits per
 dimension with dropout on, its gradient, the two-group AdamW update and the
 EMA update. JAX's super-step (`substeps` steps under one `lax.scan`) has no
 counterpart: PyTorch runs eagerly, so the data iterator's substeps axis is 1
 and `train_and_evaluate`'s "first super-step" is step 1. Evaluation and
-sampling run on the EMA parameters and are deterministic. Device meshes are
-not ported (ROADMAP.md Queue A, parallelism).
+sampling run on the EMA parameters and are deterministic.
+
+Under `torch.distributed` the experiment runs on a mesh, as JAX's runs on
+its device mesh (`parallel/mesh.py`): ('data',) with DDP, or ('data',
+'fsdp') with FSDP2 (`training.fsdp` ranks a group). Each rank takes its
+shard of the data in batches of the global batch size over the world, and
+computes exactly its rows of what one process computes on the global batch
+(the ranks' batches concatenated in rank order): the noise and the dropout
+masks are the global batch's, cut to its rows (`parallel.mesh.Rows`);
+gradients are averaged over the ranks, the logged scalars are the global
+means and the samples are gathered. Tensor parallelism (`training.tp`) is
+not ported yet (ROADMAP.md Queue A, item 3.2: the next slice).
 
 Randomness is keyed as JAX's is: the noise of train step s (the diffusion
 noise and the dropout seed) is a function of (`training.seed`, s) alone,
@@ -22,6 +33,7 @@ streams are not `jax.random`'s; tests hand both packages the same noise.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 import time
@@ -34,6 +46,8 @@ from mulan_tpu_torch import data as data_lib
 from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.configs import Config
 from mulan_tpu_torch.models import build_model, resolve_device
+from mulan_tpu_torch.parallel import mesh as mesh_lib
+from mulan_tpu_torch.parallel import wrap
 from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
@@ -52,10 +66,12 @@ def step_key(seed: int, stream: int, *index: int) -> int:
   return (int(words[0]) << 31) ^ int(words[1])
 
 
-def create_train_state(config: Config, device, state=None):
+def create_train_state(config: Config, device, state=None, mesh=None):
   """(the model in training mode, its TrainState with a fresh two-group
   AdamW) on `device`; `state` replaces the parameters seeded by
-  `training.seed` (a state_dict, e.g. from `params.from_flax`)."""
+  `training.seed` (a state_dict, e.g. from `params.from_flax`). On a mesh
+  with 'fsdp' the model and its EMA are sharded (`parallel/wrap.py`)
+  before the optimizer is made."""
   training = config.training
   if state is None:
     state = params_lib.init_params(
@@ -63,12 +79,16 @@ def create_train_state(config: Config, device, state=None):
         vdm_type=config.vdm_type)
   model = build_model(config.vdm_type, config.model, device=device,
                       state=state).train()
+  ema_model = copy.deepcopy(model).requires_grad_(False).eval()
+  if mesh_lib.has_fsdp(mesh):
+    wrap.shard_model(model, mesh)
+    wrap.shard_model(ema_model, mesh)
   lr_schedule = make_lr_schedule(
       config.optimizer.learning_rate, training.num_steps_lr_warmup,
       training.num_steps_train, config.optimizer.lr_decay)
   optimizer = make_optimizer(model.named_parameters(), config.optimizer,
                              lr_schedule, config.lr_gamma_network_scale)
-  return model, TrainState.create(model, optimizer)
+  return model, TrainState.create(model, optimizer, ema_model)
 
 
 def mean_scalars(all_scalars: List[Dict[str, torch.Tensor]]
@@ -89,31 +109,49 @@ def _not_ported(what: str, entry: str):
 class Experiment:
   """Train and evaluate the model of `config.vdm_type` on `device` (the
   card unless the caller asks for the CPU). `state` replaces the seeded
-  initial parameters (a state_dict, e.g. from `params.from_flax`)."""
+  initial parameters (a state_dict, e.g. from `params.from_flax`).
 
-  def __init__(self, config: Config, *, device='cuda', state=None):
+  `mesh` (`parallel.mesh.create_mesh`) runs it across the processes of
+  the default group, DDP on ('data',), FSDP2 with 'fsdp'; without one, a
+  process group that is up (or `training.fsdp` > 1) makes the mesh of
+  `training.fsdp` over every rank, as JAX's constructor does."""
+
+  def __init__(self, config: Config, *, device='cuda', state=None,
+               mesh=None):
     self.config = config
     self.device = resolve_device(device)
     training = config.training
-    if training.fsdp != 1 or training.tp != 1:
-      raise _not_ported('fsdp / tp meshes', 'parallelism')
+    if training.tp != 1:
+      raise _not_ported('tensor parallelism (training.tp)',
+                        'item 3.2 (the next slice)')
+    if mesh is None and (mesh_lib.is_distributed() or training.fsdp != 1):
+      mesh = mesh_lib.create_mesh(fsdp=training.fsdp,
+                                  device_type=self.device.type)
+    self.mesh = mesh
 
     seed = training.seed
-    self.model, self.state = create_train_state(config, self.device, state)
+    self.model, self.state = create_train_state(config, self.device, state,
+                                                mesh)
+    # What a train step calls: DDP on a ('data',) mesh.
+    self.train_model = self.model
+    if mesh is not None and not mesh_lib.has_fsdp(mesh):
+      self.train_model = wrap.data_parallel(self.model)
     if config.ckpt_restore_dir not in (None, 'None', ''):
       ckpt_lib.restore_partial_into(self.state, config.ckpt_restore_dir)
 
-    splits = {split: data_lib.config_source(config, split)
-              for split in ('train', 'eval')}
-    self.train_iter = data_lib.train_iterator(
-        *splits['train'], batch_size=training.batch_size_train, substeps=1,
-        seed=seed)
-    self.eval_iter = data_lib.eval_iterator(
-        *splits['eval'], batch_size=training.batch_size_eval,
-        seed=seed + 7919)
+    self.train_iter, self.eval_iter = data_lib.create_dataset(config, seed)
+    self.train_rows = self.rows(training.batch_size_train)
+    self.eval_rows = self.rows(training.batch_size_eval)
 
     self.generator = torch.Generator(self.device)
-    self.writer = ScalarWriter()
+    self.writer = ScalarWriter(enabled=mesh_lib.rank() == 0)
+
+  def rows(self, global_batch: int) -> Optional[mesh_lib.Rows]:
+    """This rank's rows of a global batch on the mesh (None without
+    one)."""
+    if self.mesh is None:
+      return None
+    return mesh_lib.row_window(mesh_lib.local_batch_size(global_batch))
 
   # -- loss and steps -----------------------------------------------------------
 
@@ -125,24 +163,24 @@ class Experiment:
     return key % (2 ** 31 - 1)
 
   def loss_fn(self, model, batch, *, train: bool, noise=None,
-              dropout_seed: Optional[int] = None, step: int = 0):
+              dropout_seed: Optional[int] = None, step: int = 0,
+              rows: Optional[mesh_lib.Rows] = None):
     """(bpd, scalars): the mean ELBO in bits per dimension and its six
     terms (`loop.py:116-141`), with the batch's `labels` and
     `conditioning` (when it has them) and `step`. `noise` may hold explicit
     `t`, `eps0`, `eps`, `latent_noise` (MuLAN) and `dropout_seed` for the
     model's `elbo`; what it does not hold is drawn from the experiment's
-    generator."""
+    generator, at the global batch's shape cut to `rows` when given (the
+    batch is then those rows of the global batch). The model is called
+    through its `forward`, as data-parallel wrappers need."""
     images = torch.as_tensor(batch['images'], device=self.device)
     noise = dict(noise or {})
     dropout_seed = noise.pop('dropout_seed', dropout_seed)
-    kwargs = dict(labels=batch.get('labels'),
-                  conditioning=batch.get('conditioning'), step=step,
-                  generator=self.generator, deterministic=not train,
-                  dropout_seed=dropout_seed if train else None)
-    if 't' in noise:
-      out = model.elbo(images, noise.pop('t'), **kwargs, **noise)
-    else:
-      out = model(images, **kwargs)
+    out = model(images, noise.pop('t', None), labels=batch.get('labels'),
+                conditioning=batch.get('conditioning'), step=step,
+                generator=self.generator, deterministic=not train,
+                dropout_seed=dropout_seed if train else None, rows=rows,
+                **noise)
     rescale = 1.0 / (self.config.model.n_pixels * math.log(2.0))
     bpd_latent = out.loss_klz.mean() * rescale
     bpd_recon = out.loss_recon.mean() * rescale
@@ -156,15 +194,26 @@ class Experiment:
     """One optimizer step on one batch (images (B, H, W, C) uint8, and
     labels and conditioning (B,) when the model reads them), its noise
     keyed by the step, the ELBO at the step before the update
-    (`loop.py:150-152`); the scalars stay on the device."""
+    (`loop.py:150-152`); the scalars stay on the device. On a mesh the
+    batch is this rank's rows of the global batch, and the scalars are the
+    global batch's."""
     step = self.state.step
     seed = self.reseed(TRAIN, step)
-    bpd, scalars = self.loss_fn(self.model, batch, train=True, noise=noise,
-                                dropout_seed=seed, step=step)
+    bpd, scalars = self.loss_fn(self.train_model, batch, train=True,
+                                noise=noise, dropout_seed=seed, step=step,
+                                rows=self.train_rows)
     self.state.optimizer.zero_grad()
     bpd.backward()
+    if mesh_lib.has_fsdp(self.mesh):
+      wrap.average_plain_grads(self.state.params.values())
     self.state.apply_gradients(self.config.optimizer.ema_rate)
-    return {k: v.detach() for k, v in scalars.items()}
+    return self._global({k: v.detach() for k, v in scalars.items()})
+
+  def _global(self, scalars):
+    """The scalars' means over the ranks on a mesh (the global batch's
+    means: every rank holds as many rows)."""
+    return scalars if self.mesh is None else mesh_lib.mean_over_ranks(
+        scalars)
 
   @torch.no_grad()
   def eval_step(self, batch, index: int = 0,
@@ -173,8 +222,9 @@ class Experiment:
     keyed by the batch's index within its evaluation, which is also the
     ELBO's step, as JAX's eval step passes it (`loop.py:199-202`)."""
     self.reseed(EVAL, index)
-    return self.loss_fn(self.state.ema_model, batch, train=False,
-                        noise=noise, step=index)[1]
+    return self._global(self.loss_fn(self.state.ema_model, batch,
+                                     train=False, noise=noise, step=index,
+                                     rows=self.eval_rows)[1])
 
   # -- loops ----------------------------------------------------------------------
 
@@ -248,8 +298,9 @@ class Experiment:
     scalars = self.run_eval()
     self.writer.write_scalars(step, scalars)
     grid = self.draw_samples()
-    os.makedirs(os.path.join(logdir, 'eval'), exist_ok=True)
-    write_png(os.path.join(logdir, 'eval', f'samples_{step}.png'), grid)
+    if mesh_lib.rank() == 0:
+      os.makedirs(os.path.join(logdir, 'eval'), exist_ok=True)
+      write_png(os.path.join(logdir, 'eval', f'samples_{step}.png'), grid)
     return scalars
 
   @torch.inference_mode()
@@ -258,18 +309,22 @@ class Experiment:
     """An image grid of T unconditional ancestral steps of the EMA model
     (`mulan_tpu/train/loop.py:201-216`): from `sigma_prior` times a
     standard normal, through the model's `sample`, then the decode. The
-    noise starts from the same key every call."""
+    noise starts from the same key every call. On a mesh each rank draws
+    its rows of the `batch_size` samples and every rank gets the grid of
+    all of them (`loop.py:323-332`)."""
     if batch_size is None:
       batch_size = min(64, self.config.training.batch_size_eval)
+    rows = self.rows(batch_size)
+    local = batch_size if rows is None else rows.count
     self.reseed(SAMPLE, 0)
     model = self.state.ema_model
     cfg = model.config
-    z = cfg.sigma_prior * model._randn((batch_size, *cfg.image_shape),
-                                       self.generator)
+    z = cfg.sigma_prior * model._noise((local, *cfg.image_shape),
+                                       self.generator, rows)
     for i in range(T):
-      z = model.sample(i, T, z, generator=self.generator)
-    images = model.generate_x(z, self.generator).to(
-        torch.uint8).cpu().numpy()
+      z = model.sample(i, T, z, generator=self.generator, rows=rows)
+    images = mesh_lib.all_gather_rows(model.generate_x(
+        z, self.generator, rows=rows).to(torch.uint8)).cpu().numpy()
     grid = image_grid(images)
     self.writer.write_images(self.state.step, {'samples': grid[None]})
     return grid

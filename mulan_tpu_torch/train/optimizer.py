@@ -10,7 +10,8 @@ What the optax chain does, written for PyTorch:
   * the schedule is read at the count before the update, so with a linear
     warm-up from 0 the first update has learning rate 0;
   * optional clipping to a global norm in optax's form: g * max / |g| only
-    when |g| >= max (`torch.nn.utils.clip_grad_norm_` adds 1e-6 to |g|).
+    when |g| >= max (`torch.nn.utils.clip_grad_norm_` adds 1e-6 to |g|);
+    under FSDP |g| is taken over every rank's shards.
 optax's `-lr (adam + wd p)` equals `torch.optim.AdamW`'s decoupled
 `p *= 1 - lr wd` followed by the Adam step, so AdamW runs each group. The
 `fused` and `stacked` variants are not ported (ROADMAP.md Queue A).
@@ -18,9 +19,12 @@ optax's `-lr (adam + wd p)` equals `torch.optim.AdamW`'s decoupled
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from mulan_tpu_torch.parallel.wrap import is_sharded, local
 
 TOP_LEVEL_GROUPS = ('encoder_model', 'score_model', 'gamma')
 
@@ -52,37 +56,71 @@ def decayed(name: str) -> bool:
   return name.rsplit('.', 1)[-1] != 'bias'
 
 
+def global_norm(grads) -> torch.Tensor:
+  """|g| over all the gradients. A sharded (FSDP) gradient's local tensor
+  is one rank's part of it: its squared norm is summed over the mesh
+  dimensions it is sharded on. Plain gradients are whole on every rank."""
+  sharded = [g for g in grads if is_sharded(g)]
+  plain = [g for g in grads if not is_sharded(g)]
+  if not sharded:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(plain)))
+  mesh, placements = sharded[0].device_mesh, sharded[0].placements
+  sq = torch.stack(torch._foreach_norm([local(g) for g in sharded])
+                   ).square().sum()
+  for dim, placement in enumerate(placements):
+    if placement.is_shard():
+      dist.all_reduce(sq, group=mesh.get_group(dim))
+  if plain:
+    sq = sq + torch.stack(torch._foreach_norm(plain)).square().sum()
+  return torch.sqrt(sq)
+
+
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
   """Scales `grads` in place by max_norm / |g| when |g| >= max_norm;
   returns |g| (a tensor, so the host does not wait for the device)."""
-  norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-  torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0,
-                                         max_norm / norm))
+  norm = global_norm(grads)
+  torch._foreach_mul_([local(g) for g in grads],
+                      torch.where(norm < max_norm, 1.0, max_norm / norm))
   return norm
 
 
 class TwoGroupAdamW:
   """AdamW over named parameters in the two groups (each split once more
-  into decayed and undecayed tensors)."""
+  into decayed and undecayed tensors).
+
+  Under FSDP each of those groups is split once more into its sharded
+  (DTensor) and its plain parameters (`REPLICATED_GROUPS`), since
+  `torch.optim`'s multi-tensor kernels refuse to mix the two. `state_dict`
+  and `load_state_dict` speak the unsplit layout, the one a single process
+  has, so that a checkpoint moves between world sizes and `training.fsdp`.
+  """
 
   def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                lr_schedule: Callable[[int], float], *, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 1e-4, gamma_lr_scale: float = 1.0,
                clip_norm: Optional[float] = None):
-    buckets = {}
+    buckets, unsplit = {}, {}
     self.params = []
     for name, p in named_params:
       top = name.split('.', 1)[0]
       if top not in TOP_LEVEL_GROUPS:
         raise ValueError(f'unexpected param group: {top}')
       scale = 1.0 if top == 'score_model' else gamma_lr_scale
-      buckets.setdefault((scale, decayed(name)), []).append(p)
+      buckets.setdefault((scale, decayed(name), is_sharded(p)), []).append(
+          (name, p))
+      unsplit.setdefault((scale, decayed(name)), []).append(name)
       self.params.append(p)
-    groups = [dict(params=ps, lr_scale=scale,
-                   weight_decay=weight_decay if decay else 0.0)
-              for (scale, decay), ps in sorted(buckets.items())]
+    keys = sorted(buckets)
+    groups = [dict(params=[p for _, p in buckets[key]], lr_scale=key[0],
+                   weight_decay=weight_decay if key[1] else 0.0)
+              for key in keys]
     self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+    # The parameters' names in the order torch numbers them, and the
+    # unsplit groups' names in theirs.
+    self._names = [name for key in keys for name, _ in buckets[key]]
+    self._unsplit = [unsplit[key] for key in sorted(unsplit)]
+    self._split = any(key[2] for key in keys)
     self.lr_schedule = lr_schedule
     self.clip_norm = clip_norm
     self.count = 0
@@ -99,6 +137,45 @@ class TwoGroupAdamW:
 
   def zero_grad(self) -> None:
     self.adamw.zero_grad(set_to_none=True)
+
+  def state_dict(self) -> Dict[str, Any]:
+    """The AdamW state as `torch.optim` gives it, in the unsplit layout."""
+    sd = self.adamw.state_dict()
+    if not self._split:
+      return sd
+    unsplit_of = {n: k for k, g in enumerate(self._unsplit) for n in g}
+    index = {n: i for i, n in enumerate(n for g in self._unsplit for n in g)}
+    hyper = {}
+    for group in sd['param_groups']:
+      hyper.setdefault(unsplit_of[self._names[group['params'][0]]],
+                       {h: v for h, v in group.items() if h != 'params'})
+    return {'state': {index[self._names[i]]: st
+                      for i, st in sd['state'].items()},
+            'param_groups': [dict(hyper[k], params=[index[n] for n in g])
+                             for k, g in enumerate(self._unsplit)]}
+
+  def load_state_dict(self, sd: Dict[str, Any]) -> None:
+    """Loads a `state_dict()` (the unsplit layout) into this optimizer."""
+    if not self._split:
+      self.adamw.load_state_dict(sd)
+      return
+    if len(sd['param_groups']) != len(self._unsplit):
+      raise ValueError(f'{len(sd["param_groups"])} optimizer groups saved, '
+                       f'{len(self._unsplit)} here')
+    unsplit_of = {n: k for k, g in enumerate(self._unsplit) for n in g}
+    saved_names = [n for g in self._unsplit for n in g]
+    index = {n: i for i, n in enumerate(self._names)}
+    groups, start = [], 0
+    for group in self.adamw.param_groups:
+      count = len(group['params'])
+      saved = sd['param_groups'][unsplit_of[self._names[start]]]
+      groups.append(dict({h: v for h, v in saved.items() if h != 'params'},
+                         params=list(range(start, start + count))))
+      start += count
+    self.adamw.load_state_dict({
+        'state': {index[saved_names[i]]: st
+                  for i, st in sd['state'].items()},
+        'param_groups': groups})
 
 
 def make_optimizer(named_params, optimizer_config, lr_schedule,

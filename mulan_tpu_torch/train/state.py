@@ -7,16 +7,23 @@ that evaluation can run on it) and follows each update with
 the optimizer's moments and the EMA are updated in place (the EMA through
 `torch._foreach_lerp_`, whose formula for weights below 1/2 is exactly that
 one), so a step holds no second copy of any of them.
+
+Under FSDP the EMA model is sharded as the model is (`parallel/wrap.py`):
+each rank lerps its shards of the EMA towards its shards of the
+parameters. `state_dict()` gathers the whole tensors (a collective: every
+rank calls it), so a checkpoint is the same file at every world size, and
+`load_state_dict` lays whole tensors out as this state's are.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from mulan_tpu_torch.parallel.wrap import full, is_sharded, local, shard_like
 from mulan_tpu_torch.train.optimizer import TwoGroupAdamW
 
 
@@ -29,9 +36,12 @@ class TrainState:
   ema_model: torch.nn.Module
 
   @classmethod
-  def create(cls, model: torch.nn.Module,
-             optimizer: TwoGroupAdamW) -> 'TrainState':
-    ema_model = copy.deepcopy(model).requires_grad_(False).eval()
+  def create(cls, model: torch.nn.Module, optimizer: TwoGroupAdamW,
+             ema_model: Optional[torch.nn.Module] = None) -> 'TrainState':
+    """The state at step 0; `ema_model` (a copy of the model, laid out as
+    it is) defaults to a deep copy."""
+    if ema_model is None:
+      ema_model = copy.deepcopy(model).requires_grad_(False).eval()
     return cls(step=0, params=dict(model.named_parameters()),
                ema_params=dict(ema_model.named_parameters()),
                optimizer=optimizer, ema_model=ema_model)
@@ -40,18 +50,22 @@ class TrainState:
   def apply_gradients(self, ema_rate: float) -> None:
     """The optimizer step from the parameters' gradients, then the EMA."""
     self.optimizer.step()
-    torch._foreach_lerp_(list(self.ema_params.values()),
-                         list(self.params.values()), 1.0 - ema_rate)
+    torch._foreach_lerp_([local(e) for e in self.ema_params.values()],
+                         [local(p) for p in self.params.values()],
+                         1.0 - ema_rate)
     self.step += 1
 
   def state_dict(self) -> Dict[str, Any]:
     """{step, params, ema_params, opt_state}: the tensors themselves (no
-    copies), the optimizer's state as `torch.optim` gives it."""
+    copies; whole tensors gathered from sharded ones), the optimizer's
+    state as `torch.optim` gives it."""
+    adamw = self.optimizer.state_dict()
+    adamw['state'] = {i: {k: full(v) for k, v in st.items()}
+                      for i, st in adamw['state'].items()}
     return {'step': self.step,
-            'params': {k: p.detach() for k, p in self.params.items()},
-            'ema_params': dict(self.ema_params),
-            'opt_state': {'count': self.optimizer.count,
-                          'adamw': self.optimizer.adamw.state_dict()}}
+            'params': {k: full(p.detach()) for k, p in self.params.items()},
+            'ema_params': {k: full(p) for k, p in self.ema_params.items()},
+            'opt_state': {'count': self.optimizer.count, 'adamw': adamw}}
 
   @torch.no_grad()
   def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -61,7 +75,12 @@ class TrainState:
     _check_keys('opt_state', state['opt_state'], ('count', 'adamw'))
     for name in ('params', 'ema_params'):
       self.load_tensors(name, state[name])
-    self.optimizer.adamw.load_state_dict(state['opt_state']['adamw'])
+    self.optimizer.load_state_dict(state['opt_state']['adamw'])
+    adamw = self.optimizer.adamw
+    for p in self.optimizer.params:  # whole moments to the params' shards
+      if is_sharded(p) and p in adamw.state:
+        adamw.state[p] = {k: v if k == 'step' else shard_like(v, p)
+                          for k, v in adamw.state[p].items()}
     self.optimizer.count = int(state['opt_state']['count'])
     self.step = int(state['step'])
 
@@ -77,7 +96,7 @@ class TrainState:
                          f'{tuple(tensors[key].shape)} in the checkpoint, '
                          f'{tuple(value.shape)} here')
     for key, value in ours.items():
-      value.copy_(tensors[key])
+      local(value).copy_(local(shard_like(tensors[key], value)))
 
 
 def _check_keys(what: str, got, want) -> None:

@@ -46,14 +46,17 @@ def write_png(path: str, image) -> None:
 
 class ScalarWriter:
   """CSV-style scalar lines on stdout: a `Step, key, ...` header whenever
-  the key set changes, then `step, value, ...` with 4 decimals."""
+  the key set changes, then `step, value, ...` with 4 decimals. A writer
+  made with `enabled=False` (every rank but 0 of a multi-process run,
+  `utils/metrics.py:68-80`) prints nothing."""
 
-  def __init__(self):
+  def __init__(self, enabled: bool = True):
     self._last_keys = None
+    self.enabled = enabled
 
-  @staticmethod
-  def _print(line: str) -> None:
-    print(line, flush=True)
+  def _print(self, line: str) -> None:
+    if self.enabled:
+      print(line, flush=True)
 
   def write_scalars(self, step: int, scalars: Mapping[str, Any]) -> None:
     keys = sorted(scalars)

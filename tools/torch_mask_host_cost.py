@@ -72,6 +72,9 @@ def main() -> None:
   stream = torch.cuda.current_stream(dev).cuda_stream
   threshold = dropout.threshold16(RATE)
   scale = float(torch.tensor(dropout.keep_scale(RATE), dtype=torch.float32))
+  # Trees since K6 took a rank's element offset pass first_index too.
+  offset = ((0,) if len(_build._SIGNATURES['mulan_dropout_mask']) == 9
+            else ())
   parts = {
       'wrapper': (lambda: dropout.dropout_mask(1234, 5, SHAPE, RATE, dtype,
                                                dev), 200),
@@ -81,7 +84,8 @@ def main() -> None:
           torch.tensor(dropout.keep_scale(RATE), dtype=torch.float32))),
                              2000),
       'c_call': (lambda: lib.mulan_dropout_mask(
-          out.data_ptr(), out.numel(), 1234, 5, threshold, scale, 1, stream),
+          out.data_ptr(), out.numel(), 1234, 5, threshold, scale, *offset, 1,
+          stream),
                  200),
   }
   if hasattr(dropout, 'kernel_constants'):
