@@ -70,7 +70,19 @@ Then two ranks, spawned by the script, share the card over gloo (NCCL
 refuses two ranks on one device): two train steps at 64 rows each under DDP
 and under `training.fsdp` = 2 against one process on the global batch, each
 rank's K6 and K7 masks at its `first_index` against the rows of the global
-masks, and K1-K3 on 'sm90' at 64 rows. Every phase logs its wall time.
+masks, and K1-K3 on 'sm90' at 64 rows. Last (phase 17), tensor
+parallelism: two flagship steps at 32 rows unwrapped and on a ('data',
+'tensor') mesh of size 1 over NCCL, bit for bit; then two ranks spawned by
+the script share the card over gloo with `training.tp` = 2, each holding
+the same 32 rows and half of every score-UNet channel dimension: their
+steps against one process (the bpd, the first step's gradient norm within
+0.1%, the gathered attention and GroupNorm leaves), the collectives'
+calls, bytes and host seconds a step, one sparse-VLB batch, each rank's
+K6 and K7 masks at its channel window against plain and against the
+global mask's window, K1-K3 on 'sm90'; three ranks running a GroupNorm
+whose groups straddle them (K8 and its backward on the gathered
+channels) against the plain whole one; K6, K7 and K8 (forward and
+backward) timed at a rank's window. Every phase logs its wall time.
 Every check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
@@ -146,6 +158,22 @@ PAR_GLOO_STEPS = 2
 PAR_WORKER_TIMEOUT_S = 420
 # The dropout site and seed of the rank-mask gates.
 PAR_MASK_SEED, PAR_MASK_SITE = 1234, 5
+# Phase 17 (tensor parallelism): TP_STEPS flagship train steps at TP_ROWS
+# rows unwrapped, on a tensor mesh of size 1 over NCCL, and on PAR_RANKS
+# ranks that share the card over gloo with training.tp = PAR_RANKS, every
+# rank holding the same rows; the first step's gradient norm within
+# TP_GRAD_NORM_RTOL of one process's.
+TP_ROWS = 32
+TP_STEPS = 2
+TP_GRAD_NORM_RTOL = 1e-3
+# Then TP_GN_RANKS ranks over gloo run one fused GroupNormF32 of
+# TP_GN_CHANNELS channels (16 groups of 3) with the kernels, at TP_ROWS rows
+# and the flagship's 32 x 32: a rank's 16 channels cut groups, so each
+# gathers the channels and runs K8 and its backward on the whole tensor.
+# The output against the plain whole GN-swish's slice at GN_TOL; the
+# input's gradient (the ranks' bf16 partial gradients summed) by its
+# cosine at GN_ALONE_COS_MIN; the parameters' at GN_BWD_SUM_RTOL.
+TP_GN_RANKS, TP_GN_CHANNELS = 3, 48
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -2192,8 +2220,9 @@ def run_ode_sample_cli(cfg, flax_path, workdir, route_totals):
   make_sample_fn, write_png = nll_ode.make_ode_sample_fn, metrics.write_png
   got = {}
 
-  def loose_sample_fn(model):
-    sample = make_sample_fn(model, rtol=ODE_SAMPLE_TOL, atol=ODE_SAMPLE_TOL)
+  def loose_sample_fn(model, mesh=None):
+    sample = make_sample_fn(model, rtol=ODE_SAMPLE_TOL, atol=ODE_SAMPLE_TOL,
+                            mesh=mesh)
 
     def recorded(*args, **kwargs):
       (got['z_0'], got['nfe']), got['solve_s'] = timed(
@@ -3008,29 +3037,7 @@ def run_parallel(dev, train_cfg, images, route_totals,
   # 2. PAR_RANKS ranks on the one card over gloo, against the unwrapped
   # steps on the same global batches and noise.
   out_dir = tempfile.mkdtemp()
-  port = free_port()
-  procs = [subprocess.Popen(
-      [sys.executable, os.path.abspath(__file__), '--parallel-rank', str(r),
-       '--port', str(port), '--out', out_dir], stdout=subprocess.PIPE,
-      stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
-  outs = []
-  try:
-    for proc in procs:
-      try:
-        outs.append(proc.communicate(timeout=PAR_WORKER_TIMEOUT_S)[0])
-      except subprocess.TimeoutExpired:
-        for p in procs:
-          p.kill()
-        outs.append(proc.communicate()[0] + '\n<<< timed out >>>')
-  finally:
-    for proc in procs:
-      if proc.poll() is None:
-        proc.kill()
-  for r, (proc, out) in enumerate(zip(procs, outs)):
-    for line in out.splitlines():
-      if line.startswith('['):
-        print(f'[rank {r}] {line}', flush=True)
-    assert proc.returncode == 0, f'rank {r} failed:\n{out[-6000:]}'
+  spawn_ranks('--parallel-rank', out_dir)
   ranks = [json.loads(pathlib.Path(out_dir, f'rank{r}.json').read_text())
            for r in range(PAR_RANKS)]
   for mode in ('ddp', 'fsdp'):
@@ -3098,26 +3105,30 @@ def rank_mask_times(dev, cfg, imul_rate):
   return out
 
 
-def parallel_worker() -> None:
-  """One of PAR_RANKS ranks of phase 16 that share the card over gloo
-  (`--parallel-rank R --port P --out DIR`); see `gloo_rank`."""
+def parallel_worker(flag: str) -> None:
+  """One of the ranks that share the card over gloo (`--parallel-rank R
+  --port P --out DIR --world N`: phase 16's, see `gloo_rank`;
+  `--tensor-rank R ...` and `--gn-rank R ...`: phase 17's, see
+  `tensor_rank` and `gathered_gn_rank`)."""
   import torch.distributed as dist
   from mulan_tpu_torch.ops import _build
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: the parallel worker needs a CUDA device')
   argv = sys.argv[1:]
-  rank = int(argv[argv.index('--parallel-rank') + 1])
+  rank = int(argv[argv.index(flag) + 1])
   port = int(argv[argv.index('--port') + 1])
   out_dir = argv[argv.index('--out') + 1]
+  world = int(argv[argv.index('--world') + 1])
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device('cuda', 0)
   torch.cuda.set_device(dev)
   _build.load_library()  # built by the parent: loaded, not rebuilt
   dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
-                          rank=rank, world_size=PAR_RANKS)
+                          rank=rank, world_size=world)
   try:
-    gloo_rank(rank, dev, out_dir)
+    {'--parallel-rank': gloo_rank, '--tensor-rank': tensor_rank,
+     '--gn-rank': gathered_gn_rank}[flag](rank, dev, out_dir)
   finally:
     dist.destroy_process_group()
 
@@ -3187,6 +3198,425 @@ def gloo_rank(rank: int, dev, out_dir: str) -> None:
   log('gloo_masks', rank=rank, **result['masks'])
   assert k6 and k7, result['masks']
   pathlib.Path(out_dir, f'rank{rank}.json').write_text(json.dumps(result))
+
+
+# -- phase 17: tensor parallelism ----------------------------------------------------
+
+
+def tp_config(train_cfg, tp: int):
+  """The flagship at TP_ROWS rows a batch (every rank of a tensor group
+  holds the same rows), with a 'tensor' axis of tp ranks."""
+  from mulan_tpu_torch import configs
+  return configs.replace(train_cfg, training={
+      'tp': tp, 'batch_size_train': TP_ROWS, 'batch_size_eval': TP_ROWS})
+
+
+def tp_batches(images):
+  return [{'images': images[s * TP_ROWS:(s + 1) * TP_ROWS]}
+          for s in range(TP_STEPS)]
+
+
+def tp_grads(ex):
+  """(the global gradient norm, {leaf: whole gradient} of the attention
+  blocks' and GroupNorms' leaves) of the experiment's last step: whole
+  over the tensor group (a collective under tensor parallelism)."""
+  from mulan_tpu_torch.parallel import tensor as tensor_lib
+  from mulan_tpu_torch.train.optimizer import global_norm
+  opt = ex.state.optimizer
+  grads = [p.grad for p in opt.params]
+  norm = float(global_norm(grads, opt._tensor_split, opt.tensor))
+  leaves = {n: tensor_lib.gather_tensor(n, p.grad, opt.tensor).flatten()
+            .double().cpu() for n, p in ex.state.params.items()
+            if ('_attn' in n or 'GroupNorm' in n) and p.grad is not None}
+  return norm, leaves
+
+
+def tp_sparse_bpd(model, images, mesh=None):
+  """The sparse VLB of one TP_ROWS batch, its noise from SEED, its rows
+  split over the batch coordinates of `mesh`."""
+  from mulan_tpu_torch.evals import vlb
+  gen = torch.Generator(device=next(model.parameters()).device)
+  return vlb.eval_bpd_sparse(model, [{'images': images[:TP_ROWS]}],
+                             generator=gen.manual_seed(SEED), mesh=mesh)
+
+
+def tp_window_masks(dev, cfg, rank: int, size: int):
+  """K6 at one site and K7 under `dropout_masks` (the path of
+  `dropout_mask_batch`) at rank's channel window of a (TP_ROWS, C, H, W)
+  site: kernel against plain, both against the window of the
+  one-process mask, bit for bit."""
+  from mulan_tpu_torch.ops import dropout as drop
+  shape = (TP_ROWS, cfg.sm_n_embd, cfg.image_size, cfg.image_size)
+  c = shape[1] // size
+  local = (TP_ROWS, c, *shape[2:])
+  window = (rank * c, shape[1])
+  first, stride = drop.channel_window(0, local, window)
+  n_sites = 2 * cfg.sm_n_layer + 3
+  args = (cfg.sm_pdrop, torch.bfloat16, dev)
+  k6 = drop.dropout_mask(PAR_MASK_SEED, PAR_MASK_SITE, local, *args,
+                         first_index=first, row_stride=stride)
+  k6_plain = drop.dropout_mask_plain(PAR_MASK_SEED, PAR_MASK_SITE, local,
+                                     *args, first_index=first,
+                                     row_stride=stride)
+  k6_whole = drop.dropout_mask(PAR_MASK_SEED, PAR_MASK_SITE, shape, *args)[
+      :, rank * c:(rank + 1) * c]
+  k7 = drop.dropout_masks(PAR_MASK_SEED, 0, n_sites, local, *args, True, 0,
+                          window)
+  k7_plain = drop.dropout_masks(PAR_MASK_SEED, 0, n_sites, local, *args,
+                                False, 0, window)
+  k7_whole = drop.dropout_mask_batch(PAR_MASK_SEED, 0, n_sites, shape,
+                                     *args)[:, :, rank * c:(rank + 1) * c]
+  out = dict(window=list(window), k6_equals_plain=torch.equal(k6, k6_plain),
+             k6_equals_whole=torch.equal(k6, k6_whole),
+             k7_equals_plain=torch.equal(k7, k7_plain),
+             k7_equals_whole=torch.equal(k7, k7_whole))
+  assert all(v for k, v in out.items() if k != 'window'), out
+  return out
+
+
+def tp_window_kernels(dev, gen, cfg, imul_rate, sfu_rate):
+  """K6 and K7 at rank 1's channel window of a (TP_ROWS, C, 32, 32) site,
+  and K8 and its backward at a rank's (TP_ROWS, C / 2, 32, 32) with 16
+  groups: against plain, timed (one launch and back to back) beside the
+  plain versions and their bounds."""
+  from mulan_tpu_torch.ops import dropout as drop
+  shape = (TP_ROWS, cfg.sm_n_embd // PAR_RANKS, cfg.image_size,
+           cfg.image_size)
+  first, stride = drop.channel_window(0, shape, (shape[1], cfg.sm_n_embd))
+  n_sites = 2 * cfg.sm_n_layer + 3
+  out = {}
+  for name, run, plain, n_masks in (
+      ('dropout_mask', lambda: drop.dropout_mask(
+          PAR_MASK_SEED, PAR_MASK_SITE, shape, cfg.sm_pdrop, torch.bfloat16,
+          dev, first, stride), lambda: drop.dropout_mask_plain(
+              PAR_MASK_SEED, PAR_MASK_SITE, shape, cfg.sm_pdrop,
+              torch.bfloat16, dev, first, stride), 1),
+      ('dropout_mask_batch', lambda: drop.dropout_mask_batch(
+          PAR_MASK_SEED, 0, n_sites, shape, cfg.sm_pdrop, torch.bfloat16,
+          dev, first, stride), lambda: drop.dropout_mask_batch_plain(
+              PAR_MASK_SEED, 0, n_sites, shape, cfg.sm_pdrop,
+              torch.bfloat16, dev, first, stride), n_sites)):
+    mask, ref = run(), plain()
+    assert torch.equal(mask, ref), name
+    counters = n_masks * ((math.prod(shape) + 7) // 8)
+    out[name] = dict(
+        shape=list(shape), first_index=first, row_stride=stride,
+        ms=cuda_ms(run), back_to_back_ms=back_to_back_ms(run, n=5),
+        plain_ms=cuda_ms(plain, n=3 if n_masks > 1 else 20),
+        max_abs_err=(mask.float() - ref.float()).abs().max().item(),
+        **bound(0.0, nbytes(mask), imuls=PHILOX_MULS * counters,
+                imul_rate=imul_rate))
+    del mask, ref
+    log(f'{name}_at_tensor_window', **out[name])
+  case = ((shape, torch.bfloat16, 16, True),)
+  out['gn_swish'] = check_gn_swish(dev, gen, sfu_rate, case)[0]
+  out['gn_swish_bwd'] = check_gn_swish_bwd(dev, gen, sfu_rate, case)[0]
+  for name in ('gn_swish', 'gn_swish_bwd'):
+    out[name]['shape'] = list(shape)
+  return out
+
+
+class CollectiveMeter:
+  """Counts the tensor group's collectives (`parallel/tensor.py`): calls,
+  the bytes each result holds (a gather's whole tensor, a sum's float32
+  buffer) and the host's seconds inside them, the device synchronized
+  before each (the gloo path copies through the host, which would
+  otherwise wait there for the compute before it)."""
+
+  def __init__(self):
+    from mulan_tpu_torch.parallel import tensor as tensor_lib
+    self.lib = tensor_lib
+    self.real = {n: getattr(tensor_lib, n) for n in ('_gather_parts', '_sum')}
+    self.reset()
+    for name, fn in self.real.items():
+      setattr(tensor_lib, name, self._wrap(fn))
+
+  def reset(self):
+    self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+  def _wrap(self, fn):
+    def counted_call(x, tensor):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = fn(x, tensor)
+      self.seconds += time.perf_counter() - t0
+      self.calls += 1
+      self.bytes += out.numel() * (4 if fn.__name__ == '_sum'
+                                   else out.element_size())
+      return out
+    return counted_call
+
+  def close(self):
+    for name, fn in self.real.items():
+      setattr(self.lib, name, fn)
+
+
+def tensor_rank(rank: int, dev, out_dir: str) -> None:
+  """Rank `rank` of phase 17's gloo pod: TP_STEPS flagship train steps at
+  the same TP_ROWS rows on every rank with training.tp = PAR_RANKS, the
+  first step's gradient norm and its attention and GroupNorm leaves
+  gathered whole (rank 0 saves them), the collectives' calls, bytes and
+  host seconds a step, one sparse-VLB batch, its K6 and K7 masks at its
+  channel window, and K1-K3's routes. Writes OUT_DIR/tensor<R>.json."""
+  from mulan_tpu_torch import configs, data, params
+  from mulan_tpu_torch.models import build_model, layers
+  from mulan_tpu_torch.ops.flash_attention import attention_route
+  from mulan_tpu_torch.train.loop import Experiment
+  train_cfg = configs.replace(
+      configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
+      training={'steps_per_logging': TRAIN_STEPS})
+  cfg = train_cfg.model
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+  images, _ = data.synthetic_split('eval', cfg.image_shape, seed=SEED)
+  meter = CollectiveMeter()
+  ex = Experiment(tp_config(train_cfg, PAR_RANKS), device=dev, state=state)
+  tensor = ex.state.optimizer.tensor
+  assert (tensor.rank, tensor.size) == (rank, PAR_RANKS), tensor
+  attn_inputs = set()
+  hooks = [m.register_forward_pre_hook(
+      lambda m, a: attn_inputs.add(tuple(a[0].shape)))
+           for m in ex.model.score_model.modules()
+           if isinstance(m, layers.AttnBlock)]
+  grads, route_totals, per_step = {}, {}, []
+
+  def after_first(e):
+    per_step.append((meter.calls, meter.bytes, meter.seconds))
+    grads['first'] = tp_grads(e)
+    meter.reset()
+  bpds, ms, peak, counts = par_train(ex, tp_batches(images), route_totals,
+                                     after_first)
+  per_step.append((meter.calls, meter.bytes, meter.seconds))
+  for h in hooks:
+    h.remove()
+  norm, leaves = grads['first']
+  mesh = ex.mesh
+  del ex
+  torch.cuda.empty_cache()
+  model = build_model(train_cfg.vdm_type, cfg, device=dev, state=state,
+                      tensor=tensor)
+  (bpd_eval, eval_s), eval_counts = counted(lambda: timed(
+      lambda: tp_sparse_bpd(model, images, mesh)), route_totals)
+  assert eval_counts == expected_launches(cfg, 'eval'), eval_counts
+  del model
+  meter.close()
+  # The score UNet's attention blocks take the rank's channels (and run
+  # K1-K3 on the gathered ones, whole on every rank).
+  assert attn_inputs == {(TP_ROWS, cfg.sm_n_embd // PAR_RANKS,
+                          cfg.image_size, cfg.image_size)}, attn_inputs
+  assert attention_route(torch.bfloat16, cfg.sm_n_embd) == 'sm90'
+  result = dict(
+      bpd=bpds, ms_per_step=ms, peak_gb=peak, launches=counts,
+      eval_launches=eval_counts, routes=route_totals, grad_norm=norm,
+      sparse_bpd=bpd_eval, sparse_seconds=eval_s,
+      collectives_per_step=[dict(calls=c, bytes=b, host_seconds=t)
+                            for c, b, t in per_step],
+      masks=tp_window_masks(dev, cfg, rank, PAR_RANKS))
+  log('tensor_gloo', rank=rank, **result)
+  if rank == 0:
+    torch.save(leaves, pathlib.Path(out_dir, 'tensor_leaves.pt'))
+  pathlib.Path(out_dir, f'tensor{rank}.json').write_text(json.dumps(result))
+
+
+def gathered_gn_rank(rank: int, dev, out_dir: str) -> None:
+  """Rank `rank` of TP_GN_RANKS: the fused GroupNormF32 of TP_GN_CHANNELS
+  channels on its slice (see TP_GN_RANKS), forward and backward with the
+  kernels, against the plain whole GN-swish (the same inputs on every
+  rank, from SEED), and K8's and its backward's launches in that run.
+  Writes OUT_DIR/gn<R>.json."""
+  import torch.distributed as dist
+  from mulan_tpu_torch.models.layers import GroupNormF32
+  from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
+  from mulan_tpu_torch.parallel import tensor as tensor_lib
+  tensor = tensor_lib.TensorGroup(rank, TP_GN_RANKS, dist.group.WORLD)
+  c = TP_GN_CHANNELS
+  gen = torch.Generator(device=dev).manual_seed(SEED)
+  shape = (TP_ROWS, c, 32, 32)
+  x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(
+      torch.bfloat16)
+  dy = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+  w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+  b = 0.1 * torch.randn(c, generator=gen, device=dev)
+  norm = GroupNormF32(c, fused_swish=True, use_kernels=True,
+                      tensor=tensor).to(dev)
+  assert norm.gathered, 'the groups must straddle the ranks'
+  norm.load_state_dict({'weight': tensor_lib.take(w, tensor, 0),
+                        'bias': tensor_lib.take(b, tensor, 0)})
+  xr = tensor_lib.take(x, tensor).contiguous().requires_grad_()
+  before = (gn_ops.gn_swish_fwd.launches, gn_ops.gn_swish_bwd.launches)
+  y = norm(xr)
+  y.backward(tensor_lib.take(dy, tensor).contiguous())
+  torch.cuda.synchronize()
+  launches = [gn_ops.gn_swish_fwd.launches - before[0],
+              gn_ops.gn_swish_bwd.launches - before[1]]
+  xw, ww, bw = (t.clone().requires_grad_() for t in (x, w, b))
+  want = gn_ops.gn_swish(xw, ww, bw, norm.num_groups, 1e-6, False)
+  want.backward(dy)
+  want_y = tensor_lib.take(want.detach(), tensor).float()
+  rtol, atol = GN_TOL[torch.bfloat16]
+  diff = (y.detach().float() - want_y).abs()
+  result = dict(
+      shape=list(xr.shape), groups=norm.num_groups, launches=launches,
+      max_abs_err=diff.max().item(),
+      max_excess_over_rtol=(diff - rtol * want_y.abs()).max().item(),
+      dx_cos=cosine(xr.grad.flatten().double(), tensor_lib.take(
+          xw.grad, tensor).flatten().double()),
+      dx_max_abs_err=(xr.grad.float() - tensor_lib.take(
+          xw.grad, tensor).float()).abs().max().item(),
+      dweight_rel_err=rel_err(norm.weight.grad,
+                              tensor_lib.take(ww.grad, tensor, 0)),
+      dbias_rel_err=rel_err(norm.bias.grad,
+                            tensor_lib.take(bw.grad, tensor, 0)))
+  log('gathered_gn_swish', rank=rank, rtol=rtol, atol=atol,
+      cos_min=GN_ALONE_COS_MIN, sum_rtol=GN_BWD_SUM_RTOL, **result)
+  pathlib.Path(out_dir, f'gn{rank}.json').write_text(json.dumps(result))
+
+
+def spawn_ranks(flag: str, out_dir: str, world: int = PAR_RANKS):
+  """Runs `world` copies of this script with `flag` RANK --port P --out
+  OUT_DIR --world N; prints their bracketed lines and asserts that each
+  exited 0."""
+  port = free_port()
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), flag, str(r), '--port',
+       str(port), '--out', out_dir, '--world', str(world)],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+           for r in range(world)]
+  outs = []
+  try:
+    for proc in procs:
+      try:
+        outs.append(proc.communicate(timeout=PAR_WORKER_TIMEOUT_S)[0])
+      except subprocess.TimeoutExpired:
+        for p in procs:
+          p.kill()
+        outs.append(proc.communicate()[0] + '\n<<< timed out >>>')
+  finally:
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+  for r, (proc, out) in enumerate(zip(procs, outs)):
+    for line in out.splitlines():
+      if line.startswith('['):
+        print(f'[rank {r}] {line}', flush=True)
+    assert proc.returncode == 0, f'rank {r} failed:\n{out[-6000:]}'
+
+
+def run_tensor_parallel(dev, gen, train_cfg, images, route_totals,
+                        imul_rate, sfu_rate):
+  """Phase 17. Returns ({path: launches}, the phase's numbers, the window
+  kernels' results)."""
+  import torch.distributed as dist
+  from torch.distributed.device_mesh import init_device_mesh
+  from mulan_tpu_torch import params
+  from mulan_tpu_torch.models import build_model
+  from mulan_tpu_torch.parallel import mesh as mesh_lib
+  from mulan_tpu_torch.train.loop import Experiment
+  cfg = train_cfg.model
+  one_cfg = tp_config(train_cfg, 1)
+  state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+  batches = tp_batches(images)
+  paths, grads = {}, {}
+
+  # 1. One process on the TP_ROWS rows (twice: how far its steps repeat);
+  # the sparse VLB of one batch.
+  ex0 = Experiment(one_cfg, device=dev, state=state)
+  bpd0, ms0, _, paths['tensor_unwrapped'] = par_train(
+      ex0, batches, route_totals, lambda ex: grads.update(one=tp_grads(ex)))
+  del ex0
+  again = Experiment(one_cfg, device=dev, state=state)
+  repeats = par_train(again, batches, {})[0] == bpd0  # a repeat, not a path
+  del again
+  model = build_model(train_cfg.vdm_type, cfg, device=dev, state=state)
+  bpd_eval0 = tp_sparse_bpd(model, images)
+  del model
+  torch.cuda.empty_cache()
+
+  # 2. A tensor mesh of size 1 at world 1 over NCCL: the unwrapped step.
+  dist.init_process_group('nccl' if dev.type == 'cuda' else 'gloo',
+                          init_method=f'tcp://127.0.0.1:{free_port()}',
+                          rank=0, world_size=1)
+  try:
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=(
+        mesh_lib.DATA_AXIS, mesh_lib.TENSOR_AXIS))
+    ext = Experiment(one_cfg, device=dev, state=state, mesh=mesh)
+    assert ext.state.optimizer.tensor.size == 1
+    bpd_t1, ms_t1, _, paths['tensor_w1'] = par_train(ext, batches,
+                                                     route_totals)
+    del ext
+  finally:
+    dist.destroy_process_group()
+  log('tensor_world1', bpd=bpd_t1, unwrapped_bpd=bpd0,
+      bit_for_bit=bpd_t1 == bpd0, unwrapped_repeats_bit_for_bit=repeats,
+      ms_per_step=ms_t1, unwrapped_ms_per_step=ms0)
+  assert bpd_t1 == bpd0 if repeats else max(
+      abs(a - b) for a, b in zip(bpd_t1, bpd0)) <= TRAIN_BPD_TOL, (
+          bpd_t1, bpd0)
+  torch.cuda.empty_cache()
+
+  # 3. PAR_RANKS ranks on the card over gloo, tp = PAR_RANKS.
+  out_dir = tempfile.mkdtemp()
+  spawn_ranks('--tensor-rank', out_dir)
+  ranks = [json.loads(pathlib.Path(out_dir, f'tensor{r}.json').read_text())
+           for r in range(PAR_RANKS)]
+  got = ranks[0]
+  assert all(r['bpd'] == got['bpd'] for r in ranks), ranks
+  norm0, leaves0 = grads['one']
+  leaves = torch.load(pathlib.Path(out_dir, 'tensor_leaves.pt'))
+  cos = leaf_cosines(leaves, leaves0)
+  attn_cos = min(v for k, v in cos.items() if '_attn' in k)
+  gn_cos = min(v for k, v in cos.items() if 'GroupNorm' in k)
+  delta = max(abs(a - b) for a, b in zip(got['bpd'], bpd0))
+  eval_delta = abs(got['sparse_bpd'] - bpd_eval0)
+  steps = got['collectives_per_step']
+  numbers = dict(
+      ranks=PAR_RANKS, rows=TP_ROWS, bpd=got['bpd'], one_process_bpd=bpd0,
+      max_abs_delta=delta, tol=TRAIN_BPD_TOL, first_step_grad_norm=[
+          r['grad_norm'] for r in ranks], one_process_grad_norm=norm0,
+      attention_leaf_cos_min=attn_cos, groupnorm_leaf_cos_min=gn_cos,
+      ms_per_step_two_ranks_on_one_card=[r['ms_per_step'] for r in ranks],
+      one_process_ms_per_step=ms0, world1_ms_per_step=ms_t1,
+      world1_bit_for_bit=bpd_t1 == bpd0,
+      collectives_second_step=steps[-1], collectives_first_step=steps[0],
+      collective_share_of_second_step=steps[-1]['host_seconds'] / (
+          got['ms_per_step'] / 1e3),
+      peak_gb=[r['peak_gb'] for r in ranks], sparse_bpd=got['sparse_bpd'],
+      one_process_sparse_bpd=bpd_eval0, sparse_abs_delta=eval_delta,
+      masks=[r['masks'] for r in ranks])
+  log('tensor_gloo', **numbers)
+  assert delta <= TRAIN_BPD_TOL, (got['bpd'], bpd0)
+  assert all(abs(r['grad_norm'] - norm0) <= TP_GRAD_NORM_RTOL * norm0
+             for r in ranks), (numbers['first_step_grad_norm'], norm0)
+  assert min(attn_cos, gn_cos) >= ATTN_LEAF_COS_MIN, cos
+  assert eval_delta <= BPD_TOL, (got['sparse_bpd'], bpd_eval0)
+  assert got['launches'] == times(expected_launches(cfg, 'train'),
+                                  TP_STEPS), got['launches']
+  paths['tensor_gloo_rank0'] = got['launches']
+  paths['tensor_gloo_rank0_eval'] = got['eval_launches']
+  for name, by_route in got['routes'].items():
+    total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
+    for r, n in by_route.items():
+      total[r] += n
+
+  # 4. TP_GN_RANKS ranks over gloo: the gathered GroupNorm's K8 and its
+  # backward.
+  gn_dir = tempfile.mkdtemp()
+  spawn_ranks('--gn-rank', gn_dir, TP_GN_RANKS)
+  gn = [json.loads(pathlib.Path(gn_dir, f'gn{r}.json').read_text())
+        for r in range(TP_GN_RANKS)]
+  numbers['gathered_gn_swish'] = gn
+  rtol, atol = GN_TOL[torch.bfloat16]
+  for r in gn:
+    assert r['launches'] == [1, 1], gn
+    assert r['max_excess_over_rtol'] <= atol, gn
+    assert r['dx_cos'] >= GN_ALONE_COS_MIN, gn
+    assert max(r['dweight_rel_err'], r['dbias_rel_err']) <= (
+        GN_BWD_SUM_RTOL), gn
+
+  # 5. K6, K7 and K8 at the window's shapes, timed.
+  window = tp_window_kernels(dev, gen, cfg, imul_rate, sfu_rate)
+  return paths, numbers, window
 
 
 def main() -> None:
@@ -3529,6 +3959,16 @@ def main() -> None:
   torch.cuda.empty_cache()
   clock.done(16, 'data parallelism and FSDP')
 
+  # 17. Tensor parallelism: TP_STEPS flagship steps at TP_ROWS rows
+  # unwrapped and on a tensor mesh of size 1 over NCCL (bit for bit), then
+  # PAR_RANKS ranks on the card over gloo with training.tp = PAR_RANKS
+  # against one process; TP_GN_RANKS ranks on a GroupNorm whose groups
+  # straddle them; K6, K7 and K8 at a rank's channel window.
+  tensor_paths, tensor, tensor_window = run_tensor_parallel(
+      dev, gen, train_cfg, images, route_totals, imul_rate, sfu_rate)
+  torch.cuda.empty_cache()
+  clock.done(17, 'tensor parallelism')
+
   if want_profile:
     ode_t = torch.tensor(0.5)
     in32_batch = torch.as_tensor(images[:IN32_TRAIN_BATCH], device=dev)
@@ -3588,7 +4028,7 @@ def main() -> None:
            'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
            'ode_fused_rhs': ode_fused_counts, **vdm_paths, **variant_paths,
-           **parallel_paths,
+           **parallel_paths, **tensor_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
@@ -3677,7 +4117,13 @@ def main() -> None:
         'bound_ms', 'bound_by', 'max_abs_err') if k in r}
   for name in ('dropout_mask', 'dropout_mask_batch'):
     by_name[name]['at_rank_rows'] = rank_masks[name]
+  for name in ('dropout_mask', 'dropout_mask_batch', 'gn_swish',
+               'gn_swish_bwd'):
+    by_name[name]['at_tensor_window'] = {k: tensor_window[name][k] for k in (
+        'shape', 'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_by',
+        'max_abs_err') if k in tensor_window[name]}
   log('parallel_summary', **{k: json.dumps(v) for k, v in parallel.items()})
+  log('tensor_summary', **{k: json.dumps(v) for k, v in tensor.items()})
   log('phase_seconds', total=sum(clock.seconds.values()),
       **{f'phase_{k}': v for k, v in clock.seconds.items()})
   print(json.dumps({'kernels': kernels}))
@@ -3688,7 +4134,9 @@ def main() -> None:
 
 
 if __name__ == '__main__':
-  if '--parallel-rank' in sys.argv[1:]:
-    parallel_worker()
+  for worker_flag in ('--parallel-rank', '--tensor-rank', '--gn-rank'):
+    if worker_flag in sys.argv[1:]:
+      parallel_worker(worker_flag)
+      break
   else:
     main()

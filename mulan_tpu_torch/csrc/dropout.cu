@@ -17,8 +17,10 @@
 // constants) written into the kernel: the key is (seed, site) and the counter
 // is the element's index in the site's global mask divided by 8, so the
 // stream depends only on (seed, site, index), never on the launch's tiling
-// or on how the batch is split over data-parallel ranks (first_index). Each of the four 32-bit
-// output words gives two 16-bit draws, low half first: element i uses word
+// or on how the batch is split over data-parallel ranks (first_index) or
+// its channels over tensor-parallel ranks (run, row_stride). Each of the
+// four 32-bit output words gives two 16-bit draws, low half first: element
+// i uses word
 // (i / 2) % 4 of counter i / 8, and is kept iff its draw >= threshold16 =
 // min(round(p * 65536), 65535), the quantization of the TPU kernel.
 // mulan_tpu_torch/ops/dropout.py:dropout_mask_plain computes the same bits
@@ -79,30 +81,29 @@ __device__ __forceinline__ uint32_t word_of(const uint4& a, const uint4& b,
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// The mask of site first_site + blockIdx.y goes to out + blockIdx.y * n.
-// Local element i is element first_index + i of the site's global mask (a
-// data-parallel rank's rows of the global batch start at first_index =
-// rank * rows * C * H * W), so its counter is (first_index + i) / 8 and its
-// draw (first_index + i) % 8 of that counter. first_index % 8 is the same
-// for every thread of a launch: 0 (every flagship and encoder site, and one
-// process) takes one Philox call a thread as before; otherwise a thread's
-// eight values straddle two counters and it runs both.
+// The 16-bit draw of element g of a site's global mask: half g % 2 of word
+// (g % 8) / 2 of counter g / 8.
+__device__ __forceinline__ uint32_t draw_at(unsigned long long g,
+                                            uint32_t seed, uint32_t site) {
+  const unsigned long long ctr = g >> 3;
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed, site);
+  const uint32_t w = word_of(r, r, (unsigned)(g & 7u) / 2);
+  return (g & 1u) ? (w >> 16) : (w & 0xFFFFu);
+}
+
+// The values of global elements g .. g + 7 of a site's mask. g % 8 == 0
+// (every contiguous flagship and encoder site, and one process) takes one
+// Philox call; otherwise the eight values straddle two counters and it runs
+// both.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
-             uint32_t first_site, uint32_t threshold16, float scale,
-             unsigned long long first_index) {
-  const size_t first = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 8;
-  if (first >= n) return;
-  out += (size_t)blockIdx.y * n;
-  const uint32_t site = first_site + blockIdx.y;
-  const unsigned long long g = first_index + first;
+__device__ __forceinline__ void fill8(T (&vals)[8], unsigned long long g,
+                                      uint32_t seed, uint32_t site,
+                                      uint32_t threshold16, T keep, T drop) {
   const unsigned long long ctr = g >> 3;
   const unsigned shift = (unsigned)(g & 7u);
   const uint4 r = philox4x32_10(
       make_uint4((uint32_t)ctr, (uint32_t)(ctr >> 32), 0u, 0u), seed, site);
-  const T keep = cvt<T>(scale), drop = cvt<T>(0.0f);
-  __align__(16) T vals[8];
   if (shift == 0) {
     const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
@@ -124,6 +125,47 @@ dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
       vals[e] = u16 >= threshold16 ? keep : drop;
     }
   }
+}
+
+// The mask of site first_site + blockIdx.y goes to out + blockIdx.y * n.
+// Without kWindow, local element i is element first_index + i of the
+// site's global mask (a data-parallel rank's rows of the global batch start
+// at first_index = rank * rows * C * H * W). With kWindow the mask is n /
+// run runs of `run` elements that lie row_stride apart in the global mask:
+// local element i is global element first_index + (i / run) * row_stride +
+// i % run (a tensor-parallel rank's channel window, run = (C / tp) H W and
+// row_stride = C H W, at first_index = row * C H W + rank (C / tp) H W).
+// Either way the counter is the global index / 8, so a rank's mask is bit
+// for bit its window of the mask one process draws. A thread's eight values
+// lie in one run unless run % 8 != 0 (the tiny configs' 8 x 8 images at
+// odd channel counts); there it draws them one by one.
+template <typename T, bool kWindow>
+__global__ void __launch_bounds__(kThreads)
+dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
+             uint32_t first_site, uint32_t threshold16, float scale,
+             unsigned long long first_index, unsigned long long run,
+             unsigned long long row_stride) {
+  const size_t first = ((size_t)blockIdx.x * kThreads + threadIdx.x) * 8;
+  if (first >= n) return;
+  out += (size_t)blockIdx.y * n;
+  const uint32_t site = first_site + blockIdx.y;
+  const T keep = cvt<T>(scale), drop = cvt<T>(0.0f);
+  __align__(16) T vals[8];
+  if (!kWindow) {
+    fill8(vals, first_index + first, seed, site, threshold16, keep, drop);
+  } else {
+    const unsigned long long row = first / run, col = first - row * run;
+    if (col + 8 <= run) {
+      fill8(vals, first_index + row * row_stride + col, seed, site,
+            threshold16, keep, drop);
+    } else {
+      for (int e = 0; e < 8 && first + e < n; ++e) {
+        const unsigned long long i = first + e, r = i / run;
+        vals[e] = draw_at(first_index + r * row_stride + (i - r * run), seed,
+                          site) >= threshold16 ? keep : drop;
+      }
+    }
+  }
   if (first + 8 <= n && (uintptr_t)(out + first) % 16 == 0) {
     // 8 values are 16 bytes (bf16) or 32 bytes (f32). A slot after the
     // first starts 16-byte aligned only if n * sizeof(T) is a multiple of 16.
@@ -140,53 +182,77 @@ dropout_mask(T* __restrict__ out, size_t n, uint32_t seed,
 template <typename T>
 int launch(void* out, size_t n, unsigned n_masks, uint32_t seed,
            uint32_t first_site, uint32_t threshold16, float scale,
-           unsigned long long first_index, cudaStream_t stream) {
+           unsigned long long first_index, unsigned long long run,
+           unsigned long long row_stride, cudaStream_t stream) {
   const size_t counters = (n + 7) / 8;
   const size_t blocks = (counters + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, n_masks);
-  dropout_mask<T><<<grid, kThreads, 0, stream>>>(
-      (T*)out, n, seed, first_site, threshold16, scale, first_index);
+  if (row_stride == 0)
+    dropout_mask<T, false><<<grid, kThreads, 0, stream>>>(
+        (T*)out, n, seed, first_site, threshold16, scale, first_index, 0, 0);
+  else
+    dropout_mask<T, true><<<grid, kThreads, 0, stream>>>(
+        (T*)out, n, seed, first_site, threshold16, scale, first_index, run,
+        row_stride);
   return (int)cudaGetLastError();
 }
 
 int launch_masks(void* out, long long n, unsigned n_masks, unsigned seed,
                  unsigned first_site, unsigned threshold16, float scale,
-                 unsigned long long first_index, int is_bf16, void* stream) {
+                 unsigned long long first_index, unsigned long long run,
+                 unsigned long long row_stride, int is_bf16, void* stream) {
   if (n <= 0 || n_masks == 0 || n_masks > 65535u || threshold16 > 65535u)
     return (int)cudaErrorInvalidValue;
-  // The last counter, (first_index + n - 1) / 8, must fit in 64 bits.
-  if (first_index > ~0ull - (unsigned long long)n)
-    return (int)cudaErrorInvalidValue;
+  // The last global index must fit in 64 bits: first_index + n - 1
+  // contiguous, first_index + (n / run - 1) row_stride + run - 1 in runs
+  // (run dividing n, row_stride >= run).
+  unsigned long long span = (unsigned long long)n;
+  if (row_stride != 0) {
+    if (run == 0 || (unsigned long long)n % run != 0 || row_stride < run)
+      return (int)cudaErrorInvalidValue;
+    const unsigned long long rows = (unsigned long long)n / run;
+    if (rows - 1 > (~0ull - run) / row_stride)
+      return (int)cudaErrorInvalidValue;
+    span = (rows - 1) * row_stride + run;
+  }
+  if (first_index > ~0ull - span) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch<__nv_bfloat16>(out, (size_t)n, n_masks, seed,
                                          first_site, threshold16, scale,
-                                         first_index, s)
+                                         first_index, run, row_stride, s)
                  : launch<float>(out, (size_t)n, n_masks, seed, first_site,
-                                 threshold16, scale, first_index, s);
+                                 threshold16, scale, first_index, run,
+                                 row_stride, s);
 }
 
 }  // namespace
 
-// K6. out: n contiguous, 16-byte aligned values (float32 or bfloat16):
-// elements [first_index, first_index + n) of the site's mask.
+// K6. out: n contiguous, 16-byte aligned values (float32 or bfloat16). With
+// row_stride 0: elements [first_index, first_index + n) of the site's mask;
+// else n / run runs of `run`, local element i being element first_index +
+// (i / run) row_stride + i % run of it (a channel window).
 extern "C" int mulan_dropout_mask(void* out, long long n, unsigned seed,
                                   unsigned site, unsigned threshold16,
                                   float scale, unsigned long long first_index,
-                                  int is_bf16, void* stream) {
+                                  unsigned long long run,
+                                  unsigned long long row_stride, int is_bf16,
+                                  void* stream) {
   return launch_masks(out, n, 1u, seed, site, threshold16, scale, first_index,
-                      is_bf16, stream);
+                      run, row_stride, is_bf16, stream);
 }
 
 // K7. out: n_masks * n contiguous values, 16-byte aligned; slot i holds
-// elements [first_index, first_index + n) of the mask of site
-// first_site + i. n_masks <= 65535 (the grid's y extent).
+// K6's mask of site first_site + i at the same first_index, run and
+// row_stride. n_masks <= 65535 (the grid's y extent).
 extern "C" int mulan_dropout_mask_batch(void* out, long long n,
                                         unsigned n_masks, unsigned seed,
                                         unsigned first_site,
                                         unsigned threshold16, float scale,
                                         unsigned long long first_index,
+                                        unsigned long long run,
+                                        unsigned long long row_stride,
                                         int is_bf16, void* stream) {
   return launch_masks(out, n, n_masks, seed, first_site, threshold16, scale,
-                      first_index, is_bf16, stream);
+                      first_index, run, row_stride, is_bf16, stream);
 }

@@ -11,7 +11,10 @@ TFDS source (it needs `tensorflow_datasets` and a download).
 Under `torch.distributed` every rank reads its own contiguous shard of
 each split (`host_shard`, `pipeline.py:60-65`) in per-rank batches of the
 global batch size over the world (`pipeline.py:455-490`), so that the
-global batch is the ranks' batches concatenated in rank order.
+global batch is the ranks' batches concatenated in rank order. Under
+tensor parallelism the ranks of a tensor group read the same shard and
+batches: given the mesh, rank and world count its batch coordinates
+(`mesh.batch_rank`).
 """
 
 from __future__ import annotations
@@ -98,30 +101,32 @@ def host_shard(images: np.ndarray, labels: np.ndarray, rank: int,
   return images[lo:lo + n], np.asarray(labels)[lo:lo + n]
 
 
-def config_source(config, split: str):
+def config_source(config, split: str, mesh=None):
   """(images, labels) of this rank's shard of a split of `config.data` for
-  `config.model` (the whole split in one process)."""
+  `config.model` (the whole split in one process), sharded over the
+  mesh's batch coordinates."""
   return host_shard(*source(config.data.dataset, split,
                             config.model.image_shape,
                             seed=config.data.synthetic_seed,
                             examples=config.data.synthetic_examples),
-                    mesh_lib.rank(), mesh_lib.world_size())
+                    mesh_lib.batch_rank(mesh), mesh_lib.batch_world(mesh))
 
 
-def create_dataset(config, seed: int):
+def create_dataset(config, seed: int, mesh=None):
   """(train_iter, eval_iter) of this rank's batches
   (`pipeline.py:create_dataset`): `batch_size_train` and `batch_size_eval`
   over the world, a train iterator seeded `seed + rank` and an eval
-  iterator seeded `seed + 7919 + rank`."""
+  iterator seeded `seed + 7919 + rank` (world and rank counting batch
+  coordinates of `mesh`: a tensor group shares its batches)."""
   training = config.training
-  r = mesh_lib.rank()
+  r, n = mesh_lib.batch_rank(mesh), mesh_lib.batch_world(mesh)
   train_iter = train_iterator(
-      *config_source(config, 'train'),
-      batch_size=mesh_lib.local_batch_size(training.batch_size_train),
+      *config_source(config, 'train', mesh),
+      batch_size=mesh_lib.local_batch_size(training.batch_size_train, n),
       substeps=1, seed=seed + r)
   eval_iter = eval_iterator(
-      *config_source(config, 'eval'),
-      batch_size=mesh_lib.local_batch_size(training.batch_size_eval),
+      *config_source(config, 'eval', mesh),
+      batch_size=mesh_lib.local_batch_size(training.batch_size_eval, n),
       seed=seed + 7919 + r)
   return train_iter, eval_iter
 
@@ -171,13 +176,13 @@ def one_time_eval_iterator(images: np.ndarray, labels: np.ndarray, *,
            'conditioning': np.zeros(batch_size, np.uint8)}
 
 
-def create_one_time_eval_dataset(config, batch_size: Optional[int] = None
-                                 ) -> Iterator[dict]:
+def create_one_time_eval_dataset(config, batch_size: Optional[int] = None,
+                                 mesh=None) -> Iterator[dict]:
   """`one_time_eval_iterator` over this rank's shard of the config's eval
   split, in batches of `batch_size` (default `training.batch_size_eval`)
   over the world."""
   if batch_size is None:
     batch_size = config.training.batch_size_eval
   return one_time_eval_iterator(
-      *config_source(config, 'eval'),
-      batch_size=batch_size // mesh_lib.world_size())
+      *config_source(config, 'eval', mesh),
+      batch_size=batch_size // mesh_lib.batch_world(mesh))

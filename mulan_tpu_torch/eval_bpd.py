@@ -90,7 +90,7 @@ def main(argv=None) -> float:
   from mulan_tpu_torch.evals.harness import EvalExperiment
   ex = EvalExperiment(config, args.checkpoint_directory, args.checkpoint,
                       device=device)
-  batches = data.create_one_time_eval_dataset(config)
+  batches = data.create_one_time_eval_dataset(config, mesh=ex.mesh)
   generator = torch.Generator(device).manual_seed(0)
   model = ex.state.ema_model
   if args.bpd_eval_method == 'ode':
@@ -105,11 +105,12 @@ def main(argv=None) -> float:
         redraw_noise={'auto': None, 'true': True,
                       'false': False}[args.redraw_noise])
   elif args.bpd_eval_method == 'sparse':
-    bpd = vlb.eval_bpd_sparse(model, batches, generator=generator)
+    bpd = vlb.eval_bpd_sparse(model, batches, generator=generator,
+                              mesh=ex.mesh)
   else:
     bpd = vlb.eval_bpd_dense(model, batches, n_timesteps=args.n_timesteps,
                              images_per_chunk=args.images_per_chunk or None,
-                             generator=generator)
+                             generator=generator, mesh=ex.mesh)
   if mesh_lib.rank() == 0:
     print(f'Test BPD:{bpd} ckpt:{ex.checkpoint_step}')
   return bpd

@@ -111,7 +111,8 @@ class EvalExperiment(Experiment):
     images = sampler(local, generator, rows)
     if rows is None:
       return images
-    return mesh_lib.all_gather_rows(torch.from_numpy(images)).numpy()
+    return mesh_lib.all_gather_rows(torch.from_numpy(images),
+                                    mesh=self.mesh).numpy()
 
   def conditional_samples(self, embedding, batch_size: int = 16,
                           T: int = 1000, generator=None):

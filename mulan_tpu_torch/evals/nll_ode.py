@@ -127,7 +127,7 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
                            high_precision: bool = True,
                            max_steps: int = 5000, first_step: float = 0.01,
                            odeint: Callable = odeint_dopri5,
-                           redraw_noise: bool = False):
+                           redraw_noise: bool = False, mesh=None):
   """Returns likelihood(images, key=0, *, u=None, probe=None, rows=None) ->
   (log_p, log_q_eps, aux_latent_loss, stats) for uint8 NHWC images: the
   first three (B,) on the model's device, `stats` the solver's {nfe,
@@ -139,8 +139,8 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
   before scaling: TN(-3, 3) samples for 'tn', U(0, 1) for 'uniform'.
   `probe` replaces the Hutchinson probe at every RHS evaluation. With
   `rows` the images are those rows of a global solve, split over the
-  ranks: the draws are the global state's, cut to them, and the solver's
-  error norm is the global state's.
+  ranks (the batch coordinates of `mesh`): the draws are the global
+  state's, cut to them, and the solver's error norm is the global state's.
   `odeint` is injectable (e.g. `functools.partial(odeint_rk4,
   num_steps=...)`).
   """
@@ -213,7 +213,7 @@ def make_ode_likelihood_fn(model, *, hutchinson_type: str = 'Rademacher',
 
       y0 = torch.cat([data.reshape(b, d), torch.zeros((b, 1), device=dev)],
                      dim=1)
-      across = {} if rows is None else {'across_ranks': True}
+      across = {} if rows is None else {'across_ranks': True, 'mesh': mesh}
       sol = odeint(ode_func, y0, 0.0, 1.0, rtol=rtol, atol=atol,
                    max_steps=max_steps, first_step=first_step, **across)
       log_p = _prior_logp(sol.y[:, :d].reshape(data.shape)) + sol.y[:, d]
@@ -275,6 +275,7 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
     redraw_noise = solver == 'rk4' and not deterministic_noise
   if model is None:
     model = experiment.state.ema_model
+  mesh = None if experiment is None else experiment.mesh
   cfg = model.config
   if solver == 'rk4':
     odeint = functools.partial(odeint_rk4, num_steps=rk4_steps)
@@ -286,7 +287,7 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
       model, hutchinson_type=hutchinson_type, rtol=rtol, atol=atol,
       dequantization=dequantization, high_precision=high_precision,
       first_step=first_step, max_steps=max_steps, odeint=odeint,
-      redraw_noise=redraw_noise)
+      redraw_noise=redraw_noise, mesh=mesh)
   offset = bpd_offset(dequantization, num_is, cfg.gamma_min)
 
   def fail_msg(bi, stats):
@@ -298,7 +299,7 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
   iter_means = []
   for it in range(num_iters):
     bpds, n_excluded = [], 0
-    loader = data_lib.create_one_time_eval_dataset(config, batch_size)
+    loader = data_lib.create_one_time_eval_dataset(config, batch_size, mesh)
     chunks = [{'images': batch['images']}
               for batch in itertools.islice(loader, max_batches)]
     for bi, (batch, _) in enumerate(mesh_lib.even_chunks(chunks)):
@@ -306,8 +307,8 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
       b = images.shape[0]
       mask = torch.as_tensor(batch.get('mask', np.ones(b, bool)),
                              device=model.device)
-      rows = (mesh_lib.row_window(b) if mesh_lib.is_distributed()
-              else None)
+      rows = (mesh_lib.row_window(b, mesh)
+              if mesh_lib.is_distributed() else None)
       if is_batch <= 0:
         group = auto_is_group(num_is, max(1, min(num_is, IS_ROWS // b)))
       else:
@@ -341,7 +342,7 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
         iws = log_ps[0]
       else:
         iws = torch.logsumexp(log_ps - log_qs, dim=0) - math.log(num_is)
-      per_example = mesh_lib.all_gather_rows(-iws + aux, mask)
+      per_example = mesh_lib.all_gather_rows(-iws + aux, mask, mesh)
       bpds.append(per_example.mean().item()
                   / (cfg.n_pixels * math.log(2.0)) + offset)
       logger.info('ode eval batch %d: cum bpd %.4f (nfe %d over %d grouped '
@@ -364,15 +365,17 @@ def eval_bpd_ode(experiment, config, *, hutchinson_type: str = 'Rademacher',
 
 
 def make_ode_sample_fn(model, *, rtol: float = 1e-5, atol: float = 1e-5,
-                       high_precision: bool = True, max_steps: int = 5000):
+                       high_precision: bool = True, max_steps: int = 5000,
+                       mesh=None):
   """Returns sample(sample_size, generator=None, *, logits=None,
   prior=None, rows=None) -> (z_0, nfe): DoPri5 on the probability-flow ODE
   from t = 1 to 0, from a standard normal prior (NHWC), each example
   conditioned on the hard top-k embedding of random normal logits
   (`logits`, (sample_size, latent_size), and `prior` replace the draws),
   or, for the VDM, on zeros. With `rows`, sample_size is this rank's rows
-  of the global samples: the draws are the global ones cut to them and the
-  solver's error norm is the global state's. Decode z_0 with
+  of the global samples (split over the batch coordinates of `mesh`): the
+  draws are the global ones cut to them and the solver's error norm is the
+  global state's. Decode z_0 with
   `model.generate_x`."""
   cfg = model.config
   dev = model.device
@@ -401,7 +404,8 @@ def make_ode_sample_fn(model, *, rtol: float = 1e-5, atol: float = 1e-5,
 
     sol = odeint_dopri5(ode_func, torch.as_tensor(prior, device=dev)
                         .reshape(-1), 1.0, 0.0, rtol=rtol, atol=atol,
-                        max_steps=max_steps, across_ranks=rows is not None)
+                        max_steps=max_steps, across_ranks=rows is not None,
+                        mesh=mesh)
     return sol.y.reshape(shape), sol.nfe
 
   return sample

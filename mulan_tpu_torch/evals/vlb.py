@@ -58,11 +58,11 @@ def _as_dict(batch):
           if batch.get(k) is not None}
 
 
-def _rows(chunk) -> Optional[mesh_lib.Rows]:
+def _rows(chunk, mesh) -> Optional[mesh_lib.Rows]:
   """This rank's rows of a global chunk (None in one process)."""
   if not mesh_lib.is_distributed():
     return None
-  return mesh_lib.row_window(len(chunk['images']))
+  return mesh_lib.row_window(len(chunk['images']), mesh)
 
 
 def _shares_encoder(model: nn.Module) -> bool:
@@ -76,8 +76,9 @@ def _shares_encoder(model: nn.Module) -> bool:
 @torch.inference_mode()
 def eval_bpd_sparse(model: nn.Module, batches: Iterable,
                     generator: Optional[torch.Generator] = None,
-                    max_batches: Optional[int] = None) -> float:
-  """Mean bpd over batches (see the module's docstring).
+                    max_batches: Optional[int] = None, mesh=None) -> float:
+  """Mean bpd over batches (see the module's docstring), the ranks
+  splitting them over the batch coordinates of `mesh`.
 
   Per-image results stay on the device and are read once at the end, so
   the host never waits on the device inside the loop (in one process).
@@ -88,8 +89,9 @@ def eval_bpd_sparse(model: nn.Module, batches: Iterable,
   for chunk, _ in mesh_lib.even_chunks(chunks):
     bpd = bpd_terms(model(chunk['images'], labels=chunk.get('labels'),
                           conditioning=chunk.get('conditioning'),
-                          generator=generator, rows=_rows(chunk)), n_pixels)
-    bpds.append(mesh_lib.all_gather_rows(bpd, chunk.get('mask')))
+                          generator=generator, rows=_rows(chunk, mesh)),
+                    n_pixels)
+    bpds.append(mesh_lib.all_gather_rows(bpd, chunk.get('mask'), mesh))
   if not bpds:
     raise ValueError('eval_bpd_sparse saw zero batches')
   return float(torch.cat(bpds).mean())
@@ -137,9 +139,10 @@ def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
 def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
                    images_per_chunk: Optional[int] = None,
                    generator: Optional[torch.Generator] = None,
-                   max_batches: Optional[int] = None) -> float:
+                   max_batches: Optional[int] = None, mesh=None) -> float:
   """Mean dense bpd over batches (`vlb.py:71-182`; see the module's
-  docstring).
+  docstring), the ranks splitting them over the batch coordinates of
+  `mesh`.
 
   Each batch is cut into chunks of `images_per_chunk` images (default
   `DENSE_ROWS_PER_CHUNK // n_timesteps`, at least 1; on each rank, as
@@ -159,7 +162,7 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
     bpds.append(mesh_lib.all_gather_rows(dense_chunk_bpd(
         model, chunk['images'], n_timesteps, labels=chunk.get('labels'),
         conditioning=chunk.get('conditioning'), generator=generator,
-        rows=_rows(chunk)), chunk.get('mask')))
+        rows=_rows(chunk, mesh)), chunk.get('mask'), mesh))
   if not bpds:
     raise ValueError('eval_bpd_dense saw zero batches')
   return float(torch.cat(bpds).mean())

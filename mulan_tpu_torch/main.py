@@ -113,11 +113,12 @@ def _sample(args, config, device) -> None:
     model = ex.state.ema_model
     ex.reseed(SAMPLE, 0)
     rows = ex.rows(args.sample_batch)
-    z_0, nfe = nll_ode.make_ode_sample_fn(model)(
+    z_0, nfe = nll_ode.make_ode_sample_fn(model, mesh=ex.mesh)(
         args.sample_batch if rows is None else rows.count, ex.generator,
         rows=rows)
-    samples = mesh_lib.all_gather_rows(model.generate_x(
-        z_0, ex.generator, rows=rows).to(torch.uint8)).cpu().numpy()
+    images = model.generate_x(z_0, ex.generator, rows=rows)
+    samples = mesh_lib.all_gather_rows(images.to(torch.uint8),
+                                       mesh=ex.mesh).cpu().numpy()
     if mesh_lib.rank() == 0:
       print(f'ode sampler nfe: {nfe}')
   if mesh_lib.rank() != 0:

@@ -12,6 +12,7 @@ import torch
 from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.models.vdm import VDM
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 
 # `vdm_type` -> model class (`mulan_tpu/models/__init__.py:17-24`).
 MODELS = {'vdm': VDM,
@@ -21,12 +22,15 @@ MODELS = {'vdm': VDM,
                                               parameterization='velocity')}
 
 
-def make_model(vdm_type: str, config: ModelConfig) -> torch.nn.Module:
+def make_model(vdm_type: str, config: ModelConfig,
+               tensor=None) -> torch.nn.Module:
   """The model of `vdm_type` for `config`, its parameters uninitialized
-  (build under `torch.device('meta')` for names and shapes alone)."""
+  (build under `torch.device('meta')` for names and shapes alone); with
+  a `tensor` group (`parallel/tensor.py`) its score UNet holds this
+  rank's channels."""
   if vdm_type not in MODELS:
     raise ValueError(f'unknown vdm_type: {vdm_type!r}')
-  return MODELS[vdm_type](config)
+  return MODELS[vdm_type](config, tensor=tensor)
 
 
 def resolve_device(device) -> torch.device:
@@ -40,19 +44,20 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(vdm_type: str, config: ModelConfig, *, device='cuda',
-                state: Optional[Mapping[str, torch.Tensor]] = None
-                ) -> torch.nn.Module:
+                state: Optional[Mapping[str, torch.Tensor]] = None,
+                tensor=None) -> torch.nn.Module:
   """The model of `vdm_type` (a key of MODELS) on `device` (the
   card unless the caller asks for the CPU), with the parameters of `state`
-  (a state_dict, e.g. from `params.from_flax`) or, without one,
-  `params.init_params` from seed 0."""
+  (a one-process state_dict, e.g. from `params.from_flax`) or, without
+  one, `params.init_params` from seed 0. With a `tensor` group the model
+  holds this rank's slices of them (`parallel.tensor.take_state`)."""
   from mulan_tpu_torch import params  # params imports this package
   device = resolve_device(device)
-  model = make_model(vdm_type, config)
+  model = make_model(vdm_type, config, tensor)
   if state is None:
     state = params.init_params(config, torch.Generator().manual_seed(0),
                                vdm_type=vdm_type)
-  model.load_state_dict(state)
+  model.load_state_dict(tensor_lib.take_state(state, tensor))
   return model.to(device)
 
 

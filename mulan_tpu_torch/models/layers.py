@@ -10,6 +10,12 @@ optimizer updates stay float32 under bfloat16 compute.
 `ResnetBlock` and `AttnBlock` take `remat`: their forward then runs under
 activation checkpointing (`maybe_remat`), the counterpart of JAX's
 `maybe_remat` / `nn.remat` (`mulan_tpu/models/layers.py:214-224`).
+
+`GroupNormF32`, `ResnetBlock` and `AttnBlock` take a `tensor` group
+(`parallel/tensor.py`; the score UNet's under `training.tp` > 1): each
+then holds its slice of the output channels of every layer, takes and
+returns channel-sharded activations, and gathers channels where a layer
+needs them all. Without one they are the one-process blocks.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from mulan_tpu_torch.ops import dropout as dropout_ops
 from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
 from mulan_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 
 
 def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
@@ -156,24 +163,60 @@ class GroupNormF32(nn.Module):
   `ops/groupnorm_swish.py:gn_swish` instead, the affine in float32 (the K8
   kernel with `use_kernels`, else its plain version), under the same
   parameters (`GroupNormF32_k/GroupNorm_0/{scale,bias}` in flax).
+
+  With a `tensor` group, x is this rank's channels of the C global ones
+  (in `segments` equal parts, each this rank's slice of a part: the up
+  blocks' [h, skip]) and so are the parameters. Where every part's slice
+  holds whole groups (C / 32 channels a group at C >= 32: every tp that
+  divides 32, 16 for the up blocks' [h, skip]), it normalizes them alone,
+  the rank's groups being whole groups of the global tensor. Otherwise it
+  gathers the channels and the parameters, normalizes them whole on every
+  rank (through `gn_swish`, K8 with `use_kernels`, when fused) and keeps
+  its own channels.
   """
 
   def __init__(self, channels: int, fused_swish: bool = False,
-               use_kernels: bool = False):
+               use_kernels: bool = False, tensor=None, segments: int = 1):
     super().__init__()
-    self.num_groups = math.gcd(channels, 32)
+    groups = math.gcd(channels, 32)
     self.fused_swish = fused_swish
     self.use_kernels = use_kernels
-    self.weight = nn.Parameter(torch.ones(channels))
-    self.bias = nn.Parameter(torch.zeros(channels))
+    self.tensor, self.segments = tensor, segments
+    local = tensor_lib.part(channels, tensor)
+    # The groups of one part's slice are whole groups of the global tensor.
+    self.gathered = (local // segments) % (channels // groups) != 0
+    self.num_groups = groups if self.gathered else (
+        groups * local // channels)
+    self.weight = nn.Parameter(torch.ones(local))
+    self.bias = nn.Parameter(torch.zeros(local))
 
   def forward(self, x):
+    if self.gathered:
+      return self._gathered(x)
     if self.fused_swish:
       return gn_ops.gn_swish(x, self.weight, self.bias, self.num_groups, 1e-6,
                              self.use_kernels)
     return F.group_norm(x, self.num_groups,
                         cast_param(self, 'weight', x.dtype),
                         cast_param(self, 'bias', x.dtype), 1e-6)
+
+  def _gathered(self, x):
+    """The rank's channels of the whole tensor's groupnorm (and swish):
+    every rank normalizes the gathered channels with the gathered
+    parameters. The input's gradient is partial on each rank (the group
+    statistics mix the channels), so its gather sums; the parameters'
+    is the rank's channels' alone, so theirs keeps the slice."""
+    whole = tensor_lib.gather(x, self.tensor, 1, self.segments)
+    weight, bias = (tensor_lib.gather(p, self.tensor, 0, self.segments,
+                                      grad='slice')
+                    for p in (self.weight, self.bias))
+    if self.fused_swish:
+      y = gn_ops.gn_swish(whole, weight, bias, self.num_groups, 1e-6,
+                          self.use_kernels)
+    else:
+      y = F.group_norm(whole, self.num_groups, weight.to(x.dtype),
+                       bias.to(x.dtype), 1e-6)
+    return tensor_lib.take(y, self.tensor, 1, self.segments)
 
 
 class ResnetBlock(nn.Module):
@@ -193,27 +236,43 @@ class ResnetBlock(nn.Module):
 
   `fused_gn` computes both GN-swish sites in one pass each
   (`GroupNormF32(fused_swish=True)`, K8 with `use_kernels`).
+
+  With a `tensor` group (column parallel): x is the rank's channels of the
+  input (in `in_segments` parts, `GroupNormF32`'s), the conditioning whole;
+  the GN-swish sites run on the rank's channels, conv1, conv2 and
+  `nin_shortcut` on the gathered channels to the rank's output slice,
+  `cond_proj` to the rank's slice, and the dropout mask is the rank's
+  channel window of the site's global mask. The output is the rank's
+  channels.
   """
 
   def __init__(self, in_ch: int, out_ch: int, cond_dim: int, *,
                pdrop: float = 0.0, site: int = 0, use_kernels: bool = False,
-               fused_gn: bool = False, remat: bool = False):
+               fused_gn: bool = False, remat: bool = False, tensor=None,
+               in_segments: int = 1):
     super().__init__()
     self.pdrop = pdrop
     self.site = site
     self.use_kernels = use_kernels
     self.fused_gn = fused_gn
     self.remat = remat
-    self.GroupNormF32_0 = GroupNormF32(in_ch, fused_gn, use_kernels)
-    self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
-    self.cond_proj = Linear(cond_dim, out_ch, bias=False)
-    self.GroupNormF32_1 = GroupNormF32(out_ch, fused_gn, use_kernels)
-    self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
-    self.nin_shortcut = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+    self.tensor, self.in_segments = tensor, in_segments
+    self.out_ch = out_ch
+    out_local = tensor_lib.part(out_ch, tensor)
+    self.GroupNormF32_0 = GroupNormF32(in_ch, fused_gn, use_kernels, tensor,
+                                       in_segments)
+    self.conv1 = Conv2d(in_ch, out_local, 3, padding=1)
+    self.cond_proj = Linear(cond_dim, out_local, bias=False)
+    self.GroupNormF32_1 = GroupNormF32(out_ch, fused_gn, use_kernels, tensor)
+    self.conv2 = Conv2d(out_ch, out_local, 3, padding=1)
+    self.nin_shortcut = (Conv2d(in_ch, out_local, 1) if in_ch != out_ch
                          else None)
 
   def _gn_swish(self, norm: GroupNormF32, h):
     return norm(h) if self.fused_gn else F.silu(norm(h))
+
+  def _gather(self, h, segments: int = 1):
+    return tensor_lib.gather(h, self.tensor, 1, segments)
 
   def forward(self, x, cond, dropout_seed=None, dropout_mask=None,
               dropout_row: int = 0):
@@ -221,7 +280,8 @@ class ResnetBlock(nn.Module):
                        dropout_mask, dropout_row)
 
   def _forward(self, x, cond, dropout_seed, dropout_mask, dropout_row):
-    h = self.conv1(self._gn_swish(self.GroupNormF32_0, x))
+    h = self.conv1(self._gather(self._gn_swish(self.GroupNormF32_0, x),
+                                self.in_segments))
     proj = self.cond_proj(cond)
     if cond.dim() == 2:  # (B, D): broadcast over H, W
       h = h + proj[:, :, None, None]
@@ -231,10 +291,13 @@ class ResnetBlock(nn.Module):
     if dropout_mask is not None:
       h = h * dropout_mask.to(h.dtype)
     elif dropout_seed is not None and self.pdrop > 0:
-      h = dropout_ops.dropout(h, dropout_seed, self.site, self.pdrop,
-                              self.use_kernels, dropout_row)
-    h = self.conv2(h)
-    shortcut = x if self.nin_shortcut is None else self.nin_shortcut(x)
+      h = dropout_ops.dropout(
+          h, dropout_seed, self.site, self.pdrop, self.use_kernels,
+          dropout_row, None if self.tensor is None else self.tensor.window(
+              self.out_ch))
+    h = self.conv2(self._gather(h))
+    shortcut = x if self.nin_shortcut is None else self.nin_shortcut(
+        self._gather(x, self.in_segments))
     return shortcut + h
 
 
@@ -244,26 +307,42 @@ class AttnBlock(nn.Module):
 
   `use_kernels` routes the attention itself through the CUDA flash kernel
   (`ops/flash_attention.py`); otherwise it runs the plain einsum version.
+
+  With a `tensor` group: x and the output are the rank's channels; the
+  GroupNorm runs on them, q, k and v project the gathered tokens to the
+  rank's slice, and are gathered whole (one head: head_dim is every
+  channel), so that every rank runs the attention (K1-K3) at the shapes
+  one process runs; `proj_out` projects its output to the rank's slice.
   """
 
-  def __init__(self, channels: int, use_kernels: bool, remat: bool = False):
+  def __init__(self, channels: int, use_kernels: bool, remat: bool = False,
+               tensor=None):
     super().__init__()
     self.use_kernels = use_kernels
     self.remat = remat
-    self.GroupNormF32_0 = GroupNormF32(channels)
-    self.q = Linear(channels, channels)
-    self.k = Linear(channels, channels)
-    self.v = Linear(channels, channels)
-    self.proj_out = Linear(channels, channels)
+    self.tensor = tensor
+    local = tensor_lib.part(channels, tensor)
+    self.GroupNormF32_0 = GroupNormF32(channels, tensor=tensor)
+    self.q = Linear(channels, local)
+    self.k = Linear(channels, local)
+    self.v = Linear(channels, local)
+    self.proj_out = Linear(channels, local)
 
   def forward(self, x):
     return maybe_remat(self._forward, self.remat, x)
 
   def _forward(self, x):
     b, c, hgt, wid = x.shape
-    tokens = self.GroupNormF32_0(x).flatten(2).transpose(1, 2)  # (B, T, C)
+    # (B, T, C) tokens, a transposed view of the (gathered) NCHW channels.
+    tokens = tensor_lib.gather(self.GroupNormF32_0(x), self.tensor, 1)
+    tokens = tokens.flatten(2).transpose(1, 2)
+    q, k, v = (proj(tokens) for proj in (self.q, self.k, self.v))
+    if self.tensor is not None:
+      q, k, v = tensor_lib.gather(torch.stack([q, k, v]), self.tensor, -1,
+                                  grad='slice').unbind(0)
     # (B, T, C) -> (B, 1, T, C): the attention ops' (B, heads, T, D) layout.
-    q, k, v = (proj(tokens).unsqueeze(1) for proj in (self.q, self.k, self.v))
+    q, k, v = (t.unsqueeze(1) for t in (q, k, v))
     attend = flash_attention if self.use_kernels else flash_attention_plain
-    out = self.proj_out(attend(q, k, v, 1.0 / math.sqrt(c)).squeeze(1))
+    out = attend(q, k, v, 1.0 / math.sqrt(q.shape[-1])).squeeze(1)
+    out = self.proj_out(tensor_lib.enter(out, self.tensor))
     return x + out.transpose(1, 2).reshape(b, c, hgt, wid)

@@ -9,9 +9,12 @@ run NCHW inside. Noise can be passed in explicitly (`eps0`, `eps`,
 `generator`, which must live on the model's device. With `rows` (a
 data-parallel rank's `parallel.mesh.Rows` of the global batch) every draw
 is made at the global shape, in the order one process draws it, and cut to
-those rows; the dropout masks are the global batch's rows too. Gamma maps come out of
-the schedule as (B, n_pixels) in NHWC order and are reshaped to the NHWC
-image shape.
+those rows; the dropout masks are the global batch's rows too. A `tensor`
+group (`parallel/tensor.py`) splits the score UNet's channels over its
+ranks, as JAX's `tensor_mesh` reaches the score model alone: the encoder
+and the schedule network stay whole on every rank of the group. Gamma maps
+come out of the schedule as (B, n_pixels) in NHWC order and are reshaped
+to the NHWC image shape.
 
 Every model variant that JAX builds is built here, from the config:
   * `latent_type` 'topk' (with `topk_noise_type` 'gamma' or 'gumbel'),
@@ -85,7 +88,7 @@ def embedding_width(config: ModelConfig) -> int:
 class MuLAN(nn.Module):
 
   def __init__(self, config: ModelConfig,
-               parameterization: str = 'velocity'):
+               parameterization: str = 'velocity', tensor=None):
     super().__init__()
     if parameterization not in PARAMETERIZATIONS:
       raise ValueError(f'unknown parameterization: {parameterization!r}')
@@ -99,7 +102,7 @@ class MuLAN(nn.Module):
     width = embedding_width(config)
     self.score_model = UNet(
         config, conditioning_width=width if config.z_conditioning else 1,
-        per_pixel_gamma=config.unet_type == 'ldm')
+        per_pixel_gamma=config.unet_type == 'ldm', tensor=tensor)
     if config.latent_type == 'gaussian':
       encoder = UnetEncoderGaussian
     elif config.latent_type in ('topk', 'gumbel'):

@@ -32,6 +32,18 @@ final GroupNorm); `with_attention` adds `down_attn_{i}` after every down
 block and `up_attn_{i}` after every up block; `remat` checkpoints every
 block ('all'), every attention block ('attn'), or the attention blocks and
 the even-numbered ResNet blocks in site order ('alt').
+
+With a `tensor` group (`training.tp` > 1, `parallel/tensor.py`) the UNet
+is column-parallel, as JAX's is on a mesh with a 'tensor' axis
+(`constrain_activation_channels` on every block output): `dense0`,
+`dense1`, `conv_in` and every block hold the rank's slice of their output
+channels; the conditioning is gathered whole after each dense layer, the
+activations between blocks are the rank's channels of (B, sm_n_embd, H, W)
+(an up block's input [h, skip] the rank's slice of each), each site's
+dropout mask is the rank's channel window of the global one, and the
+final GroupNorm's output is gathered for `conv_out`, which every rank
+computes whole. z, the gamma map and the conditioning come in whole on
+every rank, and the output is whole on every rank.
 """
 
 from __future__ import annotations
@@ -48,15 +60,18 @@ from mulan_tpu_torch.models.layers import (FOURIER_MULT, AttnBlock, Conv2d,
                                            base2_fourier_features,
                                            timestep_embedding)
 from mulan_tpu_torch.ops import dropout as dropout_ops
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 
 
 class UNet(nn.Module):
 
   def __init__(self, config: ModelConfig,
                conditioning_width: Optional[int] = None,
-               per_pixel_gamma: bool = False):
+               per_pixel_gamma: bool = False,
+               tensor: Optional[tensor_lib.TensorGroup] = None):
     super().__init__()
     cfg = self.config = config
+    self.tensor = tensor
     n_embd = cfg.sm_n_embd
     c = cfg.image_channels
     cond_dim = 4 * n_embd
@@ -65,10 +80,12 @@ class UNet(nn.Module):
     self.conditioning_width = conditioning_width
     self.per_pixel_gamma = per_pixel_gamma
     temb_width = c * n_embd if per_pixel_gamma else n_embd
-    self.dense0 = Linear(temb_width + conditioning_width, cond_dim)
-    self.dense1 = Linear(cond_dim, cond_dim)
+    cond_local = tensor_lib.part(cond_dim, tensor)
+    self.dense0 = Linear(temb_width + conditioning_width, cond_local)
+    self.dense1 = Linear(cond_dim, cond_local)
     in_ch = c * FOURIER_MULT if cfg.with_fourier_features else c
-    self.conv_in = Conv2d(in_ch, n_embd, 3, padding=1)
+    self.conv_in = Conv2d(in_ch, tensor_lib.part(n_embd, tensor), 3,
+                          padding=1)
     sites = iter(range(self.n_sites(cfg)))
 
     def block(in_ch):
@@ -76,10 +93,12 @@ class UNet(nn.Module):
       return ResnetBlock(
           in_ch, n_embd, cond_dim, pdrop=cfg.sm_pdrop, site=site,
           use_kernels=cfg.use_kernels, fused_gn=cfg.fused_gn_swish,
-          remat=cfg.remat_blocks or (cfg.remat_alt_blocks and site % 2 == 0))
+          remat=cfg.remat_blocks or (cfg.remat_alt_blocks and site % 2 == 0),
+          tensor=tensor, in_segments=in_ch // n_embd)
 
     def attn():
-      return AttnBlock(n_embd, cfg.use_kernels, remat=cfg.remat_attn)
+      return AttnBlock(n_embd, cfg.use_kernels, remat=cfg.remat_attn,
+                       tensor=tensor)
 
     for i in range(cfg.sm_n_layer):
       self.add_module(f'down_block_{i}', block(n_embd))
@@ -92,7 +111,7 @@ class UNet(nn.Module):
       self.add_module(f'up_block_{i}', block(2 * n_embd))
       if cfg.with_attention:
         self.add_module(f'up_attn_{i}', attn())
-    self.GroupNormF32_0 = GroupNormF32(n_embd)
+    self.GroupNormF32_0 = GroupNormF32(n_embd, tensor=tensor)
     self.conv_out = Conv2d(n_embd, c, 3, padding=1)
 
   @staticmethod
@@ -126,23 +145,27 @@ class UNet(nn.Module):
     else:
       cond = torch.cat([timestep_embedding(t, cfg.sm_n_embd),
                         conditioning.float()], dim=-1)
-    cond = F.silu(self.dense0(cond.to(dtype)))
-    cond = F.silu(self.dense1(cond))
+    tensor = self.tensor
+    cond = F.silu(self.dense0(tensor_lib.enter(cond.to(dtype), tensor)))
+    cond = F.silu(self.dense1(tensor_lib.gather(cond, tensor, -1)))
+    cond = tensor_lib.gather(cond, tensor, -1)
 
     h = z
     if cfg.with_fourier_features:
       h = torch.cat([z, base2_fourier_features(z)], dim=1)
-    hs = [self.conv_in(h.to(dtype))]
+    hs = [self.conv_in(tensor_lib.enter(h.to(dtype), tensor))]
 
     masks = None
     if (cfg.dropout_mask_batch and dropout_seed is not None
         and cfg.sm_pdrop > 0):
-      # Every block's mask is (B, n_embd, H, W): all project to n_embd
-      # before the dropout site.
+      # Every block's mask is (B, n_embd, H, W) (the rank's channels of
+      # it): all project to n_embd before the dropout site.
       masks = dropout_ops.dropout_masks(
           dropout_seed, 0, self.n_sites(cfg),
-          (z.shape[0], cfg.sm_n_embd, *z.shape[2:]), cfg.sm_pdrop, dtype,
-          z.device, cfg.use_kernels, dropout_row)
+          (z.shape[0], tensor_lib.part(cfg.sm_n_embd, tensor),
+           *z.shape[2:]), cfg.sm_pdrop, dtype, z.device, cfg.use_kernels,
+          dropout_row, None if tensor is None else tensor.window(
+              cfg.sm_n_embd))
     used = []
 
     def res_block(name, h):
@@ -168,5 +191,7 @@ class UNet(nn.Module):
     assert not hs
     if masks is not None:
       assert used == list(range(masks.shape[0])), (used, masks.shape)
-    eps_pred = self.conv_out(F.silu(self.GroupNormF32_0(h)))
+    h = tensor_lib.gather(F.silu(self.GroupNormF32_0(h)), tensor, 1,
+                          grad='slice')
+    eps_pred = self.conv_out(h)
     return eps_pred.float() + z

@@ -12,7 +12,9 @@ in (`eps0`, `eps`, `dropout_seed`); what is not passed is drawn from
 `generator`, which must live on the model's device. With `rows` (a
 data-parallel rank's `parallel.mesh.Rows` of the global batch) every draw
 is made at the global shape and cut to those rows, as one process fed the
-global batch would draw it. The reconstruction term
+global batch would draw it. A `tensor` group (`parallel/tensor.py`) splits
+the score UNet's channels over its ranks; the schedule stays whole on
+every rank. The reconstruction term
 hands the decoder log-likelihood g_0 = gamma(0) as one number that needs a
 gradient (the schedule's parameters are trained), so a train step runs the
 decoder backward (K5) with a broadcast g_0, reduced in the kernel.
@@ -58,13 +60,13 @@ def sample_times(n: int, *, antithetic: bool = True,
 
 class VDM(nn.Module):
 
-  def __init__(self, config: ModelConfig):
+  def __init__(self, config: ModelConfig, tensor=None):
     super().__init__()
     if config.gamma_type not in SCALAR_SCHEDULES:
       raise ValueError(f'unknown scalar gamma_type: {config.gamma_type!r}')
     self.config = config
     self.encdec = encdec_lib.EncDec(config)
-    self.score_model = UNet(config, conditioning_width=1)
+    self.score_model = UNet(config, conditioning_width=1, tensor=tensor)
     self.gamma = SCALAR_SCHEDULES[config.gamma_type](config)
 
   @property

@@ -64,12 +64,15 @@ _SIGNATURES = {
     #  stream)
     'mulan_decoder_logprob_bwd': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _P],
-    # (out, n, seed, site, threshold16, scale, first_index, is_bf16, stream)
+    # (out, n, seed, site, threshold16, scale, first_index, run, row_stride,
+    #  is_bf16, stream)
     'mulan_dropout_mask': [_P, ctypes.c_longlong, _U, _U, _U, _F,
+                           ctypes.c_ulonglong, ctypes.c_ulonglong,
                            ctypes.c_ulonglong, _I, _P],
     # (out, n per mask, n_masks, seed, first_site, threshold16, scale,
-    #  first_index, is_bf16, stream)
+    #  first_index, run, row_stride, is_bf16, stream)
     'mulan_dropout_mask_batch': [_P, ctypes.c_longlong, _U, _U, _U, _U, _F,
+                                 ctypes.c_ulonglong, ctypes.c_ulonglong,
                                  ctypes.c_ulonglong, _I, _P],
     # (x, weight, bias, out, batch, channels, hw, groups, eps, is_bf16,
     #  stream)

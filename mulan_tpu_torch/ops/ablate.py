@@ -176,12 +176,12 @@ def launchers(lib, entry, inputs):
     outs = (torch.empty(MASK_SHAPE, dtype=torch.bfloat16,
                         device=inputs['attn'][0].device),)
     cases.append(('', outs, (*outs, outs[0].numel(), 1234, 5,
-                             *kernel_constants(MASK_RATE), 0, 1)))
+                             *kernel_constants(MASK_RATE), 0, 0, 0, 1)))
   elif entry == 'mulan_dropout_mask_batch':
     outs = (torch.empty((MASK_SLOTS, *MASK_SHAPE), dtype=torch.bfloat16,
                         device=inputs['attn'][0].device),)
     cases.append(('', outs, (*outs, outs[0][0].numel(), MASK_SLOTS, 1234, 0,
-                             *kernel_constants(MASK_RATE), 0, 1)))
+                             *kernel_constants(MASK_RATE), 0, 0, 0, 1)))
   elif entry in ('mulan_gn_swish', 'mulan_gn_swish_bwd'):
     for shape in GN_SHAPES:
       x, dy, w, b = inputs[f'gn_c{shape[1]}']

@@ -20,12 +20,16 @@ The RHS gets `t` as a 0-d float32 CPU tensor.
     factor 0.9 err^(-1/5) clipped to [0.2, 10] (10 when err_norm == 0),
     never below `min_step`;
   * one error norm for the whole state; with `across_ranks` the state is
-    split over the ranks of the default process group (each holds its
-    rows), and the norm is the whole state's: the ranks' sums of squares
-    and element counts are all-reduced (in float64) before the square
-    root, so every rank accepts the same steps and runs as many RHS
-    evaluations (`mulan_tpu/ops/ode.py:14-17`, `:114`, where the norm
-    runs over the global array);
+    split over the batch coordinates of `mesh` (each holds its rows;
+    `parallel.mesh.batch_group`), and the norm is the whole state's:
+    their sums of squares and element counts are all-reduced (in float64)
+    before the square root, so every rank accepts the same steps and runs
+    as many RHS evaluations (`mulan_tpu/ops/ode.py:14-17`, `:114`, where
+    the norm runs over the global array). The ranks of a tensor group
+    hold the same rows (the score UNet's output is computed whole on each
+    from the same gathered channels), which a kernel that sums in no fixed
+    order could still round apart: under tensor parallelism every rank
+    takes rank 0's norm (`mesh.from_rank0`), so that all decide alike;
   * the solve is done when direction (t1 - t) <= 1e-12 |t1 - t0|, and has
     failed when accepted plus rejected steps reach `max_steps`.
 """
@@ -84,14 +88,14 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, t0: float, t1: float, *,
                   rtol: float = 1e-5, atol: float = 1e-5,
                   first_step: float = 0.01, max_steps: int = 10_000,
                   min_step: float = 1e-8,
-                  across_ranks: bool = False) -> ODESolution:
+                  across_ranks: bool = False, mesh=None) -> ODESolution:
   """Integrate dy/dt = func(t, y) from t0 to t1 (either direction).
 
   `y0` is one float tensor, flat or shaped; callers pack structured state
   (e.g. [z, delta_logp]) themselves. `func(t, y)` gets t as a 0-d float32
   CPU tensor and returns a tensor of y's shape. With `across_ranks`, y0 is
-  this rank's part of a state split over the default process group, and
-  the error norm is the whole state's.
+  this rank's part of a state split over the batch coordinates of `mesh`
+  (the ranks with none), and the error norm is the whole state's.
   """
   y = y0.float()
   direction = torch.sign(f32(t1 - t0))
@@ -134,8 +138,9 @@ def odeint_dopri5(func: Callable, y0: torch.Tensor, t0: float, t1: float, *,
       sums = mesh_lib.all_reduce_sum(torch.stack([
           torch.sum(torch.square(err / scale)).double(),
           torch.tensor(float(err.numel()), dtype=torch.float64,
-                       device=err.device)]))
-      err_norm = torch.sqrt(sums[0] / sums[1]).float().cpu()
+                       device=err.device)]), mesh_lib.batch_group(mesh))
+      err_norm = mesh_lib.from_rank0(torch.sqrt(sums[0] / sums[1]).float(),
+                                     mesh).cpu()
     else:
       err_norm = torch.sqrt(torch.mean(torch.square(err / scale))).cpu()
     nfe += 6

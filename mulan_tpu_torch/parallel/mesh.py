@@ -18,11 +18,19 @@ when it equals one process fed the global batch:
     `REPLICATED_GROUPS` left out of the sharding;
   * results that JAX returns replicated (per-image bpd, samples, scalar
     means) are gathered in rank order (`all_gather_rows`) or all-reduced,
-    so every rank returns the same global value.
+    so every rank returns the same global value;
+  * a 'tensor' axis (`training.tp` > 1) splits the score UNet's channels
+    over its ranks (`parallel/tensor.py`), which hold the same rows: the
+    batch is sharded over the batch axes ('data', 'fsdp') only, as JAX
+    replicates it over 'tensor'. The helpers of rows, data shards and
+    gathers take the mesh: on one with a 'tensor' axis they count batch
+    coordinates (`batch_rank`, `batch_world`), not ranks, and gather over
+    the batch group, so every rank of a tensor group draws, holds and
+    returns the same rows.
 
-The backend is NCCL for CUDA devices and gloo for the CPU. Helpers that
-take no group run on the default (world) group; with no process group
-they are the one-process identity.
+The backend is NCCL for CUDA devices and gloo for the CPU. Helpers given
+no mesh run on the default (world) group; with no process group they are
+the one-process identity.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch.distributed as dist
 
 DATA_AXIS = 'data'
 FSDP_AXIS = 'fsdp'
+TENSOR_AXIS = 'tensor'
 
 # Top-level parameter groups that stay replicated under 'fsdp'
 # (`mulan_tpu/parallel/mesh.py:149-178`): the schedule network. Their
@@ -99,30 +108,107 @@ def init_distributed(device='cuda') -> torch.device:
   return device
 
 
-def create_mesh(world: Optional[int] = None, fsdp: int = 1,
+def create_mesh(world: Optional[int] = None, fsdp: int = 1, tp: int = 1,
                 device_type: str = 'cuda'):
-  """A `DeviceMesh` over the ranks: ('data',), or ('data', 'fsdp') with
-  `fsdp` > 1, its 'fsdp' groups consecutive ranks (`create_mesh`'s
-  layout). Asserts that the world divides into fsdp groups, as JAX's
-  does."""
+  """A `DeviceMesh` over the ranks: ('data',), ('data', 'fsdp'), ('data',
+  'tensor') or ('data', 'fsdp', 'tensor'), as JAX's `create_mesh` lays out
+  `devices.reshape([data, fsdp, tensor])`: 'tensor' groups consecutive
+  ranks, 'fsdp' consecutive tensor groups. Asserts that the world divides
+  into fsdp x tp groups, as JAX's does. With a 'tensor' axis the mesh
+  carries its batch groups (`batch_group`), which every rank makes here,
+  one a tensor coordinate."""
   from torch.distributed.device_mesh import init_device_mesh
   if world is None:
     world = world_size()
-  assert world % fsdp == 0, (world, fsdp)
-  if fsdp == 1:
-    return init_device_mesh(device_type, (world,),
-                            mesh_dim_names=(DATA_AXIS,))
-  return init_device_mesh(device_type, (world // fsdp, fsdp),
-                          mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+  assert world % (fsdp * tp) == 0, (world, fsdp, tp)
+  shape, names = [world // (fsdp * tp)], [DATA_AXIS]
+  if fsdp > 1:
+    shape.append(fsdp)
+    names.append(FSDP_AXIS)
+  if tp > 1:
+    shape.append(tp)
+    names.append(TENSOR_AXIS)
+  mesh = init_device_mesh(device_type, tuple(shape),
+                          mesh_dim_names=tuple(names))
+  _layout(mesh)
+  return mesh
 
 
 def has_fsdp(mesh) -> bool:
   return mesh is not None and FSDP_AXIS in (mesh.mesh_dim_names or ())
 
 
+def has_tensor(mesh) -> bool:
+  return mesh is not None and TENSOR_AXIS in (mesh.mesh_dim_names or ())
+
+
+def batch_mesh(mesh):
+  """The mesh's batch axes ('data' and 'fsdp'), the submesh DDP and FSDP2
+  act on: the mesh itself without 'tensor'."""
+  if not has_tensor(mesh):
+    return mesh
+  return mesh[tuple(n for n in mesh.mesh_dim_names if n != TENSOR_AXIS)]
+
+
+class _Layout(NamedTuple):
+  batch_group: object    # the ranks of this rank's tensor coordinate
+  batch_rank: int
+  batch_world: int
+
+
+def _make_batch_layout(mesh) -> _Layout:
+  """This rank's batch group on a mesh whose last axis is 'tensor': the
+  ranks of its tensor coordinate (a process group a coordinate, every
+  rank making all of them)."""
+  if mesh.mesh_dim_names[-1] != TENSOR_AXIS:
+    raise ValueError(f"'tensor' must be the mesh's last axis: {mesh}")
+  ranks = mesh.mesh.reshape(-1, mesh.mesh.shape[-1])  # (batch, tensor)
+  mine = None
+  for t in range(ranks.shape[1]):
+    members = ranks[:, t].tolist()
+    group = dist.new_group(members)
+    if rank() in members:
+      mine = _Layout(group, members.index(rank()), len(members))
+  return mine
+
+
+def _layout(mesh) -> Optional[_Layout]:
+  """The batch layout of a mesh with a 'tensor' axis, kept on the mesh
+  (None otherwise: the batch helpers count ranks). Its first call on a
+  mesh makes the process groups, so every rank makes it at once:
+  `create_mesh` does."""
+  if not has_tensor(mesh):
+    return None
+  if getattr(mesh, '_batch_layout', None) is None:
+    mesh._batch_layout = _make_batch_layout(mesh)
+  return mesh._batch_layout
+
+
+def batch_rank(mesh=None) -> int:
+  """This rank's coordinate on the mesh's batch axes: the rank itself
+  without a tensor axis."""
+  layout = _layout(mesh)
+  return rank() if layout is None else layout.batch_rank
+
+
+def batch_world(mesh=None) -> int:
+  """The number of batch coordinates of the mesh: the world without a
+  tensor axis."""
+  layout = _layout(mesh)
+  return world_size() if layout is None else layout.batch_world
+
+
+def batch_group(mesh=None):
+  """The process group of this rank's batch coordinates on the mesh (None:
+  the default group)."""
+  layout = _layout(mesh)
+  return None if layout is None else layout.batch_group
+
+
 def local_batch_size(global_batch: int,
                      process_count: Optional[int] = None) -> int:
-  """The rows of a global batch each rank holds; raises as JAX's does."""
+  """The rows of a global batch each of `process_count` ranks (default:
+  the world) holds; raises as JAX's does."""
   pc = process_count if process_count is not None else world_size()
   if global_batch % pc != 0:
     raise ValueError(f'global batch {global_batch} not divisible by '
@@ -162,10 +248,11 @@ class Rows(NamedTuple):
     return self._replace(reps=self.reps * n)
 
 
-def row_window(local: int) -> Rows:
+def row_window(local: int, mesh=None) -> Rows:
   """This rank's rows [r local, (r + 1) local) of the global batch of
-  world * local rows."""
-  return Rows(rank() * local, local, world_size() * local)
+  world * local rows (r and world counting the mesh's batch
+  coordinates)."""
+  return Rows(batch_rank(mesh) * local, local, batch_world(mesh) * local)
 
 
 def draw_rows(draw, shape: Sequence[int], rows: Optional[Rows],
@@ -220,30 +307,33 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
   return buf.to(x.device)
 
 
-def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-  """{name: mean over every rank} of 0-d tensors, in one collective."""
+def mean_over_ranks(values: Dict[str, torch.Tensor],
+                    mesh=None) -> Dict[str, torch.Tensor]:
+  """{name: mean over the mesh's batch coordinates} of 0-d tensors, in one
+  collective."""
   if not is_distributed() or not values:
     return values
   stacked = torch.stack([v.detach().float() for v in values.values()])
-  total = all_reduce_sum(stacked) / world_size()
+  total = all_reduce_sum(stacked, batch_group(mesh)) / batch_world(mesh)
   return dict(zip(values, total.unbind()))
 
 
-def all_gather_rows(x: torch.Tensor, mask=None) -> torch.Tensor:
-  """Every rank's x (the same number of rows on each) concatenated in rank
-  order, on every rank, without the rows whose `mask` is False."""
+def all_gather_rows(x: torch.Tensor, mask=None, mesh=None) -> torch.Tensor:
+  """Every batch coordinate's x (the same number of rows on each) of the
+  mesh concatenated in order, on every rank, without the rows whose `mask`
+  is False."""
   dev = x.device
   if mask is not None:
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
   if is_distributed():
-    comm = _comm_device(dev)
-    parts = [torch.empty_like(x, device=comm) for _ in range(world_size())]
-    dist.all_gather(parts, x.detach().to(comm).contiguous())
+    group, n = batch_group(mesh), batch_world(mesh)
+    comm = _comm_device(dev, group)
+    parts = [torch.empty_like(x, device=comm) for _ in range(n)]
+    dist.all_gather(parts, x.detach().to(comm).contiguous(), group=group)
     x = torch.cat(parts).to(dev)
     if mask is not None:
-      masks = [torch.empty_like(mask, device=comm)
-               for _ in range(world_size())]
-      dist.all_gather(masks, mask.to(comm).contiguous())
+      masks = [torch.empty_like(mask, device=comm) for _ in range(n)]
+      dist.all_gather(masks, mask.to(comm).contiguous(), group=group)
       mask = torch.cat(masks).to(dev)
   return x if mask is None else x[mask]
 
@@ -281,6 +371,17 @@ def even_chunks(chunks: List[Dict[str, np.ndarray]]
       filler['mask'][:] = False
       out.append((filler, 0))
   return out
+
+
+def from_rank0(x: torch.Tensor, mesh=None) -> torch.Tensor:
+  """Rank 0's x on every rank on a mesh with a 'tensor' axis, whose tensor
+  groups compute the same values apart (x itself otherwise): one value for
+  a decision every rank must take alike."""
+  if not has_tensor(mesh):
+    return x
+  buf = x.detach().to(_comm_device(x.device), copy=True)
+  dist.broadcast(buf, src=0)
+  return buf.to(x.device)
 
 
 def barrier() -> None:

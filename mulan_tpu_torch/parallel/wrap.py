@@ -12,6 +12,15 @@ that XLA inserts under `jit`.
     sharding, plain tensors on every rank; `average_plain_grads` averages
     their gradients over every rank after the backward.
 
+With a 'tensor' axis both act on the mesh's batch axes ('data', 'fsdp';
+`mesh.batch_mesh`), over each rank's tensor slices (`parallel/tensor.py`):
+the ranks of one tensor coordinate hold the same slices, average their
+gradients and shard them among themselves. The leaves every rank of a
+tensor group holds whole (the encoder, the schedule network, `conv_out`)
+have equal gradients there in exact arithmetic; `average_whole_grads`
+averages them over the group, so that its copies stay equal whatever
+order a card's backward sums in.
+
 Every module under a sharded unit is marked `cache_casts = False`: FSDP2
 all-gathers its parameters into storage it reuses, with their version
 counters preserved, so `layers.cast_param`'s no-grad cache, keyed on the
@@ -21,12 +30,13 @@ an update.
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Mapping
 
 import torch
 from torch import nn
 
 from mulan_tpu_torch.parallel import mesh as mesh_lib
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 
 
 def is_sharded(t: torch.Tensor) -> bool:
@@ -65,6 +75,7 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
   """`fully_shard`s the model's networks in place over `mesh` (see the
   module's docstring) and returns it."""
   from torch.distributed.fsdp import fully_shard
+  mesh = mesh_lib.batch_mesh(mesh)
   for name, child in model.named_children():
     if name in mesh_lib.REPLICATED_GROUPS or not any(
         True for _ in child.parameters()):
@@ -77,25 +88,44 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
   return model
 
 
-def data_parallel(model: nn.Module) -> nn.Module:
-  """`model` under DistributedDataParallel over the default group. Every
-  parameter of every variant `mulan_tpu_torch` builds reaches its loss
-  (tests/test_torch_multiprocess.py trains each under DDP), so DDP is not
-  asked to look for unused ones."""
+def data_parallel(model: nn.Module, mesh) -> nn.Module:
+  """`model` under DistributedDataParallel over the mesh's batch group
+  (the default group without a 'tensor' axis). Every parameter of every variant
+  `mulan_tpu_torch` builds reaches its loss (tests/test_torch_multiprocess.py
+  trains each under DDP), so DDP is not asked to look for unused ones."""
   from torch.nn.parallel import DistributedDataParallel
   dev = next(model.parameters()).device
   return DistributedDataParallel(
-      model, device_ids=[dev.index] if dev.type == 'cuda' else None)
+      model, device_ids=[dev.index] if dev.type == 'cuda' else None,
+      process_group=mesh_lib.batch_group(mesh))
 
 
-def average_plain_grads(params: Iterable[torch.nn.Parameter]) -> None:
-  """Averages over every rank the gradients of the parameters that FSDP
-  does not manage (`REPLICATED_GROUPS`), in one collective."""
+def _average(grads, total, count) -> None:
+  """Replaces each of `grads` by total(its values) / count, the
+  gradients flattened into one tensor for one collective."""
+  flat = total(torch.cat([g.reshape(-1) for g in grads])) / count
+  for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+    g.copy_(part.view_as(g))
+
+
+def average_plain_grads(params: Iterable[torch.nn.Parameter],
+                        mesh) -> None:
+  """Averages over the mesh's batch axes the gradients of the parameters
+  that FSDP does not manage (`REPLICATED_GROUPS`), in one collective."""
   grads = [p.grad for p in params
            if p.grad is not None and not is_sharded(p)]
   if not grads or not mesh_lib.is_distributed():
     return
-  flat = torch.cat([g.reshape(-1) for g in grads])
-  flat = mesh_lib.all_reduce_sum(flat) / mesh_lib.world_size()
-  for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-    g.copy_(part.view_as(g))
+  _average(grads, lambda x: mesh_lib.all_reduce_sum(
+      x, mesh_lib.batch_group(mesh)), mesh_lib.batch_world(mesh))
+
+
+def average_whole_grads(params: Mapping[str, torch.nn.Parameter],
+                        tensor: tensor_lib.TensorGroup) -> None:
+  """Averages over the tensor group the gradients (this rank's part, under
+  FSDP) of the parameters every rank of it holds whole
+  (`tensor_lib.split_segments`), in one collective, summed in float32."""
+  grads = [local(p.grad) for name, p in params.items()
+           if p.grad is not None and tensor_lib.split_segments(name) is None]
+  if grads:
+    _average(grads, lambda x: tensor_lib._sum(x, tensor), tensor.size)

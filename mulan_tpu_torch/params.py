@@ -18,6 +18,7 @@ import torch
 
 from mulan_tpu_torch.models import make_model
 from mulan_tpu_torch.models.config import ModelConfig
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 
 # Layers the JAX package zero-initializes (so a fresh block is the identity).
 ZERO_INIT = ('cond_proj', 'conv2', 'proj_out', 'conv_out', 'dense_out_a')
@@ -59,11 +60,13 @@ def _convert(path: str, value: np.ndarray):
       np.ascontiguousarray(value), dtype=torch.float32)
 
 
-def from_flax(flat: Mapping[str, np.ndarray]) -> dict:
+def from_flax(flat: Mapping[str, np.ndarray], tensor=None) -> dict:
   """Flattened flax params (`flatten_dict(params, sep='/')`, top keys
-  score_model / encoder_model / gamma) -> the port's state_dict."""
-  return dict(_convert(path, np.asarray(value))
-              for path, value in flat.items())
+  score_model / encoder_model / gamma) -> the port's state_dict; with a
+  `tensor` group (`parallel/tensor.py`), this rank's slices of it."""
+  return tensor_lib.take_state(
+      dict(_convert(path, np.asarray(value)) for path, value in flat.items()),
+      tensor)
 
 
 def _export(name: str, value: np.ndarray):
@@ -91,9 +94,11 @@ def _export(name: str, value: np.ndarray):
   return '/'.join([*mods, leaf]), np.ascontiguousarray(value)
 
 
-def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+def to_flax(state: Mapping[str, torch.Tensor], tensor=None) -> dict:
   """The port's state_dict -> flattened flax params (`/`-joined paths,
-  float32 numpy), the inverse of `from_flax`."""
+  float32 numpy), the inverse of `from_flax`: with a `tensor` group the
+  rank's slices gathered whole (a collective), the one-process tree."""
+  state = tensor_lib.gather_state(state, tensor)
   return dict(_export(name, value.detach().cpu().float().numpy())
               for name, value in state.items())
 

@@ -13,14 +13,16 @@ sampling run on the EMA parameters and are deterministic.
 
 Under `torch.distributed` the experiment runs on a mesh, as JAX's runs on
 its device mesh (`parallel/mesh.py`): ('data',) with DDP, or ('data',
-'fsdp') with FSDP2 (`training.fsdp` ranks a group). Each rank takes its
-shard of the data in batches of the global batch size over the world, and
-computes exactly its rows of what one process computes on the global batch
-(the ranks' batches concatenated in rank order): the noise and the dropout
-masks are the global batch's, cut to its rows (`parallel.mesh.Rows`);
-gradients are averaged over the ranks, the logged scalars are the global
-means and the samples are gathered. Tensor parallelism (`training.tp`) is
-not ported yet (ROADMAP.md Queue A, item 3.2: the next slice).
+'fsdp') with FSDP2 (`training.fsdp` ranks a group), either with a 'tensor'
+axis of `training.tp` ranks (`parallel/tensor.py`: each rank of a tensor
+group holds its channels of the score UNet and the group shares its
+rows). Each rank takes its shard of the data in batches of the global
+batch size over the batch axes, and computes exactly its rows of what one
+process computes on the global batch (the batch coordinates' batches
+concatenated in order): the noise and the dropout masks are the global
+batch's, cut to its rows (`parallel.mesh.Rows`) and, in the score UNet,
+to its channels; gradients are averaged over the batch axes, the logged
+scalars are the global means and the samples are gathered.
 
 Randomness is keyed as JAX's is: the noise of train step s (the diffusion
 noise and the dropout seed) is a function of (`training.seed`, s) alone,
@@ -47,6 +49,7 @@ from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.configs import Config
 from mulan_tpu_torch.models import build_model, resolve_device
 from mulan_tpu_torch.parallel import mesh as mesh_lib
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 from mulan_tpu_torch.parallel import wrap
 from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
@@ -69,16 +72,18 @@ def step_key(seed: int, stream: int, *index: int) -> int:
 def create_train_state(config: Config, device, state=None, mesh=None):
   """(the model in training mode, its TrainState with a fresh two-group
   AdamW) on `device`; `state` replaces the parameters seeded by
-  `training.seed` (a state_dict, e.g. from `params.from_flax`). On a mesh
-  with 'fsdp' the model and its EMA are sharded (`parallel/wrap.py`)
-  before the optimizer is made."""
+  `training.seed` (a one-process state_dict, e.g. from
+  `params.from_flax`). On a mesh with 'tensor' the model holds this rank's
+  slices of the score UNet; with 'fsdp' the model and its EMA are sharded
+  (`parallel/wrap.py`) before the optimizer is made."""
   training = config.training
   if state is None:
     state = params_lib.init_params(
         config.model, torch.Generator().manual_seed(training.seed),
         vdm_type=config.vdm_type)
+  tensor = tensor_lib.tensor_group(mesh)
   model = build_model(config.vdm_type, config.model, device=device,
-                      state=state).train()
+                      state=state, tensor=tensor).train()
   ema_model = copy.deepcopy(model).requires_grad_(False).eval()
   if mesh_lib.has_fsdp(mesh):
     wrap.shard_model(model, mesh)
@@ -87,7 +92,8 @@ def create_train_state(config: Config, device, state=None, mesh=None):
       config.optimizer.learning_rate, training.num_steps_lr_warmup,
       training.num_steps_train, config.optimizer.lr_decay)
   optimizer = make_optimizer(model.named_parameters(), config.optimizer,
-                             lr_schedule, config.lr_gamma_network_scale)
+                             lr_schedule, config.lr_gamma_network_scale,
+                             tensor)
   return model, TrainState.create(model, optimizer, ema_model)
 
 
@@ -101,33 +107,29 @@ def mean_scalars(all_scalars: List[Dict[str, torch.Tensor]]
   return {'eval_' + k: v for k, v in zip(all_scalars[0], means)}
 
 
-def _not_ported(what: str, entry: str):
-  return NotImplementedError(f'{what} is not ported yet; see ROADMAP.md '
-                             f'Queue A, {entry}')
-
-
 class Experiment:
   """Train and evaluate the model of `config.vdm_type` on `device` (the
   card unless the caller asks for the CPU). `state` replaces the seeded
   initial parameters (a state_dict, e.g. from `params.from_flax`).
 
   `mesh` (`parallel.mesh.create_mesh`) runs it across the processes of
-  the default group, DDP on ('data',), FSDP2 with 'fsdp'; without one, a
-  process group that is up (or `training.fsdp` > 1) makes the mesh of
-  `training.fsdp` over every rank, as JAX's constructor does."""
+  the default group, DDP on ('data',), FSDP2 with 'fsdp', the score UNet
+  column-parallel with 'tensor'; without one, a process group that is up
+  (or `training.fsdp` or `training.tp` > 1) makes the mesh of
+  `training.fsdp` and `training.tp` over every rank, as JAX's
+  constructor does."""
 
   def __init__(self, config: Config, *, device='cuda', state=None,
                mesh=None):
     self.config = config
     self.device = resolve_device(device)
     training = config.training
-    if training.tp != 1:
-      raise _not_ported('tensor parallelism (training.tp)',
-                        'item 3.2 (the next slice)')
-    if mesh is None and (mesh_lib.is_distributed() or training.fsdp != 1):
-      mesh = mesh_lib.create_mesh(fsdp=training.fsdp,
+    if mesh is None and (mesh_lib.is_distributed() or training.fsdp != 1
+                         or training.tp != 1):
+      mesh = mesh_lib.create_mesh(fsdp=training.fsdp, tp=training.tp,
                                   device_type=self.device.type)
     self.mesh = mesh
+    self.tensor = tensor_lib.tensor_group(mesh)
 
     seed = training.seed
     self.model, self.state = create_train_state(config, self.device, state,
@@ -135,11 +137,12 @@ class Experiment:
     # What a train step calls: DDP on a ('data',) mesh.
     self.train_model = self.model
     if mesh is not None and not mesh_lib.has_fsdp(mesh):
-      self.train_model = wrap.data_parallel(self.model)
+      self.train_model = wrap.data_parallel(self.model, mesh)
     if config.ckpt_restore_dir not in (None, 'None', ''):
       ckpt_lib.restore_partial_into(self.state, config.ckpt_restore_dir)
 
-    self.train_iter, self.eval_iter = data_lib.create_dataset(config, seed)
+    self.train_iter, self.eval_iter = data_lib.create_dataset(config, seed,
+                                                              mesh)
     self.train_rows = self.rows(training.batch_size_train)
     self.eval_rows = self.rows(training.batch_size_eval)
 
@@ -151,7 +154,8 @@ class Experiment:
     one)."""
     if self.mesh is None:
       return None
-    return mesh_lib.row_window(mesh_lib.local_batch_size(global_batch))
+    return mesh_lib.row_window(mesh_lib.local_batch_size(
+        global_batch, mesh_lib.batch_world(self.mesh)), self.mesh)
 
   # -- loss and steps -----------------------------------------------------------
 
@@ -205,7 +209,9 @@ class Experiment:
     self.state.optimizer.zero_grad()
     bpd.backward()
     if mesh_lib.has_fsdp(self.mesh):
-      wrap.average_plain_grads(self.state.params.values())
+      wrap.average_plain_grads(self.state.params.values(), self.mesh)
+    if self.tensor is not None:
+      wrap.average_whole_grads(self.state.params, self.tensor)
     self.state.apply_gradients(self.config.optimizer.ema_rate)
     return self._global({k: v.detach() for k, v in scalars.items()})
 
@@ -213,7 +219,7 @@ class Experiment:
     """The scalars' means over the ranks on a mesh (the global batch's
     means: every rank holds as many rows)."""
     return scalars if self.mesh is None else mesh_lib.mean_over_ranks(
-        scalars)
+        scalars, self.mesh)
 
   @torch.no_grad()
   def eval_step(self, batch, index: int = 0,
@@ -323,8 +329,9 @@ class Experiment:
                                        self.generator, rows)
     for i in range(T):
       z = model.sample(i, T, z, generator=self.generator, rows=rows)
-    images = mesh_lib.all_gather_rows(model.generate_x(
-        z, self.generator, rows=rows).to(torch.uint8)).cpu().numpy()
+    images = model.generate_x(z, self.generator, rows=rows)
+    images = mesh_lib.all_gather_rows(images.to(torch.uint8),
+                                      mesh=self.mesh).cpu().numpy()
     grid = image_grid(images)
     self.writer.write_images(self.state.step, {'samples': grid[None]})
     return grid

@@ -11,7 +11,8 @@ What the optax chain does, written for PyTorch:
     warm-up from 0 the first update has learning rate 0;
   * optional clipping to a global norm in optax's form: g * max / |g| only
     when |g| >= max (`torch.nn.utils.clip_grad_norm_` adds 1e-6 to |g|);
-    under FSDP |g| is taken over every rank's shards.
+    under FSDP |g| is taken over every rank's shards, and under tensor
+    parallelism over every rank's slices, each element once.
 optax's `-lr (adam + wd p)` equals `torch.optim.AdamW`'s decoupled
 `p *= 1 - lr wd` followed by the Adam step, so AdamW runs each group. The
 `fused` and `stacked` variants are not ported (ROADMAP.md Queue A).
@@ -24,6 +25,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 from mulan_tpu_torch.parallel.wrap import is_sharded, local
 
 TOP_LEVEL_GROUPS = ('encoder_model', 'score_model', 'gamma')
@@ -56,10 +58,21 @@ def decayed(name: str) -> bool:
   return name.rsplit('.', 1)[-1] != 'bias'
 
 
-def global_norm(grads) -> torch.Tensor:
-  """|g| over all the gradients. A sharded (FSDP) gradient's local tensor
-  is one rank's part of it: its squared norm is summed over the mesh
-  dimensions it is sharded on. Plain gradients are whole on every rank."""
+def global_norm(grads, split=None, tensor=None) -> torch.Tensor:
+  """|g| over all the gradients, each element counted once. A sharded
+  (FSDP) gradient's local tensor is one rank's part of it: its squared
+  norm is summed over the mesh dimensions it is sharded on. With a
+  `tensor` group, the gradients flagged in `split` are a rank's slices of
+  the tensor group's (`parallel/tensor.py`): their squared norm is summed
+  over the group too, while the others are whole on every rank of it.
+  Plain gradients are whole over the batch axes."""
+  if tensor is not None:
+    flags = list(split)
+    whole = global_norm([g for g, f in zip(grads, flags) if not f])
+    sliced = global_norm([g for g, f in zip(grads, flags) if f]).square()
+    return torch.sqrt(whole.square() + tensor_lib._sum(sliced, tensor))
+  if not grads:
+    return torch.zeros(())
   sharded = [g for g in grads if is_sharded(g)]
   plain = [g for g in grads if not is_sharded(g)]
   if not sharded:
@@ -75,10 +88,12 @@ def global_norm(grads) -> torch.Tensor:
   return torch.sqrt(sq)
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, split=None,
+                         tensor=None) -> torch.Tensor:
   """Scales `grads` in place by max_norm / |g| when |g| >= max_norm;
-  returns |g| (a tensor, so the host does not wait for the device)."""
-  norm = global_norm(grads)
+  returns |g| (a tensor, so the host does not wait for the device);
+  `split` and `tensor` as `global_norm`'s."""
+  norm = global_norm(grads, split, tensor)
   torch._foreach_mul_([local(g) for g in grads],
                       torch.where(norm < max_norm, 1.0, max_norm / norm))
   return norm
@@ -93,15 +108,19 @@ class TwoGroupAdamW:
   `torch.optim`'s multi-tensor kernels refuse to mix the two. `state_dict`
   and `load_state_dict` speak the unsplit layout, the one a single process
   has, so that a checkpoint moves between world sizes and `training.fsdp`.
+  With a `tensor` group the parameters are a rank's slices: AdamW acts on
+  them elementwise, the clipping norm counts each element once, and the
+  state's names (`names`) let a checkpoint gather the moments whole.
   """
 
   def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                lr_schedule: Callable[[int], float], *, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 1e-4, gamma_lr_scale: float = 1.0,
-               clip_norm: Optional[float] = None):
+               clip_norm: Optional[float] = None, tensor=None):
     buckets, unsplit = {}, {}
-    self.params = []
+    self.params, self._param_names = [], []
+    self.tensor = tensor
     for name, p in named_params:
       top = name.split('.', 1)[0]
       if top not in TOP_LEVEL_GROUPS:
@@ -111,6 +130,7 @@ class TwoGroupAdamW:
           (name, p))
       unsplit.setdefault((scale, decayed(name)), []).append(name)
       self.params.append(p)
+      self._param_names.append(name)
     keys = sorted(buckets)
     groups = [dict(params=[p for _, p in buckets[key]], lr_scale=key[0],
                    weight_decay=weight_decay if key[1] else 0.0)
@@ -121,6 +141,10 @@ class TwoGroupAdamW:
     self._names = [name for key in keys for name, _ in buckets[key]]
     self._unsplit = [unsplit[key] for key in sorted(unsplit)]
     self._split = any(key[2] for key in keys)
+    # Which parameters are a tensor rank's slices, in `params` order.
+    self._tensor_split = [tensor is not None and
+                          tensor_lib.split_segments(name) is not None
+                          for name in self._param_names]
     self.lr_schedule = lr_schedule
     self.clip_norm = clip_norm
     self.count = 0
@@ -128,7 +152,8 @@ class TwoGroupAdamW:
   def step(self) -> None:
     """One update from the parameters' `.grad`, at lr_schedule(count)."""
     if self.clip_norm is not None:
-      clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
+      clip_by_global_norm_([p.grad for p in self.params], self.clip_norm,
+                           self._tensor_split, self.tensor)
     lr = self.lr_schedule(self.count)
     for group in self.adamw.param_groups:
       group['lr'] = lr * group['lr_scale']
@@ -137,6 +162,11 @@ class TwoGroupAdamW:
 
   def zero_grad(self) -> None:
     self.adamw.zero_grad(set_to_none=True)
+
+  @property
+  def names(self):
+    """The parameters' names in the order of `state_dict`'s indices."""
+    return [name for group in self._unsplit for name in group]
 
   def state_dict(self) -> Dict[str, Any]:
     """The AdamW state as `torch.optim` gives it, in the unsplit layout."""
@@ -179,12 +209,14 @@ class TwoGroupAdamW:
 
 
 def make_optimizer(named_params, optimizer_config, lr_schedule,
-                   gamma_lr_scale: float = 1.0) -> TwoGroupAdamW:
-  """The counterpart of `make_optimizer` for a `configs.OptimizerConfig`."""
+                   gamma_lr_scale: float = 1.0, tensor=None) -> TwoGroupAdamW:
+  """The counterpart of `make_optimizer` for a `configs.OptimizerConfig`;
+  `tensor` as `TwoGroupAdamW`'s."""
   if optimizer_config.name != 'adamw':
     raise ValueError(f'unknown optimizer: {optimizer_config.name!r}')
   args = optimizer_config.args
   return TwoGroupAdamW(named_params, lr_schedule, b1=args.b1, b2=args.b2,
                        eps=args.eps, weight_decay=args.weight_decay,
                        gamma_lr_scale=gamma_lr_scale,
-                       clip_norm=optimizer_config.gradient_clip_norm)
+                       clip_norm=optimizer_config.gradient_clip_norm,
+                       tensor=tensor)

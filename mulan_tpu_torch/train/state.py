@@ -10,9 +10,12 @@ one), so a step holds no second copy of any of them.
 
 Under FSDP the EMA model is sharded as the model is (`parallel/wrap.py`):
 each rank lerps its shards of the EMA towards its shards of the
-parameters. `state_dict()` gathers the whole tensors (a collective: every
-rank calls it), so a checkpoint is the same file at every world size, and
-`load_state_dict` lays whole tensors out as this state's are.
+parameters; under tensor parallelism each rank holds its slices of the
+score UNet's (`parallel/tensor.py`, the optimizer's `tensor` group).
+`state_dict()` gathers the whole tensors (a collective: every rank calls
+it), so a checkpoint is the same file at every world size, `training.fsdp`
+and `training.tp`, and `load_state_dict` lays whole tensors out as this
+state's are.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from mulan_tpu_torch.parallel import tensor as tensor_lib
 from mulan_tpu_torch.parallel.wrap import full, is_sharded, local, shard_like
 from mulan_tpu_torch.train.optimizer import TwoGroupAdamW
 
@@ -55,16 +59,31 @@ class TrainState:
                          1.0 - ema_rate)
     self.step += 1
 
+  def _whole(self, name: str, value: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of entry `name` (gathered over FSDP's shards and
+    the tensor group's slices)."""
+    return tensor_lib.gather_tensor(name, full(value),
+                                    self.optimizer.tensor)
+
+  def _mine(self, name: str, value: torch.Tensor, like: torch.Tensor):
+    """The whole tensor `value` of entry `name` laid out as `like`."""
+    return shard_like(tensor_lib.take_tensor(name, value,
+                                             self.optimizer.tensor), like)
+
   def state_dict(self) -> Dict[str, Any]:
     """{step, params, ema_params, opt_state}: the tensors themselves (no
     copies; whole tensors gathered from sharded ones), the optimizer's
     state as `torch.optim` gives it."""
     adamw = self.optimizer.state_dict()
-    adamw['state'] = {i: {k: full(v) for k, v in st.items()}
+    names = self.optimizer.names
+    adamw['state'] = {i: {k: v if k == 'step' else self._whole(names[i], v)
+                          for k, v in st.items()}
                       for i, st in adamw['state'].items()}
     return {'step': self.step,
-            'params': {k: full(p.detach()) for k, p in self.params.items()},
-            'ema_params': {k: full(p) for k, p in self.ema_params.items()},
+            'params': {k: self._whole(k, p.detach())
+                       for k, p in self.params.items()},
+            'ema_params': {k: self._whole(k, p)
+                           for k, p in self.ema_params.items()},
             'opt_state': {'count': self.optimizer.count, 'adamw': adamw}}
 
   @torch.no_grad()
@@ -77,26 +96,30 @@ class TrainState:
       self.load_tensors(name, state[name])
     self.optimizer.load_state_dict(state['opt_state']['adamw'])
     adamw = self.optimizer.adamw
+    names = {id(p): n for n, p in self.params.items()}
     for p in self.optimizer.params:  # whole moments to the params' shards
-      if is_sharded(p) and p in adamw.state:
-        adamw.state[p] = {k: v if k == 'step' else shard_like(v, p)
-                          for k, v in adamw.state[p].items()}
+      if p in adamw.state and (is_sharded(p) or tuple(
+          adamw.state[p]['exp_avg'].shape) != tuple(p.shape)):
+        adamw.state[p] = {k: v if k == 'step' else self._mine(
+            names[id(p)], v, p) for k, v in adamw.state[p].items()}
     self.optimizer.count = int(state['opt_state']['count'])
     self.step = int(state['step'])
 
   @torch.no_grad()
   def load_tensors(self, name: str, tensors: Dict[str, torch.Tensor]) -> None:
-    """Copies `tensors` into the 'params' or 'ema_params' in place; the
-    names and shapes must be ours."""
+    """Copies `tensors` (whole) into the 'params' or 'ema_params' in place;
+    the names and shapes must be ours (this rank's slices of them under
+    tensor parallelism)."""
     ours = getattr(self, name)
     _check_keys(name, tensors, ours)
+    mine = tensor_lib.take_state(tensors, self.optimizer.tensor)
     for key, value in ours.items():
-      if tuple(tensors[key].shape) != tuple(value.shape):
+      if tuple(mine[key].shape) != tuple(value.shape):
         raise ValueError(f'{name}[{key!r}]: shape '
                          f'{tuple(tensors[key].shape)} in the checkpoint, '
                          f'{tuple(value.shape)} here')
     for key, value in ours.items():
-      local(value).copy_(local(shard_like(tensors[key], value)))
+      local(value).copy_(local(shard_like(mine[key], value)))
 
 
 def _check_keys(what: str, got, want) -> None:

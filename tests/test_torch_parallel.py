@@ -232,12 +232,12 @@ def test_init_distributed_refuses_without_torchrun_or_a_card(monkeypatch):
 
 
 def test_experiment_refuses_tp_and_an_fsdp_mesh_of_one_process():
-  with pytest.raises(NotImplementedError, match='the next slice'):
-    Experiment(configs.replace(configs.tiny_synthetic(),
-                               training={'tp': 2}), device='cpu')
-  with pytest.raises(AssertionError):  # JAX's divisibility assert
-    Experiment(configs.replace(configs.tiny_synthetic(),
-                               training={'fsdp': 2}), device='cpu')
+  # JAX's divisibility assert: one process holds no tensor or fsdp group
+  # of 2 (tensor parallelism itself: test_torch_tensor_parallel.py).
+  for training in ({'tp': 2}, {'fsdp': 2}, {'fsdp': 2, 'tp': 2}):
+    with pytest.raises(AssertionError):
+      Experiment(configs.replace(configs.tiny_synthetic(),
+                                 training=training), device='cpu')
 
 
 def test_global_norm_of_plain_gradients_is_unchanged():

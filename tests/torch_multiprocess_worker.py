@@ -20,6 +20,24 @@ rank order). Then every rank joins the group on P1 and runs, on its rows,
      environment.
 `hsdp` (world 4): one step on a 2 x 2 ('data', 'fsdp') mesh against one
 process.
+`tp` (world 2, training.tp = 2, one batch coordinate): rank 0 first runs
+the one-process references; then on a ('data', 'tensor') mesh
+  t: 3 train steps (the split and whole leaves checked), 2 steps, a
+     checkpoint, a fresh restore and a third (bit for bit), the checkpoint
+     restored into one process;
+  u: the sparse and dense VLB, the ancestral sampler, an RK4 likelihood
+     and a DoPri5 solve;
+  v: two steps of a VDM, an imagenet32-cut (MuLAN-epsilon, 32 channels)
+     and an 'ldm' MuLAN;
+  j: with <workdir>/jax_case.pt (written by the test), one step from its
+     parameters, batch and noise, its state and gradients saved for the
+     test to hold against JAX's step;
+  c: `main --mode train --multiprocess --config.training.tp=2` on P2, its
+     checkpoint exported as a `ckpt-N.flax` and `eval_bpd --multiprocess
+     --config.training.tp=2` reading the export on P3.
+`tp_hsdp` (world 4, training.fsdp = 2 x training.tp = 2, two batch
+coordinates): two steps, the checkpoint into one process, and u's
+evaluators against one process on the global batch.
 
 Rank 0 compares with its references and prints `CHECK <name> OK`; every
 rank prints `AGREE <name> <value>` for values that must be equal across
@@ -51,6 +69,7 @@ from mulan_tpu_torch.evals import nll_ode, vlb  # noqa: E402
 from mulan_tpu_torch.models import build_model, layers  # noqa: E402
 from mulan_tpu_torch.ops import ode  # noqa: E402
 from mulan_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from mulan_tpu_torch.parallel import tensor as tensor_lib  # noqa: E402
 from mulan_tpu_torch.parallel import wrap  # noqa: E402
 from mulan_tpu_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from mulan_tpu_torch.train.loop import Experiment  # noqa: E402
@@ -213,6 +232,312 @@ def references(world):
                           rtol=1e-2, atol=1e-2)
   ref['dopri5'] = (sol.y, sol.num_steps, sol.num_rejected, sol.nfe)
   return ref
+
+
+# -- tensor parallelism: modes tp and tp_hsdp ------------------------------------
+
+TP = 2
+TP_STEPS = 3
+# Two steps of each (the first update has lr 0), against one process.
+TP_VARIANTS = {
+    'vdm': dict(vdm_type='vdm', model={'gamma_type': 'learnable_nnet',
+                                       'z_conditioning': False}),
+    'in32_cut': dict(vdm_type='mulan_epsilon', model={'sm_n_embd': 32}),
+    'ldm': dict(model=VARIANTS['v1']),
+}
+
+
+def tp_config(fsdp=1):
+  return configs.replace(train_config(fsdp=fsdp), training={'tp': TP})
+
+
+def variant_config(cfg, name):
+  spec = dict(TP_VARIANTS[name])
+  return configs.replace(cfg, model=spec.pop('model', {}), **spec)
+
+
+def batch_world(world):
+  return world // TP
+
+
+def tp_references(world, hsdp: bool):
+  """Rank 0's one-process runs on the global batches of `world` // TP
+  batch coordinates (for `tp_hsdp`, two steps and no variants)."""
+  bw = batch_world(world)
+  cfg = train_config()
+  batches = global_batches(cfg, bw, 2 if hsdp else TP_STEPS)
+  ex = Experiment(cfg, device='cpu')
+  ref = {'bpd': [], 'state': {}}
+  for s, batch in enumerate(batches):
+    ref['bpd'].append(float(ex.train_step(batch)['bpd']))
+    ref['state'][s + 1] = {k: v.clone() for k, v in full_state(ex).items()}
+  model = eval_models(cfg)
+  evals = [concat([eval_batches(cfg, r, bw, 2)[i] for r in range(bw)])
+           for i in range(2)]
+  ref['sparse'] = vlb.eval_bpd_sparse(
+      model, evals, generator=torch.Generator().manual_seed(0))
+  ref['dense'] = vlb.eval_bpd_dense(
+      model, evals, n_timesteps=4, generator=torch.Generator().manual_seed(0))
+  from mulan_tpu_torch.evals import harness
+  ref['samples'] = harness.random_samples(
+      model, 4 * bw, T=2, generator=torch.Generator().manual_seed(0))
+  ocfg = ode_config()
+  omodel = eval_models(ocfg)
+  images = torch.as_tensor(evals[0]['images'])
+  for solver in ('rk4', 'dopri5'):
+    ref[solver] = tp_likelihood(omodel, solver)(images, 7)
+  for name in () if hsdp else TP_VARIANTS:
+    vcfg = variant_config(cfg, name)
+    vex = Experiment(vcfg, device='cpu')
+    ref[name] = ([float(vex.train_step(b)['bpd'])
+                  for b in global_batches(vcfg, bw, 2)], full_state(vex))
+  return ref
+
+
+def tp_likelihood(model, solver, mesh=None):
+  odeint = (functools.partial(ode.odeint_rk4, num_steps=2) if solver == 'rk4'
+            else ode.odeint_dopri5)
+  return nll_ode.make_ode_likelihood_fn(model, rtol=1e-2, atol=1e-2,
+                                        odeint=odeint, mesh=mesh)
+
+
+def check_tp_layout(ex, rank):
+  """A rank holds 1/TP of every split score-UNet leaf; the encoder, the
+  schedule network and conv_out are whole, and their gradients alike on
+  both ranks of the tensor group."""
+  split = whole = 0
+  full_shapes = {k: v.shape for k, v in params.init_params(
+      ex.config.model, torch.Generator().manual_seed(0)).items()}
+  for name, p in ex.state.params.items():
+    local = wrap.local(p)
+    if tensor_lib.split_segments(name) is None:
+      assert tuple(local.shape) == tuple(full_shapes[name]), name
+      assert name.startswith(('encoder_model.', 'gamma.',
+                              'score_model.conv_out.')), name
+      both = tensor_lib._gather_parts(p.grad, ex.state.optimizer.tensor)
+      assert torch.equal(both[0], both[1]), name
+      whole += 1
+    else:
+      assert local.shape[0] * TP == full_shapes[name][0], name
+      assert tuple(local.shape[1:]) == tuple(full_shapes[name][1:]), name
+      split += 1
+  assert split > 0 and whole > 0
+  agree('tp_layout', [split, whole])
+  if rank == 0:
+    log('CHECK tp_layout OK', json.dumps([split, whole]))
+
+
+def check_tp_train(ref, rank, world, workdir):
+  cfg = tp_config()
+  bw = batch_world(world)
+  batches = rank_batches(cfg, rank // TP, bw, TP_STEPS)
+  states = {}
+
+  def after(ex, step):
+    states[step] = {k: v.clone() for k, v in full_state(ex).items()}
+    if step == 1:
+      check_tp_layout(ex, rank)
+  ex, bpds = run_train(cfg, batches, TP_STEPS, rank, after)
+  assert ex.mesh.mesh_dim_names == ('data', 'tensor'), ex.mesh
+  assert (mesh_lib.batch_rank(ex.mesh),
+          mesh_lib.batch_world(ex.mesh)) == (rank // TP, bw)
+  agree('tp_bpd', bpds)
+  if rank == 0:
+    assert_bpds(bpds[:1], ref['bpd'][:1], 'tp super-step bpd')
+    assert_close_state(states[1], ref['state'][1], 'tp super-step state')
+    log('CHECK tp_super_step_matches_one_process OK')
+    assert_bpds(bpds, ref['bpd'], 'tp bpd')
+    for step in (2, 3):
+      assert_close_state(states[step], ref['state'][step],
+                         f'tp state {step}')
+    log('CHECK tp_matches_one_process OK')
+  # Two steps, a checkpoint, a fresh restore and the third.
+  ckpt = ckpt_lib.CheckpointManager(os.path.join(workdir, 'tp_ckpts'))
+  first, _ = run_train(cfg, batches, 2, rank)
+  ckpt.save(first.state.step, first.state)
+  del first
+  second = Experiment(cfg, device='cpu')
+  ckpt.restore(second.state)
+  second.train_step(batches[2])
+  resumed = full_state(second)
+  if rank == 0:
+    for k, v in states[TP_STEPS].items():
+      assert torch.equal(resumed[k], v), k
+    log('CHECK tp_resume_bit_for_bit OK')
+  return ckpt.path(2), second.mesh
+
+
+def check_tp_evals(ref, rank, world, mesh):
+  """The evaluators on a rank's rows (of `mesh`'s batch coordinates) and
+  tensor slices, against one process on the global batch."""
+  tensor = tensor_lib.tensor_group(mesh)
+  from mulan_tpu_torch.evals import harness
+  bw = batch_world(world)
+  cfg = train_config()
+  state = params.init_params(cfg.model, torch.Generator().manual_seed(0),
+                             perturb_zero_init=0.02)
+  model = build_model(cfg.vdm_type, cfg.model, device='cpu', state=state,
+                      tensor=tensor)
+  evals = eval_batches(cfg, rank // TP, bw, 2)
+  sparse = vlb.eval_bpd_sparse(model, evals,
+                               generator=torch.Generator().manual_seed(0),
+                               mesh=mesh)
+  dense = vlb.eval_bpd_dense(model, evals, n_timesteps=4,
+                             generator=torch.Generator().manual_seed(0),
+                             mesh=mesh)
+  rows = mesh_lib.row_window(4, mesh)
+  images, z0 = harness.random_samples(
+      model, 4, T=2, generator=torch.Generator().manual_seed(0), rows=rows)
+  z0 = mesh_lib.all_gather_rows(z0, mesh=mesh)
+  ocfg = ode_config()
+  ostate = params.init_params(ocfg.model, torch.Generator().manual_seed(0),
+                              perturb_zero_init=0.02)
+  omodel = build_model(ocfg.vdm_type, ocfg.model, device='cpu',
+                       state=ostate, tensor=tensor)
+  b = len(evals[0]['images'])
+  solved = {}
+  for solver in ('rk4', 'dopri5'):
+    log_p, _, _, stats = tp_likelihood(omodel, solver, mesh)(
+        torch.as_tensor(evals[0]['images']), 7,
+        rows=mesh_lib.row_window(b, mesh))
+    solved[solver] = (mesh_lib.all_gather_rows(log_p, mesh=mesh),
+                      stats['nfe'])
+  agree('tp_evals', [sparse, dense, solved['rk4'][1], solved['dopri5'][1]])
+  if rank == 0:
+    np.testing.assert_allclose(sparse, ref['sparse'], rtol=1e-5)
+    np.testing.assert_allclose(dense, ref['dense'], rtol=1e-5)
+    torch.testing.assert_close(z0, ref['samples'][1], rtol=1e-5, atol=1e-5)
+    for solver in ('rk4', 'dopri5'):
+      want_p, _, _, want_stats = ref[solver]
+      assert solved[solver][1] == want_stats['nfe'], (solver, solved)
+      torch.testing.assert_close(solved[solver][0], want_p, rtol=1e-4,
+                                 atol=1e-3)
+    log('CHECK tp_evals_match_one_process OK',
+        json.dumps({s: v[1] for s, v in solved.items()}))
+
+
+def check_tp_variants(ref, rank, world):
+  bw = batch_world(world)
+  for name in TP_VARIANTS:
+    cfg = variant_config(tp_config(), name)
+    ex, bpds = run_train(cfg, rank_batches(cfg, rank // TP, bw, 2), 2, rank)
+    state = full_state(ex)
+    agree(f'tp_variant_{name}', bpds)
+    if rank == 0:
+      assert_bpds(bpds, ref[name][0], f'tp {name} bpd')
+      assert_close_state(state, ref[name][1], f'tp {name} state')
+  if rank == 0:
+    log('CHECK tp_variants_match_one_process OK')
+
+
+def check_tp_jax_case(rank, workdir):
+  """One step from the test's parameters, batch and noise (JAX's
+  `test_tp_training_matches_dp` setting: no dropout); rank 0 saves the
+  whole parameters and gradients after it."""
+  path = os.path.join(workdir, 'jax_case.pt')
+  if not os.path.exists(path):
+    return
+  case = torch.load(path, weights_only=False)
+  cfg = configs.replace(tp_config(), model=case['model'],
+                        training=case['training'],
+                        optimizer=case['optimizer'])
+  ex = Experiment(cfg, device='cpu', state=case['state'])
+  bpd = float(ex.train_step(case['batch'], noise=case['noise'])['bpd'])
+  tensor = ex.state.optimizer.tensor
+  grads = {k: tensor_lib.gather_tensor(k, p.grad, tensor)
+           for k, p in ex.state.params.items()}
+  state = ex.state.state_dict()
+  if rank == 0:
+    torch.save({'bpd': bpd, 'params': state['params'], 'grads': grads},
+               os.path.join(workdir, 'jax_case_out.pt'))
+    log('CHECK tp_jax_case_written OK')
+
+
+def check_tp_clis(ports, rank, world, workdir):
+  from mulan_tpu_torch import compat, eval_bpd, main
+  os.environ['COMPOSER_RUN_NAME'] = 'tp'
+  real_draw = Experiment.draw_samples
+  Experiment.draw_samples = functools.partialmethod(real_draw, T=2)
+  try:
+    _, out = run_cli(ports[1], rank, world, [
+        '--mode=train', '--multiprocess', '--device=cpu',
+        '--config=tiny_synthetic', f'--workdir={workdir}/tp_cli',
+        '--config.training.num_steps_train=2', f'--config.training.tp={TP}'],
+                     main)
+  finally:
+    Experiment.draw_samples = real_draw
+  ckpts = os.path.join(workdir, 'tp_cli', 'tiny_synthetic',
+                       'tp-num_steps_train=2-tp=2', 'checkpoints')
+  flax_dir = os.path.join(workdir, 'tp_flax')
+  if rank == 0:
+    compat.export_reference_checkpoint(ckpts, flax_dir)
+  bpd, out_eval = run_cli(ports[2], rank, world, [
+      '--config=tiny_synthetic', '--multiprocess', '--device=cpu',
+      f'--checkpoint_directory={flax_dir}', '--bpd_eval_method=sparse',
+      f'--config.training.tp={TP}'], eval_bpd)
+  agree('tp_cli_eval_bpd', bpd)
+  if rank == 0:
+    assert sorted(os.listdir(ckpts)) == ['ckpt_2.pt'], os.listdir(ckpts)
+    assert 'train_bpd' in out and out_eval.startswith('Test BPD:'), (
+        out, out_eval)
+  return ckpts, bpd
+
+
+def check_tp_restore_one_process(ref, path, ckpts, cli_bpd, world):
+  """Rank 0, after the group is gone: the tp checkpoint of step 2
+  restores into one process, whose step 3 is the reference's; the CLI's
+  checkpoint evaluates as `eval_bpd --config.training.tp=2` read it."""
+  from mulan_tpu_torch import eval_bpd
+  cfg = train_config()
+  ex = Experiment(cfg, device='cpu')
+  ex.state.load_state_dict(ckpt_lib.load(path))
+  step = ex.state.step
+  batches = global_batches(cfg, batch_world(world), step + 1)
+  if step < len(ref['bpd']):  # the step after the checkpoint
+    bpd = float(ex.train_step(batches[step])['bpd'])
+    assert_bpds([bpd], ref['bpd'][step:step + 1],
+                'one-process step after tp restore')
+    step += 1
+  assert_close_state(full_state(ex), ref['state'][step], 'tp restored state')
+  log('CHECK tp_checkpoint_restores_in_one_process OK')
+  if ckpts is not None:
+    with contextlib.redirect_stdout(io.StringIO()):
+      one = eval_bpd.main(['--config=tiny_synthetic', '--device=cpu',
+                           f'--checkpoint_directory={ckpts}',
+                           '--bpd_eval_method=sparse'])
+    np.testing.assert_allclose(cli_bpd, one, rtol=1e-5)
+    log('CHECK tp_cli_flax_round_trip OK')
+
+
+def run_tp(rank, world, workdir, hsdp: bool):
+  ref = tp_references(world, hsdp) if rank == 0 else None
+  init(rank, world)
+  if hsdp:
+    cfg = tp_config(fsdp=2)
+    bw = batch_world(world)
+    ex, bpds = run_train(cfg, rank_batches(cfg, rank // TP, bw, 2), 2, rank)
+    assert ex.mesh.mesh_dim_names == ('data', 'fsdp', 'tensor'), ex.mesh
+    state = full_state(ex)
+    ckpt = ckpt_lib.CheckpointManager(os.path.join(workdir, 'hsdp_ckpts'))
+    ckpt.save(2, ex.state)
+    check_tp_evals(ref, rank, world, ex.mesh)
+    agree('tp_hsdp_bpd', bpds)
+    if rank == 0:
+      assert_bpds(bpds, ref['bpd'][:2], 'tp hsdp bpd')
+      assert_close_state(state, ref['state'][2], 'tp hsdp state')
+      log('CHECK tp_hsdp_matches_one_process OK')
+    dist.destroy_process_group()
+    if rank == 0:
+      check_tp_restore_one_process(ref, ckpt.path(2), None, None, world)
+    return
+  path, mesh = check_tp_train(ref, rank, world, workdir)
+  check_tp_evals(ref, rank, world, mesh)
+  check_tp_variants(ref, rank, world)
+  check_tp_jax_case(rank, workdir)
+  dist.destroy_process_group()
+  ckpts, bpd = check_tp_clis(PORTS, rank, world, workdir)
+  if rank == 0:
+    check_tp_restore_one_process(ref, path, ckpts, bpd, world)
 
 
 # -- the distributed checks ---------------------------------------------------------
@@ -509,12 +834,15 @@ def main():
   p.add_argument('--world', type=int, required=True)
   p.add_argument('--ports', required=True)
   p.add_argument('--workdir', required=True)
-  p.add_argument('--mode', choices=('pod', 'hsdp'), required=True)
+  p.add_argument('--mode', choices=('pod', 'hsdp', 'tp', 'tp_hsdp'),
+                 required=True)
   args = p.parse_args()
   PORTS.extend(int(x) for x in args.ports.split(','))
   rank, world = args.rank, args.world
   if args.mode == 'hsdp':
     check_hsdp(rank, world)
+  elif args.mode in ('tp', 'tp_hsdp'):
+    run_tp(rank, world, args.workdir, args.mode == 'tp_hsdp')
   else:
     ref = references(world) if rank == 0 else None
     init(rank, world)

@@ -72,9 +72,10 @@ def main() -> None:
   stream = torch.cuda.current_stream(dev).cuda_stream
   threshold = dropout.threshold16(RATE)
   scale = float(torch.tensor(dropout.keep_scale(RATE), dtype=torch.float32))
-  # Trees since K6 took a rank's element offset pass first_index too.
-  offset = ((0,) if len(_build._SIGNATURES['mulan_dropout_mask']) == 9
-            else ())
+  # Trees since K6 took a rank's element offset pass first_index too, and
+  # those since it took a channel window its run and row stride.
+  offset = {8: (), 9: (0,), 11: (0, 0, 0)}[
+      len(_build._SIGNATURES['mulan_dropout_mask'])]
   parts = {
       'wrapper': (lambda: dropout.dropout_mask(1234, 5, SHAPE, RATE, dtype,
                                                dev), 200),
