@@ -82,8 +82,20 @@ K6 and K7 masks at its channel window against plain and against the
 global mask's window, K1-K3 on 'sm90'; three ranks running a GroupNorm
 whose groups straddle them (K8 and its backward on the gathered
 channels) against the plain whole one; K6, K7 and K8 (forward and
-backward) timed at a rank's window. Every phase logs its wall time.
-Every check raises on failure.
+backward) timed at a rank's window. Last (phase 18), the remaining
+surface: a seeded split written as `npz:<tmp>/cifar10_aug_with_channel`
+through 4 flagship steps of `train_and_evaluate`, the config built as
+`main` builds it with `--config.training.profile=True --nan_guard`: each
+train batch holds per-image permutations of its source images' pixels,
+the aug bit's share is near 0.875 and reaches `loss_fn` as the
+conditioning, each step launches what `expected_launches` says, and the
+profile hook's trace of step 1 holds exactly that step's kernel events
+by name; a NaN state is refused naming 'bpd' at step 1, and the steps are
+timed with and without the guard; rank 0's writer is made; the encoder's
+logits of two eval batches (`analysis.get_logits`, K1 counted) against
+the plain model within a bound from bf16 attention rounding, and the γ
+grids of `noise_schedule_per_embedding` bit for bit and non-decreasing in
+t. Every phase logs its wall time. Every check raises on failure.
 
 With `--profile` it also profiles one ELBO, one dense-VLB chunk, one train
 step (unfused, fused, with `with_attention`, the VDM's, ImageNet32's and
@@ -174,6 +186,61 @@ TP_GRAD_NORM_RTOL = 1e-3
 # input's gradient (the ranks' bf16 partial gradients summed) by its
 # cosine at GN_ALONE_COS_MIN; the parameters' at GN_BWD_SUM_RTOL.
 TP_GN_RANKS, TP_GN_CHANNELS = 3, 48
+# Phase 18 (the remaining surface): a seeded synthetic split of
+# SURFACE_EXAMPLES train and SURFACE_EXAMPLES // 4 eval images written to
+# `npz:<tmp>/cifar10_aug_with_channel`, so that the train batches are
+# augmented with the channel permutation; the flagship config as `main`
+# builds it with `--config.training.profile=True --nan_guard`, through
+# SURFACE_STEPS steps of `train_and_evaluate` (evaluations after step 1 and
+# at the last, the sampler cut to SAMPLE_STEPS). The aug bit's share is
+# 1 - 0.5^3 in expectation; over SURFACE_STEPS x 128 images its standard
+# deviation is 0.0146, so AUG_SHARE_TOL is ~5 of them. The guard's cost is
+# timed over SURFACE_GUARD_STEPS steps, each way in turns.
+SURFACE_EXAMPLES = 1024
+SURFACE_STEPS = 4
+SURFACE_EVAL_BATCHES = 2
+AUG_SHARE = 1 - 0.5 ** 3
+AUG_SHARE_TOL = 0.07
+SURFACE_GUARD_STEPS = 3
+SURFACE_GUARD_TURNS = 2
+# `analysis.get_logits` over SURFACE_LOGIT_BATCHES eval batches, K1 in the
+# encoder. Its logits with the kernels against the plain model's: K1 and
+# the plain attention each round the attention's probabilities and output
+# to bf16 where the float32 attention does not. Let delta be the largest
+# change of a logit when the plain model's encoder attention alone runs in
+# float32 (the rounding's whole effect on the logits). Both bf16 attentions
+# lie within about delta of the float32 one, so within 2 delta of each
+# other; LOGITS_BOUND_FACTOR = 4 leaves a factor of 2 for K1's other
+# rounding points (it rounds its unnormalized probabilities and divides by
+# the row sum at the end).
+SURFACE_LOGIT_BATCHES = 2
+LOGITS_BOUND_FACTOR = 4.0
+# Each gamma grid of `noise_schedule_per_embedding` (128 t) is
+# non-decreasing in t up to float32 rounding: gamma = gmin + (gmax - gmin)
+# P(t) / P(1) is evaluated as a sum of five powers of t, whose rounding
+# (a few ulps of 18.3 at 1.2e-7 each) can undo a step of the same size
+# where P'(t) nearly vanishes. The bound is JAX's own test's
+# (`tests/test_analysis.py:32`).
+GAMMA_STEP_TOL = 1e-5
+# The CUDA kernel names (demangled, before the template arguments) of each
+# counted wrapper, for counting a torch.profiler trace's kernel events.
+# K6 and K7 share `dropout_mask`; K4 and K5 launch a reduction after their
+# kernel, which the trace also holds (`sum_partials`, `sum_rows`), as K8's
+# backward does (`gn_swish_bwd_finish`).
+TRACE_KERNEL_NAMES = {
+    'flash_attention': ('flash_fwd_sm90', 'flash_fwd_sm90_d256',
+                        'flash_fwd_simt'),
+    'flash_attention_bwd_dkv': ('flash_bwd_dkv_sm90',
+                                'flash_bwd_dkv_sm90_d256', 'flash_bwd_dkv'),
+    'flash_attention_bwd_dq': ('flash_bwd_dq_sm90', 'flash_bwd_dq_sm90_d256',
+                               'flash_bwd_dq'),
+    'decoder_logprob': ('decoder_logprob_partial',),
+    'decoder_logprob_bwd': ('decoder_logprob_bwd',),
+    'dropout_mask': ('dropout_mask',),
+    'gn_swish': ('gn_swish',),
+    'gn_swish_bwd': ('gn_swish_bwd',),
+}
+
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # limit): a kernel's bound is the larger of its operations over the
@@ -3619,6 +3686,242 @@ def run_tensor_parallel(dev, gen, train_cfg, images, route_totals,
   return paths, numbers, window
 
 
+def trace_kernel_counts(path: str):
+  """({counter: kernel events}, kernel ms) of a torch.profiler Chrome
+  trace: each CUDA kernel event named as TRACE_KERNEL_NAMES names a
+  wrapper's kernel, and the time of every kernel event."""
+  import re
+  with open(path) as f:
+    events = [e for e in json.load(f)['traceEvents']
+              if e.get('cat') == 'kernel']
+  owner = {k: name for name, kernels in TRACE_KERNEL_NAMES.items()
+           for k in kernels}
+  counts = dict.fromkeys(TRACE_KERNEL_NAMES, 0)
+  for e in events:
+    base = re.match(r'\w+', e['name'].replace('(anonymous namespace)::', '')
+                    .removeprefix('void ')).group(0)
+    if base in owner:
+      counts[owner[base]] += 1
+  return counts, sum(e['dur'] for e in events) / 1e3
+
+
+def check_augmented_batches(steps, conditioning, source, seed: int,
+                            batch: int):
+  """Each recorded train batch holds per-image permutations of the pixels
+  of its source images (the train split in the order of the iterator's
+  first permutation, drawn from `seed`); an image whose aug bit is 0 is
+  its source unchanged; the conditioning that reached `loss_fn` is the
+  batch's aug bit. Returns (the bits' share of ones, the share of images
+  that differ from their source)."""
+  import numpy as np
+  order = np.random.default_rng(seed).permutation(len(source))
+  bits, changed = [], []
+  for i, (b, _) in enumerate(steps):
+    images = np.asarray(b['images'])
+    src = source[order[i * batch:(i + 1) * batch]]
+    flat, src_flat = images.reshape(batch, -1), src.reshape(batch, -1)
+    assert (np.sort(flat, axis=1) == np.sort(src_flat, axis=1)).all(), i
+    bit = np.asarray(b['conditioning'])
+    assert bit.dtype == np.uint8 and set(np.unique(bit)) <= {0, 1}, bit
+    differs = (flat != src_flat).any(axis=1)
+    assert not differs[bit == 0].any(), i
+    np.testing.assert_array_equal(np.asarray(conditioning[i]), bit)
+    bits.append(bit)
+    changed.append(differs)
+  return (float(np.concatenate(bits).mean()),
+          float(np.concatenate(changed).mean()))
+
+
+def run_remaining_surface(dev, route_totals):
+  """Phase 18: augmentation, the profile hook, nan_guard, the writer and
+  the analysis primitives on the flagship, as described at
+  SURFACE_EXAMPLES. Returns ({path: launches}, the numbers logged)."""
+  import numpy as np
+  from types import SimpleNamespace
+  from mulan_tpu_torch import analysis, configs, data, params
+  from mulan_tpu_torch import main as main_lib
+  from mulan_tpu_torch.models import build_model, latents, layers
+  from mulan_tpu_torch.train.loop import Experiment
+  from mulan_tpu_torch.utils import metrics
+  numbers, paths = {}, {}
+  tmp = tempfile.TemporaryDirectory()
+  root = os.path.join(tmp.name, 'cifar10_aug_with_channel')
+  os.makedirs(root)
+  args, overrides = main_lib.parser().parse_known_args([
+      '--config=cifar10_conditioned', f'--workdir={tmp.name}', '--nan_guard',
+      f'--config.data.dataset=npz:{root}',
+      '--config.training.profile=True',
+      f'--config.training.num_steps_train={SURFACE_STEPS}',
+      f'--config.training.num_steps_eval={SURFACE_EVAL_BATCHES}',
+      '--config.training.steps_per_logging=1',
+      f'--config.training.steps_per_eval={SURFACE_STEPS}',
+      f'--config.training.steps_per_save={SURFACE_STEPS}'])
+  cfg = main_lib.config_from_args(args, overrides)
+  assert cfg.training.nan_guard and cfg.training.profile, cfg.training
+  shape = cfg.model.image_shape
+  splits = {s: data.synthetic_split(s, shape, seed=SEED,
+                                    examples=SURFACE_EXAMPLES)
+            for s in ('train', 'eval')}
+  for split, (images, labels) in splits.items():
+    np.savez(os.path.join(root, f'{split}.npz'), images=images,
+             labels=labels)
+  state = params.init_params(cfg.model, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+
+  # 1. train_and_evaluate with augmentation, the profile hook and the guard.
+  ex = Experiment(cfg, device=dev, state=state)
+  ex.draw_samples = functools.partial(ex.draw_samples, T=SAMPLE_STEPS)
+  counters = kernel_counters()
+  steps, conditioning = [], []
+  real_step, real_loss = ex.train_step, ex.loss_fn
+
+  def recording_step(batch, noise=None):
+    before = {k: f.launches for k, f in counters.items()}
+    out = real_step(batch, noise)
+    torch.cuda.synchronize()
+    steps.append((batch, {k: f.launches - before[k]
+                          for k, f in counters.items()}))
+    return out
+
+  def recording_loss(model, batch, **kwargs):
+    if kwargs.get('train'):
+      conditioning.append(np.asarray(batch['conditioning']).copy())
+    return real_loss(model, batch, **kwargs)
+  ex.train_step, ex.loss_fn = recording_step, recording_loss
+  workdir = os.path.join(tmp.name, 'run')
+  (_, secs), counts = counted(lambda: timed(
+      lambda: ex.train_and_evaluate(workdir, max_to_keep=1)), route_totals)
+  del ex.train_step, ex.loss_fn
+  want = times(expected_launches(cfg.model, 'train'), SURFACE_STEPS)
+  n_evals = 2  # after step 1 and at the last
+  for path, n in (('eval', n_evals * SURFACE_EVAL_BATCHES),
+                  ('sample', n_evals * SAMPLE_STEPS)):
+    for k, v in times(expected_launches(cfg.model, path), n).items():
+      want[k] += v
+  assert counts == want, (counts, want)
+  assert len(steps) == SURFACE_STEPS, len(steps)
+  per_step = expected_launches(cfg.model, 'train')
+  assert all(c == per_step for _, c in steps), [c for _, c in steps]
+  paths['surface_train'] = counts
+  share, changed = check_augmented_batches(
+      steps, conditioning, splits['train'][0], cfg.training.seed,
+      cfg.training.batch_size_train)
+  numbers['augmentation'] = dict(aug_share=share, want=AUG_SHARE,
+                                 tol=AUG_SHARE_TOL, changed_share=changed)
+  log('surface_train', steps=SURFACE_STEPS, seconds=secs,
+      dataset=cfg.data.dataset.replace(tmp.name, '<tmp>'),
+      launches=counts, step_launches=steps[1][1], **numbers['augmentation'])
+  assert abs(share - AUG_SHARE) <= AUG_SHARE_TOL, share
+
+  # 2. The trace of step 1 (the second): its kernel events against that
+  # step's counted launches.
+  profile_dir = os.path.join(workdir, 'profile')
+  assert os.listdir(profile_dir) == ['train_1.pt.trace.json'], (
+      os.listdir(profile_dir))
+  traced, kernel_ms = trace_kernel_counts(
+      os.path.join(profile_dir, 'train_1.pt.trace.json'))
+  launched = dict(steps[1][1])
+  launched['dropout_mask'] += launched.pop('dropout_mask_batch')
+  numbers['profile'] = dict(trace_kernels=traced, step_kernel_ms=kernel_ms)
+  log('surface_profile', trace='profile/train_1.pt.trace.json',
+      trace_kernels=traced, step_launches=launched, kernel_ms=kernel_ms)
+  assert traced == launched, (traced, launched)
+
+  # 3. nan_guard: a copy of the state with its parameters times NaN raises
+  # naming 'bpd' at step 1; the clean step's time with and without it.
+  guard_cfg = configs.replace(cfg, training={'profile': False})
+  bad = Experiment(guard_cfg, device=dev, state={
+      k: v * float('nan') for k, v in state.items()})
+  try:
+    bad.train(1)
+  except FloatingPointError as e:
+    message = str(e)
+  else:
+    raise AssertionError('nan_guard let a NaN step pass')
+  del bad
+  assert message.startswith("nan_guard: non-finite 'bpd' at substep 0 of "
+                            'the super-step ending at step 1 '), message
+  ms = {True: [], False: []}
+  for _ in range(SURFACE_GUARD_TURNS):
+    for guard in (True, False):
+      ex.config = configs.replace(ex.config, training={'nan_guard': guard})
+      _, s = timed(lambda: ex.train(SURFACE_GUARD_STEPS))
+      ms[guard].append(1e3 * s / SURFACE_GUARD_STEPS)
+  scalars = ex.train_step(ex._train_batch())
+  torch.cuda.synchronize()
+  read_ms = host_ms(lambda: ex._nan_guard(scalars), 20)
+  rng = np.random.default_rng(SEED)
+  source = splits['train'][0]
+  idx = rng.permutation(len(source))[:cfg.training.batch_size_train]
+  aug_ms = host_ms(lambda: data.augment_batch(rng, source[idx], True), 20)
+  gather_ms = host_ms(lambda: source[idx].copy(), 20)
+  numbers['nan_guard'] = dict(
+      message=message, ms_per_step_guard=ms[True],
+      ms_per_step_no_guard=ms[False], guard_read_host_ms=read_ms)
+  numbers['host'] = dict(augment_batch_ms=aug_ms, gather_batch_ms=gather_ms)
+  log('surface_nan_guard', **numbers['nan_guard'])
+  log('surface_host', batch=len(idx), **numbers['host'])
+
+  # 4. The writer: rank 0's, where TensorBoard may not import.
+  writer = metrics.create_writer(os.path.join(tmp.name, 'writer'), 0)
+  numbers['writer'] = [type(w).__name__ for w in writer.writers]
+  log('surface_writer', writers=numbers['writer'])
+
+  # 5. The analysis primitives: the encoder's logits (K1) with the kernels,
+  # the plain model's and with its attention in float32; the schedules of
+  # the clusters' leaders.
+  (logits, images), logit_counts = counted(lambda: analysis.get_logits(
+      ex, SURFACE_LOGIT_BATCHES), route_totals)
+  assert logit_counts == times(expected_launches(cfg.model, 'encoder'),
+                               SURFACE_LOGIT_BATCHES), logit_counts
+  paths['surface_logits'] = logit_counts
+  ema = {k: v.detach().clone()
+         for k, v in ex.state.ema_model.state_dict().items()}
+  plain = build_model(cfg.vdm_type, dataclasses.replace(
+      cfg.model, use_kernels=False), device=dev, state=ema)
+  batch = cfg.training.batch_size_eval
+
+  @torch.no_grad()
+  def plain_logits():
+    return torch.cat([plain.apply_encoder(images[i:i + batch])
+                      for i in range(0, len(images), batch)])
+  got_plain = plain_logits()
+  attend = layers.flash_attention_plain
+  layers.flash_attention_plain = lambda q, k, v, s, **kw: attend(
+      q.float(), k.float(), v.float(), s, **kw).to(q.dtype)
+  try:
+    got_f32 = plain_logits()
+  finally:
+    layers.flash_attention_plain = attend
+  err = (logits - got_plain).abs().max().item()
+  delta = (got_plain - got_f32).abs().max().item()
+  bound = LOGITS_BOUND_FACTOR * delta
+  embeddings = latents.logits_to_embeddings(logits, cfg.model.latent_k)
+  clusters = analysis.cluster_embeddings(embeddings.cpu().numpy())
+  probe = (clusters.leaders[:6] if clusters.n_clusters
+           else np.arange(4))
+  probe = embeddings[torch.as_tensor(probe, device=dev)]
+  grids = analysis.noise_schedule_per_embedding(ex, probe)
+  plain_grids = analysis.noise_schedule_per_embedding(
+      SimpleNamespace(state=SimpleNamespace(ema_model=plain)), probe)
+  equal = all(torch.equal(g, p) for g, p in zip(grids, plain_grids))
+  min_step = min((g[1:] - g[:-1]).min().item() for g in grids)
+  numbers['analysis'] = dict(
+      logits_max_abs_err=err, attention_f32_delta=delta, bound=bound,
+      logits_max_abs=logits.abs().max().item(),
+      n_clusters=clusters.n_clusters, grids=len(grids),
+      grid_shape=list(grids[0].shape), grids_bit_equal=equal,
+      grid_min_step=min_step, grid_step_tol=GAMMA_STEP_TOL)
+  log('surface_analysis', images=len(images), launches=logit_counts,
+      **numbers['analysis'])
+  assert 0 < delta and err <= bound, (err, bound)
+  assert grids[0].shape == (128, cfg.model.n_pixels), grids[0].shape
+  assert equal and min_step >= -GAMMA_STEP_TOL, (equal, min_step)
+  del plain, ex
+  tmp.cleanup()
+  return paths, numbers
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
@@ -3969,6 +4272,14 @@ def main() -> None:
   torch.cuda.empty_cache()
   clock.done(17, 'tensor parallelism')
 
+  # 18. The remaining surface: an augmented dataset through
+  # train_and_evaluate with the profile hook and nan_guard, the trace's
+  # kernels against the step's launches, a NaN state refused, the writer,
+  # and the analysis primitives against the plain model.
+  surface_paths, surface = run_remaining_surface(dev, route_totals)
+  torch.cuda.empty_cache()
+  clock.done(18, 'the remaining surface')
+
   if want_profile:
     ode_t = torch.tensor(0.5)
     in32_batch = torch.as_tensor(images[:IN32_TRAIN_BATCH], device=dev)
@@ -4028,7 +4339,7 @@ def main() -> None:
            'ode_nll_rk4': ode_counts, 'ode_nll_cli': ode_cli_counts,
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
            'ode_fused_rhs': ode_fused_counts, **vdm_paths, **variant_paths,
-           **parallel_paths, **tensor_paths,
+           **parallel_paths, **tensor_paths, **surface_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
@@ -4124,6 +4435,7 @@ def main() -> None:
         'max_abs_err') if k in tensor_window[name]}
   log('parallel_summary', **{k: json.dumps(v) for k, v in parallel.items()})
   log('tensor_summary', **{k: json.dumps(v) for k, v in tensor.items()})
+  log('surface_summary', **{k: json.dumps(v) for k, v in surface.items()})
   log('phase_seconds', total=sum(clock.seconds.values()),
       **{f'phase_{k}': v for k, v in clock.seconds.items()})
   print(json.dumps({'kernels': kernels}))

@@ -9,9 +9,10 @@ by field. `lr_gamma_network_scale` and `optimizer.gradient_clip_norm` are
 read with `config.get` defaults in JAX (1.0 and None) and are fields here.
 
 Only fields the port reads are kept. JAX's `training.substeps` (its
-super-step; `Experiment.train_step` is one step), `profile` (the JAX loop's
-traces) and `data.data_dir` and `ignore_cache` (the TFDS source) have no
-counterpart here. `get_config` finds a config by its name or by the path of
+super-step; `Experiment.train_step` is one step) and `data.data_dir` and
+`ignore_cache` (the TFDS source) have no counterpart here.
+`training.nan_guard` is read with a `config.get` default (False) in JAX and
+is a field here. `get_config` finds a config by its name or by the path of
 a JAX config file, and `override` applies a `--config.<section>.<field>`
 string from the command line.
 """
@@ -47,6 +48,12 @@ class TrainingConfig:
   steps_per_save: int = 10_000
   fsdp: int = 1
   tp: int = 1
+  # Trace the run's second step with torch.profiler into <workdir>/profile
+  # (rank 0).
+  profile: bool = False
+  # Read every scalar after each train step and raise FloatingPointError
+  # naming the first non-finite one.
+  nan_guard: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,16 @@
 """Image sources, training and evaluation batches (numpy only).
 
 Counterpart of `mulan_tpu/data/pipeline.py`'s synthetic, `npz:<dir>` and
-`npy:<dir>` sources, `train_iterator`, `eval_iterator`,
-`one_time_eval_iterator` and `create_one_time_eval_dataset`, which that
-module cannot serve where JAX is absent: the same seed gives the same
-permutation stream and the same batches. Images stay uint8 NHWC; there is no
-augmentation (the flagship dataset has none), no prefetch thread, and no
-TFDS source (it needs `tensorflow_datasets` and a download).
+`npy:<dir>` sources, `augment_batch`, `train_iterator`, `eval_iterator`,
+`one_time_eval_iterator`, `create_dataset` and
+`create_one_time_eval_dataset`, which that module cannot serve where JAX is
+absent: the same seed gives the same permutation stream, the same
+augmentation and the same batches. Images stay uint8 NHWC. A dataset whose
+name holds `_aug` is augmented (random left/right flips and 90-degree
+rotations, and with a name ending in `with_channel` a random channel
+permutation), with the aug bit in the batch's `conditioning`; the train
+batches are made ahead on a thread, as JAX's are. There is no TFDS source
+(it needs `tensorflow_datasets` and a download).
 
 Under `torch.distributed` every rank reads its own contiguous shard of
 each split (`host_shard`, `pipeline.py:60-65`) in per-rank batches of the
@@ -20,7 +24,9 @@ batches: given the mesh, rank and world count its batch coordinates
 from __future__ import annotations
 
 import os
-from typing import Iterator, Optional
+import queue
+import threading
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -117,13 +123,17 @@ def create_dataset(config, seed: int, mesh=None):
   (`pipeline.py:create_dataset`): `batch_size_train` and `batch_size_eval`
   over the world, a train iterator seeded `seed + rank` and an eval
   iterator seeded `seed + 7919 + rank` (world and rank counting batch
-  coordinates of `mesh`: a tensor group shares its batches)."""
-  training = config.training
+  coordinates of `mesh`: a tensor group shares its batches). The train
+  batches are augmented when the dataset's name holds `_aug`, with a
+  channel permutation when it ends in `with_channel`
+  (`pipeline.py:470-471`)."""
+  training, dataset = config.training, config.data.dataset
   r, n = mesh_lib.batch_rank(mesh), mesh_lib.batch_world(mesh)
   train_iter = train_iterator(
       *config_source(config, 'train', mesh),
       batch_size=mesh_lib.local_batch_size(training.batch_size_train, n),
-      substeps=1, seed=seed + r)
+      substeps=1, seed=seed + r, augment='_aug' in dataset,
+      channel_flip=dataset.endswith('with_channel'))
   eval_iter = eval_iterator(
       *config_source(config, 'eval', mesh),
       batch_size=mesh_lib.local_batch_size(training.batch_size_eval, n),
@@ -131,25 +141,82 @@ def create_dataset(config, seed: int, mesh=None):
   return train_iter, eval_iter
 
 
+def augment_batch(rng: np.random.Generator, images: np.ndarray,
+                  channel_flip: bool = False
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+  """(images, aug bit uint8 (n,)): random left/right flips, then random
+  rotations by 90, 180 or 270 degrees, then with `channel_flip` a random
+  channel permutation; the bit is set where any was applied
+  (`pipeline.py:augment_batch`). Draws from `rng` in JAX's order: the
+  flips, the rotations' choice and their k, the channels' choice, then one
+  permutation per chosen image in index order."""
+  n = len(images)
+  out = images.copy()
+  flip = rng.random(n) > 0.5
+  out[flip] = out[flip, :, ::-1]
+  do_rot = rng.random(n) > 0.5
+  ks = rng.integers(1, 4, size=n)
+  for k in (1, 2, 3):
+    sel = do_rot & (ks == k)
+    if sel.any():
+      out[sel] = np.rot90(out[sel], k=k, axes=(1, 2))
+  aug = flip | do_rot
+  if channel_flip:
+    do_ch = rng.random(n) > 0.5
+    for i in np.where(do_ch)[0]:
+      out[i] = out[i][:, :, rng.permutation(out.shape[-1])]
+    aug = aug | do_ch
+  return out, aug.astype(np.uint8)
+
+
+def _prefetch(items: Iterator, depth: int = 2) -> Iterator:
+  """`items`, made ahead on a daemon thread, at most `depth` waiting
+  (`pipeline.py:_prefetch`)."""
+  q: queue.Queue = queue.Queue(maxsize=depth)
+  done = object()
+
+  def worker():
+    for item in items:
+      q.put(item)
+    q.put(done)
+
+  threading.Thread(target=worker, daemon=True).start()
+  while True:
+    item = q.get()
+    if item is done:
+      return
+    yield item
+
+
 def train_iterator(images: np.ndarray, labels: np.ndarray, *,
-                   batch_size: int, substeps: int,
-                   seed: int) -> Iterator[dict]:
+                   batch_size: int, substeps: int, seed: int,
+                   augment: bool = False, channel_flip: bool = False,
+                   prefetch: bool = True) -> Iterator[dict]:
   """Infinite shuffled super-batches of `substeps` x `batch_size` examples:
-  images (substeps, batch, H, W, C), labels and zero conditioning."""
+  images (substeps, batch, H, W, C), labels and conditioning: the aug bit
+  with `augment` (`augment_batch`, on the permutation's generator), else
+  zeros. With `prefetch` the batches are made ahead on a thread."""
   rng = np.random.default_rng(seed)
   chunk = batch_size * substeps
-  order = np.array([], dtype=np.int64)
   labels = np.asarray(labels, np.int32)
-  while True:
-    while len(order) < chunk:
-      order = np.concatenate([order, rng.permutation(len(images))])
-    idx, order = order[:chunk], order[chunk:]
-    yield {
-        'images': images[idx].reshape(substeps, batch_size,
-                                      *images.shape[1:]),
-        'labels': labels[idx].reshape(substeps, batch_size),
-        'conditioning': np.zeros((substeps, batch_size), np.uint8),
-    }
+
+  def batches():
+    order = np.array([], dtype=np.int64)
+    while True:
+      while len(order) < chunk:
+        order = np.concatenate([order, rng.permutation(len(images))])
+      idx, order = order[:chunk], order[chunk:]
+      batch = images[idx]
+      cond = np.zeros(chunk, np.uint8)
+      if augment:
+        batch, cond = augment_batch(rng, batch, channel_flip=channel_flip)
+      yield {
+          'images': batch.reshape(substeps, batch_size, *images.shape[1:]),
+          'labels': labels[idx].reshape(substeps, batch_size),
+          'conditioning': cond.reshape(substeps, batch_size),
+      }
+
+  return _prefetch(batches()) if prefetch else batches()
 
 
 def eval_iterator(images: np.ndarray, labels: np.ndarray, *,

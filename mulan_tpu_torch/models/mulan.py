@@ -335,6 +335,15 @@ class MuLAN(nn.Module):
                       loss_diff=loss_diff, var_0=var_0.mean(),
                       var_1=var_1.mean())
 
+  def gamma_of(self, embedding, t):
+    """gamma(z, t): embedding (B, width) and t (B,) -> (B, n_pixels)
+    (`mulan_tpu/models/mulan.py:gamma_of`)."""
+    return self.gamma(embedding, t)
+
+  def gamma_and_dgamma(self, embedding, t):
+    """(gamma, dgamma/dt), each (B, n_pixels)."""
+    return self.gamma.gamma_and_dgamma(embedding, t)
+
   def apply_gamma(self, t, x_zero=None, *, step=0, latent_noise=None,
                   dropout_seed: Optional[int] = None,
                   generator: Optional[torch.Generator] = None):

@@ -18,9 +18,12 @@
 Everything here is float32: gamma spans [-13.3, 5] and sigmoid(gamma)
 reaches e^-13.3, far below bf16 resolution. The matmuls must not run in
 TF32 either: PyTorch's default (`torch.backends.cuda.matmul.allow_tf32 =
-False`) keeps them in full float32. The blur schedules (`BLUR_SCHEDULES`)
-are used by no model and are not ported (ROADMAP.md Queue A, model
-variants).
+False`) keeps them in full float32. The blur schedules (`BLUR_SCHEDULES`:
+sigma(t), learned or fixed between `SIGMA_MIN` and `SIGMA_MAX`) and
+`NoiseSchedulePolynomialFixedend.inverse_sampling` (t reparameterized by
+the schedule's arc length) are ported as JAX has them, though no model
+uses them. No model blurs (`sigma_type` is 'no_blur' in every config), so
+the blur's ends are JAX's defaults as constants, not config fields.
 """
 
 from __future__ import annotations
@@ -142,6 +145,55 @@ SCALAR_SCHEDULES = {
 }
 
 
+# The fixed blur schedule's ends: JAX's `sigma_min` and `sigma_max`, which
+# every JAX config leaves at these values.
+SIGMA_MIN = 0.0
+SIGMA_MAX = 20.0
+
+
+class BlurScheduleScalar(nn.Module):
+  """sigma(t) = sigmoid(b + |w| t), w = 1 and b = 0 at the start
+  (`schedules.py:BlurScheduleScalar`); dsigma/dt = sigmoid'(b + |w| t)
+  |w|."""
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    self.config = config
+    self.w = nn.Parameter(torch.ones(1))
+    self.b = nn.Parameter(torch.zeros(1))
+
+  def forward(self, t):
+    return self.gamma_and_dgamma(t)[0]
+
+  def gamma_and_dgamma(self, t):
+    slope = self.w[0].abs()
+    a = self.b[0] + slope * t.float()
+    return torch.sigmoid(a), _dsigmoid(a) * slope
+
+
+class BlurScheduleFixedLinear(nn.Module):
+  """sigma(t) = SIGMA_MIN + (SIGMA_MAX - SIGMA_MIN) t
+  (`schedules.py:BlurScheduleFixedLinear`); no parameters."""
+
+  def __init__(self, config: ModelConfig):
+    super().__init__()
+    self.config = config
+
+  def forward(self, t):
+    return self.gamma_and_dgamma(t)[0]
+
+  def gamma_and_dgamma(self, t):
+    t = t.float()
+    span = SIGMA_MAX - SIGMA_MIN
+    return SIGMA_MIN + span * t, span * torch.ones_like(t)
+
+
+BLUR_SCHEDULES = {
+    'learnable_scalar': BlurScheduleScalar,
+    'fixed': BlurScheduleFixedLinear,
+}
+
+
 class MulanSchedule(nn.Module):
   """Base of the per-pixel schedules: `forward` is gamma alone, and
   `elbo_gammas` evaluates the schedule at 0, at 1 and (with dgamma/dt) at
@@ -159,6 +211,8 @@ class MulanSchedule(nn.Module):
 
 
 class NoiseSchedulePolynomialFixedend(MulanSchedule):
+  # The t grid of `inverse_sampling`.
+  n_inverse_timesteps = 1000
 
   def __init__(self, config: ModelConfig, embedding_width: int):
     super().__init__()
@@ -210,6 +264,27 @@ class NoiseSchedulePolynomialFixedend(MulanSchedule):
     g_0 = torch.full_like(g_t, self.config.gamma_min)
     g_1 = torch.full_like(g_t, self.config.gamma_max)
     return g_0, g_1, g_t, dg_t
+
+  def inverse_sampling(self, embedding, targets):
+    """(new_t (B,), the total length (B,)): t reparameterized by arc length
+    (`schedules.py:297-316`). On a grid of `n_inverse_timesteps` t in
+    [0, 1], the length of the curve gamma(z, t) is the trapezoidal integral
+    of |dgamma/dt| (the 2-norm over the pixels); new_t is the grid point
+    whose length from 0 is nearest to `targets` (B,) times the total."""
+    if embedding.dim() != 2 or targets.dim() != 1:
+      raise ValueError('inverse_sampling takes embedding (B, width) and '
+                       'targets (B,)')
+    n = self.n_inverse_timesteps
+    a, b, c = (x[:, :, None] for x in self._coefficients(embedding))
+    grid = torch.linspace(0.0, 1.0, n, device=embedding.device)
+    quad = a * grid * grid + b * grid + c
+    dgamma = self._span() * quad * quad / self._scale(a, b, c)
+    dl_dt = torch.linalg.vector_norm(dgamma, ord=2, dim=1)
+    dl_dt = 0.5 * (dl_dt[:, :-1] + dl_dt[:, 1:])
+    cum = F.pad(torch.cumsum(dl_dt, dim=1) / (n - 1), (1, 0))
+    idx = torch.argmin(torch.square(cum - cum[:, -1:] * targets[:, None]),
+                       dim=1)
+    return idx.float() / (n - 1), cum[:, -1]
 
 
 class MulanScheduleNNet(MulanSchedule):

@@ -31,10 +31,21 @@ sampler always starts from the same key. Before each, the experiment's
 device generator is reseeded from `step_key` (host work, no launch). So a
 run resumed from a checkpoint draws what the uninterrupted run drew. The
 streams are not `jax.random`'s; tests hand both packages the same noise.
+
+`train_and_evaluate` writes its scalars, the sample grids and the config's
+hparams through `utils.metrics.create_writer` (stdout, and TensorBoard on
+rank 0 where it imports). Debug options of the loops: `training.nan_guard`
+reads every scalar after each train step and raises FloatingPointError
+naming the first non-finite one (`loop.py:167-190`); `training.profile`
+traces the run's second step with `torch.profiler` into
+`<workdir>/profile` on rank 0 (`loop.py:253-269`). Every train step of
+`train` and `train_and_evaluate` runs inside
+`torch.profiler.record_function('train')`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
@@ -54,6 +65,7 @@ from mulan_tpu_torch.parallel import wrap
 from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
+from mulan_tpu_torch.utils import metrics as metrics_lib
 from mulan_tpu_torch.utils.metrics import ScalarWriter, image_grid, write_png
 
 # The streams of `step_key`: train steps, eval batches, the sampler, the
@@ -237,53 +249,109 @@ class Experiment:
   def _train_batch(self):
     return {k: v[0] for k, v in next(self.train_iter).items()}
 
+  def _guarded_step(self) -> Dict[str, torch.Tensor]:
+    """One train step on the training iterator, marked 'train' for the
+    profiler, and with `training.nan_guard` its scalars checked."""
+    with torch.profiler.record_function('train'):
+      scalars = self.train_step(self._train_batch())
+    if self.config.training.nan_guard:
+      self._nan_guard(scalars)
+    return scalars
+
+  def _nan_guard(self, scalars: Dict[str, torch.Tensor]) -> None:
+    """Reads the scalars (one device read) and raises FloatingPointError
+    naming the first non-finite one in sorted order, in JAX's words
+    (`loop.py:176-186`; the port's super-step is one step)."""
+    names = sorted(scalars)
+    values = torch.stack([scalars[k].float() for k in names]).cpu().numpy()
+    for name, value in zip(names, values):
+      if not np.isfinite(value):
+        raise FloatingPointError(
+            f'nan_guard: non-finite {name!r} at substep 0 of the super-step '
+            f'ending at step {self.state.step} (value {value!r})')
+
   def train(self, num_steps: int) -> List[Dict[str, float]]:
     """`num_steps` train steps on the training iterator. Logs the scalars
     every `training.steps_per_logging` steps and after the last one, and
-    returns every step's scalars (read from the device at the end)."""
+    returns every step's scalars (read from the device at the end). It
+    takes no workdir, so it logs to stdout only (`self.writer`); the
+    TensorBoard writer is `train_and_evaluate`'s and `evaluate`'s."""
     every = self.config.training.steps_per_logging
     history = []
     last_t, last_step = time.perf_counter(), self.state.step
     for i in range(num_steps):
-      history.append(self.train_step(self._train_batch()))
+      history.append(self._guarded_step())
       step = self.state.step
       if step % every == 0 or i == num_steps - 1:
-        last_t, last_step = self._log_train(history[-1], last_t, last_step)
+        last_t, last_step = self._log_train(self.writer, history[-1], last_t,
+                                            last_step)
     return [{k: float(v) for k, v in s.items()} for s in history]
 
-  def _log_train(self, scalars, last_t: float, last_step: int):
+  def _log_train(self, writer, scalars, last_t: float, last_step: int):
     step = self.state.step
     scalars = {'train_' + k: float(v) for k, v in scalars.items()}
     now = time.perf_counter()
     scalars['steps_per_sec'] = (step - last_step) / (now - last_t)
-    self.writer.write_scalars(step, scalars)
+    writer.write_scalars(step, scalars)
     return now, step
 
   def train_and_evaluate(self, workdir: str, *,
                          max_to_keep: int = 100) -> None:
     """Trains to `training.num_steps_train` (`loop.py:232-305`): resumes
-    from the latest checkpoint in `<workdir>/checkpoints`, logs every
+    from the latest checkpoint in `<workdir>/checkpoints`, writes the
+    config's hparams when it starts at step 0, logs every
     `steps_per_logging` steps, evaluates and draws samples after step 1,
     every `steps_per_eval` steps and at the last, and saves every
-    `steps_per_save` steps and at the last (keeping `max_to_keep`)."""
+    `steps_per_save` steps and at the last (keeping `max_to_keep`). The
+    scalars and samples go to `create_writer(workdir, rank)`. With
+    `training.profile`, rank 0 traces the run's second step into
+    `<workdir>/profile/train_<step>.pt.trace.json`."""
     training = self.config.training
     ckpt = ckpt_lib.CheckpointManager(os.path.join(workdir, 'checkpoints'),
                                       max_to_keep)
     if ckpt.latest_step() is not None:
       ckpt.restore(self.state)
     step = self.state.step
-    last_t, last_step = time.perf_counter(), step
-    while step < training.num_steps_train:
-      is_last = step + 1 >= training.num_steps_train
-      scalars = self.train_step(self._train_batch())
-      step = self.state.step
-      if step % training.steps_per_logging == 0 or is_last:
-        last_t, last_step = self._log_train(scalars, last_t, last_step)
-      if step % training.steps_per_eval == 0 or is_last or step == 1:
-        self.writer.write_scalars(step, self.run_eval())
-        self.draw_samples()
-      if step % training.steps_per_save == 0 or is_last:
-        ckpt.save(step, self.state)
+    rank = mesh_lib.rank()
+    writer = metrics_lib.create_writer(workdir, rank)
+    try:
+      if step == 0 and rank == 0:
+        writer.write_hparams(self.config)
+      profile_at = step + 1 if training.profile and rank == 0 else None
+      last_t, last_step = time.perf_counter(), step
+      while step < training.num_steps_train:
+        is_last = step + 1 >= training.num_steps_train
+        with (self._profiled(os.path.join(workdir, 'profile'), step)
+              if step == profile_at else contextlib.nullcontext()):
+          scalars = self._guarded_step()
+        step = self.state.step
+        if step % training.steps_per_logging == 0 or is_last:
+          last_t, last_step = self._log_train(writer, scalars, last_t,
+                                              last_step)
+        if step % training.steps_per_eval == 0 or is_last or step == 1:
+          writer.write_scalars(step, self.run_eval())
+          writer.write_images(step, {'samples': self.draw_samples()[None]})
+        if step % training.steps_per_save == 0 or is_last:
+          ckpt.save(step, self.state)
+      writer.flush()
+    finally:
+      writer.close()
+
+  @contextlib.contextmanager
+  def _profiled(self, logdir: str, step: int):
+    """Traces what runs inside, CPU and CUDA, into
+    `<logdir>/train_<step>.pt.trace.json` (a Chrome trace); the device's
+    work is waited for before the trace stops."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if self.device.type == 'cuda':
+      activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+      yield
+      if self.device.type == 'cuda':
+        torch.cuda.synchronize(self.device)
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir,
+                                          f'train_{step}.pt.trace.json'))
 
   def run_eval(self, num_steps: Optional[int] = None) -> Dict[str, float]:
     """Mean EMA scalars over `num_steps` eval batches (default
@@ -296,17 +364,24 @@ class Experiment:
 
   def evaluate(self, logdir: str, checkpoint_dir: str) -> Dict[str, float]:
     """Standalone evaluation of a checkpoint's EMA parameters
-    (`loop.py:334-352`): the eval scalars and a sample grid, written as
+    (`loop.py:334-352`): the eval scalars and a sample grid, through
+    `create_writer(<logdir>/eval, rank)` and as
     `<logdir>/eval/samples_<step>.png`."""
     restored = ckpt_lib.CheckpointManager(checkpoint_dir).restore_dict()
     self.state.load_tensors('ema_params', restored['ema_params'])
     step = int(restored['step'])
-    scalars = self.run_eval()
-    self.writer.write_scalars(step, scalars)
-    grid = self.draw_samples()
+    eval_dir = os.path.join(logdir, 'eval')
+    writer = metrics_lib.create_writer(eval_dir, mesh_lib.rank())
+    try:
+      scalars = self.run_eval()
+      writer.write_scalars(step, scalars)
+      grid = self.draw_samples()
+      writer.write_images(step, {'samples': grid[None]})
+    finally:
+      writer.close()
     if mesh_lib.rank() == 0:
-      os.makedirs(os.path.join(logdir, 'eval'), exist_ok=True)
-      write_png(os.path.join(logdir, 'eval', f'samples_{step}.png'), grid)
+      os.makedirs(eval_dir, exist_ok=True)
+      write_png(os.path.join(eval_dir, f'samples_{step}.png'), grid)
     return scalars
 
   @torch.inference_mode()
@@ -332,6 +407,4 @@ class Experiment:
     images = model.generate_x(z, self.generator, rows=rows)
     images = mesh_lib.all_gather_rows(images.to(torch.uint8),
                                       mesh=self.mesh).cpu().numpy()
-    grid = image_grid(images)
-    self.writer.write_images(self.state.step, {'samples': grid[None]})
-    return grid
+    return image_grid(images)

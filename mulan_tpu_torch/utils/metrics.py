@@ -1,10 +1,16 @@
-"""Image grids, a PNG writer and the stdout scalar writer (numpy and the
-standard library only), counterpart of `mulan_tpu/utils/metrics.py`'s
-`image_grid` and `ScalarLoggingWriter`. The TensorBoard writer is not
-ported."""
+"""Image grids, a PNG writer and the metric writers, counterpart of
+`mulan_tpu/utils/metrics.py`: the stdout scalar writer (`ScalarWriter`),
+a TensorBoard writer (`SummaryWriter`, on
+`torch.utils.tensorboard.SummaryWriter`), `MultiWriter`, which fans a call
+out to several, and `create_writer`, which gives rank 0 both (stdout alone
+where TensorBoard does not import) and every other rank a silent stdout
+writer. TensorBoard is imported only when rank 0's writer is made: the
+import loads TensorFlow where it is installed, which takes seconds.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 import zlib
 from typing import Any, Mapping
@@ -69,3 +75,96 @@ class ScalarWriter:
   def write_images(self, step: int, images: Mapping[str, Any]) -> None:
     self._print(f'[{step}] images: '
                 f'{ {k: np.asarray(v).shape for k, v in images.items()} }')
+
+  def write_hparams(self, config) -> None:
+    self._print(f'Hyperparameters:\n{flatten_hparams(config)}')
+
+  def flush(self) -> None:
+    pass
+
+  def close(self) -> None:
+    pass
+
+
+def flatten_hparams(config, prefix: str = '') -> dict:
+  """{'section.field': value} of a nested dataclass (a `configs.Config`);
+  values that TensorBoard's hparams do not take (None, tuples, ...) become
+  their str."""
+  flat = {}
+  for field in dataclasses.fields(config):
+    name, value = prefix + field.name, getattr(config, field.name)
+    if dataclasses.is_dataclass(value):
+      flat.update(flatten_hparams(value, name + '.'))
+    elif isinstance(value, (bool, int, float, str)):
+      flat[name] = value
+    else:
+      flat[name] = str(value)
+  return flat
+
+
+class SummaryWriter:
+  """TensorBoard event files in `logdir`: scalars under their keys, images
+  (a batch (N, H, W, C) uint8 per key, as the training loop writes
+  `{'samples': grid[None]}`) under the key, and hparams in the hparams
+  plugin's format, flattened to 'section.field' (torch's writer stores a
+  bool as the number 0 or 1)."""
+
+  def __init__(self, logdir: str):
+    from torch.utils.tensorboard import SummaryWriter as TorchWriter
+    self._writer = TorchWriter(logdir)
+
+  def write_scalars(self, step: int, scalars: Mapping[str, Any]) -> None:
+    for key, value in scalars.items():
+      self._writer.add_scalar(key, float(np.asarray(value)), step)
+
+  def write_images(self, step: int, images: Mapping[str, Any]) -> None:
+    for key, batch in images.items():
+      self._writer.add_images(key, np.asarray(batch), step,
+                              dataformats='NHWC')
+
+  def write_hparams(self, config) -> None:
+    from torch.utils.tensorboard.summary import hparams as hparams_summary
+    for summary in hparams_summary(flatten_hparams(config), {}):
+      self._writer.file_writer.add_summary(summary)
+
+  def flush(self) -> None:
+    self._writer.flush()
+
+  def close(self) -> None:
+    self._writer.close()
+
+
+class MultiWriter:
+  """Each call goes to every writer in turn."""
+
+  def __init__(self, writers):
+    self.writers = list(writers)
+
+  def __getattr__(self, name):
+    def call(*args, **kwargs):
+      for writer in self.writers:
+        getattr(writer, name)(*args, **kwargs)
+    return call
+
+
+def summary_writer(logdir: str):
+  """TensorBoard's writer in `logdir`, or None where it does not import."""
+  try:
+    return SummaryWriter(logdir)
+  except ImportError:
+    return None
+
+
+def create_writer(logdir: str, rank: int):
+  """Rank 0: stdout and, where TensorBoard imports, its event files in
+  `logdir`; every other rank: a silent stdout writer
+  (`utils/metrics.py:create_writer`)."""
+  if rank > 0:
+    return ScalarWriter(enabled=False)
+  writers = [ScalarWriter()]
+  tensorboard = summary_writer(logdir)
+  if tensorboard is None:
+    print('TensorBoard SummaryWriter unavailable; stdout only', flush=True)
+  else:
+    writers.append(tensorboard)
+  return MultiWriter(writers)

@@ -349,7 +349,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path,
                  '--n_is=1', '--config.data.synthetic_examples=32',
                  f'--checkpoint_directory={tmp_path / "ckpts"}'])
   assert capsys.readouterr().out.startswith('Test BPD:')
-  with pytest.raises(NotImplementedError, match='Queue A, item 4'):
+  with pytest.raises(ValueError, match='--mode analyze needs --checkpoint'):
     main.main(['--config=tiny_synthetic', '--device=cpu', '--mode=analyze',
                f'--workdir={tmp_path}'])
   with pytest.raises(ValueError, match='unrecognized'):

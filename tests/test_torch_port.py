@@ -61,7 +61,7 @@ NOT_PORTED = {
     'model_time': False,  # the UNet is conditioned on gamma_t, not on t
     'monotone_layer': 'dense_monotone',  # the poly_fixedend network's layer
     'sigma_max': 20.0,  # sigma_*: the blur schedule's; 'no_blur' has none
-    'sigma_min': 0.0,
+    'sigma_min': 0.0,  # (`schedules.py:SIGMA_MIN`/`SIGMA_MAX` hold them)
     'sigma_type': 'no_blur',
     'trace_matching': False,  # the ELBO has no trace-matching term
 }

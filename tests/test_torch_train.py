@@ -59,7 +59,11 @@ GRAD_RTOL, GRAD_ATOL_FRAC = 2e-3, 2e-4
 # -- configs and data ---------------------------------------------------------
 
 
-def _assert_section(port, jax_section, defaults=()):
+# Fields JAX reads with config.get(name, default): {name: default}.
+JAX_GET_DEFAULTS = {'nan_guard': False}
+
+
+def _assert_section(port, jax_section, defaults=JAX_GET_DEFAULTS):
   for field in dataclasses.fields(port):
     value = getattr(port, field.name)
     if dataclasses.is_dataclass(value):

@@ -73,6 +73,11 @@ from mulan_tpu_torch.parallel import tensor as tensor_lib  # noqa: E402
 from mulan_tpu_torch.parallel import wrap  # noqa: E402
 from mulan_tpu_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from mulan_tpu_torch.train.loop import Experiment  # noqa: E402
+from mulan_tpu_torch.utils import metrics as metrics_lib  # noqa: E402
+
+# TensorBoard's import loads TensorFlow (~17 s a rank): the pods write
+# stdout scalars only.
+metrics_lib.summary_writer = lambda logdir: None
 
 TRAIN_STEPS = 4
 # The chip smoke's phase-15 variants (`chip_smoke.VARIANTS`).

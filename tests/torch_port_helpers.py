@@ -22,11 +22,18 @@ from mulan_tpu_torch.models.config import ModelConfig
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch import params as params_lib
 from mulan_tpu_torch.params import from_flax
+from mulan_tpu_torch.utils import metrics as metrics_lib
 from parity_helpers import frozen_randomness, shape_seed
 
 # The tier-1 run uses several xdist workers on a shared host: keep torch
 # from starting one thread per core in each.
 torch.set_num_threads(2)
+
+# TensorBoard's import loads TensorFlow, ~17 s in each process that makes a
+# writer: the port's tests write stdout scalars only. The one test of the
+# TensorBoard writer puts REAL_SUMMARY_WRITER back.
+REAL_SUMMARY_WRITER = metrics_lib.summary_writer
+metrics_lib.summary_writer = lambda logdir: None
 
 PERTURB_STD = 0.02
 
