@@ -222,6 +222,28 @@ LOGITS_BOUND_FACTOR = 4.0
 # where P'(t) nearly vanishes. The bound is JAX's own test's
 # (`tests/test_analysis.py:32`).
 GAMMA_STEP_TOL = 1e-5
+# Phase 19 (the super-step): the flagship config as `main` builds it with
+# `--config.training.substeps=SUPER_SUBSTEPS` (JAX's is JAX_SUBSTEPS,
+# `mulan_tpu/configs/cifar10_conditioned.py:82`) through SUPER_STEPS steps
+# of `train_and_evaluate` with `--nan_guard` and the profile, logging every
+# super-step and evaluating (SUPER_EVAL_BATCHES batches) and saving at the
+# last; the sampler cut to SAMPLE_STEPS (JAX's JAX_SAMPLE_T). A logged
+# train scalar is the float32 mean of its super-step's values, within
+# SUPER_MEAN_RTOL of their float64 mean. The state after the run against
+# SUPER_STEPS single `train_step` calls on the same batches: bit for bit,
+# or where the card's kernels do not repeat bit for bit, the bpds within
+# TRAIN_BPD_TOL and every leaf of the params, the EMA and the AdamW moments
+# at a cosine of SUPER_LEAF_COS_MIN. The steps of a super-step and as
+# single calls are timed SUPER_TIMING_TURNS times each, in turns.
+SUPER_SUBSTEPS = 4
+SUPER_STEPS = 8
+SUPER_EVAL_BATCHES = 2
+SUPER_MEAN_RTOL = 1e-6
+SUPER_LEAF_COS_MIN = 0.9999
+SUPER_TIMING_TURNS = 2
+SUPER_PLANTED_SUBSTEP = 2
+JAX_SUBSTEPS = 1000
+JAX_SAMPLE_T = 1000
 # The CUDA kernel names (demangled, before the template arguments) of each
 # counted wrapper, for counting a torch.profiler trace's kernel events.
 # K6 and K7 share `dropout_mask`; K4 and K5 launch a reduction after their
@@ -2473,7 +2495,7 @@ def run_vdm(dev, gen, images, sfu_rate, online_lib, route_totals):
   from mulan_tpu_torch.train.loop import Experiment
   train_cfg = configs.replace(
       configs.vdm_cifar10(), data={'dataset': 'synthetic'},
-      training={'steps_per_logging': VDM_TRAIN_STEPS})
+      training={'steps_per_logging': VDM_TRAIN_STEPS, 'substeps': 1})
   cfg = train_cfg.model
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02, vdm_type='vdm')
@@ -2630,7 +2652,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   train_cfg = configs.replace(
       configs.imagenet32(), data={'dataset': 'synthetic'},
       training={'batch_size_train': IN32_TRAIN_BATCH,
-                'steps_per_logging': IN32_TRAIN_STEPS},
+                'steps_per_logging': IN32_TRAIN_STEPS, 'substeps': 1},
       model={'remat': IN32_REMAT})
   cfg = train_cfg.model
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
@@ -2808,7 +2830,7 @@ def run_variants(dev, gen, images, labels, flagship_ms, route_totals):
   t0 = time.perf_counter()
   base_cfg = configs.replace(
       configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
-      training={'steps_per_logging': VARIANT_TRAIN_STEPS})
+      training={'steps_per_logging': VARIANT_TRAIN_STEPS, 'substeps': 1})
   batch = torch.as_tensor(images[:EVAL_BATCH], device=dev)
   batch_labels = torch.as_tensor(labels[:EVAL_BATCH], device=dev)
   paths, numbers = {}, {}
@@ -3213,7 +3235,7 @@ def gloo_rank(rank: int, dev, out_dir: str) -> None:
   from mulan_tpu_torch.train.loop import Experiment
   train_cfg = configs.replace(
       configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
-      training={'steps_per_logging': TRAIN_STEPS})
+      training={'steps_per_logging': TRAIN_STEPS, 'substeps': 1})
   cfg = train_cfg.model
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
@@ -3431,7 +3453,7 @@ def tensor_rank(rank: int, dev, out_dir: str) -> None:
   from mulan_tpu_torch.train.loop import Experiment
   train_cfg = configs.replace(
       configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
-      training={'steps_per_logging': TRAIN_STEPS})
+      training={'steps_per_logging': TRAIN_STEPS, 'substeps': 1})
   cfg = train_cfg.model
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
@@ -3705,6 +3727,15 @@ def trace_kernel_counts(path: str):
   return counts, sum(e['dur'] for e in events) / 1e3
 
 
+def host_array(x):
+  """A batch's array on the host: a copy of a tensor (the super-step hands
+  `train_step` views of its device copy), or numpy's own."""
+  import numpy as np
+  if isinstance(x, torch.Tensor):
+    return x.cpu().numpy()
+  return np.array(x)
+
+
 def check_augmented_batches(steps, conditioning, source, seed: int,
                             batch: int):
   """Each recorded train batch holds per-image permutations of the pixels
@@ -3717,11 +3748,11 @@ def check_augmented_batches(steps, conditioning, source, seed: int,
   order = np.random.default_rng(seed).permutation(len(source))
   bits, changed = [], []
   for i, (b, _) in enumerate(steps):
-    images = np.asarray(b['images'])
+    images = host_array(b['images'])
     src = source[order[i * batch:(i + 1) * batch]]
     flat, src_flat = images.reshape(batch, -1), src.reshape(batch, -1)
     assert (np.sort(flat, axis=1) == np.sort(src_flat, axis=1)).all(), i
-    bit = np.asarray(b['conditioning'])
+    bit = host_array(b['conditioning'])
     assert bit.dtype == np.uint8 and set(np.unique(bit)) <= {0, 1}, bit
     differs = (flat != src_flat).any(axis=1)
     assert not differs[bit == 0].any(), i
@@ -3750,7 +3781,7 @@ def run_remaining_surface(dev, route_totals):
   args, overrides = main_lib.parser().parse_known_args([
       '--config=cifar10_conditioned', f'--workdir={tmp.name}', '--nan_guard',
       f'--config.data.dataset=npz:{root}',
-      '--config.training.profile=True',
+      '--config.training.profile=True', '--config.training.substeps=1',
       f'--config.training.num_steps_train={SURFACE_STEPS}',
       f'--config.training.num_steps_eval={SURFACE_EVAL_BATCHES}',
       '--config.training.steps_per_logging=1',
@@ -3785,7 +3816,7 @@ def run_remaining_surface(dev, route_totals):
 
   def recording_loss(model, batch, **kwargs):
     if kwargs.get('train'):
-      conditioning.append(np.asarray(batch['conditioning']).copy())
+      conditioning.append(host_array(batch['conditioning']))
     return real_loss(model, batch, **kwargs)
   ex.train_step, ex.loss_fn = recording_step, recording_loss
   workdir = os.path.join(tmp.name, 'run')
@@ -3847,7 +3878,7 @@ def run_remaining_surface(dev, route_totals):
       ex.config = configs.replace(ex.config, training={'nan_guard': guard})
       _, s = timed(lambda: ex.train(SURFACE_GUARD_STEPS))
       ms[guard].append(1e3 * s / SURFACE_GUARD_STEPS)
-  scalars = ex.train_step(ex._train_batch())
+  scalars = ex.train_step({k: v[0] for k, v in next(ex.train_iter).items()})
   torch.cuda.synchronize()
   read_ms = host_ms(lambda: ex._nan_guard(scalars), 20)
   rng = np.random.default_rng(SEED)
@@ -3922,6 +3953,236 @@ def run_remaining_surface(dev, route_totals):
   return paths, numbers
 
 
+def trace_annotation_ms(path: str, name: str = 'train') -> float:
+  """The duration of the host annotation `name` in a torch.profiler Chrome
+  trace, in ms (the one such event)."""
+  with open(path) as f:
+    durs = [e['dur'] for e in json.load(f)['traceEvents']
+            if e.get('cat') == 'user_annotation' and e.get('name') == name]
+  assert len(durs) == 1, durs
+  return durs[0] / 1e3
+
+
+def run_superstep(dev, route_totals):
+  """Phase 19: JAX's super-step on the flagship, as described at
+  SUPER_SUBSTEPS: `train_and_evaluate` (each super-step's launches, the
+  steps it evaluates and logs at, the logged means, the trace of the second
+  super-step), the state against single steps, the timings, the copy of a
+  super-batch and a NaN planted at substep SUPER_PLANTED_SUBSTEP. Returns
+  ({path: launches}, the numbers logged)."""
+  import numpy as np
+  from mulan_tpu_torch import configs, params
+  from mulan_tpu_torch import main as main_lib
+  from mulan_tpu_torch.train.loop import Experiment
+  from mulan_tpu_torch.utils import metrics
+  numbers, paths = {}, {}
+  tmp = tempfile.TemporaryDirectory()
+  args, overrides = main_lib.parser().parse_known_args([
+      '--config=cifar10_conditioned', f'--workdir={tmp.name}', '--nan_guard',
+      '--config.data.dataset=synthetic',
+      f'--config.training.substeps={SUPER_SUBSTEPS}',
+      f'--config.training.num_steps_train={SUPER_STEPS}',
+      f'--config.training.num_steps_eval={SUPER_EVAL_BATCHES}',
+      f'--config.training.steps_per_logging={SUPER_SUBSTEPS}',
+      f'--config.training.steps_per_eval={SUPER_STEPS}',
+      f'--config.training.steps_per_save={SUPER_STEPS}',
+      '--config.training.profile=True'])
+  cfg = main_lib.config_from_args(args, overrides)
+  training = cfg.training
+  assert training.nan_guard and training.profile, training
+  assert training.substeps == SUPER_SUBSTEPS, training
+  log('superstep_cuts', substeps=SUPER_SUBSTEPS, jax_substeps=JAX_SUBSTEPS,
+      sampler_steps=SAMPLE_STEPS, jax_sampler_steps=JAX_SAMPLE_T,
+      steps=SUPER_STEPS, batch=training.batch_size_train)
+  state = params.init_params(cfg.model, torch.Generator().manual_seed(SEED),
+                             perturb_zero_init=0.02)
+
+  # 1. train_and_evaluate: each super-step's launches and batches, the
+  # steps evaluated at, what the writer logs.
+  ex = Experiment(cfg, device=dev, state=state)
+  ex.draw_samples = functools.partial(ex.draw_samples, T=SAMPLE_STEPS)
+  counters = kernel_counters()
+  supers, evals, logged = [], [], []
+  real_superstep, real_eval = ex.train_superstep, ex.run_eval
+  real_create = metrics.create_writer
+
+  def recording_superstep(superbatch):
+    before = {k: f.launches for k, f in counters.items()}
+    sm90 = {k: counters[k].launches_by_route['sm90'] for k in SM90_KERNELS}
+    out = real_superstep(superbatch)
+    torch.cuda.synchronize()
+    supers.append(dict(
+        batch={k: np.array(v) for k, v in superbatch.items()},
+        scalars={k: v.cpu() for k, v in out.items()},
+        launches={k: f.launches - before[k] for k, f in counters.items()},
+        sm90={k: counters[k].launches_by_route['sm90'] - sm90[k]
+              for k in SM90_KERNELS}))
+    return out
+
+  def recording_eval(num_steps=None):
+    evals.append(ex.state.step)
+    return real_eval(num_steps)
+
+  def recording_writer(logdir, rank):
+    writer = real_create(logdir, rank)
+    write = writer.write_scalars
+
+    def write_scalars(step, scalars):
+      logged.append((step, dict(scalars)))
+      write(step, scalars)
+    writer.write_scalars = write_scalars
+    return writer
+  ex.train_superstep, ex.run_eval = recording_superstep, recording_eval
+  metrics.create_writer = recording_writer
+  workdir = os.path.join(tmp.name, 'run')
+  try:
+    (_, secs), counts = counted(lambda: timed(
+        lambda: ex.train_and_evaluate(workdir, max_to_keep=1)), route_totals)
+  finally:
+    metrics.create_writer = real_create
+    del ex.train_superstep, ex.run_eval
+  per_super = times(expected_launches(cfg.model, 'train'), SUPER_SUBSTEPS)
+  want = times(expected_launches(cfg.model, 'train'), SUPER_STEPS)
+  n_evals = 2  # after the first super-step and at the last
+  for path, n in (('eval', n_evals * SUPER_EVAL_BATCHES),
+                  ('sample', n_evals * SAMPLE_STEPS)):
+    for k, v in times(expected_launches(cfg.model, path), n).items():
+      want[k] += v
+  train_logs = [(step, sc) for step, sc in logged if 'train_bpd' in sc]
+  eval_logs = [step for step, sc in logged if 'eval_bpd' in sc]
+  mean_errs = []
+  for (step, sc), sup in zip(train_logs, supers):
+    values = sup['scalars']['bpd'].double()
+    mean_errs.append(abs(sc['train_bpd'] - values.mean().item())
+                     / abs(values.mean().item()))
+  numbers['train'] = dict(
+      seconds=secs, supersteps=len(supers),
+      superstep_launches=[s['launches'] for s in supers],
+      superstep_bpd=[s['scalars']['bpd'].tolist() for s in supers],
+      evaluated_at=evals, eval_logged_at=eval_logs,
+      train_logged_at=[step for step, _ in train_logs],
+      logged_train_bpd=[sc['train_bpd'] for _, sc in train_logs],
+      logged_mean_rel_err=mean_errs, mean_rtol=SUPER_MEAN_RTOL)
+  log('superstep_train', launches=counts, **numbers['train'])
+  assert counts == want, (counts, want)
+  assert len(supers) == SUPER_STEPS // SUPER_SUBSTEPS, len(supers)
+  for sup in supers:
+    assert sup['launches'] == per_super, (sup['launches'], per_super)
+    assert all(sup['sm90'][k] == per_super[k] for k in SM90_KERNELS), sup
+    assert sup['batch']['images'].shape[:2] == (
+        SUPER_SUBSTEPS, training.batch_size_train)
+  assert evals == eval_logs == [SUPER_SUBSTEPS, SUPER_STEPS], (evals,
+                                                              eval_logs)
+  assert [step for step, _ in train_logs] == [SUPER_SUBSTEPS, SUPER_STEPS]
+  assert max(mean_errs) <= SUPER_MEAN_RTOL, mean_errs
+  assert ex.state.step == SUPER_STEPS
+  paths['superstep_train'] = counts
+
+  # 2. The trace of the second super-step: its kernel events against its
+  # counted launches; the card's busy share of the traced super-step.
+  name = f'train_{SUPER_SUBSTEPS}.pt.trace.json'
+  profile_dir = os.path.join(workdir, 'profile')
+  assert os.listdir(profile_dir) == [name], os.listdir(profile_dir)
+  traced, kernel_ms = trace_kernel_counts(os.path.join(profile_dir, name))
+  span_ms = trace_annotation_ms(os.path.join(profile_dir, name))
+  launched = dict(supers[1]['launches'])
+  launched['dropout_mask'] += launched.pop('dropout_mask_batch')
+  numbers['profile'] = dict(trace=f'profile/{name}', trace_kernels=traced,
+                            kernel_ms=kernel_ms, superstep_ms=span_ms,
+                            busy_share=kernel_ms / span_ms)
+  log('superstep_profile', superstep_launches=launched, **numbers['profile'])
+  assert traced == launched, (traced, launched)
+
+  # 3. The state after the run against SUPER_STEPS single train_step calls
+  # from the same state on the same batches.
+  after = {k: v.detach().clone() for k, v in state_tensors(ex.state).items()}
+  del ex
+  torch.cuda.empty_cache()
+  one_cfg = configs.replace(cfg, training={'nan_guard': False,
+                                           'profile': False})
+  one = Experiment(one_cfg, device=dev, state=state)
+  one_bpds = []
+  for sup in supers:
+    for i in range(SUPER_SUBSTEPS):
+      one_bpds.append(float(one.train_step(
+          {k: v[i] for k, v in sup['batch'].items()})['bpd']))
+  super_bpds = torch.cat([s['scalars']['bpd'] for s in supers]).tolist()
+  got = state_tensors(one.state)
+  assert got.keys() == after.keys()
+  bitwise = one_bpds == super_bpds and all(torch.equal(got[k], v)
+                                           for k, v in after.items())
+  leaves = [k for k, v in after.items()
+            if v.is_floating_point() and v.numel() > 1]
+  cosines = {k: cosine(got[k].flatten().double(), after[k].flatten().double())
+             for k in leaves}
+  worst = min(cosines, key=cosines.get)
+  max_diff = max((got[k].double() - after[k].double()).abs().max().item()
+                 for k in leaves)
+  bpd_delta = max(abs(a - b) for a, b in zip(one_bpds, super_bpds))
+  numbers['vs_single_steps'] = dict(
+      bit_for_bit=bitwise, steps=len(one_bpds), leaves=len(leaves),
+      max_abs_diff=max_diff, max_bpd_delta=bpd_delta, bpd_tol=TRAIN_BPD_TOL,
+      min_leaf_cosine=cosines[worst], min_cosine_leaf=worst,
+      cos_min=SUPER_LEAF_COS_MIN)
+  log('superstep_vs_single_steps', **numbers['vs_single_steps'])
+  assert bitwise or (bpd_delta <= TRAIN_BPD_TOL
+                     and cosines[worst] >= SUPER_LEAF_COS_MIN), (
+                         numbers['vs_single_steps'])
+  assert one.state.step == SUPER_STEPS
+
+  # 4. Timings, in turns: the steps of a super-step against single calls;
+  # the copy of a super-batch to the card, at SUPER_SUBSTEPS and at JAX's.
+  sb = supers[0]['batch']
+  ms = {'superstep': [], 'single': []}
+  for _ in range(SUPER_TIMING_TURNS):
+    _, s = timed(lambda: one.train_superstep(sb))
+    ms['superstep'].append(1e3 * s / SUPER_SUBSTEPS)
+    _, s = timed(lambda: [one.train_step({k: v[i] for k, v in sb.items()})
+                          for i in range(SUPER_SUBSTEPS)])
+    ms['single'].append(1e3 * s / SUPER_SUBSTEPS)
+  copies = {}
+  for substeps in (SUPER_SUBSTEPS, JAX_SUBSTEPS):
+    batch = {k: np.resize(v, (substeps, *v.shape[1:])) for k, v in sb.items()}
+    secs = [timed(lambda: one._put_superbatch(batch))[1] for _ in range(3)]
+    copies[substeps] = dict(bytes=sum(v.nbytes for v in batch.values()),
+                            ms=[1e3 * t for t in secs])
+    del batch
+  numbers['timing'] = dict(
+      ms_per_step_in_superstep=ms['superstep'],
+      ms_per_step_single_calls=ms['single'],
+      superbatch_copy={str(k): v for k, v in copies.items()})
+  log('superstep_timing', **numbers['timing'])
+
+  # 5. nan_guard: NaN parameters from substep SUPER_PLANTED_SUBSTEP of a
+  # super-step on: the guard names 'bpd' there.
+  one.config = configs.replace(one.config, training={'nan_guard': True})
+  base = one.state.step
+  real_step = one.train_step
+
+  def planting_step(batch, noise=None):
+    if one.state.step == base + SUPER_PLANTED_SUBSTEP:
+      with torch.no_grad():
+        for p in one.state.params.values():
+          p.mul_(float('nan'))
+    return real_step(batch, noise)
+  one.train_step = planting_step
+  try:
+    one.train(SUPER_SUBSTEPS)
+  except FloatingPointError as e:
+    message = str(e)
+  else:
+    raise AssertionError('nan_guard let a NaN super-step pass')
+  numbers['nan_guard'] = dict(message=message, planted_substep=(
+      SUPER_PLANTED_SUBSTEP))
+  log('superstep_nan_guard', **numbers['nan_guard'])
+  assert message.startswith(
+      f"nan_guard: non-finite 'bpd' at substep {SUPER_PLANTED_SUBSTEP} of "
+      f'the super-step ending at step {base + SUPER_SUBSTEPS} '), message
+  del one
+  tmp.cleanup()
+  return paths, numbers
+
+
 def main() -> None:
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False; this '
@@ -3956,7 +4217,7 @@ def main() -> None:
   gen = torch.Generator(device=dev).manual_seed(SEED)
   train_cfg = configs.replace(
       configs.cifar10_conditioned(), data={'dataset': 'synthetic'},
-      training={'steps_per_logging': TRAIN_STEPS})
+      training={'steps_per_logging': TRAIN_STEPS, 'substeps': 1})
   cfg = train_cfg.model
   clock.done(1, 'device and build')
 
@@ -4280,6 +4541,14 @@ def main() -> None:
   torch.cuda.empty_cache()
   clock.done(18, 'the remaining surface')
 
+  # 19. JAX's super-step: the flagship through train_and_evaluate in
+  # super-steps of SUPER_SUBSTEPS, each super-step's launches, the trace of
+  # the second, the steps evaluated and logged at and the logged means, the
+  # state against single steps, the timings and a planted NaN's substep.
+  superstep_paths, superstep = run_superstep(dev, route_totals)
+  torch.cuda.empty_cache()
+  clock.done(19, 'the super-step')
+
   if want_profile:
     ode_t = torch.tensor(0.5)
     in32_batch = torch.as_tensor(images[:IN32_TRAIN_BATCH], device=dev)
@@ -4340,6 +4609,7 @@ def main() -> None:
            'ode_dopri5': dopri5_counts, 'ode_sample': ode_sample_counts,
            'ode_fused_rhs': ode_fused_counts, **vdm_paths, **variant_paths,
            **parallel_paths, **tensor_paths, **surface_paths,
+           **superstep_paths,
            **{f'remat_{mode}': c for mode, c in remat_counts.items()}}
   keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
           'bound_ops_ms', 'bound_bytes_ms', 'library_ms')
@@ -4436,6 +4706,8 @@ def main() -> None:
   log('parallel_summary', **{k: json.dumps(v) for k, v in parallel.items()})
   log('tensor_summary', **{k: json.dumps(v) for k, v in tensor.items()})
   log('surface_summary', **{k: json.dumps(v) for k, v in surface.items()})
+  log('superstep_summary',
+      **{k: json.dumps(v) for k, v in superstep.items()})
   log('phase_seconds', total=sum(clock.seconds.values()),
       **{f'phase_{k}': v for k, v in clock.seconds.items()})
   print(json.dumps({'kernels': kernels}))

@@ -8,13 +8,15 @@ package's; `tests/test_torch_train.py` holds them against those files field
 by field. `lr_gamma_network_scale` and `optimizer.gradient_clip_norm` are
 read with `config.get` defaults in JAX (1.0 and None) and are fields here.
 
-Only fields the port reads are kept. JAX's `training.substeps` (its
-super-step; `Experiment.train_step` is one step) and `data.data_dir` and
+Only fields the port reads are kept. JAX's `data.data_dir` and
 `ignore_cache` (the TFDS source) have no counterpart here.
-`training.nan_guard` is read with a `config.get` default (False) in JAX and
-is a field here. `get_config` finds a config by its name or by the path of
-a JAX config file, and `override` applies a `--config.<section>.<field>`
-string from the command line.
+`training.substeps` is the optimizer steps of one super-step
+(`Experiment.train_superstep`). `training.nan_guard` is read with a
+`config.get` default (False) in JAX and is a field here, as are
+`optimizer.fused` and `optimizer.stacked` (`optimizer.get(name, False)`).
+`get_config` finds a config by its name or by the path of a JAX config
+file, and `override` applies a `--config.<section>.<field>` string from the
+command line.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainingConfig:
   seed: int = 1
+  # Optimizer steps a super-step (one batch of the iterator, one guard
+  # read, the unit of logging, evaluation and saving).
+  substeps: int = 1000
   num_steps_lr_warmup: int = 100
   num_steps_train: int = 10_000_000
   num_steps_eval: int = 100
@@ -48,11 +53,11 @@ class TrainingConfig:
   steps_per_save: int = 10_000
   fsdp: int = 1
   tp: int = 1
-  # Trace the run's second step with torch.profiler into <workdir>/profile
-  # (rank 0).
+  # Trace the run's second super-step with torch.profiler into
+  # <workdir>/profile (rank 0).
   profile: bool = False
-  # Read every scalar after each train step and raise FloatingPointError
-  # naming the first non-finite one.
+  # Read every scalar after each super-step and raise FloatingPointError
+  # naming the first non-finite one and its substep.
   nan_guard: bool = False
 
 
@@ -72,6 +77,10 @@ class OptimizerConfig:
   lr_decay: bool = False
   ema_rate: float = 0.9999
   gradient_clip_norm: Optional[float] = None
+  # AdamW's other implementations (`train/optimizer.py`): torch's fused
+  # kernel, or its multi-tensor (foreach) path.
+  fused: bool = False
+  stacked: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,14 +128,14 @@ def imagenet32() -> Config:
 
 def tiny_synthetic() -> Config:
   """`mulan_tpu/configs/tiny_synthetic.py`: 8x8 synthetic images, 16
-  channels, 2 layers, float32, 4 steps of batch 8."""
+  channels, 2 layers, float32, 4 steps of batch 8 in super-steps of 2."""
   return Config(
       model=tiny_config(sm_n_embd=16),
       data=DataConfig(dataset='synthetic', synthetic_examples=256),
       training=TrainingConfig(
-          num_steps_train=4, num_steps_eval=2, batch_size_train=8,
-          batch_size_eval=8, steps_per_logging=2, steps_per_eval=4,
-          steps_per_save=4))
+          substeps=2, num_steps_train=4, num_steps_eval=2,
+          batch_size_train=8, batch_size_eval=8, steps_per_logging=2,
+          steps_per_eval=4, steps_per_save=4))
 
 
 def replace(config: Config, **sections) -> Config:

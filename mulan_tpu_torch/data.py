@@ -124,15 +124,19 @@ def create_dataset(config, seed: int, mesh=None):
   over the world, a train iterator seeded `seed + rank` and an eval
   iterator seeded `seed + 7919 + rank` (world and rank counting batch
   coordinates of `mesh`: a tensor group shares its batches). The train
-  batches are augmented when the dataset's name holds `_aug`, with a
-  channel permutation when it ends in `with_channel`
-  (`pipeline.py:470-471`)."""
+  iterator yields super-batches of `training.substeps` batches, so that a
+  rank holds its rows of every substep's global batch, as JAX shards the
+  super-batch's axis 1 (`loop.py:220-222`). The train batches are
+  augmented when the dataset's name holds `_aug`, with a channel
+  permutation when it ends in `with_channel` (`pipeline.py:470-471`),
+  one draw over a super-batch's `substeps` x batch images."""
   training, dataset = config.training, config.data.dataset
   r, n = mesh_lib.batch_rank(mesh), mesh_lib.batch_world(mesh)
   train_iter = train_iterator(
       *config_source(config, 'train', mesh),
       batch_size=mesh_lib.local_batch_size(training.batch_size_train, n),
-      substeps=1, seed=seed + r, augment='_aug' in dataset,
+      substeps=training.substeps, seed=seed + r,
+      augment='_aug' in dataset,
       channel_flip=dataset.endswith('with_channel'))
   eval_iter = eval_iterator(
       *config_source(config, 'eval', mesh),

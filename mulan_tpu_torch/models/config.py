@@ -8,9 +8,10 @@ read, with the JAX package's names and defaults.
 decoder log-likelihood, the dropout masks and the fused GroupNorm+swish
 through the hand-written CUDA kernels in `ops/`. The other execution-policy
 fields, `remat`, `dropout_mask_batch` and `fused_gn_swish`, take the JAX
-package's values (`mulan_tpu/models/config.py:93-140`). The JAX fields that
-the port does not have, each with the value the port implies, are listed in
-`tests/test_torch_port.py` (`NOT_PORTED`).
+package's values (`mulan_tpu/models/config.py:93-140`), as does
+`gamma_precision` (`schedules.py`, `layers.gamma_matmul`). The JAX fields
+that the port does not have, each with the value the port implies, are
+listed in `tests/test_torch_port.py` (`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ class ModelConfig:
   # swish(groupnorm(x)) in one pass (K8) at both GN-swish sites of every
   # ResNet block of the score UNet.
   fused_gn_swish: bool = False
+  # The learned gamma networks' matmuls: 'highest' (float32), 'high' (three
+  # bf16 passes, float32 accumulation) or 'default' (one bf16 pass).
+  gamma_precision: str = 'highest'
 
   @property
   def remat_blocks(self) -> bool:

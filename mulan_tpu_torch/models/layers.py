@@ -116,20 +116,77 @@ def base2_fourier_features(x: torch.Tensor) -> torch.Tensor:
   return torch.cat([torch.sin(h), torch.cos(h)], dim=1)
 
 
+# The gamma networks' matmul precisions (`model.gamma_precision`, JAX's
+# `gamma_matmul_precision`): float32 products, three bf16 passes, or one.
+GAMMA_PRECISIONS = ('highest', 'high', 'default')
+
+
+def _bf16(x):
+  """x rounded to bf16, held in float32."""
+  return x.to(torch.bfloat16).float()
+
+
+def _bf16_passes(x, w, precision: str):
+  """x @ w from bf16 operands with float32 accumulation: one pass
+  ('default'), or the three of the bf16 splits x = hi + lo ('high':
+  hi.hi + hi.lo + lo.hi, as the TPU's `Precision.HIGH` computes a float32
+  product). A product of two bf16 values is exact in float32, so a float32
+  matmul of bf16 values is a bf16 pass with float32 accumulation."""
+  if precision == 'default':
+    return _bf16(x) @ _bf16(w)
+  x_hi, w_hi = _bf16(x), _bf16(w)
+  x_lo, w_lo = _bf16(x - x_hi), _bf16(w - w_hi)
+  return (x_hi @ w_lo + x_lo @ w_hi) + x_hi @ w_hi
+
+
+class _BF16PassMatmul(torch.autograd.Function):
+  """x @ w in bf16 passes, its gradients' two products in the same passes
+  (as XLA differentiates a dot of a given precision)."""
+
+  @staticmethod
+  def forward(ctx, x, w, precision):
+    ctx.save_for_backward(x, w)
+    ctx.precision = precision
+    return _bf16_passes(x, w, precision)
+
+  @staticmethod
+  def backward(ctx, grad):
+    x, w = ctx.saved_tensors
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = _bf16_passes(grad, w.t(), ctx.precision)
+    if ctx.needs_input_grad[1]:
+      dw = _bf16_passes(x.t(), grad, ctx.precision)
+    return dx, dw, None
+
+
+def gamma_matmul(x, w, precision: str = 'highest'):
+  """(B, in) @ (in, out) in float32 at a `GAMMA_PRECISIONS` precision:
+  'highest' is the float32 matmul (TF32 off), 'high' and 'default' the
+  bf16 passes of `_bf16_passes`."""
+  if precision == 'highest':
+    return x @ w
+  if precision not in GAMMA_PRECISIONS:
+    raise ValueError(f'unknown gamma_precision: {precision!r}')
+  return _BF16PassMatmul.apply(x, w, precision)
+
+
 class DenseMonotone(nn.Module):
   """x @ |kernel| + bias: monotone non-decreasing in its inputs
-  (`mulan_tpu/models/layers.py:DenseMonotone`). The kernel keeps flax's
-  (in, out) layout, so `params.from_flax` copies it as it is. float32."""
+  (`mulan_tpu/models/layers.py:DenseMonotone`), the product at
+  `precision` (`gamma_matmul`). The kernel keeps flax's (in, out) layout,
+  so `params.from_flax` copies it as it is. float32."""
 
   def __init__(self, in_features: int, out_features: int,
-               use_bias: bool = True):
+               use_bias: bool = True, precision: str = 'highest'):
     super().__init__()
     self.kernel = nn.Parameter(torch.empty(in_features, out_features))
     self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
                  else None)
+    self.precision = precision
 
   def forward(self, x):
-    y = x.float() @ self.kernel.abs()
+    y = gamma_matmul(x.float(), self.kernel.abs(), self.precision)
     return y if self.bias is None else y + self.bias
 
 

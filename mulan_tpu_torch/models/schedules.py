@@ -18,7 +18,11 @@
 Everything here is float32: gamma spans [-13.3, 5] and sigmoid(gamma)
 reaches e^-13.3, far below bf16 resolution. The matmuls must not run in
 TF32 either: PyTorch's default (`torch.backends.cuda.matmul.allow_tf32 =
-False`) keeps them in full float32. The blur schedules (`BLUR_SCHEDULES`:
+False`) keeps them in full float32. `model.gamma_precision` sets the
+learned networks' matmuls (`layers.gamma_matmul`), those of gamma and of
+the closed-form dgamma/dt alike, as JAX's precision reaches both through
+`jax.jvp`: 'highest' (the default) float32, 'high' three bf16 passes with
+float32 accumulation, 'default' one. The blur schedules (`BLUR_SCHEDULES`:
 sigma(t), learned or fixed between `SIGMA_MIN` and `SIGMA_MAX`) and
 `NoiseSchedulePolynomialFixedend.inverse_sampling` (t reparameterized by
 the schedule's arc length) are ported as JAX has them, though no model
@@ -35,7 +39,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from mulan_tpu_torch.models.config import ModelConfig
-from mulan_tpu_torch.models.layers import DenseMonotone
+from mulan_tpu_torch.models.layers import DenseMonotone, gamma_matmul
 
 
 def _dsigmoid(a):
@@ -92,9 +96,10 @@ class NoiseScheduleNNet(nn.Module):
     super().__init__()
     self.config = config
     self.n_features = n_features
-    self.l1 = DenseMonotone(1, 1)
-    self.l2 = DenseMonotone(1, n_features)
-    self.l3 = DenseMonotone(n_features, 1, use_bias=False)
+    prec = self.precision = config.gamma_precision
+    self.l1 = DenseMonotone(1, 1, precision=prec)
+    self.l2 = DenseMonotone(1, n_features, precision=prec)
+    self.l3 = DenseMonotone(n_features, 1, use_bias=False, precision=prec)
 
   def forward(self, t):
     return self.gamma_and_dgamma(t)[0]
@@ -104,8 +109,9 @@ class NoiseScheduleNNet(nn.Module):
     a = self.l2(2.0 * (t - 0.5))
     correction = self.l3(2.0 * (torch.sigmoid(a) - 0.5)) / self.n_features
     gamma = self.l1(t) + correction
-    slope = (2.0 * _dsigmoid(a) * 2.0 * self.l2.kernel.abs()) @ (
-        self.l3.kernel.abs()) / self.n_features
+    slope = gamma_matmul(2.0 * _dsigmoid(a) * 2.0 * self.l2.kernel.abs(),
+                         self.l3.kernel.abs(), self.precision) / (
+                             self.n_features)
     dgamma = self.l1.kernel.abs() + slope
     return gamma.squeeze(-1), dgamma.squeeze(-1)
 
@@ -224,11 +230,19 @@ class NoiseSchedulePolynomialFixedend(MulanSchedule):
     self.dense_out_b = nn.Linear(n, n)
     self.dense_out_c = nn.Linear(n, n)
 
+  def _dense(self, layer, x):
+    """`layer(x)` with its product at `gamma_precision`."""
+    precision = self.config.gamma_precision
+    if precision == 'highest':
+      return layer(x)
+    return gamma_matmul(x, layer.weight.t(), precision) + layer.bias
+
   def _coefficients(self, embedding):
-    h = F.silu(self.dense_1(embedding.float()))
-    h = F.silu(self.dense_2(h))
-    return (self.dense_out_a(h), self.dense_out_b(h),
-            1e-3 + F.softplus(self.dense_out_c(h)))
+    h = F.silu(self._dense(self.dense_1, embedding.float()))
+    h = F.silu(self._dense(self.dense_2, h))
+    return (self._dense(self.dense_out_a, h),
+            self._dense(self.dense_out_b, h),
+            1e-3 + F.softplus(self._dense(self.dense_out_c, h)))
 
   @staticmethod
   def _integral(a, b, c, t):
@@ -301,10 +315,11 @@ class MulanScheduleNNet(MulanSchedule):
     super().__init__()
     self.config = config
     n = self.n_features = config.n_pixels
-    self.l1 = DenseMonotone(1, 1)
-    self.l2 = DenseMonotone(embedding_width + 1, n)
-    self.l_int = DenseMonotone(n, n)
-    self.l3 = DenseMonotone(n, n, use_bias=False)
+    prec = self.precision = config.gamma_precision
+    self.l1 = DenseMonotone(1, 1, precision=prec)
+    self.l2 = DenseMonotone(embedding_width + 1, n, precision=prec)
+    self.l_int = DenseMonotone(n, n, precision=prec)
+    self.l3 = DenseMonotone(n, n, use_bias=False, precision=prec)
 
   def _forward(self, embedding, t):
     """(gamma, l2's and l_int's pre-activations)."""
@@ -321,9 +336,10 @@ class MulanScheduleNNet(MulanSchedule):
   def gamma_and_dgamma(self, embedding, t):
     gamma, a2, a_int = self._forward(embedding, t)
     d2 = 2.0 * _dsigmoid(a2) * (2.0 * self.l2.kernel[-1].abs())
-    d_int = 2.0 * _dsigmoid(a_int) * (d2 @ self.l_int.kernel.abs())
-    dgamma = self.l1.kernel.abs() + d_int @ self.l3.kernel.abs() / (
-        self.n_features)
+    d_int = 2.0 * _dsigmoid(a_int) * gamma_matmul(
+        d2, self.l_int.kernel.abs(), self.precision)
+    dgamma = self.l1.kernel.abs() + gamma_matmul(
+        d_int, self.l3.kernel.abs(), self.precision) / self.n_features
     return gamma, dgamma
 
 

@@ -6,10 +6,14 @@ evaluation and sampler).
 
 One call of `train_step` is one optimizer step: the ELBO in bits per
 dimension with dropout on, its gradient, the two-group AdamW update and the
-EMA update. JAX's super-step (`substeps` steps under one `lax.scan`) has no
-counterpart: PyTorch runs eagerly, so the data iterator's substeps axis is 1
-and `train_and_evaluate`'s "first super-step" is step 1. Evaluation and
-sampling run on the EMA parameters and are deterministic.
+EMA update. `train_superstep` is JAX's super-step (`substeps` steps under
+one `lax.scan`, `loop.py:149-160`): the iterator's super-batch of
+`training.substeps` batches goes to the device in one copy, and
+`train_step` runs on each of its batches in turn, the scalars stacked on
+the device. `train` and `train_and_evaluate` run whole super-steps, and
+log, guard, evaluate, save and profile at super-step boundaries, as JAX's
+loop does. Evaluation and sampling run on the EMA parameters and are
+deterministic.
 
 Under `torch.distributed` the experiment runs on a mesh, as JAX's runs on
 its device mesh (`parallel/mesh.py`): ('data',) with DDP, or ('data',
@@ -35,12 +39,12 @@ streams are not `jax.random`'s; tests hand both packages the same noise.
 `train_and_evaluate` writes its scalars, the sample grids and the config's
 hparams through `utils.metrics.create_writer` (stdout, and TensorBoard on
 rank 0 where it imports). Debug options of the loops: `training.nan_guard`
-reads every scalar after each train step and raises FloatingPointError
-naming the first non-finite one (`loop.py:167-190`); `training.profile`
-traces the run's second step with `torch.profiler` into
-`<workdir>/profile` on rank 0 (`loop.py:253-269`). Every train step of
-`train` and `train_and_evaluate` runs inside
-`torch.profiler.record_function('train')`.
+reads every substep's scalars after each super-step and raises
+FloatingPointError naming the first non-finite one and its substep
+(`loop.py:167-190`); `training.profile` traces the run's second super-step
+with `torch.profiler` into `<workdir>/profile` on rank 0
+(`loop.py:253-269`). Every super-step of `train` and `train_and_evaluate`
+runs inside `torch.profiler.record_function('train')`.
 """
 
 from __future__ import annotations
@@ -246,50 +250,94 @@ class Experiment:
 
   # -- loops ----------------------------------------------------------------------
 
-  def _train_batch(self):
-    return {k: v[0] for k, v in next(self.train_iter).items()}
+  def _put_superbatch(self, superbatch) -> Dict[str, torch.Tensor]:
+    """A super-batch's arrays ((substeps, B, ...) numpy) on the device, one
+    copy each: from pinned memory and not blocking the host on the card."""
+    out = {}
+    for k, v in superbatch.items():
+      t = torch.from_numpy(np.ascontiguousarray(v))
+      if self.device.type == 'cuda':
+        t = t.pin_memory().to(self.device, non_blocking=True)
+      out[k] = t
+    return out
 
-  def _guarded_step(self) -> Dict[str, torch.Tensor]:
-    """One train step on the training iterator, marked 'train' for the
+  def train_superstep(self, superbatch) -> Dict[str, torch.Tensor]:
+    """One super-step (`_p_superstep`, `loop.py:149-160`): the super-batch
+    ((substeps, B, ...) arrays, this rank's rows of every substep on a
+    mesh) goes to the device in one copy, then `train_step` runs on each
+    substep's batch in turn, each keyed by its own step. Returns the
+    per-substep scalars stacked on the device, {name: (substeps,)}; the
+    host reads nothing."""
+    batches = self._put_superbatch(superbatch)
+    history = [self.train_step({k: v[i] for k, v in batches.items()})
+               for i in range(len(batches['images']))]
+    return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+
+  def _guarded_superstep(self) -> Dict[str, torch.Tensor]:
+    """One super-step on the training iterator, marked 'train' for the
     profiler, and with `training.nan_guard` its scalars checked."""
     with torch.profiler.record_function('train'):
-      scalars = self.train_step(self._train_batch())
+      scalars = self.train_superstep(next(self.train_iter))
     if self.config.training.nan_guard:
       self._nan_guard(scalars)
     return scalars
 
   def _nan_guard(self, scalars: Dict[str, torch.Tensor]) -> None:
-    """Reads the scalars (one device read) and raises FloatingPointError
-    naming the first non-finite one in sorted order, in JAX's words
-    (`loop.py:176-186`; the port's super-step is one step)."""
+    """JAX's `guarded_superstep` (`loop.py:176-188`): reads the super-step's
+    scalars ({name: (substeps,)} or one step's {name: ()}) in one device
+    read and raises FloatingPointError naming the first non-finite name in
+    sorted order, its first bad substep and the state's step after the
+    super-step, in JAX's words."""
     names = sorted(scalars)
-    values = torch.stack([scalars[k].float() for k in names]).cpu().numpy()
-    for name, value in zip(names, values):
-      if not np.isfinite(value):
+    values = torch.stack([scalars[k].float().reshape(-1) for k in names]
+                         ).cpu().numpy()
+    for name, row in zip(names, values):
+      finite = np.isfinite(row)
+      if not finite.all():
+        bad = int(np.argmin(finite))
         raise FloatingPointError(
-            f'nan_guard: non-finite {name!r} at substep 0 of the super-step '
-            f'ending at step {self.state.step} (value {value!r})')
+            f'nan_guard: non-finite {name!r} at substep {bad} of the '
+            f'super-step ending at step {self.state.step} '
+            f'(value {row[bad]!r})')
 
   def train(self, num_steps: int) -> List[Dict[str, float]]:
-    """`num_steps` train steps on the training iterator. Logs the scalars
-    every `training.steps_per_logging` steps and after the last one, and
-    returns every step's scalars (read from the device at the end). It
-    takes no workdir, so it logs to stdout only (`self.writer`); the
-    TensorBoard writer is `train_and_evaluate`'s and `evaluate`'s."""
-    every = self.config.training.steps_per_logging
+    """`num_steps` train steps on the training iterator, in whole
+    super-steps of `training.substeps` (a `num_steps` that is not a
+    multiple of it raises ValueError). Logs the super-step's mean scalars
+    after each super-step that ends at a multiple of
+    `training.steps_per_logging` and after the last, and returns every
+    step's scalars (read from the device at the end). It takes no workdir,
+    so it logs to stdout only (`self.writer`); the TensorBoard writer is
+    `train_and_evaluate`'s and `evaluate`'s."""
+    training = self.config.training
+    if num_steps % training.substeps:
+      raise ValueError(
+          f'train({num_steps}): the steps must be a multiple of '
+          f'training.substeps = {training.substeps}: train runs whole '
+          'super-steps')
+    n = num_steps // training.substeps
     history = []
     last_t, last_step = time.perf_counter(), self.state.step
-    for i in range(num_steps):
-      history.append(self._guarded_step())
-      step = self.state.step
-      if step % every == 0 or i == num_steps - 1:
+    for i in range(n):
+      history.append(self._guarded_superstep())
+      if self.state.step % training.steps_per_logging == 0 or i == n - 1:
         last_t, last_step = self._log_train(self.writer, history[-1], last_t,
                                             last_step)
-    return [{k: float(v) for k, v in s.items()} for s in history]
+    if not history:
+      return []
+    names = list(history[0])
+    values = torch.stack([torch.cat([h[k] for h in history]).double()
+                          for k in names]).tolist()
+    return [dict(zip(names, step)) for step in zip(*values)]
 
   def _log_train(self, writer, scalars, last_t: float, last_step: int):
+    """Writes the super-step's float32 means as 'train_' + name
+    (`loop.py:276`) and the steps a second since the last log, over the
+    steps actually taken."""
     step = self.state.step
-    scalars = {'train_' + k: float(v) for k, v in scalars.items()}
+    means = torch.stack([v.float().mean() for v in scalars.values()]
+                        ).tolist()
+    scalars = {'train_' + k: v for k, v in zip(scalars, means)}
     now = time.perf_counter()
     scalars['steps_per_sec'] = (step - last_step) / (now - last_t)
     writer.write_scalars(step, scalars)
@@ -297,16 +345,20 @@ class Experiment:
 
   def train_and_evaluate(self, workdir: str, *,
                          max_to_keep: int = 100) -> None:
-    """Trains to `training.num_steps_train` (`loop.py:232-305`): resumes
-    from the latest checkpoint in `<workdir>/checkpoints`, writes the
-    config's hparams when it starts at step 0, logs every
-    `steps_per_logging` steps, evaluates and draws samples after step 1,
-    every `steps_per_eval` steps and at the last, and saves every
-    `steps_per_save` steps and at the last (keeping `max_to_keep`). The
-    scalars and samples go to `create_writer(workdir, rank)`. With
-    `training.profile`, rank 0 traces the run's second step into
-    `<workdir>/profile/train_<step>.pt.trace.json`."""
+    """Trains to `training.num_steps_train` in super-steps of
+    `training.substeps` (`loop.py:232-305`): resumes from the latest
+    checkpoint in `<workdir>/checkpoints`, writes the config's hparams when
+    it starts at step 0, and after each super-step logs the super-step's
+    mean scalars when the step is a multiple of `steps_per_logging`,
+    evaluates and draws samples after the first super-step, at multiples
+    of `steps_per_eval` and at the last, and saves at multiples of
+    `steps_per_save` and at the last (keeping `max_to_keep`). The scalars
+    and samples go to `create_writer(workdir, rank)`. With
+    `training.profile`, rank 0 traces the run's second super-step into
+    `<workdir>/profile/train_<step>.pt.trace.json`, `<step>` the step it
+    starts at."""
     training = self.config.training
+    substeps = training.substeps
     ckpt = ckpt_lib.CheckpointManager(os.path.join(workdir, 'checkpoints'),
                                       max_to_keep)
     if ckpt.latest_step() is not None:
@@ -317,18 +369,21 @@ class Experiment:
     try:
       if step == 0 and rank == 0:
         writer.write_hparams(self.config)
-      profile_at = step + 1 if training.profile and rank == 0 else None
+      profile_at = step + substeps if training.profile and rank == 0 else None
       last_t, last_step = time.perf_counter(), step
       while step < training.num_steps_train:
-        is_last = step + 1 >= training.num_steps_train
+        is_last = step + substeps >= training.num_steps_train
         with (self._profiled(os.path.join(workdir, 'profile'), step)
               if step == profile_at else contextlib.nullcontext()):
-          scalars = self._guarded_step()
+          scalars = self._guarded_superstep()
+        if self.state.step != step + substeps:
+          raise AssertionError((self.state.step, step, substeps))
         step = self.state.step
         if step % training.steps_per_logging == 0 or is_last:
           last_t, last_step = self._log_train(writer, scalars, last_t,
                                               last_step)
-        if step % training.steps_per_eval == 0 or is_last or step == 1:
+        if (step % training.steps_per_eval == 0 or is_last
+            or step == substeps):
           writer.write_scalars(step, self.run_eval())
           writer.write_images(step, {'samples': self.draw_samples()[None]})
         if step % training.steps_per_save == 0 or is_last:

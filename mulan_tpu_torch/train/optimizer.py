@@ -14,8 +14,16 @@ What the optax chain does, written for PyTorch:
     under FSDP |g| is taken over every rank's shards, and under tensor
     parallelism over every rank's slices, each element once.
 optax's `-lr (adam + wd p)` equals `torch.optim.AdamW`'s decoupled
-`p *= 1 - lr wd` followed by the Adam step, so AdamW runs each group. The
-`fused` and `stacked` variants are not ported (ROADMAP.md Queue A).
+`p *= 1 - lr wd` followed by the Adam step, so AdamW runs each group.
+
+JAX's two other implementations of the same update map to torch's own:
+`optimizer.fused` (`make_fused_adamw`, one flat parameter vector with
+per-element masks) to `torch.optim.AdamW(fused=True)` on each group, the
+clipping kept; `optimizer.stacked` (`make_stacked_adamw`, leaves of one
+shape stacked into one update) to its multi-tensor path (`foreach=True`),
+which, like JAX's, refuses optimizer arguments other than `b1`, `b2`,
+`eps` and `weight_decay`. Without either, torch picks its path (the
+multi-tensor one for tensors on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from mulan_tpu_torch.parallel import tensor as tensor_lib
 from mulan_tpu_torch.parallel.wrap import is_sharded, local
 
 TOP_LEVEL_GROUPS = ('encoder_model', 'score_model', 'gamma')
+# The optimizer arguments the stacked variant implements
+# (`optimizer.py:207-212`).
+STACKED_ARGS = ('b1', 'b2', 'eps', 'weight_decay')
 
 
 def make_lr_schedule(learning_rate: float, num_steps_lr_warmup: int,
@@ -111,13 +122,16 @@ class TwoGroupAdamW:
   With a `tensor` group the parameters are a rank's slices: AdamW acts on
   them elementwise, the clipping norm counts each element once, and the
   state's names (`names`) let a checkpoint gather the moments whole.
+  `implementation` is None (torch's choice), 'fused' or 'stacked' (the
+  multi-tensor path); the state is the same either way.
   """
 
   def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                lr_schedule: Callable[[int], float], *, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 1e-4, gamma_lr_scale: float = 1.0,
-               clip_norm: Optional[float] = None, tensor=None):
+               clip_norm: Optional[float] = None, tensor=None,
+               implementation: Optional[str] = None):
     buckets, unsplit = {}, {}
     self.params, self._param_names = [], []
     self.tensor = tensor
@@ -135,7 +149,10 @@ class TwoGroupAdamW:
     groups = [dict(params=[p for _, p in buckets[key]], lr_scale=key[0],
                    weight_decay=weight_decay if key[1] else 0.0)
               for key in keys]
-    self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+    path = {None: {}, 'fused': {'fused': True},
+            'stacked': {'foreach': True}}[implementation]
+    self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps,
+                                   **path)
     # The parameters' names in the order torch numbers them, and the
     # unsplit groups' names in theirs.
     self._names = [name for key in keys for name, _ in buckets[key]]
@@ -210,13 +227,24 @@ class TwoGroupAdamW:
 
 def make_optimizer(named_params, optimizer_config, lr_schedule,
                    gamma_lr_scale: float = 1.0, tensor=None) -> TwoGroupAdamW:
-  """The counterpart of `make_optimizer` for a `configs.OptimizerConfig`;
-  `tensor` as `TwoGroupAdamW`'s."""
+  """The counterpart of `make_optimizer` for a `configs.OptimizerConfig`:
+  `fused` before `stacked`, as JAX tests them; `tensor` as
+  `TwoGroupAdamW`'s."""
   if optimizer_config.name != 'adamw':
     raise ValueError(f'unknown optimizer: {optimizer_config.name!r}')
   args = optimizer_config.args
+  implementation = None
+  if optimizer_config.fused:
+    implementation = 'fused'
+  elif optimizer_config.stacked:
+    implementation = 'stacked'
+    unknown = set(vars(args)) - set(STACKED_ARGS)
+    if unknown:
+      raise ValueError(
+          f'stacked adamw does not implement optimizer args {sorted(unknown)};'
+          ' use the default implementation for those')
   return TwoGroupAdamW(named_params, lr_schedule, b1=args.b1, b2=args.b2,
                        eps=args.eps, weight_decay=args.weight_decay,
                        gamma_lr_scale=gamma_lr_scale,
                        clip_norm=optimizer_config.gradient_clip_norm,
-                       tensor=tensor)
+                       tensor=tensor, implementation=implementation)

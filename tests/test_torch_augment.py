@@ -66,8 +66,9 @@ def test_augmented_train_iterator_matches_pipeline(seed, channel_flip):
 def test_create_dataset_matches_pipeline_on_npz_names(tmp_path, name):
   """`npz:<dir>/<name>`: augmented when the name holds `_aug` (with the
   channel permutation when it ends in `with_channel`), unaugmented with
-  zero conditioning otherwise; the first 4 train batches and 2 eval
-  batches as JAX's `create_dataset` yields them."""
+  zero conditioning otherwise; the first 4 train super-batches (2 substeps
+  each, the config's) and 2 eval batches as JAX's `create_dataset` yields
+  them."""
   root = tmp_path / name
   os.makedirs(root)
   for split, seed in (('train', 5), ('eval', 6)):
@@ -77,7 +78,6 @@ def test_create_dataset_matches_pipeline_on_npz_names(tmp_path, name):
   assert ('_aug' in dataset) == (name != 'plain')
   jcfg = jax_tiny_synthetic.get_config()
   jcfg.data.dataset = dataset
-  jcfg.training.substeps = 1
   cfg = configs.replace(configs.tiny_synthetic(), data={'dataset': dataset})
   want_train, want_eval = pipeline.create_dataset(jcfg, seed=11)
   got_train, got_eval = data.create_dataset(cfg, seed=11)

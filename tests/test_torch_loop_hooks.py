@@ -1,8 +1,8 @@
 """The training loop's debug hooks and writers against the JAX loop's:
-`training.nan_guard` (the first non-finite scalar named as JAX's guard
-names it, and a clean guarded run bit for bit the unguarded one),
-`training.profile` (one torch.profiler trace of the run's second step, on
-rank 0 only) and the TensorBoard writer (JAX's scalar tags, steps and
+`training.nan_guard` (the first non-finite scalar and its substep named as
+JAX's guard names them, and a clean guarded run bit for bit the unguarded
+one), `training.profile` (one torch.profiler trace of the run's second
+super-step, on rank 0 only) and the TensorBoard writer (JAX's scalar tags, steps and
 values, the `samples` image and the hparams, read back with tensorboard's
 `EventAccumulator`).
 
@@ -53,8 +53,8 @@ def _guarded(**training):
 
 
 def _jax_guard_message(monkeypatch, scalars, step_after: int) -> str:
-  """JAX's nan_guard message for a super-step of one substep that ends at
-  `step_after` with `scalars` ({name: value})."""
+  """JAX's nan_guard message for a super-step that ends at `step_after`
+  with `scalars` ({name: the substeps' values})."""
   jcfg = jax_tiny_synthetic.get_config()
   jcfg.training.nan_guard = True
   mesh = jax_mesh.create_mesh(devices=jax.devices()[:1])
@@ -64,7 +64,8 @@ def _jax_guard_message(monkeypatch, scalars, step_after: int) -> str:
                                  tx=optax.identity()),
       _train_rng=jax.random.PRNGKey(1), _eval_rng=jax.random.PRNGKey(2),
       _sample_rng=jax.random.PRNGKey(3))
-  metrics = {k: np.asarray([v], np.float32) for k, v in scalars.items()}
+  metrics = {k: np.asarray(v, np.float32).reshape(-1)
+             for k, v in scalars.items()}
   real_jit = jax.jit
 
   def fake_jit(fn, **kwargs):
@@ -84,9 +85,10 @@ def _jax_guard_message(monkeypatch, scalars, step_after: int) -> str:
 @pytest.mark.parametrize('planted', ['var0', 'params'])
 def test_nan_guard_names_the_scalar_and_step_as_jax(monkeypatch, planted):
   """A NaN planted in the scalar `var0` alone at the second step, or in
-  every parameter before the first: the port's guard raises JAX's message
-  for the same scalars and step ('var0' at step 2; 'bpd', the first in
-  sorted order, at step 1)."""
+  every parameter before the first: after the first super-step (2 steps)
+  the port's guard raises JAX's message for the same scalars and step
+  ('var0' at substep 1; 'bpd', the first in sorted order, at substep 0;
+  both of the super-step ending at step 2)."""
   cfg = _guarded()
   seen = []
   if planted == 'var0':
@@ -109,24 +111,24 @@ def test_nan_guard_names_the_scalar_and_step_as_jax(monkeypatch, planted):
     ex.train_step = lambda batch, noise=None: seen.append(
         step(batch, noise)) or seen[-1]
   with pytest.raises(FloatingPointError) as raised:
-    ex.train(3)
+    ex.train(4)
   got = str(raised.value)
-  want = _jax_guard_message(monkeypatch, {k: v.item() for k, v in
-                                          seen[-1].items()}, ex.state.step)
+  want = _jax_guard_message(monkeypatch, {k: [s[k].item() for s in seen]
+                                          for k in seen[0]}, ex.state.step)
   assert got == want
-  name, at = ('var0', 2) if planted == 'var0' else ('bpd', 1)
-  assert got.startswith(f'nan_guard: non-finite {name!r} at substep 0 of '
-                        f'the super-step ending at step {at} '), got
-  assert len(seen) == at
+  name, bad = ('var0', 1) if planted == 'var0' else ('bpd', 0)
+  assert got.startswith(f'nan_guard: non-finite {name!r} at substep {bad} '
+                        'of the super-step ending at step 2 '), got
+  assert len(seen) == 2
 
 
 def test_clean_guarded_run_is_the_unguarded_run():
-  """Three steps with the guard: the same scalars, parameters and EMA bit
-  for bit as three without it."""
+  """Two super-steps with the guard: the same scalars, parameters and EMA
+  bit for bit as two without it."""
   runs = []
   for guard in (False, True):
     ex = Experiment(_guarded(nan_guard=guard), device='cpu')
-    runs.append((ex.train(3), ex.state))
+    runs.append((ex.train(4), ex.state))
   (history, state), (guarded_history, guarded_state) = runs
   assert history == guarded_history
   for slot in ('params', 'ema_params'):
@@ -147,19 +149,20 @@ def _train_annotations(path) -> int:
 def test_profile_traces_the_second_step_once_on_rank_0(tmp_path,
                                                        monkeypatch,
                                                        short_sampler):
-  """A run of 2 steps traces step 1 (the second); the run resumed from its
-  step-2 checkpoint to step 4 traces step 3; a rank other than 0 traces
-  nothing. Each trace holds the one step's 'train' annotation."""
+  """A run of 4 steps in super-steps of 2 traces the one from step 2 (the
+  second); the run resumed from its step-4 checkpoint to step 8 traces
+  the one from step 6; a rank other than 0 traces nothing. Each trace
+  holds the one super-step's 'train' annotation."""
   workdir = tmp_path / 'run'
   cfg = configs.replace(configs.tiny_synthetic(),
-                        training={'profile': True, 'num_steps_train': 2})
+                        training={'profile': True, 'num_steps_train': 4})
   Experiment(cfg, device='cpu').train_and_evaluate(str(workdir))
   profile = workdir / 'profile'
-  assert os.listdir(profile) == ['train_1.pt.trace.json']
-  Experiment(configs.replace(cfg, training={'num_steps_train': 4}),
+  assert os.listdir(profile) == ['train_2.pt.trace.json']
+  Experiment(configs.replace(cfg, training={'num_steps_train': 8}),
              device='cpu').train_and_evaluate(str(workdir))
-  assert sorted(os.listdir(profile)) == ['train_1.pt.trace.json',
-                                         'train_3.pt.trace.json']
+  assert sorted(os.listdir(profile)) == ['train_2.pt.trace.json',
+                                         'train_6.pt.trace.json']
   for name in os.listdir(profile):
     assert _train_annotations(profile / name) == 1, name
 
@@ -193,8 +196,9 @@ def _jax_scalar_keys(cfg):
 
 def test_tensorboard_writer_holds_jax_tags_steps_values_samples_hparams(
     tmp_path, monkeypatch, short_sampler):
-  """`train_and_evaluate` on the tiny config (4 steps, logs at 2 and 4,
-  evaluations after 1 and at 4) with TensorBoard's writer: the event file
+  """`train_and_evaluate` on the tiny config (4 steps in super-steps of 2,
+  logs at 2 and 4, evaluations after the first super-step and at 4, as
+  JAX's loop) with TensorBoard's writer: the event file
   holds JAX's scalar tags ('train_' and 'eval_' with JAX's loss keys, and
   'steps_per_sec'), at the steps and with the values the stdout writer
   printed, the sample grids under 'samples' and the config's hparams."""
@@ -239,12 +243,12 @@ def test_tensorboard_writer_holds_jax_tags_steps_values_samples_hparams(
     got = [(e.step, np.float32(e.value)) for e in events.Scalars(tag)]
     assert got == points, tag
   assert [s for s, _ in want['train_bpd']] == [2, 4]
-  assert [s for s, _ in want['eval_bpd']] == [1, 4]
+  assert [s for s, _ in want['eval_bpd']] == [2, 4]
 
   assert events.Tags()['images'] == ['samples']
   images = events.Images('samples')
   assert [e.step for e in images] == [s for s, _ in written['images']] == [
-      1, 4]
+      2, 4]
   for event, (_, grid) in zip(images, written['images']):
     png = np.asarray(Image.open(io.BytesIO(event.encoded_image_string)))
     np.testing.assert_array_equal(png, grid)

@@ -114,6 +114,7 @@ def hsdp_pod(tmp_path_factory):
 
 @pytest.mark.parametrize('check', [
     'dp_matches_one_process',                     # (a)
+    'superstep_matches_one_process',
     'fsdp_matches_one_process',                   # (b)
     'fsdp_remat_matches_one_process',
     'fsdp_eval_recasts',

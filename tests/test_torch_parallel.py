@@ -88,9 +88,7 @@ def test_pad_and_mask_matches_shard_host_padded(n_valid):
 
 
 def _jax_config():
-  cfg = jax_tiny_synthetic.get_config()
-  cfg.training.substeps = 1
-  return cfg
+  return jax_tiny_synthetic.get_config()
 
 
 @pytest.mark.parametrize('rank', [0, 1])

@@ -56,7 +56,6 @@ RENAMED = {'use_pallas': 'use_kernels'}
 NOT_PORTED = {
     'condition': 'input',  # the score UNet takes z_t itself as its input
     'epsilon': 0.0,  # no offset of the time grid
-    'gamma_precision': 'highest',  # the gamma MLP runs in float32, TF32 off
     'importance_sampling': False,  # t is drawn uniform (antithetic)
     'model_time': False,  # the UNet is conditioned on gamma_t, not on t
     'monotone_layer': 'dense_monotone',  # the poly_fixedend network's layer

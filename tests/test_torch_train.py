@@ -22,7 +22,9 @@ import pytest
 import torch
 
 from mulan_tpu.configs import cifar10_conditioned
+from mulan_tpu.configs import imagenet32 as jax_imagenet32
 from mulan_tpu.configs import tiny_synthetic as jax_tiny_synthetic
+from mulan_tpu.configs import vdm_cifar10 as jax_vdm_cifar10
 from mulan_tpu.data import pipeline
 from mulan_tpu.models import build_model as build_jax_model
 from mulan_tpu.models import model_config_from_dict
@@ -60,7 +62,7 @@ GRAD_RTOL, GRAD_ATOL_FRAC = 2e-3, 2e-4
 
 
 # Fields JAX reads with config.get(name, default): {name: default}.
-JAX_GET_DEFAULTS = {'nan_guard': False}
+JAX_GET_DEFAULTS = {'nan_guard': False, 'fused': False, 'stacked': False}
 
 
 def _assert_section(port, jax_section, defaults=JAX_GET_DEFAULTS):
@@ -76,8 +78,11 @@ def _assert_section(port, jax_section, defaults=JAX_GET_DEFAULTS):
 
 @pytest.mark.parametrize('port_fn,jax_module', [
     (configs.cifar10_conditioned, cifar10_conditioned),
-    (configs.tiny_synthetic, jax_tiny_synthetic)],
-                         ids=['cifar10_conditioned', 'tiny_synthetic'])
+    (configs.tiny_synthetic, jax_tiny_synthetic),
+    (configs.vdm_cifar10, jax_vdm_cifar10),
+    (configs.imagenet32, jax_imagenet32)],
+                         ids=['cifar10_conditioned', 'tiny_synthetic',
+                              'vdm_cifar10', 'imagenet32'])
 def test_configs_match_jax(port_fn, jax_module):
   port, want = port_fn(), jax_module.get_config()
   for section in ('data', 'training', 'optimizer'):
@@ -509,8 +514,8 @@ def test_experiment_trains_and_evaluates_on_cpu(capsys):
                                   'steps_per_logging': 2})
   ex = Experiment(cfg, device='cpu')
   start = {k: p.detach().clone() for k, p in ex.state.params.items()}
-  history = ex.train(3)
-  assert len(history) == 3
+  history = ex.train(4)  # two super-steps of 2
+  assert len(history) == 4
   assert all(np.isfinite(s['bpd']) for s in history)
   assert any(not torch.equal(start[k], p) for k, p in ex.state.params.items())
   assert all(torch.isfinite(p).all() for p in ex.state.ema_params.values())
@@ -520,4 +525,4 @@ def test_experiment_trains_and_evaluates_on_cpu(capsys):
   assert grid.shape == (16, 16, 3)
   out = capsys.readouterr().out
   assert 'Step, steps_per_sec, train_bpd' in out
-  assert out.count('\n2, ') == 1 and '\n3, ' in out
+  assert out.count('\n2, ') == 1 and out.count('\n4, ') == 1

@@ -312,14 +312,19 @@ def test_rk4_likelihood_and_ode_sampler_match_jax(ode_pair, monkeypatch):
 
 
 def test_command_lines_run_the_vdm_on_cpu(tmp_path, capsys, monkeypatch):
-  """`main --mode train --config=vdm_cifar10` (tiny overrides, 2 steps, a
-  checkpoint at each); `eval_bpd` sparse, dense and ode (rk4) on the
+  """`main --mode train --config=vdm_cifar10` (tiny overrides, 2 steps in
+  super-steps of 1, a checkpoint at each); `eval_bpd` sparse, dense and ode (rk4) on the
   checkpoints and on their `ckpt-2.flax` export; `--mode eval`; `--mode
   sample` ancestral and ode. The in-training sampler runs 2 steps."""
   monkeypatch.setenv('COMPOSER_RUN_NAME', 'run')
   monkeypatch.delenv('SLURM_JOB_ID', raising=False)
   monkeypatch.setattr(Experiment, 'draw_samples', functools.partialmethod(
       Experiment.draw_samples, T=2))
+  # One step a super-step (JAX's config has 1000), set on the config
+  # itself: one more override would make the run's name too long a path.
+  config_fn = configs.CONFIGS['vdm_cifar10']
+  monkeypatch.setitem(configs.CONFIGS, 'vdm_cifar10', lambda: configs.replace(
+      config_fn(), training={'substeps': 1}))
   main.main(['--mode=train', f'--workdir={tmp_path}', *TINY_ARGS,
              '--config.training.num_steps_train=2',
              '--config.training.steps_per_save=1',

@@ -7,7 +7,8 @@
 process group (the port's one-process `Experiment`, the VLB evaluators and
 the ODE solvers, fed the global batch: the ranks' batches concatenated in
 rank order). Then every rank joins the group on P1 and runs, on its rows,
-  a: 3 train steps under DDP;
+  a: 3 train steps under DDP; a super-step of 2 (`Experiment.train`, the
+     rank's own iterator) under DDP and with training.fsdp = 2;
   b: 4 train steps with training.fsdp = 2, an FSDP step under remat, the
      layout checks and the bf16 casts of an FSDP evaluation;
   d: 2 steps, a checkpoint, a fresh restore and 2 more (bit for bit
@@ -22,9 +23,9 @@ rank order). Then every rank joins the group on P1 and runs, on its rows,
 process.
 `tp` (world 2, training.tp = 2, one batch coordinate): rank 0 first runs
 the one-process references; then on a ('data', 'tensor') mesh
-  t: 3 train steps (the split and whole leaves checked), 2 steps, a
-     checkpoint, a fresh restore and a third (bit for bit), the checkpoint
-     restored into one process;
+  t: 3 train steps (the split and whole leaves checked), a super-step of
+     2 (`Experiment.train`), 2 steps, a checkpoint, a fresh restore and a
+     third (bit for bit), the checkpoint restored into one process;
   u: the sparse and dense VLB, the ancestral sampler, an RK4 likelihood
      and a DoPri5 solve;
   v: two steps of a VDM, an imagenet32-cut (MuLAN-epsilon, 32 channels)
@@ -117,7 +118,8 @@ def train_config(fsdp=1, **model):
 
 def rank_batches(cfg, rank, world, steps):
   """Rank `rank`'s first `steps` train batches, as its Experiment's train
-  iterator yields them (its shard, seed + rank)."""
+  iterator yields them (its shard, seed + rank; unaugmented, so the same
+  batches whatever the super-step's size)."""
   images, labels = data.source(cfg.data.dataset, 'train',
                                cfg.model.image_shape,
                                seed=cfg.data.synthetic_seed,
@@ -347,9 +349,10 @@ def check_tp_train(ref, rank, world, workdir):
   assert (mesh_lib.batch_rank(ex.mesh),
           mesh_lib.batch_world(ex.mesh)) == (rank // TP, bw)
   agree('tp_bpd', bpds)
+  check_superstep(ref, rank, ('tp', cfg))
   if rank == 0:
-    assert_bpds(bpds[:1], ref['bpd'][:1], 'tp super-step bpd')
-    assert_close_state(states[1], ref['state'][1], 'tp super-step state')
+    assert_bpds(bpds[:1], ref['bpd'][:1], 'tp first step bpd')
+    assert_close_state(states[1], ref['state'][1], 'tp first step state')
     log('CHECK tp_super_step_matches_one_process OK')
     assert_bpds(bpds, ref['bpd'], 'tp bpd')
     for step in (2, 3):
@@ -570,6 +573,26 @@ def check_dp(ref, rank, world):
     assert_bpds(bpds, ref['bpd'][:3], 'dp bpd')
     assert_close_state(state, ref['state'][3], 'dp state')
     log('CHECK dp_matches_one_process OK')
+  check_superstep(ref, rank, ('dp', cfg), ('fsdp', train_config(fsdp=2)))
+
+
+def check_superstep(ref, rank, *named_configs):
+  """One super-step of the configs' 2 substeps through `Experiment.train`
+  on the rank's own iterator: the global scalars of both substeps and the
+  state after them against one process's first two steps."""
+  for name, cfg in named_configs:
+    assert cfg.training.substeps == 2, cfg.training
+    ex = Experiment(cfg, device='cpu')
+    bpds = [h['bpd'] for h in ex.train(2)]
+    assert ex.state.step == 2
+    state = full_state(ex)
+    agree(f'{name}_superstep_bpd', bpds)
+    if rank == 0:
+      assert_bpds(bpds, ref['bpd'][:2], f'{name} super-step bpd')
+      assert_close_state(state, ref['state'][2], f'{name} super-step state')
+  if rank == 0:
+    log('CHECK superstep_matches_one_process OK',
+        json.dumps([name for name, _ in named_configs]))
 
 
 def check_fsdp(ref, rank, world):
