@@ -247,8 +247,8 @@ JAX_SAMPLE_T = 1000
 # The CUDA kernel names (demangled, before the template arguments) of each
 # counted wrapper, for counting a torch.profiler trace's kernel events.
 # K6 and K7 share `dropout_mask`; K4 and K5 launch a reduction after their
-# kernel, which the trace also holds (`sum_partials`, `sum_rows`), as K8's
-# backward does (`gn_swish_bwd_finish`).
+# kernel, which the trace also holds (`sum_partials`, `sum_rows`); K8's
+# backward is one launch of either design.
 TRACE_KERNEL_NAMES = {
     'flash_attention': ('flash_fwd_sm90', 'flash_fwd_sm90_d256',
                         'flash_fwd_simt'),
@@ -260,7 +260,7 @@ TRACE_KERNEL_NAMES = {
     'decoder_logprob_bwd': ('decoder_logprob_bwd',),
     'dropout_mask': ('dropout_mask',),
     'gn_swish': ('gn_swish',),
-    'gn_swish_bwd': ('gn_swish_bwd',),
+    'gn_swish_bwd': ('gn_swish_bwd', 'gn_swish_bwd_regs'),
 }
 
 
@@ -343,6 +343,12 @@ GRAD_NORM_RTOL = 1e-2
 # value) where the two float32 results straddle a rounding boundary; near
 # swish's zero, the float32 rounding of y (~1e-7 absolute) is the atol.
 GN_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
+# The (mean, rstd) K8 writes for its backward against `group_stats` on the
+# same x: both in float32, summed in other orders (4,096-16,384 terms at the
+# flagship's widths, the variance as E[x^2] - mean^2 of x ~ N(0.5, 4)), a
+# few float32 ulps of E[x^2]; |mean| is held against 1e-5 max |x| and rstd
+# relatively at 1e-5.
+GN_STATS_RTOL = 1e-5
 # K8's backward against gn_swish_bwd_plain on the same (x, dy). dx
 # elementwise, |kernel - plain| <= rtol |plain| + atol_frac max |plain|: both
 # compute in float32 and cast once (bf16: one ulp, 2^-7 of the value, where
@@ -1163,8 +1169,11 @@ def check_gn_swish(dev, gen, sfu_rate, cases=GN_CASES):
   """K8 against `gn_swish_plain` on `cases`. The timed ones are timed (one
   launch and back to back) beside the plain version and the unfused path's
   two calls, F.silu(F.group_norm(...)) (no single PyTorch call computes
-  the function). Returns the timed results."""
-  from mulan_tpu_torch.ops.groupnorm_swish import gn_swish_fwd, gn_swish_plain
+  the function). The statistics it writes for the backward must leave the
+  output as it was and agree with `group_stats` (GN_STATS_RTOL). Returns the
+  timed results."""
+  from mulan_tpu_torch.ops.groupnorm_swish import (gn_swish_fwd,
+                                                   gn_swish_plain)
   results = []
   for shape, dtype, groups, timed_case in cases:
     c = shape[1]
@@ -1172,13 +1181,18 @@ def check_gn_swish(dev, gen, sfu_rate, cases=GN_CASES):
     w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
     b = 0.1 * torch.randn(c, generator=gen, device=dev)
     out = gn_swish_fwd(x, w, b, groups)
+    out_st, stats = gn_swish_fwd(x, w, b, groups, 1e-6, True)
     torch.cuda.synchronize()
     ref = gn_swish_plain(x, w, b, groups)
     assert out.shape == ref.shape and out.dtype == ref.dtype
+    # Writing the statistics leaves the output as it was.
+    assert torch.equal(out, out_st), (shape, dtype)
+    stats_err = stats_errors(stats, x, groups)
     rtol, atol = GN_TOL[dtype]
     diff = (out.float() - ref.float()).abs()
     excess = (diff - rtol * ref.float().abs()).max().item()
-    result = dict(max_abs_err=diff.max().item(), max_excess_over_rtol=excess)
+    result = dict(max_abs_err=diff.max().item(), max_excess_over_rtol=excess,
+                  **stats_err)
     if timed_case:
       wl, bl = w.to(dtype), b.to(dtype)
       result.update(
@@ -1195,20 +1209,44 @@ def check_gn_swish(dev, gen, sfu_rate, cases=GN_CASES):
     log('gn_swish', shape=list(shape), dtype=str(dtype), groups=groups,
         rtol=rtol, atol=atol, **result)
     assert excess <= atol, (shape, dtype, result)
+    assert max(stats_err.values()) <= GN_STATS_RTOL, (shape, dtype, result)
     if timed_case:
       results.append(result)
   return results
 
 
+def stats_errors(stats, x, groups: int) -> dict:
+  """K8's (B, G, 2) statistics against `group_stats` of x, as GN_STATS_RTOL
+  holds them: the means' error over max |x|, rstd's relative error."""
+  from mulan_tpu_torch.ops.groupnorm_swish import group_stats
+  want = group_stats(x, groups, 1e-6)
+  return dict(
+      mean_err_over_max_x=((stats[..., 0] - want[..., 0]).abs().max()
+                           / x.float().abs().max()).item(),
+      rstd_rel_err=((stats[..., 1] - want[..., 1]).abs()
+                    / want[..., 1]).max().item())
+
+
 def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
-  """K8's backward against `gn_swish_bwd_plain` on `cases`: dx
-  elementwise and dweight, dbias by their max-abs (see GN_BWD_DX_TOL). The
-  timed cases are timed (one launch, back to back, the host's time a call)
+  """K8's backward against `gn_swish_bwd_plain` on `cases`, with the
+  statistics K8's forward writes (as under autograd; held against
+  `group_stats`): dx elementwise and dweight, dbias by their max-abs (see
+  GN_BWD_DX_TOL), through the wrapper (the design `bwd_design` picks) and,
+  where that is the ring, through the registers design's C entry point
+  too. Each design runs twice and must give the same bits (dweight and
+  dbias are summed over the batch in a fixed order). The timed cases are
+  timed (one launch, back to back, the host's time a call, the C call
+  alone, and the registers design's C call where the ring is picked)
   beside the plain version and the backward of the unfused pair
   F.silu(F.group_norm(...)) in bf16 (forward and backward minus forward;
   no single PyTorch call computes the function). Returns their results."""
-  from mulan_tpu_torch.ops.groupnorm_swish import (gn_swish_bwd,
-                                                   gn_swish_bwd_plain)
+  from mulan_tpu_torch.ops import _build
+  from mulan_tpu_torch.ops.groupnorm_swish import (_counters, bwd_design,
+                                                   gn_swish_bwd,
+                                                   gn_swish_bwd_plain,
+                                                   gn_swish_fwd)
+  lib = _build.load_library()
+  stream = torch.cuda.current_stream(dev).cuda_stream
   results = []
   for shape, dtype, groups, timed_case in cases:
     c = shape[1]
@@ -1216,21 +1254,67 @@ def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
     dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
     b = 0.1 * torch.randn(c, generator=gen, device=dev)
-    dx, dw, db = gn_swish_bwd(x, w, b, dy, groups)
-    torch.cuda.synchronize()
+    _, stats = gn_swish_fwd(x, w, b, groups, 1e-6, True)
+    stats_err = stats_errors(stats, x, groups)
+    assert max(stats_err.values()) <= GN_STATS_RTOL, (shape, dtype, stats_err)
+    design = bwd_design(shape, dtype, groups)
     ref = gn_swish_bwd_plain(x, w, b, dy, groups)
-    assert dx.dtype == ref[0].dtype == dtype and dx.shape == x.shape
-    assert dw.dtype == db.dtype == torch.float32 and dw.shape == (c,)
     rtol, atol_frac = GN_BWD_DX_TOL[dtype]
     want = ref[0].float()
-    diff = (dx.float() - want).abs()
-    dx_excess = ((diff - rtol * want.abs()).max()
-                 / want.abs().max()).item()
-    errs = dict(dx_excess_over_rtol_frac=dx_excess,
-                dweight_rel_err=rel_err(dw, ref[1]),
-                dbias_rel_err=rel_err(db, ref[2]))
-    result = dict(max_abs_err=max(diff.max(), (dw - ref[1]).abs().max(),
-                                  (db - ref[2]).abs().max()).item(), **errs)
+
+    def c_call(entry):
+      """A launch of the C entry point `entry` with the wrapper's arguments
+      on these inputs, and the (dx, dweight, dbias) it writes."""
+      outs = (torch.empty_like(x), torch.empty((2, *shape[:2]), device=dev),
+              torch.empty_like(w), torch.empty_like(b))
+      args = (x.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(),
+              stats.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+              _counters(dev, stream, groups).data_ptr(), outs[2].data_ptr(),
+              outs[3].data_ptr(), shape[0], c, shape[2] * shape[3], groups,
+              int(dtype == torch.bfloat16), stream)
+
+      def launch(outs=outs):
+        assert entry(*args) == 0
+      return launch, (outs[0], outs[2], outs[3])
+    regs_call, regs_outs = c_call(lib.mulan_gn_swish_bwd_regs)
+
+    def regs_twice():
+      regs_call()
+      first = tuple(t.clone() for t in regs_outs)
+      regs_call()
+      return first, regs_outs
+    result = dict(design=design, **stats_err)
+    for d in ('ring', 'regs') if design == 'ring' else (design,):
+      if d == design:
+        got = gn_swish_bwd(x, w, b, dy, groups, 1e-6, stats)
+        again = gn_swish_bwd(x, w, b, dy, groups, 1e-6, stats)
+      else:
+        got, again = regs_twice()
+      torch.cuda.synchronize()
+      dx, dw, db = got
+      assert dx.dtype == ref[0].dtype == dtype and dx.shape == x.shape
+      assert dw.dtype == db.dtype == torch.float32 and dw.shape == (c,)
+      assert all(torch.equal(u, v) for u, v in zip(got, again)), (
+          shape, d, 'two runs differ')
+      diff = (dx.float() - want).abs()
+      dx_excess = ((diff - rtol * want.abs()).max()
+                   / want.abs().max()).item()
+      errs = dict(dx_excess_over_rtol_frac=dx_excess,
+                  dweight_rel_err=rel_err(dw, ref[1]),
+                  dbias_rel_err=rel_err(db, ref[2]))
+      max_abs = max(diff.max(), (dw - ref[1]).abs().max(),
+                    (db - ref[2]).abs().max()).item()
+      log('gn_swish_bwd', shape=list(shape), dtype=str(dtype), groups=groups,
+          design=d, rtol=rtol, atol_frac=atol_frac,
+          sum_rtol=GN_BWD_SUM_RTOL, max_abs_err=max_abs, **errs)
+      assert dx_excess <= atol_frac, (shape, dtype, d, errs)
+      assert max(errs['dweight_rel_err'], errs['dbias_rel_err']) <= (
+          GN_BWD_SUM_RTOL), (shape, dtype, d, errs)
+      if d == design:
+        first = got
+        result.update(max_abs_err=max_abs, **errs)
+      elif timed_case:
+        result['regs_c_call_back_to_back_ms'] = back_to_back_ms(regs_call)
     if timed_case:
       xg = x.detach().requires_grad_()
       wl, bl = (t.to(dtype).requires_grad_() for t in (w, b))
@@ -1242,10 +1326,14 @@ def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
         return torch.autograd.grad(pair_fwd(), (xg, wl, bl), dy)
 
       def run():
-        return gn_swish_bwd(x, w, b, dy, groups)
+        return gn_swish_bwd(x, w, b, dy, groups, 1e-6, stats)
+      design_call, design_outs = c_call(
+          {'ring': lib.mulan_gn_swish_bwd,
+           'regs': lib.mulan_gn_swish_bwd_regs}[design])
       result.update(
           ms=cuda_ms(run), back_to_back_ms=back_to_back_ms(run),
-          host_ms=host_ms(run),
+          host_ms=host_ms(run), c_call_ms=cuda_ms(design_call),
+          c_call_back_to_back_ms=back_to_back_ms(design_call),
           plain_ms=cuda_ms(lambda: gn_swish_bwd_plain(x, w, b, dy, groups)),
           library_ms=None,
           unfused_pair_bwd_ms=cuda_ms(pair_fwd_bwd) - cuda_ms(pair_fwd),
@@ -1253,12 +1341,10 @@ def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
           # exp2 and a reciprocal an element.
           **bound(20.0 * x.numel(), nbytes(x, dy, w, b, dx, dw, db),
                   exps=2.0 * x.numel(), sfu_rate=sfu_rate))
-    log('gn_swish_bwd', shape=list(shape), dtype=str(dtype), groups=groups,
-        rtol=rtol, atol_frac=atol_frac, sum_rtol=GN_BWD_SUM_RTOL, **result)
-    assert dx_excess <= atol_frac, (shape, dtype, result)
-    assert max(errs['dweight_rel_err'], errs['dbias_rel_err']) <= (
-        GN_BWD_SUM_RTOL), (shape, dtype, result)
-    if timed_case:
+      assert torch.equal(design_outs[0], first[0]), (
+          shape, 'the C call differs')
+      log('gn_swish_bwd_timing', shape=list(shape), dtype=str(dtype),
+          groups=groups, **result)
       results.append(result)
   return results
 
@@ -1555,11 +1641,13 @@ def planted_gn_fault(kind: str):
   name = {'half_groups': 'gn_swish_fwd', 'missing_term': 'gn_swish_bwd'}[kind]
   real = getattr(gn, name)
 
-  def half_groups(x, weight, bias, num_groups, eps=1e-6):
-    return real(x, weight, bias, num_groups // 2, eps)
+  def half_groups(x, weight, bias, num_groups, eps=1e-6, stats=False):
+    # The statistics of the right groups, as the backward would reduce them.
+    out = real(x, weight, bias, num_groups // 2, eps)
+    return (out, gn.group_stats(x, num_groups, eps)) if stats else out
 
-  def missing_term(x, weight, bias, dy, num_groups, eps=1e-6):
-    dx, dweight, dbias = real(x, weight, bias, dy, num_groups, eps)
+  def missing_term(x, weight, bias, dy, num_groups, eps=1e-6, stats=None):
+    dx, dweight, dbias = real(x, weight, bias, dy, num_groups, eps, stats)
     xhat, rstd = gn._normalized(x, num_groups, eps)
     w = gn._per_channel(weight, x)
     y = xhat * w + gn._per_channel(bias, x)
@@ -2619,8 +2707,9 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   `eval_bpd --config=imagenet32 --bpd_eval_method=ode --solver=rk4`. Every
   K1, K2 and K3 launch must take the 'sm90' route, the kernels-vs-plain
   step's and its planted faults' included. Last, K8 and its backward
-  alone at the 256-wide UNet's channel counts (IN32_GN_CASES; not on this
-  path, whose config leaves `fused_gn_swish` off). Returns ({path:
+  alone at the 256-wide UNet's channel counts (IN32_GN_CASES), and one
+  train step with `fused_gn_swish` (off on the path above), K8 and its
+  backward launched at every one of its sites. Returns ({path:
   launches}, {K1 shape / 'dkv' / 'dq' / 'gn_swish' / 'gn_swish_bwd':
   results}, the Experiment)."""
   from mulan_tpu_torch import compat, configs, data, params
@@ -2773,6 +2862,23 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   kernels['gn_swish'] = check_gn_swish(dev, gen, sfu_rate, IN32_GN_CASES)
   kernels['gn_swish_bwd'] = check_gn_swish_bwd(dev, gen, sfu_rate,
                                                IN32_GN_CASES)
+  # With `fused_gn_swish`: one train step through K8 and its backward at
+  # the UNet's 2 (2 sm_n_layer + 3) sites (C = 256; 512 at each up block's
+  # first GroupNorm, after the skip concat).
+  fused_cfg = configs.replace(train_cfg, model={'fused_gn_swish': True})
+  ex_fused = Experiment(fused_cfg, device=dev, state=state)
+  fused_history, paths['in32_fused_train'] = count(
+      lambda: ex_fused.train(1))
+  k8_sites = 2 * (2 * cfg.sm_n_layer + 3)
+  log('in32_fused_train', bpd=fused_history[0]['bpd'], k8_sites=k8_sites,
+      launches=paths['in32_fused_train'])
+  assert math.isfinite(fused_history[0]['bpd']), fused_history
+  assert paths['in32_fused_train'] == expected_launches(
+      fused_cfg.model, 'train'), paths['in32_fused_train']
+  assert paths['in32_fused_train']['gn_swish_bwd'] == k8_sites, (
+      paths['in32_fused_train'])
+  del ex_fused
+  torch.cuda.empty_cache()
   return paths, kernels, ex
 
 
@@ -4620,7 +4726,8 @@ def main() -> None:
             'with_dkv', 'simt_ms', 'simt_back_to_back_ms', 'simt_rel_err',
             'simt_max_abs_err',
             'window_bins_per_pixel', 'bound_full_vocab_ms',
-            'unfused_pair_ms', 'unfused_pair_bwd_ms')
+            'unfused_pair_ms', 'unfused_pair_bwd_ms', 'design',
+            'regs_c_call_back_to_back_ms')
   kernels = []
   for name, (source, replaces) in sources.items():
     by_path = {path: counts[name] for path, counts in paths.items()}
@@ -4665,8 +4772,10 @@ def main() -> None:
   for c, r in (('c256', gn_bwd_c256),
                ('c512', in32_kernels['gn_swish_bwd'][1])):
     by_name['gn_swish_bwd'][f'at_{c}'] = {k: r[k] for k in (
-        'ms', 'back_to_back_ms', 'host_ms', 'plain_ms',
-        'unfused_pair_bwd_ms', 'bound_ms', 'max_abs_err')}
+        'ms', 'back_to_back_ms', 'host_ms', 'c_call_ms',
+        'c_call_back_to_back_ms', 'regs_c_call_back_to_back_ms', 'design',
+        'plain_ms', 'unfused_pair_bwd_ms', 'bound_ms', 'max_abs_err')
+        if k in r}
   # K1-K3 at head_dim 256 (phase 14): their launches on its paths, each on
   # 'sm90', and the kernels alone at its shapes.
   in32_results = {'flash_attention': in32_kernels['x'.join(
@@ -4701,7 +4810,8 @@ def main() -> None:
   for name in ('dropout_mask', 'dropout_mask_batch', 'gn_swish',
                'gn_swish_bwd'):
     by_name[name]['at_tensor_window'] = {k: tensor_window[name][k] for k in (
-        'shape', 'ms', 'back_to_back_ms', 'plain_ms', 'bound_ms', 'bound_by',
+        'shape', 'ms', 'back_to_back_ms', 'c_call_back_to_back_ms',
+        'regs_c_call_back_to_back_ms', 'design', 'plain_ms', 'bound_ms', 'bound_by',
         'max_abs_err') if k in tensor_window[name]}
   log('parallel_summary', **{k: json.dumps(v) for k, v in parallel.items()})
   log('tensor_summary', **{k: json.dumps(v) for k, v in tensor.items()})

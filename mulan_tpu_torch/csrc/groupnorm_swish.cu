@@ -37,15 +37,42 @@
 // special-function units (ex2.approx and rcp.approx, a few float32 ulps) and
 // a few FMAs; a thread steps from channel to channel without dividing.
 //
-// The backward writes per-(sample, channel) partial sums of g_y and
-// g_y xhat to a (2, B, C) float32 buffer; a second small kernel sums them
-// over B in order (no float atomics, the same bits every run). It recomputes
-// the statistics from the x run it loads anyway, so the forward stores
-// nothing for it, with remat or without.
+// The backward (gn_swish_bwd) is one persistent launch. As many blocks as
+// fit on the SMs at once each serve one group and a share of the samples,
+// a thread for every two vectors of a run (up to 1,024 threads, C/G = 16
+// bf16 channels of 32 x 32). Each run of x and of dy (one contiguous span
+// each in NCHW) comes into a two-stage shared-memory ring by 1-D bulk
+// copies (cp.async.bulk, completing on an mbarrier) while the block works
+// on the run before it, so the memory pipe does not wait for a block's
+// barriers and the grid has no wave tail. It takes the statistics the
+// forward wrote, (mean, rstd) per (sample, group) in a (B, G, 2) float32
+// buffer, instead of reducing x for them first. It computes g_y once
+// and holds w g_y in registers for dx. A run costs two barriers (the group
+// means, the stage's release): a thread keeps its vectors' sums of g_y and
+// g_y xhat over its runs in registers, and only at the end does a block
+// reduce them per channel into its row of a (2, B, C) float32 buffer and
+// arrive at its group's counter; the group's last block sums the group's
+// rows in a fixed order into dweight and dbias and sets the counter back to
+// 0. The same bits on every run on a card, no float atomics, no second
+// launch.
+//
+// A run that is no multiple of 16 bytes a channel (H x W not a multiple of
+// a vector), whose tensors are not 16-byte aligned, or that is longer than
+// 2,048 vectors takes gn_swish_bwd_regs: one block per (sample,
+// group), the run held in registers as the forward holds it, g_y computed
+// again for dx, with the same statistics and the same arrival counters.
+// Its blocks arrive once a run, as the ring's do once a block. The wrapper
+// chooses between the two by shape (ops/groupnorm_swish.py:bwd_design).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -53,6 +80,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // The most vectors a thread holds; the wrappers refuse longer runs.
 constexpr int kMaxVecs = 16;
+// The backward's ring: stages of (x run, dy run), and the vectors a thread
+// takes of a run (its blocks have up to 1024 threads: runs of up to 2048
+// vectors, two stages of which, 128 KB, fit in an SM's shared memory).
+constexpr int kStages = 2;
+constexpr int kRingVecs = 2;
+constexpr int kRingThreads = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -204,8 +237,9 @@ struct ChannelWalk {
 template <typename T, int N, int NV>
 __global__ void __launch_bounds__(kThreads)
 gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
-         const float* __restrict__ bias, T* __restrict__ out, int groups,
-         int channels_per_group, int hw, float eps) {
+         const float* __restrict__ bias, T* __restrict__ out,
+         float* __restrict__ stats, int groups, int channels_per_group,
+         int hw, float eps) {
   using P = Pack<T, N>;
   __shared__ float scratch[2 * kWarps];
   const int len = channels_per_group * hw;
@@ -233,6 +267,10 @@ gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
   const float mean = s1 / (float)len;
   const float var = s2 / (float)len - mean * mean;
   const float rstd = rsqrtf(var + eps);
+  if (stats != nullptr && threadIdx.x == 0) {
+    stats[2 * blockIdx.x] = mean;
+    stats[2 * blockIdx.x + 1] = rstd;
+  }
 
   ChannelWalk at(hw / N);
 #pragma unroll
@@ -254,65 +292,283 @@ gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
   }
 }
 
-// The backward's main kernel, one block per (sample, group) as above. It
-// writes dx, and partial[n * C + c] = sum over hw of g_y and
-// partial[(B + n) * C + c] = sum of g_y xhat. Dynamic shared memory: two
-// floats per vector, then two per channel of the group. It keeps x and dy
-// as loaded and computes g_y again for dx rather than hold it in float32:
-// at C = 256 (NV = 4) that halves the registers a thread holds, and the
-// special-function units have time to spare.
+// Per channel of the group, one warp (of `warps`) sums the per-vector sums
+// of g_y (vec_g) and g_y xhat (vec_gx) in a fixed order, writes them to row
+// `row` of partial ((2, B, C): partial[row * C + c] and partial[(B + row) *
+// C + c]) and, where chan is not null, to chan ([2][channels_per_group]),
+// and fences its global stores for the group's last block (add_arrival).
+// Ends with a barrier.
+__device__ __forceinline__ void channel_sums(
+    const float* vec_g, const float* vec_gx, float* chan,
+    float* __restrict__ partial, int batch, int channels, int row,
+    int first_channel, int channels_per_group, int per_channel, int warps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int ch = warp; ch < channels_per_group; ch += warps) {
+    float sg = 0.0f, sgx = 0.0f;
+    for (int j = lane; j < per_channel; j += 32) {
+      sg += vec_g[ch * per_channel + j];
+      sgx += vec_gx[ch * per_channel + j];
+    }
+    sg = warp_sum(sg);
+    sgx = warp_sum(sgx);
+    if (lane == 0) {
+      const int c = first_channel + ch;
+      partial[(size_t)row * channels + c] = sg;
+      partial[((size_t)batch + row) * channels + c] = sgx;
+      if (chan != nullptr) {
+        chan[ch] = sg;
+        chan[channels_per_group + ch] = sgx;
+      }
+      __threadfence();
+    }
+  }
+  __syncthreads();
+}
+
+// Thread 0, after channel_sums: counts an arrival at `group` and returns
+// whether it was the last of `arrivals` (then the group's partial sums, all
+// fenced before their arrivals, are visible to the block after its next
+// barrier).
+__device__ __forceinline__ bool add_arrival(unsigned* counters, int group,
+                                            int arrivals) {
+  const bool last =
+      atomicAdd(counters + group, 1u) == (unsigned)arrivals - 1u;
+  if (last) __threadfence();
+  return last;
+}
+
+// The group's last arrival: dbias[c] = sum_r partial[r * C + c] and
+// dweight[c] = sum_r partial[(B + r) * C + c] over rows r < rows, for the
+// group's channels, each column by one warp (of `warps`; lane l sums rows
+// l, l + 32, ... in order, then the fixed shuffle tree), and the group's
+// counter back to 0 for the next launch.
+__device__ __forceinline__ void sum_group(
+    const float* __restrict__ partial, float* __restrict__ dweight,
+    float* __restrict__ dbias, unsigned* counters, int batch, int channels,
+    int rows, int group, int first_channel, int channels_per_group,
+    int warps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int col = warp; col < 2 * channels_per_group; col += warps) {
+    const bool db = col < channels_per_group;
+    const int c = first_channel + (db ? col : col - channels_per_group);
+    const float* p = partial + (db ? 0 : (size_t)batch * channels) + c;
+    float v = 0.0f;
+    for (int r = lane; r < rows; r += 32)
+      v += __ldcg(p + (size_t)r * channels);
+    v = warp_sum(v);
+    if (lane == 0) (db ? dbias : dweight)[c] = v;
+  }
+  if (threadIdx.x == 0) counters[group] = 0u;
+}
+
+struct BwdParams {
+  const float *weight, *bias, *stats;
+  float *partial, *dweight, *dbias;
+  unsigned* counters;
+  int batch, channels, groups, channels_per_group, hw;
+};
+
+// The backward, persistent. Block b serves group b % G and the samples
+// b / G, b / G + S, ... (S = gridDim.x / G slots a group), so the weights
+// and biases of a thread's vectors are the same in every run it takes, and
+// it sums its vectors' g_y and g_y xhat over its runs in registers; only
+// at its end does the block reduce them per channel into its slot's row of
+// the (2, B, C) partial sums and arrive at its group. Thread 0 keeps
+// kStages runs' x and dy in flight in the ring. A run costs two barriers:
+// the group means of w g_y and w g_y xhat, and the stage's release. Dynamic
+// shared memory: the ring (kStages x (x run, dy run)), which also holds the
+// per-vector sums at the end. N divides hw, len * sizeof(T) is a multiple
+// of 16, x and dy are 16-byte aligned; len / N <= NV * blockDim.x.
 template <typename T, int N, int NV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRingThreads)
 gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
-             const float* __restrict__ weight, const float* __restrict__ bias,
-             T* __restrict__ dx, float* __restrict__ partial, int batch,
-             int channels, int groups, int channels_per_group, int hw,
-             float eps) {
+             T* __restrict__ dx, const BwdParams a) {
+  using P = Pack<T, N>;
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ uint64_t full[kStages];
+  __shared__ float scratch[2][64];
+  __shared__ int last;
+  const int threads = blockDim.x, warps = threads / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = a.channels_per_group * a.hw;
+  const int nvec = len / N;
+  const int per_channel = a.hw / N;
+  const uint32_t run_bytes = (uint32_t)(len * sizeof(T));
+  const int group = blockIdx.x % a.groups;
+  const int slot = blockIdx.x / a.groups, slots = gridDim.x / a.groups;
+  const int first_channel = group * a.channels_per_group;
+
+  auto issue = [&](int sample, int stage) {  // thread 0 only
+    const size_t at = ((size_t)sample * a.groups + group) * len;
+    uint8_t* dst = ring + stage * 2 * run_bytes;
+    sm90::mbar_arrive_expect_tx(&full[stage], 2 * run_bytes);
+    sm90::bulk_load(dst, x + at, run_bytes, &full[stage]);
+    sm90::bulk_load(dst + run_bytes, dy + at, run_bytes, &full[stage]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&full[s], 1);
+    sm90::fence_barrier_init();
+    for (int s = 0; s < kStages; ++s)
+      if (slot + s * slots < a.batch) issue(slot + s * slots, s);
+  }
+  // The weight and bias of each of the thread's vectors, the same in every
+  // run, and its sums over the runs.
+  float wk[NV], bk[NV], acc_g[NV], acc_gx[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int c = first_channel +
+                  min((int)threadIdx.x + k * threads, nvec - 1) / per_channel;
+    wk[k] = __ldg(a.weight + c);
+    bk[k] = __ldg(a.bias + c);
+    acc_g[k] = acc_gx[k] = 0.0f;
+  }
+  __syncthreads();
+
+  int j = 0;
+  for (int sample = slot; sample < a.batch; sample += slots, ++j) {
+    const int stage = j % kStages;
+    const T* xs = reinterpret_cast<const T*>(ring + stage * 2 * run_bytes);
+    const T* ds = reinterpret_cast<const T*>(ring + stage * 2 * run_bytes +
+                                             run_bytes);
+    const int run = sample * a.groups + group;
+    const float mean = __ldg(a.stats + 2 * run);
+    const float rstd = __ldg(a.stats + 2 * run + 1);
+    sm90::mbar_wait(&full[stage], (j / kStages) & 1);
+    const float shift = -mean * rstd;  // xhat = x rstd + shift
+
+    // g_y once: w g_y kept for dx; the sums of g_y and g_y xhat per vector
+    // added to the thread's, and of w g_y and w g_y xhat over the run.
+    float wg[NV][N];
+    float swg = 0.0f, swgx = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * threads;
+      if (i < nvec) {
+        float xf[N], df[N];
+        P::unpack(P::load(xs + i * N), xf);
+        P::unpack(P::load(ds + i * N), df);
+        float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float xhat = fmaf(xf[e], rstd, shift);
+          const float g = swish_grad(fmaf(xhat, wk[k], bk[k]), df[e]);
+          sg += g;
+          sgx = fmaf(g, xhat, sgx);
+          wg[k][e] = wk[k] * g;
+        }
+        acc_g[k] += sg;
+        acc_gx[k] += sgx;
+        swg = fmaf(wk[k], sg, swg);
+        swgx = fmaf(wk[k], sgx, swgx);
+      }
+    }
+    // mean_grp(w g_y) and mean_grp(w g_y xhat): the warps' sums in order,
+    // in scratch[j % 2], which the release barrier of run j + 1 frees.
+    swg = warp_sum(swg);
+    swgx = warp_sum(swgx);
+    float* part = scratch[j & 1];
+    if (lane == 0) {
+      part[warp] = swg;
+      part[32 + warp] = swgx;
+    }
+    __syncthreads();
+    swg = swgx = 0.0f;
+    for (int w = 0; w < warps; ++w) {
+      swg += part[w];
+      swgx += part[32 + w];
+    }
+    const float mean_wg = swg / (float)len;
+    const float mean_wgx = swgx / (float)len;
+
+    const size_t base = (size_t)run * len;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = threadIdx.x + k * threads;
+      if (i < nvec) {
+        float xf[N];
+        P::unpack(P::load(xs + i * N), xf);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float xhat = fmaf(xf[e], rstd, shift);
+          xf[e] = rstd * (wg[k][e] - mean_wg - xhat * mean_wgx);
+        }
+        P::store(dx + base + (size_t)i * N, P::pack(xf));
+      }
+    }
+    // The stage is free again.
+    __syncthreads();
+    if (threadIdx.x == 0 && sample + kStages * slots < a.batch)
+      issue(sample + kStages * slots, stage);
+  }
+
+  // The block's sums per channel, into its slot's row; the ring is free.
+  float* vec_g = reinterpret_cast<float*>(ring);
+  float* vec_gx = vec_g + nvec;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = threadIdx.x + k * threads;
+    if (i < nvec) {
+      vec_g[i] = acc_g[k];
+      vec_gx[i] = acc_gx[k];
+    }
+  }
+  __syncthreads();
+  channel_sums(vec_g, vec_gx, nullptr, a.partial, a.batch, a.channels, slot,
+               first_channel, a.channels_per_group, per_channel, warps);
+  if (threadIdx.x == 0) last = add_arrival(a.counters, group, slots);
+  __syncthreads();
+  if (last)
+    sum_group(a.partial, a.dweight, a.dbias, a.counters, a.batch, a.channels,
+              slots, group, first_channel, a.channels_per_group, warps);
+}
+
+// The backward for the runs the ring does not take: one block per (sample,
+// group), blockIdx.x = run, the run's x and dy held in registers as loaded
+// (N = 1 where H x W is no multiple of a vector). g_y is computed again for
+// dx rather than held in float32, which at 16 vectors a thread would halve
+// the blocks an SM holds. Dynamic shared memory: two floats a vector, then
+// two a channel of the group. Left to choose, ptxas holds the element path
+// (N = 1: a register a value, 32 for x and dy) to 80 registers and spills;
+// a minimum of two blocks an SM lets it take up to 128 (0: no minimum, as
+// ptxas chooses for the vector paths).
+template <typename T, int N, int NV>
+__global__ void __launch_bounds__(kThreads, N == 1 ? 2 : 0)
+gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
+                  T* __restrict__ dx, const BwdParams a) {
   using P = Pack<T, N>;
   extern __shared__ float smem[];
-  __shared__ float scratch[2 * kWarps];
-  const int len = channels_per_group * hw;
+  __shared__ int last;
+  const int len = a.channels_per_group * a.hw;
   const int nvec = len / N;
-  const int per_channel = hw / N;
+  const int per_channel = a.hw / N;
   float* vec_g = smem;              // [nvec]
   float* vec_gx = smem + nvec;      // [nvec]
   float* chan = smem + 2 * nvec;    // [2][channels_per_group]
-  const size_t base = (size_t)blockIdx.x * len;
-  const int sample = blockIdx.x / groups;
-  const int first_channel = (blockIdx.x % groups) * channels_per_group;
+  const int run = blockIdx.x;
+  const size_t base = (size_t)run * len;
+  const int sample = run / a.groups, group = run - sample * a.groups;
+  const int first_channel = group * a.channels_per_group;
 
-  // x and dy in flight together; the statistics from x as in the forward.
   typename P::Raw xr[NV], dyr[NV];
-  float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       xr[k] = P::load(x + base + (size_t)i * N);
       dyr[k] = P::load(dy + base + (size_t)i * N);
-      float f[N];
-      P::unpack(xr[k], f);
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        s1 += f[e];
-        s2 = fmaf(f[e], f[e], s2);
-      }
     }
   }
-  block_sum2(s1, s2, scratch);
-  const float mean = s1 / (float)len;
-  const float var = s2 / (float)len - mean * mean;
-  const float rstd = rsqrtf(var + eps);
+  const float mean = __ldg(a.stats + 2 * run);
+  const float rstd = __ldg(a.stats + 2 * run + 1);
   const float shift = -mean * rstd;  // xhat = x rstd + shift
 
-  // Each vector's sums of g_y and g_y xhat to smem.
   ChannelWalk at(per_channel);
 #pragma unroll
   for (int k = 0; k < NV; ++k, at.next()) {
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       const int c = first_channel + at.channel;
-      const float w = __ldg(weight + c), b = __ldg(bias + c);
+      const float w = __ldg(a.weight + c), b = __ldg(a.bias + c);
       float xf[N], df[N];
       P::unpack(xr[k], xf);
       P::unpack(dyr[k], df);
@@ -329,33 +585,15 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
     }
   }
   __syncthreads();
+  channel_sums(vec_g, vec_gx, chan, a.partial, a.batch, a.channels, sample,
+               first_channel, a.channels_per_group, per_channel, kWarps);
+  if (threadIdx.x == 0) last = add_arrival(a.counters, group, a.batch);
 
-  // Per channel of the group, one warp sums its vectors in a fixed order.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ch = warp; ch < channels_per_group; ch += kWarps) {
-    float sg = 0.0f, sgx = 0.0f;
-    for (int j = lane; j < per_channel; j += 32) {
-      sg += vec_g[ch * per_channel + j];
-      sgx += vec_gx[ch * per_channel + j];
-    }
-    sg = warp_sum(sg);
-    sgx = warp_sum(sgx);
-    if (lane == 0) {
-      const int c = first_channel + ch;
-      partial[(size_t)sample * channels + c] = sg;
-      partial[((size_t)batch + sample) * channels + c] = sgx;
-      chan[ch] = sg;
-      chan[channels_per_group + ch] = sgx;
-    }
-  }
-  __syncthreads();
-
-  // mean_grp(w g_y) and mean_grp(w g_y xhat), from the channel sums.
   float sum_wg = 0.0f, sum_wgx = 0.0f;
-  for (int ch = 0; ch < channels_per_group; ++ch) {
-    const float w = __ldg(weight + first_channel + ch);
+  for (int ch = 0; ch < a.channels_per_group; ++ch) {
+    const float w = __ldg(a.weight + first_channel + ch);
     sum_wg = fmaf(w, chan[ch], sum_wg);
-    sum_wgx = fmaf(w, chan[channels_per_group + ch], sum_wgx);
+    sum_wgx = fmaf(w, chan[a.channels_per_group + ch], sum_wgx);
   }
   const float mean_wg = sum_wg / (float)len;
   const float mean_wgx = sum_wgx / (float)len;
@@ -366,7 +604,7 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       const int c = first_channel + at.channel;
-      const float w = __ldg(weight + c), b = __ldg(bias + c);
+      const float w = __ldg(a.weight + c), b = __ldg(a.bias + c);
       float xf[N], df[N];
       P::unpack(xr[k], xf);
       P::unpack(dyr[k], df);
@@ -379,24 +617,10 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
       P::store(dx + base + (size_t)i * N, P::pack(xf));
     }
   }
-}
-
-// dbias[c] = sum_n partial[n * C + c], dweight[c] = sum_n partial[(B + n) *
-// C + c], n in order.
-__global__ void gn_swish_bwd_finish(const float* __restrict__ partial,
-                                    float* __restrict__ dweight,
-                                    float* __restrict__ dbias, int batch,
-                                    int channels) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  float db = 0.0f, dw = 0.0f;
-#pragma unroll 8
-  for (int n = 0; n < batch; ++n) {
-    db += partial[(size_t)n * channels + c];
-    dw += partial[((size_t)batch + n) * channels + c];
-  }
-  dbias[c] = db;
-  dweight[c] = dw;
+  __syncthreads();  // `last` is set
+  if (last)
+    sum_group(a.partial, a.dweight, a.dbias, a.counters, a.batch, a.channels,
+              a.batch, group, first_channel, a.channels_per_group, kWarps);
 }
 
 // The launch shape of a run: N elements a vector (16 bytes where hw allows,
@@ -423,16 +647,16 @@ bool run_shape(int len, int hw, const void* a, const void* b, const void* c,
 
 template <typename T, int N, int NV>
 int launch_fwd(const void* x, const float* weight, const float* bias,
-               void* out, int blocks, int groups, int per_group, int hw,
-               float eps, cudaStream_t stream) {
+               void* out, float* stats, int blocks, int groups,
+               int per_group, int hw, float eps, cudaStream_t stream) {
   gn_swish<T, N, NV><<<blocks, kThreads, 0, stream>>>(
-      (const T*)x, weight, bias, (T*)out, groups, per_group, hw, eps);
+      (const T*)x, weight, bias, (T*)out, stats, groups, per_group, hw, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int fwd(const void* x, const float* weight, const float* bias, void* out,
-        int batch, int channels, int hw, int groups, float eps,
+        float* stats, int batch, int channels, int hw, int groups, float eps,
         cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int per_group = channels / groups;
@@ -442,70 +666,133 @@ int fwd(const void* x, const float* weight, const float* bias, void* out,
     return (int)cudaErrorInvalidValue;
   const int blocks = batch * groups;
   if (!vec)
-    return launch_fwd<T, 1, kMaxVecs>(x, weight, bias, out, blocks, groups,
-                                      per_group, hw, eps, stream);
+    return launch_fwd<T, 1, kMaxVecs>(x, weight, bias, out, stats, blocks,
+                                      groups, per_group, hw, eps, stream);
   switch (nv) {
-    case 1: return launch_fwd<T, kVec, 1>(x, weight, bias, out, blocks,
+    case 1: return launch_fwd<T, kVec, 1>(x, weight, bias, out, stats, blocks,
                                           groups, per_group, hw, eps, stream);
-    case 2: return launch_fwd<T, kVec, 2>(x, weight, bias, out, blocks,
+    case 2: return launch_fwd<T, kVec, 2>(x, weight, bias, out, stats, blocks,
                                           groups, per_group, hw, eps, stream);
-    case 4: return launch_fwd<T, kVec, 4>(x, weight, bias, out, blocks,
+    case 4: return launch_fwd<T, kVec, 4>(x, weight, bias, out, stats, blocks,
                                           groups, per_group, hw, eps, stream);
-    case 8: return launch_fwd<T, kVec, 8>(x, weight, bias, out, blocks,
+    case 8: return launch_fwd<T, kVec, 8>(x, weight, bias, out, stats, blocks,
                                           groups, per_group, hw, eps, stream);
-    default: return launch_fwd<T, kVec, 16>(x, weight, bias, out, blocks,
-                                            groups, per_group, hw, eps,
-                                            stream);
+    default: return launch_fwd<T, kVec, 16>(x, weight, bias, out, stats,
+                                            blocks, groups, per_group, hw,
+                                            eps, stream);
   }
 }
 
-struct BwdArgs {
+struct BwdCall {
   const void *x, *dy;
-  const float *weight, *bias;
   void* dx;
-  float *partial, *dweight, *dbias;
-  int batch, channels, hw, groups;
-  float eps;
+  BwdParams p;
   cudaStream_t stream;
 };
 
-template <typename T, int N, int NV>
-int launch_bwd(const BwdArgs& a) {
-  const int per_group = a.channels / a.groups;
-  const size_t smem =
-      (2 * (size_t)per_group * a.hw / N + 2 * (size_t)per_group) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gn_swish_bwd<T, N, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gn_swish_bwd<T, N, NV><<<a.batch * a.groups, kThreads, smem, a.stream>>>(
-      (const T*)a.x, (const T*)a.dy, a.weight, a.bias, (T*)a.dx, a.partial,
-      a.batch, a.channels, a.groups, per_group, a.hw, a.eps);
-  const cudaError_t err = cudaGetLastError();
+// How many blocks of the ring at a run length fit on the card's SMs at
+// once, into *blocks. Setting the shared-memory attribute and asking the
+// occupancy calculator cost the host microseconds, which a launch of a few
+// tens of them cannot spare: each (device, run length) asks once. The
+// attribute is the kernel's, not a run length's, so it only ever grows, to
+// the most shared memory any run length on the device has asked for.
+template <typename T, int N>
+int ring_blocks(int len, int threads, size_t smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> known;
+  static std::map<int, size_t> granted;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  gn_swish_bwd_finish<<<(a.channels + 127) / 128, 128, 0, a.stream>>>(
-      a.partial, a.dweight, a.dbias, a.batch, a.channels);
+  const std::lock_guard<std::mutex> hold(mu);
+  const auto it = known.find({dev, len});
+  if (it != known.end()) {
+    *blocks = it->second;
+    return (int)cudaSuccess;
+  }
+  const auto kernel = gn_swish_bwd<T, N, kRingVecs>;
+  if (smem > granted[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = smem;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  *blocks = known[{dev, len}] = per_sm * sms;
+  return (int)cudaSuccess;
+}
+
+// The ring's blocks: a thread for every kRingVecs vectors of a run, and as
+// many blocks as fit on the SMs at once, in slots of `groups` (every group
+// the same number of blocks), at most one slot a sample.
+template <typename T, int N>
+int launch_bwd(const BwdCall& a) {
+  const int len = a.p.channels_per_group * a.p.hw;
+  const int threads = ((len / N + kRingVecs - 1) / kRingVecs + 31) / 32 * 32;
+  const size_t smem = kStages * 2 * (size_t)len * sizeof(T);
+  int blocks = 0;
+  const int err = ring_blocks<T, N>(len, threads, smem, &blocks);
+  if (err != (int)cudaSuccess) return err;
+  int slots = blocks / a.p.groups;
+  slots = slots < 1 ? 1 : slots > a.p.batch ? a.p.batch : slots;
+  gn_swish_bwd<T, N, kRingVecs><<<slots * a.p.groups, threads, smem,
+                                  a.stream>>>(
+      (const T*)a.x, (const T*)a.dy, (T*)a.dx, a.p);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int N, int NV>
+int launch_bwd_regs(const BwdCall& a) {
+  const size_t smem = (2 * (size_t)a.p.channels_per_group * a.p.hw / N +
+                       2 * (size_t)a.p.channels_per_group) *
+                      sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gn_swish_bwd_regs<T, N, NV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gn_swish_bwd_regs<T, N, NV><<<a.p.batch * a.p.groups, kThreads, smem,
+                                a.stream>>>((const T*)a.x, (const T*)a.dy,
+                                            (T*)a.dx, a.p);
+  return (int)cudaGetLastError();
+}
+
+// The ring takes 16-byte vectors (hw a multiple of one, x, dy and dx
+// 16-byte aligned) and runs of at most kRingVecs * kRingThreads of them.
 template <typename T>
-int bwd(const BwdArgs& a) {
+int bwd(const BwdCall& a) {
   constexpr int kVec = 16 / sizeof(T);
   bool vec;
   int nv;
-  if (!run_shape<T>(a.channels / a.groups * a.hw, a.hw, a.x, a.dy, a.dx,
+  const int len = a.p.channels_per_group * a.p.hw;
+  if (!run_shape<T>(len, a.p.hw, a.x, a.dy, a.dx, &vec, &nv) || !vec ||
+      len / kVec > kRingVecs * kRingThreads)
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd<T, kVec>(a);
+}
+
+template <typename T>
+int bwd_regs(const BwdCall& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  bool vec;
+  int nv;
+  if (!run_shape<T>(a.p.channels_per_group * a.p.hw, a.p.hw, a.x, a.dy, a.dx,
                     &vec, &nv))
     return (int)cudaErrorInvalidValue;
-  if (!vec) return launch_bwd<T, 1, kMaxVecs>(a);
+  if (!vec) return launch_bwd_regs<T, 1, kMaxVecs>(a);
   switch (nv) {
-    case 1: return launch_bwd<T, kVec, 1>(a);
-    case 2: return launch_bwd<T, kVec, 2>(a);
-    case 4: return launch_bwd<T, kVec, 4>(a);
-    case 8: return launch_bwd<T, kVec, 8>(a);
-    default: return launch_bwd<T, kVec, 16>(a);
+    case 1: return launch_bwd_regs<T, kVec, 1>(a);
+    case 2: return launch_bwd_regs<T, kVec, 2>(a);
+    case 4: return launch_bwd_regs<T, kVec, 4>(a);
+    case 8: return launch_bwd_regs<T, kVec, 8>(a);
+    default: return launch_bwd_regs<T, kVec, 16>(a);
   }
 }
 
@@ -514,39 +801,74 @@ bool bad_shape(int batch, int channels, int hw, int groups) {
          channels % groups != 0 || (long long)batch * groups > 0x7fffffffLL;
 }
 
+BwdCall bwd_call(const void* x, const void* dy, const void* weight,
+                 const void* bias, const void* stats, void* dx, void* partial,
+                 void* counters, void* dweight, void* dbias, int batch,
+                 int channels, int hw, int groups, void* stream) {
+  return BwdCall{x, dy, dx,
+                 BwdParams{(const float*)weight, (const float*)bias,
+                           (const float*)stats, (float*)partial,
+                           (float*)dweight, (float*)dbias,
+                           (unsigned*)counters, batch, channels, groups,
+                           channels / groups, hw},
+                 (cudaStream_t)stream};
+}
+
 }  // namespace
 
 // x, out: (batch, channels, hw) contiguous, float32 or bfloat16; weight,
-// bias: (channels,) float32. channels % groups == 0, and a group's run of
-// channels / groups * hw elements at most 16 * 256 vectors of 16 bytes (or
-// elements, where hw is no multiple of a vector).
+// bias: (channels,) float32; stats: null, or (batch, groups, 2) float32 for
+// each (sample, group)'s (mean, rstd). channels % groups == 0, and a
+// group's run of channels / groups * hw elements at most 16 * 256 vectors
+// of 16 bytes (or elements, where hw is no multiple of a vector).
 extern "C" int mulan_gn_swish(const void* x, const void* weight,
-                              const void* bias, void* out, int batch,
-                              int channels, int hw, int groups, float eps,
-                              int is_bf16, void* stream) {
+                              const void* bias, void* out, void* stats,
+                              int batch, int channels, int hw, int groups,
+                              float eps, int is_bf16, void* stream) {
   if (bad_shape(batch, channels, hw, groups))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* w = (const float*)weight;
   const float* b = (const float*)bias;
-  return is_bf16 ? fwd<__nv_bfloat16>(x, w, b, out, batch, channels, hw,
+  float* st = (float*)stats;
+  return is_bf16 ? fwd<__nv_bfloat16>(x, w, b, out, st, batch, channels, hw,
                                       groups, eps, s)
-                 : fwd<float>(x, w, b, out, batch, channels, hw, groups, eps,
-                              s);
+                 : fwd<float>(x, w, b, out, st, batch, channels, hw, groups,
+                              eps, s);
 }
 
 // x, dy, dx: (batch, channels, hw) as above; weight, bias, dweight, dbias:
-// (channels,) float32; partial: (2, batch, channels) float32 scratch.
+// (channels,) float32; stats: (batch, groups, 2) as mulan_gn_swish writes
+// them; partial: (2, batch, channels) float32 scratch; counters: (groups,)
+// uint32, zero, and zero again after the kernel. The ring design: runs of
+// at most 2,048 16-byte vectors.
 extern "C" int mulan_gn_swish_bwd(const void* x, const void* dy,
                                   const void* weight, const void* bias,
-                                  void* dx, void* partial, void* dweight,
-                                  void* dbias, int batch, int channels,
-                                  int hw, int groups, float eps, int is_bf16,
-                                  void* stream) {
-  if (bad_shape(batch, channels, hw, groups))
+                                  const void* stats, void* dx, void* partial,
+                                  void* counters, void* dweight, void* dbias,
+                                  int batch, int channels, int hw, int groups,
+                                  int is_bf16, void* stream) {
+  if (stats == nullptr || bad_shape(batch, channels, hw, groups))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{x, dy, (const float*)weight, (const float*)bias, dx,
-                  (float*)partial, (float*)dweight, (float*)dbias, batch,
-                  channels, hw, groups, eps, (cudaStream_t)stream};
+  const BwdCall a = bwd_call(x, dy, weight, bias, stats, dx, partial,
+                             counters, dweight, dbias, batch, channels, hw,
+                             groups, stream);
   return is_bf16 ? bwd<__nv_bfloat16>(a) : bwd<float>(a);
+}
+
+// The same arguments; the registers design, for every run mulan_gn_swish
+// takes.
+extern "C" int mulan_gn_swish_bwd_regs(const void* x, const void* dy,
+                                       const void* weight, const void* bias,
+                                       const void* stats, void* dx,
+                                       void* partial, void* counters,
+                                       void* dweight, void* dbias, int batch,
+                                       int channels, int hw, int groups,
+                                       int is_bf16, void* stream) {
+  if (stats == nullptr || bad_shape(batch, channels, hw, groups))
+    return (int)cudaErrorInvalidValue;
+  const BwdCall a = bwd_call(x, dy, weight, bias, stats, dx, partial,
+                             counters, dweight, dbias, batch, channels, hw,
+                             groups, stream);
+  return is_bf16 ? bwd_regs<__nv_bfloat16>(a) : bwd_regs<float>(a);
 }

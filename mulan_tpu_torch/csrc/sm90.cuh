@@ -153,6 +153,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 1-D bulk copy (no tensor map) of `bytes` from global memory into shared
+// memory, completing its bytes on `bar`: bytes a multiple of 16, both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Register budgets of warp-specialised blocks: the producer warpgroup gives
 // its registers up, the consumer warpgroups take them.
 template <int R>

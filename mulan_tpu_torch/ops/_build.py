@@ -74,13 +74,16 @@ _SIGNATURES = {
     'mulan_dropout_mask_batch': [_P, ctypes.c_longlong, _U, _U, _U, _U, _F,
                                  ctypes.c_ulonglong, ctypes.c_ulonglong,
                                  ctypes.c_ulonglong, _I, _P],
-    # (x, weight, bias, out, batch, channels, hw, groups, eps, is_bf16,
-    #  stream)
-    'mulan_gn_swish': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # (x, dy, weight, bias, dx, partial, dweight, dbias, batch, channels,
-    #  hw, groups, eps, is_bf16, stream)
-    'mulan_gn_swish_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _I, _P],
+    # (x, weight, bias, out, stats or None, batch, channels, hw, groups,
+    #  eps, is_bf16, stream)
+    'mulan_gn_swish': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # (x, dy, weight, bias, stats, dx, partial, counters, dweight, dbias,
+    #  batch, channels, hw, groups, is_bf16, stream): the ring design, and
+    #  the same arguments for the registers design
+    'mulan_gn_swish_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _P],
+    'mulan_gn_swish_bwd_regs': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _P],
 }
 
 

@@ -9,7 +9,8 @@ names of `_build._SIGNATURES`: K1's `mulan_flash_attention_fwd_sm90`, K2's
 `mulan_flash_attention_bwd_dkv_sm90`, K3's
 `mulan_flash_attention_bwd_dq_sm90`, K4's `mulan_decoder_logprob_fwd`, K5's
 `mulan_decoder_logprob_bwd`, K6's `mulan_dropout_mask`, K7's
-`mulan_dropout_mask_batch`, K8's `mulan_gn_swish` and `mulan_gn_swish_bwd`)
+`mulan_dropout_mask_batch`, K8's `mulan_gn_swish`, its backward's
+`mulan_gn_swish_bwd` and `mulan_gn_swish_bwd_regs`)
 and a dict of variants, each a list of [old, new] text substitutions
 applied to the sources (a variant whose `old` text is missing fails to
 build); "tree" with no substitution is the source as it is. An attention
@@ -20,8 +21,9 @@ library of its own (one `nvcc` each, all started together, with
 entry point of each variant is timed at the flagship's shape in turns,
 three rounds: the attention kernels at (128, 1, 1024, 128) bf16 (or the
 spec's `shape`), K6 at one (128, 128, 32, 32) bf16 site, K7 at the score
-UNet's 67 such sites, K8 at its two bf16 sites (C = 128 and C = 256, 32
-groups), K4 at (128, 32, 32, 3) with g0 per pixel uniform over [gamma_min,
+UNet's 67 such sites, K8 at `GN_CASES` (bf16: the flagship's C = 128 and
+256 and imagenet32's 512 at 32 groups, a tensor rank's (32, 64, 32, 32) at
+16), K4 at (128, 32, 32, 3) with g0 per pixel uniform over [gamma_min,
 gamma_max] and with g0 = gamma_min (the cases of chip_smoke.py), K5 at the
 same shape with one g0 at gamma_min (the VDM's train step) and at
 gamma_max, g0 per example, and g0 = gamma_min per pixel (how the online
@@ -32,7 +34,10 @@ K5's wrapper handed a broadcast g0 to it):
   * back_to_back: around 10 launches, per launch, median of 10 (the
     device's time);
   * host_ms_per_call: the host's time per call of the C entry point, 50
-    calls.
+    calls;
+  * kernel_us: each CUDA kernel's device time a call (torch.profiler's
+    kernel events over 10 calls back to back), where a call launches more
+    than one.
 
 and its outputs are compared with the tree's (a variant that removes
 work is only a timing probe). Needs a CUDA device and nvcc; writes only
@@ -56,15 +61,31 @@ import torch
 
 from mulan_tpu_torch.ops import _build
 from mulan_tpu_torch.ops.dropout import kernel_constants
+from mulan_tpu_torch.ops.groupnorm_swish import group_stats
 
 ATTN_SHAPE = (128, 1, 1024, 128)
 MASK_SHAPE = (128, 128, 32, 32)
 MASK_SLOTS = 67
 MASK_RATE = 0.1
-GN_SHAPES = ((128, 128, 32, 32), (128, 256, 32, 32))
-GN_GROUPS = 32
+# K8's cases: (shape, groups). The flagship's two bf16 sites, imagenet32's
+# C = 512 and a tensor rank's window of the flagship at tp = 2.
+GN_CASES = (((128, 128, 32, 32), 32), ((128, 256, 32, 32), 32),
+            ((128, 512, 32, 32), 32), ((32, 64, 32, 32), 16))
 DECODER_SHAPE = (128, 32 * 32 * 3)
 GAMMA_MIN, GAMMA_MAX = -13.3, 5.0
+
+
+def kernel_name(mangled: str) -> str:
+  """A kernel of an anonymous namespace by its name and template
+  arguments, e.g. `gn_swish_bwd<I13__nv_bfloat16Li8ELi2E>`, from its
+  mangled name (else the name as it is, cut to 64 characters)."""
+  found = re.search(r'_cu_[0-9a-f]{8}(\d+)', mangled)
+  if not found:
+    return mangled[:64]
+  start = found.end()
+  name = mangled[start:start + int(found.group(1))]
+  args = re.match(r'I(.*?)Ev', mangled[start + len(name):])
+  return f'{name}<{args.group(1)}>' if args else name
 
 
 def build(name, subs, source, show, tmp_root):
@@ -97,7 +118,7 @@ def build(name, subs, source, show, tmp_root):
                                          or 'Used' in line)
     if (shown or 'C75' in line or ('spill stores' in line
                                    and ' 0 bytes spill stores' not in line)):
-      notes.append(f'{kernel[:48]}: {line.strip()[:100]}')
+      notes.append(f'{kernel_name(kernel)}: {line.strip()[:100]}')
   return name, str(lib), '; '.join(notes)
 
 
@@ -111,9 +132,9 @@ def load(path, entries):
   return lib
 
 
-def make_inputs(dev, attn_shape=ATTN_SHAPE):
+def make_inputs(dev, attn_shape=ATTN_SHAPE, entries=()):
   """The shared inputs of every entry point, from seed 0; the attention
-  kernels' at `attn_shape`."""
+  kernels' at `attn_shape`, K8's only where `entries` name it."""
   gen = torch.Generator(device=dev).manual_seed(0)
 
   def randn(shape, dtype=torch.float32):
@@ -121,11 +142,14 @@ def make_inputs(dev, attn_shape=ATTN_SHAPE):
   q, k, v, do = (randn(attn_shape, torch.bfloat16) for _ in range(4))
   inputs = dict(attn=(q, k, v, do, randn(attn_shape[:3]).abs() + 5,
                       randn(attn_shape[:3])))
-  for shape in GN_SHAPES:
+  for shape, groups in GN_CASES:
+    if not any(e.startswith('mulan_gn_swish') for e in entries):
+      break
     c = shape[1]
-    inputs[f'gn_c{c}'] = ((2 * randn(shape) + 0.5).to(torch.bfloat16),
-                          randn(shape, torch.bfloat16),
-                          1 + 0.1 * randn((c,)), 0.1 * randn((c,)))
+    inputs[gn_case(shape, groups)] = (
+        (2 * randn(shape) + 0.5).to(torch.bfloat16),
+        randn(shape, torch.bfloat16), 1 + 0.1 * randn((c,)),
+        0.1 * randn((c,)))
   x = torch.randint(0, 256, DECODER_SHAPE, generator=gen,
                     device=dev).float()
   per_pixel = GAMMA_MIN + (GAMMA_MAX - GAMMA_MIN) * torch.rand(
@@ -149,6 +173,11 @@ def make_inputs(dev, attn_shape=ATTN_SHAPE):
     inputs[f'decoder_bwd_{name}'] = (x, e_x + sigma * randn(DECODER_SHAPE),
                                      g0, randn((b,)))
   return inputs
+
+
+def gn_case(shape, groups):
+  return f'gn_c{shape[1]}' + ('' if shape[0] == 128 else f'_b{shape[0]}') + (
+      '' if groups == 32 else f'_g{groups}')
 
 
 def launchers(lib, entry, inputs):
@@ -182,20 +211,23 @@ def launchers(lib, entry, inputs):
                         device=inputs['attn'][0].device),)
     cases.append(('', outs, (*outs, outs[0][0].numel(), MASK_SLOTS, 1234, 0,
                              *kernel_constants(MASK_RATE), 0, 0, 0, 1)))
-  elif entry in ('mulan_gn_swish', 'mulan_gn_swish_bwd'):
-    for shape in GN_SHAPES:
-      x, dy, w, b = inputs[f'gn_c{shape[1]}']
+  elif entry.startswith('mulan_gn_swish'):
+    for shape, groups in GN_CASES:
+      case = gn_case(shape, groups)
+      x, dy, w, b = inputs[case]
       n, c, hw = shape[0], shape[1], shape[2] * shape[3]
+      stats = group_stats(x, groups, 1e-6)
       if entry == 'mulan_gn_swish':
-        outs = (torch.empty_like(x),)
-        args = (x, w, b, *outs, n, c, hw, GN_GROUPS, 1e-6, 1)
-      else:
+        outs = (torch.empty_like(x), torch.empty_like(stats))
+        args = (x, w, b, *outs, n, c, hw, groups, 1e-6, 1)
+      else:  # the backward's designs, with the forward's statistics
         outs = (torch.empty_like(x), torch.empty_like(w),
                 torch.empty_like(b))
         partial = torch.empty((2, n, c), device=x.device)
-        args = (x, dy, w, b, outs[0], partial, outs[1], outs[2], n, c, hw,
-                GN_GROUPS, 1e-6, 1)
-      cases.append((f'c{c}', outs, args))
+        counters = torch.zeros(groups, dtype=torch.int32, device=x.device)
+        args = (x, dy, w, b, stats, outs[0], partial, counters, outs[1],
+                outs[2], n, c, hw, groups, 1)
+      cases.append((case[3:], outs, args))
   elif entry == 'mulan_decoder_logprob_fwd':
     for name in ('per_pixel', 'gamma_min'):
       x, z, g0 = inputs[f'decoder_{name}']
@@ -219,10 +251,12 @@ def launchers(lib, entry, inputs):
     raise ValueError(f'ablate: no launcher for {entry}')
   result = []
   for case, outs, args in cases:
-    args = tuple(a.data_ptr() if torch.is_tensor(a) else a for a in args)
+    ptrs = tuple(a.data_ptr() if torch.is_tensor(a) else a for a in args)
 
-    def launch(args=args):
-      status = fn(*args, stream)
+    # The closure holds the tensors too: a scratch buffer freed here would
+    # be handed to the next case (K8's counters must stay zero).
+    def launch(ptrs=ptrs, tensors=args):
+      status = fn(*ptrs, stream)
       assert status == 0, (entry, status)
     result.append((case, launch, outs))
   return result
@@ -243,6 +277,31 @@ def cuda_ms(fn, n=20):
   return statistics.median(times)
 
 
+def kernel_split_us(launch, n=10):
+  """{kernel name: device microseconds a call} of the CUDA kernels that
+  `launch` runs, from torch.profiler's kernel events over n calls back to
+  back (a call's kernels apart, e.g. a main kernel and its reduction)."""
+  launch()
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for _ in range(n):
+      launch()
+    torch.cuda.synchronize()
+  split = {}
+  for evt in prof.key_averages():
+    if evt.device_type != torch.autograd.DeviceType.CUDA:
+      continue
+    us = getattr(evt, 'self_device_time_total', None)
+    if us is None:
+      us = evt.self_cuda_time_total
+    name = re.sub(r'\(.*$', '', evt.key.replace('(anonymous namespace)::',
+                                                 ''))
+    split[name[-96:]] = split.get(name[-96:], 0.0) + us / n
+  return split
+
+
 def main():
   if not torch.cuda.is_available():
     raise SystemExit('ablate: needs a CUDA device')
@@ -260,12 +319,12 @@ def main():
           spec['variants'].items()))
     libs = {}
     for name, path, notes in built:
-      print('build', name, 'ok' if path else 'FAILED', notes[:1500],
+      print('build', name, 'ok' if path else 'FAILED', notes[:8000],
             flush=True)
       if path:
         libs[name] = load(path, entries)
     inputs = make_inputs(torch.device('cuda', 0),
-                         tuple(spec.get('shape', ATTN_SHAPE)))
+                         tuple(spec.get('shape', ATTN_SHAPE)), entries)
     for entry in entries:
       runs = {(n, case): (launch, outs) for n, lib in libs.items()
               for case, launch, outs in launchers(lib, entry, inputs)}
@@ -290,6 +349,7 @@ def main():
                           'single_ms': single[(n, case)],
                           'back_to_back_ms': back[(n, case)],
                           'host_ms_per_call': host_ms,
+                          'kernel_us': kernel_split_us(launch),
                           'max_abs_diff_to_tree': diff}), flush=True)
       del runs
 

@@ -156,7 +156,8 @@ def test_every_kernel_redesign_has_an_ablation_spec():
   names = {p.name for p in _ABLATIONS}
   assert {'k1_fwd.json', 'k2_dkv.json', 'k3_dq.json', 'k1_fwd_d256.json',
           'k2_dkv_d256.json', 'k3_dq_d256.json', 'k4_decoder.json',
-          'k5_bwd.json', 'k6_mask.json', 'k8_gn.json'} <= names, names
+          'k5_bwd.json', 'k6_mask.json', 'k8_gn.json',
+          'k8_bwd.json'} <= names, names
 
 
 @pytest.mark.parametrize('spec_path', _ABLATIONS, ids=lambda p: p.stem)

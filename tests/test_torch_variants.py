@@ -193,6 +193,158 @@ def test_gn_swish_backward_routes_through_gn_swish_bwd(monkeypatch):
   assert calls == ['plain']
 
 
+def test_gn_swish_backward_takes_the_forwards_statistics(monkeypatch):
+  """Under autograd the forward's (B, G, 2) statistics are saved and handed
+  to the backward, which reduces nothing again: `group_stats` runs once a
+  call, with the kernel's wrapper and with the plain path alike."""
+  stats_calls, handed = [], []
+  real_stats = gn_ops.group_stats
+
+  def counting_stats(*args):
+    stats_calls.append(args)
+    return real_stats(*args)
+  monkeypatch.setattr(gn_ops, 'group_stats', counting_stats)
+  for name in ('gn_swish_bwd', 'gn_swish_bwd_plain'):
+    real = getattr(gn_ops, name)
+
+    def recording(*args, real=real):
+      handed.append(args[6])
+      return real(*args)
+    monkeypatch.setattr(gn_ops, name, recording)
+  x = nchw(_rand((2, 4, 4, 32), 12)).requires_grad_()
+  w = torch.ones(32, requires_grad=True)
+  b = torch.zeros(32, requires_grad=True)
+  for use_kernel in (True, False):
+    stats_calls.clear()
+    handed.clear()
+    gn_ops.gn_swish(x, w, b, 32, 1e-6, use_kernel).sum().backward()
+    assert len(stats_calls) == 1, use_kernel
+    # gn_swish_bwd's CPU path hands them on to the plain version.
+    assert len(handed) == (2 if use_kernel else 1)
+    for stats in handed:
+      assert stats.shape == (2, 32, 2) and stats.dtype == torch.float32
+      assert torch.equal(stats, real_stats(x.detach(), 32, 1e-6))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_gn_swish_bwd_plain_uses_the_given_statistics(dtype):
+  """The closed form with the forward's statistics gives the bits it gives
+  reducing x itself, and other statistics give another dx."""
+  x = nchw(_rand((2, 4, 4, 48), 13, scale=2.0, shift=0.5)).to(dtype)
+  dy = nchw(_rand((2, 4, 4, 48), 14)).to(dtype)
+  w, b = map(to_torch, _affine(48, 15))
+  out, stats = gn_ops.gn_swish_plain(x, w, b, 16, 1e-6, True)
+  assert torch.equal(out, gn_ops.gn_swish_plain(x, w, b, 16))
+  assert torch.equal(stats, gn_ops.group_stats(x, 16, 1e-6))
+  given = gn_ops.gn_swish_bwd_plain(x, w, b, dy, 16, 1e-6, stats)
+  own = gn_ops.gn_swish_bwd_plain(x, w, b, dy, 16)
+  assert all(torch.equal(g, o) for g, o in zip(given, own))
+  shifted = stats + torch.tensor([0.25, 0.0])
+  assert not torch.equal(
+      gn_ops.gn_swish_bwd_plain(x, w, b, dy, 16, 1e-6, shifted)[0], own[0])
+
+
+def test_gn_swish_bf16_gradients_match_jax_custom_vjp():
+  """gn_swish under autograd (the forward's statistics handed to the
+  backward) against the vjp of JAX's `fused_gn_swish` in bf16: dx one bf16
+  ulp apart where the float32 results straddle a rounding boundary, as
+  `test_gn_swish_bwd_plain_bf16_matches_jax_custom_vjp`."""
+  shape, groups = (2, 4, 4, 64), 32
+  x = jnp.asarray(_rand(shape, 16, scale=2.0, shift=0.5), jnp.bfloat16)
+  dy = jnp.asarray(_rand(shape, 17), jnp.bfloat16)
+  scale, bias = _affine(64, 18)
+  _, vjp = jax.vjp(lambda xx, s, b: fused_gn_swish(xx, s, b, groups, 1e-6,
+                                                    True),
+                   x, jnp.asarray(scale), jnp.asarray(bias))
+  want = vjp(dy)
+  inputs = [nchw(np.asarray(x, np.float32)).to(torch.bfloat16)
+            .requires_grad_(), to_torch(scale).requires_grad_(),
+            to_torch(bias).requires_grad_()]
+  out = gn_ops.gn_swish(*inputs, groups, 1e-6, use_kernel=True)
+  got = torch.autograd.grad(
+      out, inputs, nchw(np.asarray(dy, np.float32)).to(torch.bfloat16))
+  assert got[0].dtype == torch.bfloat16
+  dx_want = np.asarray(want[0], np.float32)
+  np.testing.assert_allclose(nhwc(got[0].float()), dx_want, rtol=BF16_ULP,
+                             atol=1e-5 * np.abs(dx_want).max())
+  for g, w in zip(got[1:], want[1:]):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                               atol=1e-5)
+
+
+# Which backward kernel takes each shape that chip_smoke.py checks (GN_CASES,
+# IN32_GN_CASES, a tensor rank's window, the gathered 48-channel GroupNorm
+# of three tensor ranks) and a few others: the ring where H x W is a
+# multiple of a 16-byte vector and a run is at most 2,048 vectors.
+GN_BWD_DESIGNS = [
+    ((128, 128, 32, 32), torch.bfloat16, 32, 'ring'),
+    ((128, 256, 32, 32), torch.bfloat16, 32, 'ring'),
+    ((8, 128, 32, 32), torch.float32, 32, 'ring'),
+    ((4, 48, 16, 16), torch.bfloat16, 16, 'ring'),
+    ((3, 48, 5, 7), torch.float32, 16, 'regs'),
+    ((128, 512, 32, 32), torch.bfloat16, 32, 'ring'),
+    ((32, 64, 32, 32), torch.bfloat16, 16, 'ring'),
+    ((16, 48, 32, 32), torch.bfloat16, 16, 'ring'),
+    ((2, 256, 32, 32), torch.float32, 32, 'ring'),
+    ((2, 512, 32, 32), torch.float32, 32, 'regs'),
+    ((2, 1024, 32, 32), torch.bfloat16, 32, 'regs'),
+    ((2, 64, 2, 2), torch.bfloat16, 32, 'regs'),
+]
+
+
+@pytest.mark.parametrize('shape, dtype, groups, design', GN_BWD_DESIGNS)
+def test_gn_swish_bwd_design_by_shape(monkeypatch, shape, dtype, groups,
+                                      design):
+  """`bwd_design` names each shape's kernel, an unaligned x or dy takes
+  'regs', and the wrapper calls that design's C entry point once with
+  arguments its ctypes signature takes (the card stood in for by meta
+  tensors, a recording library and a null stream)."""
+  assert gn_ops.bwd_design(shape, dtype, groups) == design
+  assert gn_ops.bwd_design(shape, dtype, groups, aligned=False) == 'regs'
+  calls = []
+
+  class Library:
+    def __getattr__(self, name):
+      return lambda *args: calls.append((name, args)) or 0
+  monkeypatch.setattr(gn_ops._build, 'load_library', Library)
+  monkeypatch.setattr(gn_ops, '_check_args', lambda *a: None)
+  monkeypatch.setattr(gn_ops, '_stream', lambda t: None)
+  monkeypatch.setattr(gn_ops, '_counters', lambda d, s, g: torch.empty(
+      g, dtype=torch.int32, device='meta'))
+  monkeypatch.setattr(gn_ops.gn_swish_bwd, 'launches', 0)
+  x = torch.empty(shape, dtype=dtype, device='meta')
+  w = torch.empty(shape[1], device='meta')
+  stats = torch.empty((shape[0], groups, 2), device='meta')
+  dx, dw, db = gn_ops.gn_swish_bwd(x, w, w, x, groups, 1e-6, stats)
+  (name, args), = calls
+  assert name == {'ring': 'mulan_gn_swish_bwd',
+                  'regs': 'mulan_gn_swish_bwd_regs'}[design]
+  argtypes = gn_ops._build._SIGNATURES[name]
+  assert len(args) == len(argtypes)
+  for arg, argtype in zip(args, argtypes):
+    argtype.from_param(arg)
+  b, c, h, w_ = shape
+  assert args[10:15] == (b, c, h * w_, groups, int(dtype == torch.bfloat16))
+  assert dx.shape == shape and dx.dtype == dtype
+  assert dw.shape == db.shape == (c,) and dw.dtype == torch.float32
+  assert gn_ops.gn_swish_bwd.launches == 1
+
+
+def test_gn_swish_bwd_kernel_needs_the_forwards_statistics(monkeypatch):
+  """On the card the backward takes the forward's statistics and reduces
+  none itself: without them, or with them misshapen, the wrapper raises
+  before it reaches the library."""
+  monkeypatch.setattr(gn_ops._build, 'load_library', lambda: pytest.fail(
+      'the library was loaded'))
+  monkeypatch.setattr(gn_ops, '_check_args', lambda *a: None)
+  x = torch.empty((2, 64, 4, 4), dtype=torch.bfloat16, device='meta')
+  w = torch.empty(64, device='meta')
+  for stats in (None, torch.empty((2, 16, 2), device='meta'),
+                torch.empty((2, 32, 2), dtype=torch.bfloat16, device='meta')):
+    with pytest.raises(ValueError, match="needs the forward's stats"):
+      gn_ops.gn_swish_bwd(x, w, w, x, 32, 1e-6, stats)
+
+
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
   x = torch.empty((2, 32, 4, 4), device='meta')
   w = torch.empty(32, device='meta')
