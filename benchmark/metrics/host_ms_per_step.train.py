@@ -1,0 +1,4 @@
+"""`host_ms_per_step.train`: host ms a train step spends inside
+`train_superstep`, in a device-bound training cell."""
+
+from benchmark.harness.readers import host_ms_per_step as read  # noqa: F401

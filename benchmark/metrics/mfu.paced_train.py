@@ -1,0 +1,4 @@
+"""`mfu.paced_train`: the train step's share of the card's bf16 peak, in %,
+in a host-paced training cell."""
+
+from benchmark.harness.readers import mfu as read  # noqa: F401

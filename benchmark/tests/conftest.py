@@ -1,0 +1,15 @@
+"""The benchmark's own tests: `python -m pytest benchmark/tests -q` from
+the root of the checkout. Tests marked `chip` need a CUDA card and skip
+without one."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+  sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+  config.addinivalue_line('markers', 'chip: needs a CUDA card (skips without)')
