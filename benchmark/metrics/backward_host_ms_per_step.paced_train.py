@@ -1,0 +1,4 @@
+"""`backward_host_ms_per_step.paced_train`: host ms a train step in the
+program's span `backward` (autograd), in a host-paced training cell."""
+
+from benchmark.harness.program import backward_host_ms as read  # noqa: F401

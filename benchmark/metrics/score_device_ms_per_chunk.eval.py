@@ -1,0 +1,4 @@
+"""`score_device_ms_per_chunk.eval`: device ms a dense-VLB chunk in the
+program's span `score` (CUDA events)."""
+
+from benchmark.harness.program import score_device_ms as read  # noqa: F401

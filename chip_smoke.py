@@ -1080,7 +1080,6 @@ def planted_decoder_bwd_fault(kind: str):
     if kind == 'dg0_zero':
       return dz, torch.zeros_like(dg0)
     return -dz, dg0
-  faulty.launches = 0  # the real wrapper counts on the module's name
   dec.decoder_logprob_bwd = faulty
   try:
     yield
@@ -1097,7 +1096,6 @@ def recording_decoder_bwd(calls: list):
   def recorded(x, z, g0, ct, *args, **kwargs):
     calls.append(tuple(t.detach() for t in (x, z, g0, ct)))
     return real(x, z, g0, ct, *args, **kwargs)
-  recorded.launches = 0
   dec.decoder_logprob_bwd = recorded
   try:
     yield
@@ -1488,42 +1486,39 @@ def timed(fn):
 
 
 def kernel_counters():
-  """{JSON name: the wrapper whose `launches` counts that kernel}."""
-  from mulan_tpu_torch.ops import decoder_logprob as dec
-  from mulan_tpu_torch.ops import dropout
+  """The JSON names of the hand-written kernels, the names their wrappers
+  count launches under in the recorder (`utils/tracing.py`)."""
+  return ('flash_attention', 'flash_attention_bwd_dkv',
+          'flash_attention_bwd_dq', 'decoder_logprob', 'decoder_logprob_bwd',
+          'dropout_mask', 'dropout_mask_batch', 'gn_swish', 'gn_swish_bwd')
+
+
+def launches_since(before):
+  """({kernel: launches}, {attention kernel: {route: launches}}) that the
+  recorder counted since its totals read `before` (`tracing.launches()`)."""
   from mulan_tpu_torch.ops import flash_attention as attn
-  from mulan_tpu_torch.ops import groupnorm_swish as gn
-  return {'flash_attention': attn.flash_attention,
-          'flash_attention_bwd_dkv': attn.flash_attention_bwd_dkv,
-          'flash_attention_bwd_dq': attn.flash_attention_bwd_dq,
-          'decoder_logprob': dec.decoder_logprob,
-          'decoder_logprob_bwd': dec.decoder_logprob_bwd,
-          'dropout_mask': dropout.dropout_mask,
-          'dropout_mask_batch': dropout.dropout_mask_batch,
-          'gn_swish': gn.gn_swish_fwd,
-          'gn_swish_bwd': gn.gn_swish_bwd}
+  from mulan_tpu_torch.utils import tracing
+  counts = dict.fromkeys(kernel_counters(), 0)
+  by_route = {name: dict.fromkeys(attn.ROUTES, 0) for name in SM90_KERNELS}
+  for (name, route), n in (tracing.launches() - before).items():
+    counts[name] += n
+    if name in by_route:
+      by_route[name][route] += n
+  return counts, by_route
 
 
 def counted(fn, route_totals):
-  """(fn(), {kernel: launches during fn}), every count set to 0 first.
+  """(fn(), {kernel: launches during fn}), read from the recorder.
   Asserts that every launch of each of the SM90_KERNELS took the 'sm90'
   route (at the flagship's head_dim 128 and at ImageNet32's 256 alike),
   and adds the launches by route to route_totals ({kernel: {route: n}})."""
-  counters = kernel_counters()
-  for f in counters.values():
-    f.launches = 0
-    if hasattr(f, 'launches_by_route'):
-      f.launches_by_route = dict.fromkeys(f.launches_by_route, 0)
+  from mulan_tpu_torch.utils import tracing
+  before = tracing.launches()
   out = fn()
   torch.cuda.synchronize()
-  counts = {name: f.launches for name, f in counters.items()}
-  for name, f in counters.items():
-    by_route = getattr(f, 'launches_by_route', None)
-    if by_route is None:
-      continue
-    assert sum(by_route.values()) == counts[name], (name, by_route)
-    if name in SM90_KERNELS:
-      assert by_route['sm90'] == counts[name], (name, by_route)
+  counts, routes = launches_since(before)
+  for name, by_route in routes.items():
+    assert by_route['sm90'] == counts[name], (name, by_route)
     total = route_totals.setdefault(name, dict.fromkeys(by_route, 0))
     for r, n in by_route.items():
       total[r] += n
@@ -1616,20 +1611,11 @@ def planted_fault(kernel: str):
       o, lse = out
       return zero_rows(o), lse
     return zero_rows(out)
-  # K2's and K3's wrappers count on their module names, so their launches
-  # go back to the real wrappers' counts, and a counted run sees their
-  # routes; K1's counts on `flash_attention`, which stays.
-  faulty.launches = 0
-  faulty.launches_by_route = dict.fromkeys(attn.ROUTES, 0)
   setattr(attn, name, faulty)
   try:
     yield
   finally:
     setattr(attn, name, real)
-    if kernel != 'fwd':
-      real.launches += faulty.launches
-      for route, n in faulty.launches_by_route.items():
-        real.launches_by_route[route] += n
 
 
 @contextlib.contextmanager
@@ -1657,7 +1643,6 @@ def planted_gn_fault(kind: str):
     term = rstd * xhat.reshape(wgx.shape) * wgx.mean(dim=-1, keepdim=True)
     return (dx.float() + term.reshape(x.shape)).to(x.dtype), dweight, dbias
   fault = half_groups if kind == 'half_groups' else missing_term
-  fault.launches = 0  # the real wrapper counts on the module's name
   setattr(gn, name, fault)
   try:
     yield
@@ -3623,6 +3608,7 @@ def gathered_gn_rank(rank: int, dev, out_dir: str) -> None:
   from mulan_tpu_torch.models.layers import GroupNormF32
   from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
   from mulan_tpu_torch.parallel import tensor as tensor_lib
+  from mulan_tpu_torch.utils import tracing
   tensor = tensor_lib.TensorGroup(rank, TP_GN_RANKS, dist.group.WORLD)
   c = TP_GN_CHANNELS
   gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3638,12 +3624,12 @@ def gathered_gn_rank(rank: int, dev, out_dir: str) -> None:
   norm.load_state_dict({'weight': tensor_lib.take(w, tensor, 0),
                         'bias': tensor_lib.take(b, tensor, 0)})
   xr = tensor_lib.take(x, tensor).contiguous().requires_grad_()
-  before = (gn_ops.gn_swish_fwd.launches, gn_ops.gn_swish_bwd.launches)
+  before = tracing.launches()
   y = norm(xr)
   y.backward(tensor_lib.take(dy, tensor).contiguous())
   torch.cuda.synchronize()
-  launches = [gn_ops.gn_swish_fwd.launches - before[0],
-              gn_ops.gn_swish_bwd.launches - before[1]]
+  counts, _ = launches_since(before)
+  launches = [counts['gn_swish'], counts['gn_swish_bwd']]
   xw, ww, bw = (t.clone().requires_grad_() for t in (x, w, b))
   want = gn_ops.gn_swish(xw, ww, bw, norm.num_groups, 1e-6, False)
   want.backward(dy)
@@ -3879,7 +3865,7 @@ def run_remaining_surface(dev, route_totals):
   from mulan_tpu_torch import main as main_lib
   from mulan_tpu_torch.models import build_model, latents, layers
   from mulan_tpu_torch.train.loop import Experiment
-  from mulan_tpu_torch.utils import metrics
+  from mulan_tpu_torch.utils import metrics, tracing
   numbers, paths = {}, {}
   tmp = tempfile.TemporaryDirectory()
   root = os.path.join(tmp.name, 'cifar10_aug_with_channel')
@@ -3908,16 +3894,14 @@ def run_remaining_surface(dev, route_totals):
   # 1. train_and_evaluate with augmentation, the profile hook and the guard.
   ex = Experiment(cfg, device=dev, state=state)
   ex.draw_samples = functools.partial(ex.draw_samples, T=SAMPLE_STEPS)
-  counters = kernel_counters()
   steps, conditioning = [], []
   real_step, real_loss = ex.train_step, ex.loss_fn
 
   def recording_step(batch, noise=None):
-    before = {k: f.launches for k, f in counters.items()}
+    before = tracing.launches()
     out = real_step(batch, noise)
     torch.cuda.synchronize()
-    steps.append((batch, {k: f.launches - before[k]
-                          for k, f in counters.items()}))
+    steps.append((batch, launches_since(before)[0]))
     return out
 
   def recording_loss(model, batch, **kwargs):
@@ -4080,7 +4064,7 @@ def run_superstep(dev, route_totals):
   from mulan_tpu_torch import configs, params
   from mulan_tpu_torch import main as main_lib
   from mulan_tpu_torch.train.loop import Experiment
-  from mulan_tpu_torch.utils import metrics
+  from mulan_tpu_torch.utils import metrics, tracing
   numbers, paths = {}, {}
   tmp = tempfile.TemporaryDirectory()
   args, overrides = main_lib.parser().parse_known_args([
@@ -4107,22 +4091,20 @@ def run_superstep(dev, route_totals):
   # steps evaluated at, what the writer logs.
   ex = Experiment(cfg, device=dev, state=state)
   ex.draw_samples = functools.partial(ex.draw_samples, T=SAMPLE_STEPS)
-  counters = kernel_counters()
   supers, evals, logged = [], [], []
   real_superstep, real_eval = ex.train_superstep, ex.run_eval
   real_create = metrics.create_writer
 
   def recording_superstep(superbatch):
-    before = {k: f.launches for k, f in counters.items()}
-    sm90 = {k: counters[k].launches_by_route['sm90'] for k in SM90_KERNELS}
+    before = tracing.launches()
     out = real_superstep(superbatch)
     torch.cuda.synchronize()
+    launches, by_route = launches_since(before)
     supers.append(dict(
         batch={k: np.array(v) for k, v in superbatch.items()},
         scalars={k: v.cpu() for k, v in out.items()},
-        launches={k: f.launches - before[k] for k, f in counters.items()},
-        sm90={k: counters[k].launches_by_route['sm90'] - sm90[k]
-              for k in SM90_KERNELS}))
+        launches=launches,
+        sm90={k: by_route[k]['sm90'] for k in SM90_KERNELS}))
     return out
 
   def recording_eval(num_steps=None):

@@ -41,6 +41,7 @@ from torch import nn
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.models.outputs import ELBOOutput
 from mulan_tpu_torch.parallel import mesh as mesh_lib
+from mulan_tpu_torch.utils import tracing
 
 
 def bpd_terms(outputs: ELBOOutput, n_pixels: int) -> torch.Tensor:
@@ -126,7 +127,8 @@ def dense_chunk_bpd(model: nn.Module, images, n_timesteps: int, *,
             torch.as_tensor(a, device=dev).repeat_interleave(n_timesteps,
                                                              dim=0))
   if _shares_encoder(model):  # one encoder pass an image
-    noise['encoder_logits'] = repeat(model.apply_encoder(images))
+    with tracing.span('encoder'):
+      noise['encoder_logits'] = repeat(model.apply_encoder(images))
   out = model.elbo(repeat(images), t, labels=repeat(labels),
                    conditioning=repeat(conditioning), generator=generator,
                    rows=None if rows is None else rows.interleaved(
@@ -147,7 +149,8 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
   Each batch is cut into chunks of `images_per_chunk` images (default
   `DENSE_ROWS_PER_CHUNK // n_timesteps`, at least 1; on each rank, as
   JAX's count is per host). Per-image results stay on the device and are
-  read once at the end (in one process).
+  read once at the end (in one process). Each chunk runs in a unit
+  'chunk' of the recorder (`utils/tracing.py`).
   """
   if images_per_chunk is None:
     images_per_chunk = max(1, DENSE_ROWS_PER_CHUNK // n_timesteps)
@@ -159,10 +162,11 @@ def eval_bpd_dense(model: nn.Module, batches: Iterable, n_timesteps: int = 128,
                      for k, v in batch.items()})
   bpds = []
   for chunk, _ in mesh_lib.even_chunks(chunks):
-    bpds.append(mesh_lib.all_gather_rows(dense_chunk_bpd(
-        model, chunk['images'], n_timesteps, labels=chunk.get('labels'),
-        conditioning=chunk.get('conditioning'), generator=generator,
-        rows=_rows(chunk, mesh)), chunk.get('mask'), mesh))
+    with tracing.unit('chunk'):
+      bpds.append(mesh_lib.all_gather_rows(dense_chunk_bpd(
+          model, chunk['images'], n_timesteps, labels=chunk.get('labels'),
+          conditioning=chunk.get('conditioning'), generator=generator,
+          rows=_rows(chunk, mesh)), chunk.get('mask'), mesh))
   if not bpds:
     raise ValueError('eval_bpd_dense saw zero batches')
   return float(torch.cat(bpds).mean())

@@ -71,6 +71,7 @@ from mulan_tpu_torch.models.schedules import MULAN_SCHEDULES
 from mulan_tpu_torch.models.unet import UNet
 from mulan_tpu_torch.models.vdm import sample_times
 from mulan_tpu_torch.parallel.mesh import Rows, draw_rows
+from mulan_tpu_torch.utils import tracing
 
 PARAMETERIZATIONS = ('epsilon', 'velocity')
 # The label classes of the one-hot embedding without an encoder
@@ -260,80 +261,87 @@ class MuLAN(nn.Module):
     The velocity loss is continuous-time only: with `sm_n_timesteps` > 0
     it raises AssertionError, as JAX's assertion does. With `rows` the
     images are those rows of the global batch: what is drawn here, and the
-    dropout masks, are the global batch's, cut to them.
+    dropout masks, are the global batch's, cut to them. Runs in the span
+    'elbo', its parts in 'latent', 'schedule', 'decoder' and 'score'
+    (`utils/tracing.py`).
     """
-    cfg = self.config
-    T = cfg.sm_n_timesteps
-    if self.parameterization == 'velocity' and T > 0:
-      raise AssertionError('velocity parameterization is continuous-time '
-                           'only')
-    x = torch.as_tensor(images, device=self.device).reshape(
-        -1, *cfg.image_shape)
-    img = x.shape
-    t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
-    if deterministic:
-      dropout_seed = None
-    elif dropout_seed is None:
-      dropout_seed = int(torch.randint(
-          2 ** 31 - 1, (), generator=generator,
-          device=self.device if generator is None else generator.device))
+    with tracing.span('elbo'):
+      cfg = self.config
+      T = cfg.sm_n_timesteps
+      if self.parameterization == 'velocity' and T > 0:
+        raise AssertionError('velocity parameterization is continuous-time '
+                             'only')
+      x = torch.as_tensor(images, device=self.device).reshape(
+          -1, *cfg.image_shape)
+      img = x.shape
+      t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+      if deterministic:
+        dropout_seed = None
+      elif dropout_seed is None:
+        dropout_seed = int(torch.randint(
+            2 ** 31 - 1, (), generator=generator,
+            device=self.device if generator is None else generator.device))
 
-    orig_f = self.encdec.encode(x)
-    if cfg.reparam_type == 'true':
-      embedding, kl_z = self._embedding_and_kl(
-          orig_f, step, dropout_seed, encoder_logits, latent_noise, generator,
-          rows)
-    else:
-      if labels is None:
-        raise ValueError(f'reparam_type={cfg.reparam_type!r} embeds the '
-                         'labels: pass labels')
-      embedding = F.one_hot(
-          torch.as_tensor(labels, device=self.device).long(),
-          LABEL_CLASSES).float()
-      kl_z = 0.0
+      with tracing.span('latent'):
+        orig_f = self.encdec.encode(x)
+        if cfg.reparam_type == 'true':
+          embedding, kl_z = self._embedding_and_kl(
+              orig_f, step, dropout_seed, encoder_logits, latent_noise,
+              generator, rows)
+        else:
+          if labels is None:
+            raise ValueError(f'reparam_type={cfg.reparam_type!r} embeds the '
+                             'labels: pass labels')
+          embedding = F.one_hot(
+              torch.as_tensor(labels, device=self.device).long(),
+              LABEL_CLASSES).float()
+          kl_z = 0.0
 
-    g_0, g_1, g_t, g_t_grad = (
-        g.reshape(img) for g in self.gamma.elbo_gammas(embedding, t))
-    var_t = torch.sigmoid(g_t)
-    var_0 = torch.sigmoid(g_0)
-    var_1 = torch.sigmoid(g_1)
+      with tracing.span('schedule'):
+        g_0, g_1, g_t, g_t_grad = (
+            g.reshape(img) for g in self.gamma.elbo_gammas(embedding, t))
+      var_t = torch.sigmoid(g_t)
+      var_0 = torch.sigmoid(g_0)
+      var_1 = torch.sigmoid(g_1)
 
-    # 1. reconstruction.
-    if eps0 is None:
-      eps0 = self._noise(img, generator, rows)
-    z_0_rescaled = orig_f + torch.exp(0.5 * g_0) * eps0
-    loss_recon = -self.encdec.logprob(x, z_0_rescaled, g_0)
+      # 1. reconstruction.
+      if eps0 is None:
+        eps0 = self._noise(img, generator, rows)
+      z_0_rescaled = orig_f + torch.exp(0.5 * g_0) * eps0
+      with tracing.span('decoder'):
+        loss_recon = -self.encdec.logprob(x, z_0_rescaled, g_0)
 
-    # 2. prior KL at t = 1.
-    mean1_sqr = (1.0 - var_1) * torch.square(orig_f)
-    loss_klz = 0.5 * torch.sum(mean1_sqr + var_1 - torch.log(var_1) - 1.0,
-                               dim=(1, 2, 3))
+      # 2. prior KL at t = 1.
+      mean1_sqr = (1.0 - var_1) * torch.square(orig_f)
+      loss_klz = 0.5 * torch.sum(mean1_sqr + var_1 - torch.log(var_1) - 1.0,
+                                 dim=(1, 2, 3))
 
-    # 3. diffusion loss.
-    if eps is None:
-      eps = self._noise(img, generator, rows)
-    z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
-    model_out = self._score(z_t, g_t,
-                            self._conditioning(conditioning, embedding),
-                            dropout_seed, 0 if rows is None else rows.start)
-    if self.parameterization == 'epsilon':
-      if T == 0:
-        weight = g_t_grad
+      # 3. diffusion loss.
+      if eps is None:
+        eps = self._noise(img, generator, rows)
+      z_t = torch.sqrt(1.0 - var_t) * orig_f + torch.sqrt(var_t) * eps
+      with tracing.span('score'):
+        model_out = self._score(z_t, g_t,
+                                self._conditioning(conditioning, embedding),
+                                dropout_seed, 0 if rows is None else rows.start)
+      if self.parameterization == 'epsilon':
+        if T == 0:
+          weight = g_t_grad
+        else:
+          g_s = self.gamma(embedding, t - 1.0 / T).reshape(img)
+          weight = T * torch.expm1(g_t - g_s)
+        loss_diff = 0.5 * torch.sum(weight * torch.square(eps - model_out),
+                                    dim=(1, 2, 3))
       else:
-        g_s = self.gamma(embedding, t - 1.0 / T).reshape(img)
-        weight = T * torch.expm1(g_t - g_s)
-      loss_diff = 0.5 * torch.sum(weight * torch.square(eps - model_out),
-                                  dim=(1, 2, 3))
-    else:
-      v_hat = self._velocity(model_out, g_t, z_t)
-      v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
-      loss_diff = 0.5 * torch.sum(
-          (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),
-          dim=(1, 2, 3))
+        v_hat = self._velocity(model_out, g_t, z_t)
+        v_target = torch.sqrt(1.0 - var_t) * eps - torch.sqrt(var_t) * orig_f
+        loss_diff = 0.5 * torch.sum(
+            (1 - var_t) * g_t_grad * torch.square(v_target - v_hat),
+            dim=(1, 2, 3))
 
-    return ELBOOutput(loss_recon=loss_recon, loss_klz=kl_z + loss_klz,
-                      loss_diff=loss_diff, var_0=var_0.mean(),
-                      var_1=var_1.mean())
+      return ELBOOutput(loss_recon=loss_recon, loss_klz=kl_z + loss_klz,
+                        loss_diff=loss_diff, var_0=var_0.mean(),
+                        var_1=var_1.mean())
 
   def gamma_of(self, embedding, t):
     """gamma(z, t): embedding (B, width) and t (B,) -> (B, n_pixels)

@@ -24,6 +24,7 @@ import math
 import torch
 
 from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.utils import tracing
 
 
 def encode(x: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -147,7 +148,7 @@ def decoder_logprob_fwd(x, z, g0, vocab_size: int = 256) -> torch.Tensor:
       out.data_ptr(), b, n, n_blocks, vocab_size,
       torch.cuda.current_stream(z.device).cuda_stream)
   _build.check(status, 'decoder_logprob')
-  decoder_logprob.launches += 1
+  tracing.count('decoder_logprob', pixels=b * n)
   return out
 
 
@@ -199,7 +200,7 @@ def decoder_logprob_bwd(x, z, g0, ct, vocab_size: int = 256, *,
       b, n, n_blocks, mode, vocab_size,
       torch.cuda.current_stream(z.device).cuda_stream)
   _build.check(status, 'decoder_logprob_bwd')
-  decoder_logprob_bwd.launches += 1
+  tracing.count('decoder_logprob_bwd', pixels=b * n)
   if dz is not None:
     dz = dz.reshape(z.shape)
   if dg0 is not None:
@@ -242,6 +243,3 @@ def decoder_logprob(x, z, g0, vocab_size: int = 256) -> torch.Tensor:
     return _DecoderLogprob.apply(x, z.float(), g0, vocab_size)
   return decoder_logprob_fwd(x, z, g0, vocab_size)
 
-
-decoder_logprob.launches = 0
-decoder_logprob_bwd.launches = 0

@@ -45,6 +45,7 @@ import math
 import torch
 
 from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.utils import tracing
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MASK32 = 0xFFFFFFFF
@@ -186,11 +187,8 @@ def dropout_mask(seed: int, site: int, shape, rate: float, dtype,
       int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask')
-  dropout_mask.launches += 1
+  tracing.count('dropout_mask', elements=out.numel(), dtype=dtype, masks=1)
   return out
-
-
-dropout_mask.launches = 0
 
 
 def dropout_mask_batch_plain(seed: int, first_site: int, n_masks: int, shape,
@@ -228,11 +226,9 @@ def dropout_mask_batch(seed: int, first_site: int, n_masks: int, shape,
       *_window(shape, row_stride), int(dtype == torch.bfloat16),
       torch.cuda.current_stream(device).cuda_stream)
   _build.check(status, 'dropout_mask_batch')
-  dropout_mask_batch.launches += 1
+  tracing.count('dropout_mask_batch', elements=out[0].numel(), dtype=dtype,
+                masks=n_masks)
   return out
-
-
-dropout_mask_batch.launches = 0
 
 
 def dropout_masks(seed: int, first_site: int, n_masks: int, shape,

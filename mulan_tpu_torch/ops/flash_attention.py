@@ -15,8 +15,8 @@ for K1, K2 and K3: 'sm90' (TMA-fed, warp-specialised, persistent `wgmma`
 kernels on `csrc/sm90.cuh`) for bfloat16 with head_dim <= 256 (the
 flagship's path at 128 and imagenet32's at 256, where each C entry point
 dispatches to a kernel of its own above 128), and 'simt' for float32 at any
-head_dim (on the CUDA cores). A wrapper counts its launches in `launches`
-and, by route, in `launches_by_route`.
+head_dim (on the CUDA cores). A wrapper counts each launch, its route and
+shape in the recorder (`utils/tracing.py`).
 
 The plain versions run for CPU tensors and are what the kernels are held
 against on the card. The plain forward is the einsum path of
@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.utils import tracing
 
 _DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ('sm90', 'simt')
@@ -106,19 +107,19 @@ def _stream(t):
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(entry, wrapper, q, *args):
+def _launch(entry, kernel, q, *args):
   """Calls the C entry point `{entry}_{route}` for the route at q's dtype
   and head_dim on the current stream, raises on its error, and counts the
-  launch on `wrapper`. The simt entry point also takes is_bf16: 0, as the
+  launch as `kernel` on its route with q's shape and dtype
+  (`utils/tracing.py`). The simt entry point also takes is_bf16: 0, as the
   route is float32's (its bf16 kernels are kept to time against 'sm90')."""
   route = attention_route(q.dtype, q.shape[-1])
   if route == 'simt':
     args = (*args, 0)
   lib = _build.load_library()
-  _build.check(getattr(lib, f'{entry}_{route}')(*args, _stream(q)),
-               wrapper.__name__)
-  wrapper.launches += 1
-  wrapper.launches_by_route[route] += 1
+  _build.check(getattr(lib, f'{entry}_{route}')(*args, _stream(q)), kernel)
+  b, h, t, d = q.shape
+  tracing.count(kernel, route, b=b, h=h, t=t, d=d, dtype=q.dtype)
 
 
 def flash_attention_fwd(q, k, v, sm_scale: float, *,
@@ -136,7 +137,7 @@ def flash_attention_fwd(q, k, v, sm_scale: float, *,
   o = torch.empty_like(q)
   lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
          if return_lse else None)
-  _launch('mulan_flash_attention_fwd', flash_attention, q,
+  _launch('mulan_flash_attention_fwd', 'flash_attention', q,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
           None if lse is None else lse.data_ptr(), b * h, t, d,
           float(sm_scale))
@@ -149,7 +150,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dkv', q, lse, di)
   b, h, t, d = q.shape
   dk, dv = torch.empty_like(k), torch.empty_like(v)
-  _launch('mulan_flash_attention_bwd_dkv', flash_attention_bwd_dkv, q,
+  _launch('mulan_flash_attention_bwd_dkv', 'flash_attention_bwd_dkv', q,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
           t, d, float(sm_scale))
@@ -162,7 +163,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
   _check_rows('flash_attention_bwd_dq', q, lse, di)
   b, h, t, d = q.shape
   dq = torch.empty_like(q)
-  _launch('mulan_flash_attention_bwd_dq', flash_attention_bwd_dq, q,
+  _launch('mulan_flash_attention_bwd_dq', 'flash_attention_bwd_dq', q,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b * h, t, d,
           float(sm_scale))
@@ -207,8 +208,3 @@ def flash_attention(q, k, v, sm_scale: float) -> torch.Tensor:
     return _FlashAttention.apply(q, k, v, sm_scale)
   return flash_attention_fwd(q, k, v, sm_scale)
 
-
-for _wrapper in (flash_attention, flash_attention_bwd_dkv,
-                 flash_attention_bwd_dq):
-  _wrapper.launches = 0
-  _wrapper.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from mulan_tpu_torch.ops import _build
+from mulan_tpu_torch.utils import tracing
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # A kernel's block holds its group's run in registers: at most 16 vectors of
@@ -148,7 +149,7 @@ def gn_swish_fwd(x, weight, bias, num_groups: int, eps: float = 1e-6,
       None if st is None else st.data_ptr(), b, c, h * w, num_groups,
       float(eps), int(x.dtype == torch.bfloat16), _stream(x))
   _build.check(status, 'gn_swish')
-  gn_swish_fwd.launches += 1
+  tracing.count('gn_swish', elements=x.numel(), dtype=x.dtype)
   return (out, st) if stats else out
 
 
@@ -217,12 +218,8 @@ def gn_swish_bwd(x, weight, bias, dy, num_groups: int, eps: float = 1e-6,
       dbias.data_ptr(), b, c, h * w, num_groups,
       int(x.dtype == torch.bfloat16), stream)
   _build.check(status, f'gn_swish_bwd ({design})')
-  gn_swish_bwd.launches += 1
+  tracing.count('gn_swish_bwd', design, elements=x.numel(), dtype=x.dtype)
   return dx, dweight, dbias
-
-
-gn_swish_fwd.launches = 0
-gn_swish_bwd.launches = 0
 
 
 class _GnSwish(torch.autograd.Function):

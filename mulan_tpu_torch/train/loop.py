@@ -43,8 +43,10 @@ reads every substep's scalars after each super-step and raises
 FloatingPointError naming the first non-finite one and its substep
 (`loop.py:167-190`); `training.profile` traces the run's second super-step
 with `torch.profiler` into `<workdir>/profile` on rank 0
-(`loop.py:253-269`). Every super-step of `train` and `train_and_evaluate`
-runs inside `torch.profiler.record_function('train')`.
+(`loop.py:253-269`). Every super-step runs inside the span 'train', each
+step inside the unit 'step' with its spans 'forward', 'backward',
+'optimizer' and 'ema' (`utils/tracing.py`); under the profiler each span
+is an annotation.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from mulan_tpu_torch.train import checkpoint as ckpt_lib
 from mulan_tpu_torch.train.optimizer import make_lr_schedule, make_optimizer
 from mulan_tpu_torch.train.state import TrainState
 from mulan_tpu_torch.utils import metrics as metrics_lib
+from mulan_tpu_torch.utils import tracing
 from mulan_tpu_torch.utils.metrics import ScalarWriter, image_grid, write_png
 
 # The streams of `step_key`: train steps, eval batches, the sampler, the
@@ -218,18 +221,21 @@ class Experiment:
     batch is this rank's rows of the global batch, and the scalars are the
     global batch's."""
     step = self.state.step
-    seed = self.reseed(TRAIN, step)
-    bpd, scalars = self.loss_fn(self.train_model, batch, train=True,
-                                noise=noise, dropout_seed=seed, step=step,
-                                rows=self.train_rows)
-    self.state.optimizer.zero_grad()
-    bpd.backward()
-    if mesh_lib.has_fsdp(self.mesh):
-      wrap.average_plain_grads(self.state.params.values(), self.mesh)
-    if self.tensor is not None:
-      wrap.average_whole_grads(self.state.params, self.tensor)
-    self.state.apply_gradients(self.config.optimizer.ema_rate)
-    return self._global({k: v.detach() for k, v in scalars.items()})
+    with tracing.unit('step', step):
+      seed = self.reseed(TRAIN, step)
+      with tracing.span('forward'):
+        bpd, scalars = self.loss_fn(self.train_model, batch, train=True,
+                                    noise=noise, dropout_seed=seed,
+                                    step=step, rows=self.train_rows)
+      self.state.optimizer.zero_grad()
+      with tracing.span('backward'):
+        bpd.backward()
+      if mesh_lib.has_fsdp(self.mesh):
+        wrap.average_plain_grads(self.state.params.values(), self.mesh)
+      if self.tensor is not None:
+        wrap.average_whole_grads(self.state.params, self.tensor)
+      self.state.apply_gradients(self.config.optimizer.ema_rate)
+      return self._global({k: v.detach() for k, v in scalars.items()})
 
   def _global(self, scalars):
     """The scalars' means over the ranks on a mesh (the global batch's
@@ -254,11 +260,12 @@ class Experiment:
     """A super-batch's arrays ((substeps, B, ...) numpy) on the device, one
     copy each: from pinned memory and not blocking the host on the card."""
     out = {}
-    for k, v in superbatch.items():
-      t = torch.from_numpy(np.ascontiguousarray(v))
-      if self.device.type == 'cuda':
-        t = t.pin_memory().to(self.device, non_blocking=True)
-      out[k] = t
+    with tracing.span('put'):
+      for k, v in superbatch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if self.device.type == 'cuda':
+          t = t.pin_memory().to(self.device, non_blocking=True)
+        out[k] = t
     return out
 
   def train_superstep(self, superbatch) -> Dict[str, torch.Tensor]:
@@ -267,17 +274,18 @@ class Experiment:
     mesh) goes to the device in one copy, then `train_step` runs on each
     substep's batch in turn, each keyed by its own step. Returns the
     per-substep scalars stacked on the device, {name: (substeps,)}; the
-    host reads nothing."""
-    batches = self._put_superbatch(superbatch)
-    history = [self.train_step({k: v[i] for k, v in batches.items()})
-               for i in range(len(batches['images']))]
-    return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+    host reads nothing. Runs inside the span 'train' (`utils/tracing.py`),
+    which the profiler sees as an annotation."""
+    with tracing.span('train'):
+      batches = self._put_superbatch(superbatch)
+      history = [self.train_step({k: v[i] for k, v in batches.items()})
+                 for i in range(len(batches['images']))]
+      return {k: torch.stack([h[k] for h in history]) for k in history[0]}
 
   def _guarded_superstep(self) -> Dict[str, torch.Tensor]:
-    """One super-step on the training iterator, marked 'train' for the
-    profiler, and with `training.nan_guard` its scalars checked."""
-    with torch.profiler.record_function('train'):
-      scalars = self.train_superstep(next(self.train_iter))
+    """One super-step on the training iterator, with `training.nan_guard`
+    its scalars checked."""
+    scalars = self.train_superstep(next(self.train_iter))
     if self.config.training.nan_guard:
       self._nan_guard(scalars)
     return scalars

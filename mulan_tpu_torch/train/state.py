@@ -29,6 +29,7 @@ import torch
 from mulan_tpu_torch.parallel import tensor as tensor_lib
 from mulan_tpu_torch.parallel.wrap import full, is_sharded, local, shard_like
 from mulan_tpu_torch.train.optimizer import TwoGroupAdamW
+from mulan_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -52,11 +53,14 @@ class TrainState:
 
   @torch.no_grad()
   def apply_gradients(self, ema_rate: float) -> None:
-    """The optimizer step from the parameters' gradients, then the EMA."""
-    self.optimizer.step()
-    torch._foreach_lerp_([local(e) for e in self.ema_params.values()],
-                         [local(p) for p in self.params.values()],
-                         1.0 - ema_rate)
+    """The optimizer step from the parameters' gradients, then the EMA,
+    in the spans 'optimizer' and 'ema'."""
+    with tracing.span('optimizer'):
+      self.optimizer.step()
+    with tracing.span('ema'):
+      torch._foreach_lerp_([local(e) for e in self.ema_params.values()],
+                           [local(p) for p in self.params.values()],
+                           1.0 - ema_rate)
     self.step += 1
 
   def _whole(self, name: str, value: torch.Tensor) -> torch.Tensor:

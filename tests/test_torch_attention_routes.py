@@ -20,10 +20,12 @@ import torch
 
 from mulan_tpu_torch.ops import _build
 from mulan_tpu_torch.ops import flash_attention as attn_ops
+from mulan_tpu_torch.utils import tracing
 import torch_port_helpers  # noqa: F401  (caps torch threads)
 
-WRAPPERS = (attn_ops.flash_attention, attn_ops.flash_attention_bwd_dkv,
-            attn_ops.flash_attention_bwd_dq)
+# The recorder's names of K1, K2 and K3 (`utils/tracing.py`).
+KERNELS = ('flash_attention', 'flash_attention_bwd_dkv',
+           'flash_attention_bwd_dq')
 
 
 ROUTE_TABLE = [
@@ -44,6 +46,17 @@ ROUTE_TABLE = [
 def test_route_table(dtype, head_dim, route):
   assert attn_ops.attention_route(dtype, head_dim) == route
   assert route in attn_ops.ROUTES
+
+
+class _NullLibrary:
+  """Stands in for the kernels' library: each entry point records its
+  name and arguments in `calls` and returns 0."""
+
+  def __init__(self, calls):
+    self.calls = calls
+
+  def __getattr__(self, name):
+    return lambda *args: self.calls.append((name, args)) or 0
 
 
 def _call_fwd(q, rows):
@@ -73,17 +86,11 @@ def test_wrapper_calls_its_routes_entry_point(monkeypatch, entry, wrapper,
   counts the launch on that route. The card is stood in for by meta
   tensors, a recording library and a null stream."""
   calls = []
-
-  class Library:
-    def __getattr__(self, name):
-      return lambda *args: calls.append((name, args)) or 0
-  monkeypatch.setattr(_build, 'load_library', Library)
+  monkeypatch.setattr(_build, 'load_library', lambda: _NullLibrary(calls))
   monkeypatch.setattr(attn_ops, '_check_inputs', lambda *a: None)
   monkeypatch.setattr(attn_ops, '_check_rows', lambda *a: None)
   monkeypatch.setattr(attn_ops, '_stream', lambda t: None)
-  monkeypatch.setattr(wrapper, 'launches', 0)
-  monkeypatch.setattr(wrapper, 'launches_by_route',
-                      dict.fromkeys(attn_ops.ROUTES, 0))
+  before = tracing.launches()
   q = torch.empty((2, 3, 16, head_dim), dtype=dtype, device='meta')
   call(q, torch.empty((2, 3, 16), device='meta'))
   (name, args), = calls
@@ -95,14 +102,30 @@ def test_wrapper_calls_its_routes_entry_point(monkeypatch, entry, wrapper,
   scale_at = argtypes.index(_build._F)  # after batch*heads, tokens, head_dim
   assert args[scale_at - 3:scale_at + 1] == (6, 16, head_dim, 0.5)
   assert args[scale_at + 1:-1] == ((0,) if route == 'simt' else ())
-  assert wrapper.launches == 1
-  assert wrapper.launches_by_route == {r: int(r == route)
-                                       for r in attn_ops.ROUTES}
+  assert tracing.launches() - before == {(wrapper.__name__, route): 1}
 
 
-def test_every_wrapper_counts_by_route():
-  for wrapper in WRAPPERS:
-    assert set(wrapper.launches_by_route) == set(attn_ops.ROUTES)
+def test_every_wrapper_counts_by_route(monkeypatch):
+  """Each wrapper counts its launches in the recorder under its kernel's
+  name, on each of the ROUTES, with q's shape and dtype in its unit."""
+  monkeypatch.setattr(_build, 'load_library', lambda: _NullLibrary([]))
+  monkeypatch.setattr(attn_ops, '_check_inputs', lambda *a: None)
+  monkeypatch.setattr(attn_ops, '_check_rows', lambda *a: None)
+  monkeypatch.setattr(attn_ops, '_stream', lambda t: None)
+  rows = torch.empty((2, 3, 16), device='meta')
+  for dtype, route in ((torch.bfloat16, 'sm90'), (torch.float32, 'simt')):
+    q = torch.empty((2, 3, 16, 64), dtype=dtype, device='meta')
+    with tracing.unit('routes'):
+      before = tracing.launches()
+      for call in (_call_fwd, _call_dkv, _call_dq):
+        call(q, rows)
+      assert tracing.launches() - before == {
+          (kernel, route): 1 for kernel in KERNELS}
+    counts = tracing.units('routes')[-1]['counts']
+    work = (('b', 2), ('d', 64), ('dtype', dtype), ('h', 3), ('t', 16))
+    assert counts == {(kernel, route, work): 1 for kernel in KERNELS}
+  assert {r for _, r in tracing.launches()
+          if r in attn_ops.ROUTES} == set(attn_ops.ROUTES)
 
 
 def _entry_points():
@@ -274,10 +297,10 @@ def test_cpu_calls_launch_nothing(dtype, head_dim):
   gen = torch.Generator().manual_seed(0)
   q, k, v, do = (torch.randn(shape, generator=gen).to(dtype)
                  for _ in range(4))
-  before = [(w.launches, dict(w.launches_by_route)) for w in WRAPPERS]
+  before = tracing.launches()
   o, lse = attn_ops.flash_attention_fwd(q, k, v, head_dim ** -0.5,
                                         return_lse=True)
   grads = attn_ops.flash_attention_bwd(q, k, v, o, lse, do, head_dim ** -0.5)
   assert o.shape == shape and lse.shape == shape[:3]
   assert all(g.shape == shape and g.dtype == dtype for g in grads)
-  assert [(w.launches, dict(w.launches_by_route)) for w in WRAPPERS] == before
+  assert tracing.launches() == before

@@ -23,6 +23,7 @@ from mulan_tpu_torch.models import layers
 from mulan_tpu_torch.ops import decoder_logprob as dec_ops
 from mulan_tpu_torch.ops import dropout as drop_ops
 from mulan_tpu_torch.ops import flash_attention as attn_ops
+from mulan_tpu_torch.utils import tracing
 from torch_port_helpers import (init_flax_module, load_torch_module, nchw,
                                 nhwc, to_torch)
 
@@ -57,9 +58,7 @@ def test_flash_attention_backward_matches_jax(shape):
       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
   want = vjp(jnp.asarray(do))
   tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-  before = (attn_ops.flash_attention.launches,
-            attn_ops.flash_attention_bwd_dkv.launches,
-            attn_ops.flash_attention_bwd_dq.launches)
+  before = tracing.launches()
   got_out = attn_ops.flash_attention(tq, tk, tv, scale)
   got = torch.autograd.grad(got_out, (tq, tk, tv), torch.from_numpy(do))
   np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out),
@@ -67,9 +66,7 @@ def test_flash_attention_backward_matches_jax(shape):
   for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
     np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                atol=ATOL, err_msg=name)
-  assert (attn_ops.flash_attention.launches,
-          attn_ops.flash_attention_bwd_dkv.launches,
-          attn_ops.flash_attention_bwd_dq.launches) == before
+  assert tracing.launches() == before
 
 
 def test_flash_attention_plain_lse_and_backward():
@@ -111,7 +108,7 @@ def test_decoder_logprob_backward_matches_jax(g0_kind):
   want_dz, want_dg = vjp(jnp.asarray(ct))
   tz = torch.from_numpy(z).requires_grad_()
   tg = torch.from_numpy(g0).requires_grad_()
-  before = dec_ops.decoder_logprob_bwd.launches
+  before = tracing.launches()
   dz, dg = torch.autograd.grad(
       dec_ops.decoder_logprob(torch.from_numpy(x), tz, tg), (tz, tg),
       torch.from_numpy(ct))
@@ -122,7 +119,7 @@ def test_decoder_logprob_backward_matches_jax(g0_kind):
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                atol=RTOL * np.abs(want).max())
-  assert dec_ops.decoder_logprob_bwd.launches == before
+  assert tracing.launches() == before
 
 
 def test_decoder_backward_wrapper_raises_off_cpu_and_cuda():

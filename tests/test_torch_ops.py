@@ -18,6 +18,7 @@ from mulan_tpu.ops import flash_bwd
 from mulan_tpu.ops.decoder_logprob import decoder_logprob as jax_decoder
 from mulan_tpu_torch.ops import decoder_logprob as dec_ops
 from mulan_tpu_torch.ops import flash_attention as attn_ops
+from mulan_tpu_torch.utils import tracing
 import torch_port_helpers  # noqa: F401  (caps torch threads)
 
 # Float32 on both sides; only the order of the sums differs.
@@ -36,13 +37,13 @@ def test_flash_attention_plain_matches_jax(shape):
                                    jnp.asarray(v), scale, sizes,
                                    interpret=True)
   tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-  before = attn_ops.flash_attention.launches
+  before = tracing.launches()
   got = attn_ops.flash_attention(tq, tk, tv, scale)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                              atol=ATOL)
   np.testing.assert_array_equal(
       got.numpy(), attn_ops.flash_attention_plain(tq, tk, tv, scale).numpy())
-  assert attn_ops.flash_attention.launches == before  # no kernel on the CPU
+  assert tracing.launches() == before  # no kernel on the CPU
 
 
 @pytest.mark.parametrize('shape', [(2, 1, 130, 256), (1, 2, 100, 256)])
@@ -90,7 +91,7 @@ def test_decoder_logprob_matches_jax(g0_kind):
                             256)
   want_plain = jax_encdec.logprob(jnp.asarray(x), jnp.asarray(z),
                                   jnp.asarray(g0), 256)
-  before = dec_ops.decoder_logprob.launches
+  before = tracing.launches()
   got = dec_ops.decoder_logprob(torch.from_numpy(x), torch.from_numpy(z),
                                 torch.from_numpy(g0))
   assert got.shape == (3,)
@@ -99,7 +100,7 @@ def test_decoder_logprob_matches_jax(g0_kind):
                              rtol=RTOL, atol=1e-3)
   np.testing.assert_allclose(got.numpy(), np.asarray(want_plain), rtol=RTOL,
                              atol=1e-3)
-  assert dec_ops.decoder_logprob.launches == before
+  assert tracing.launches() == before
 
 
 def test_encode_matches_jax():

@@ -29,6 +29,7 @@ from mulan_tpu_torch.models.config import ModelConfig, tiny_config
 from mulan_tpu_torch.models.mulan import MuLAN
 from mulan_tpu_torch.ops import dropout as drop_ops
 from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
+from mulan_tpu_torch.utils import tracing
 from parity_helpers import frozen_randomness
 from test_torch_model import _elbo_pair
 from test_torch_train import (GRAD_ATOL_FRAC, GRAD_RTOL, _batch, _fake_mask,
@@ -311,7 +312,7 @@ def test_gn_swish_bwd_design_by_shape(monkeypatch, shape, dtype, groups,
   monkeypatch.setattr(gn_ops, '_stream', lambda t: None)
   monkeypatch.setattr(gn_ops, '_counters', lambda d, s, g: torch.empty(
       g, dtype=torch.int32, device='meta'))
-  monkeypatch.setattr(gn_ops.gn_swish_bwd, 'launches', 0)
+  before = tracing.launches()
   x = torch.empty(shape, dtype=dtype, device='meta')
   w = torch.empty(shape[1], device='meta')
   stats = torch.empty((shape[0], groups, 2), device='meta')
@@ -327,7 +328,7 @@ def test_gn_swish_bwd_design_by_shape(monkeypatch, shape, dtype, groups,
   assert args[10:15] == (b, c, h * w_, groups, int(dtype == torch.bfloat16))
   assert dx.shape == shape and dx.dtype == dtype
   assert dw.shape == db.shape == (c,) and dw.dtype == torch.float32
-  assert gn_ops.gn_swish_bwd.launches == 1
+  assert tracing.launches() - before == {('gn_swish_bwd', design): 1}
 
 
 def test_gn_swish_bwd_kernel_needs_the_forwards_statistics(monkeypatch):
