@@ -470,13 +470,22 @@ ODE_SAMPLE_TOL = 1e-2
 # plus delta log p (the divergence's): their bpd parts are held apart. The
 # drift's part: within BPD_TOL. The divergence's part is ill-conditioned on
 # seeded weights: the Hutchinson estimate integrates per-image divergences
-# of up to ~1e5 nats, which each bf16 path rounds differently, so two
-# correct bf16 solves part by far more than their drifts do (on an H100,
-# 700 W: the divergence parts of kernels and plain 0.072 bpd apart, the
-# drift parts 0.005; plain against float32 0.049 in all). The whole bpd is
-# held within BPD_TOL plus ODE_BPD_NOISE times the plain bf16 solve's own
-# distance from the float32 one.
-ODE_BPD_NOISE = 2.0
+# of up to ~1e5 nats that change sign over t, to a few bpd, and each bf16
+# path rounds them differently, so a whole solve's divergence part lies
+# 0.05-0.47 bpd from the float32 one, either sign, by the draw (on an
+# H100, 700 W, four draws: the library GroupNorm's path too, 0.15-0.40).
+# It is printed, and held per RHS evaluation instead, where it is well
+# conditioned: at each of ODE_RHS_TIMES, on the solve's initial state,
+# the kernels' drift and per-row divergence lie within ODE_RHS_NOISE times
+# the plain bf16 path's distance from the float32 one (norms of the
+# differences over the float32 one's: divergence 0.0093, 0.051, 0.023,
+# 0.010 for the kernels against 0.0101, 0.057, 0.024, 0.0105 plain at
+# t = 0, 0.25, 0.5, 1; the drift's ratios 0.97-0.99). K8 planted with half
+# the groups must fail it; a subtler K8-backward fault (dx without its
+# xhat term) moves the divergence by no more than bf16 rounding does
+# (ratios 0.92-1.25), and is held at a ResNet block alone.
+ODE_RHS_TIMES = (0.0, 0.25, 0.5, 1.0)
+ODE_RHS_NOISE = 1.25
 # One fused RHS evaluation (K8 and K8's backward at 134 sites) against its
 # plain twin: cosines of the drift and of the divergence, 0.99921 and
 # 0.99998 on an H100 (700 W).
@@ -1269,7 +1278,7 @@ def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
               stats.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
               _counters(dev, stream, groups).data_ptr(), outs[2].data_ptr(),
               outs[3].data_ptr(), shape[0], c, shape[2] * shape[3], groups,
-              int(dtype == torch.bfloat16), stream)
+              int(dtype == torch.bfloat16), 0, stream)
 
       def launch(outs=outs):
         assert entry(*args) == 0
@@ -1347,6 +1356,220 @@ def check_gn_swish_bwd(dev, gen, sfu_rate, cases=GN_CASES):
   return results
 
 
+# The unfused GroupNorm -> swish sites on K8 (`arithmetic='unfused'`)
+# against the pair they stand for, F.silu(F.group_norm(x, G, w.to(x.dtype),
+# b.to(x.dtype), 1e-6)), on the card: (shape, dtype, groups) at the
+# flagship's C = 128 and 256, the 256-wide UNet's up blocks' 512, the dense
+# VLB's 512-row chunk, and float32.
+GN_UNFUSED_CASES = (((EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
+                    ((EVAL_BATCH, 256, 32, 32), torch.bfloat16, 32),
+                    ((EVAL_BATCH, 512, 32, 32), torch.bfloat16, 32),
+                    ((4 * EVAL_BATCH, 128, 32, 32), torch.bfloat16, 32),
+                    ((8, 128, 32, 32), torch.float32, 32))
+# The forward gives the pair's bits: in bf16 at least this share of the
+# elements bit for bit, and in the groups whose saved mean and rstd equal
+# PyTorch's none more than one bf16 ulp apart. (A group whose float32 mean
+# or rstd, summed in another order than PyTorch's Welford, rounds to the
+# other bf16 value shifts its every y, and where y is near 0 that is many
+# ulps of the output; at a few float32 ulps against 2^-9 a few groups in
+# 10^4.) In float32
+# nothing is rounded between the steps, so the orders of the sums show:
+# GN_TOL's float32 tolerance. The float32 parameters in place of their bf16
+# values, no rounding before swish, and the fused arithmetic (both) must
+# each fail.
+GN_UNFUSED_EQUAL_SHARE = 0.999
+GN_UNFUSED_MAX_ULPS = 1
+# The backward against autograd of the pair: max |kernel - autograd| over
+# max |autograd| for dx, dweight and dbias. Autograd rounds silu's gradient
+# to bf16 (2^-9 of each term) and dweight and dbias to bf16; the kernel
+# keeps them in float32. Against the float32 closed form
+# (`gn_swish_bwd_plain(..., arithmetic='unfused')`) the kernel is held at
+# GN_BWD_DX_TOL and GN_BWD_SUM_RTOL, as the fused arithmetic is.
+GN_UNFUSED_BWD_RTOL = {torch.bfloat16: 2.0 ** -5, torch.float32: 1e-4}
+
+
+def ulps_apart(a, b):
+  """|a - b| in units in the last place of their type, elementwise (int64;
+  +0 and -0 alike)."""
+  bits, mask = ((torch.int16, 0x7fff) if a.dtype == torch.bfloat16
+                else (torch.int32, 0x7fffffff))
+
+  def ordered(t):
+    i = t.contiguous().view(bits).to(torch.int64)
+    return torch.where(i < 0, -(i & mask), i)
+  return (ordered(a) - ordered(b)).abs()
+
+
+def unfused_gate(got, want, same) -> dict:
+  """The share of elements bit for bit, the most ulps apart, that in the
+  elements where `same` (those of the groups whose statistics agree) and,
+  in float32, the excess over GN_TOL; `ok` where the gate holds."""
+  ulps = ulps_apart(got, want)
+  out = dict(equal_share=(ulps == 0).float().mean().item(),
+             max_ulps=int(ulps.max()),
+             max_ulps_same_stats=int(ulps[same].max()))
+  if got.dtype == torch.bfloat16:
+    out['ok'] = (out['equal_share'] >= GN_UNFUSED_EQUAL_SHARE
+                 and out['max_ulps_same_stats'] <= GN_UNFUSED_MAX_ULPS)
+  else:
+    rtol, atol = GN_TOL[got.dtype]
+    excess = ((got - want).abs() - rtol * want.abs()).max().item()
+    out.update(excess_over_rtol=excess, ok=excess <= atol)
+  return out
+
+
+def planted_unfused(x, w, b, groups: int, fault: str):
+  """The unfused arithmetic in PyTorch with one fault planted:
+  'f32_params' applies the float32 weight and bias where the pair reads
+  them in x's type; 'no_round' applies swish to the GroupNorm output
+  before it is rounded to x's type; 'f32_stats' applies the float32 mean
+  and rstd where the pair keeps them in x's type."""
+  from mulan_tpu_torch.ops.groupnorm_swish import group_stats
+  st = group_stats(x, groups, 1e-6, 'fused' if fault == 'f32_stats'
+                   else 'unfused').repeat_interleave(x.shape[1] // groups,
+                                                     dim=1)
+  shape = x.shape[:2] + (1, 1)
+  mean, rstd = st[..., 0].reshape(shape), st[..., 1].reshape(shape)
+  if fault != 'f32_params':
+    w, b = w.to(x.dtype), b.to(x.dtype)
+  w, b = w.float().reshape(1, -1, 1, 1), b.float().reshape(1, -1, 1, 1)
+  a = rstd * w
+  y = x.float() * a + (b - mean * a)
+  if fault != 'no_round':
+    y = y.to(x.dtype).float()
+  return (y / (1 + torch.exp(-y))).to(x.dtype)
+
+
+def check_gn_swish_unfused(dev, gen, cases=GN_UNFUSED_CASES):
+  """K8 and its backward in the unfused arithmetic against the pair
+  F.silu(F.group_norm(...)) they stand for (GN_UNFUSED_*): the forward's
+  bits (equal share, most ulps apart) and its statistics against
+  `torch.native_group_norm`'s; the planted faults, which must fail the
+  forward's gate; the backward (its design's C entry point through the
+  wrapper) against autograd of the pair and against the float32 closed
+  form, where it must be at least as close as autograd; each timed (one
+  launch and back to back) beside the pair. First what PyTorch's
+  GroupNorm keeps on this card: the type of its saved statistics and how
+  its variance of a group far from zero compares with E[x^2] - mean^2 and
+  with float64. Returns the results by case."""
+  from mulan_tpu_torch.ops.groupnorm_swish import (
+      bwd_design, gn_swish_bwd, gn_swish_bwd_plain, gn_swish_fwd,
+      gn_swish_plain)
+  # What PyTorch keeps: a (2, 32, 32, 32) float32 x of mean 1000 and std 0.01,
+  # where E[x^2] - mean^2 in float32 loses every digit and Welford none.
+  far = 1000 + 0.01 * torch.randn((2, 32, 32, 32), generator=gen,
+                                  device=dev)
+  one = torch.ones(32, device=dev)
+  _, _, torch_rstd = torch.native_group_norm(far, one, 0 * one, 2, 32, 1024,
+                                             4, 1e-6)
+  exact = far.double().reshape(2, 4, -1).var(dim=-1, unbiased=False)
+  naive = (far.reshape(2, 4, -1).square().mean(-1)
+           - far.reshape(2, 4, -1).mean(-1).square())
+  _, kernel_stats = gn_swish_fwd(far, one, 0 * one, 4, 1e-6, True,
+                                 'unfused')
+  bf = torch.randn((2, 64, 8, 8), generator=gen, device=dev).to(
+      torch.bfloat16)
+  _, bf_mean, bf_rstd = torch.native_group_norm(
+      bf, one.repeat(2).to(torch.bfloat16), 0 * one.repeat(2).to(
+          torch.bfloat16), 2, 64, 64, 32, 1e-6)
+
+  def rel(v):
+    return ((v.double() - (exact + 1e-6).rsqrt()).abs()
+            / (exact + 1e-6).rsqrt()).max().item()
+  log('gn_swish_unfused_pytorch', saved_stats_dtype_bf16_x=str(bf_mean.dtype),
+      rstd_rel_err_torch=rel(torch_rstd.reshape(2, 4)),
+      rstd_rel_err_kernel=rel(kernel_stats[..., 1]),
+      rstd_rel_err_e_x2_minus_mean2=rel((naive + 1e-6).rsqrt()))
+  results = {}
+  for shape, dtype, groups in cases:
+    c = shape[1]
+    x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    wl, bl = w.to(dtype), b.to(dtype)
+    want = F.silu(F.group_norm(x, groups, wl, bl, 1e-6))
+    out, stats = gn_swish_fwd(x, w, b, groups, 1e-6, True, 'unfused')
+    torch.cuda.synchronize()
+    assert torch.equal(out, gn_swish_fwd(x, w, b, groups, 1e-6, False,
+                                         'unfused')), (shape, 'stats')
+    _, t_mean, t_rstd = torch.native_group_norm(
+        x, wl, bl, shape[0], c, shape[2] * shape[3], groups, 1e-6)
+    agree = ((stats[..., 0] == t_mean.reshape(stats.shape[:2]).float())
+             & (stats[..., 1] == t_rstd.reshape(stats.shape[:2]).float()))
+    same = agree[..., None].expand(*agree.shape, x[0, 0].numel() * c
+                                   // groups).reshape(shape)
+    gate = unfused_gate(out, want, same)
+    faults = {name: unfused_gate(got, want, same)
+              for name, got in (
+                  ('f32_params', planted_unfused(x, w, b, groups,
+                                                 'f32_params')),
+                  ('no_round', planted_unfused(x, w, b, groups, 'no_round')),
+                  ('f32_stats', planted_unfused(x, w, b, groups,
+                                                'f32_stats')),
+                  ('fused_kernel', gn_swish_fwd(x, w, b, groups)))}
+    twin = gn_swish_plain(x, w, b, groups, 1e-6, False, 'unfused')
+    result = dict(
+        **{f'fwd_{k}': v for k, v in gate.items()},
+        twin_equal_share=(twin == out).float().mean().item(),
+        stats_equal_share=agree.float().mean().item(),
+        faults={k: (v['equal_share'], v['max_ulps'], v['ok'])
+                for k, v in faults.items()})
+    # The backward: the kernel (through the wrapper, with the forward's
+    # statistics) against autograd of the pair and the float32 closed form.
+    got = gn_swish_bwd(x, w, b, dy, groups, 1e-6, stats, 'unfused')
+    torch.cuda.synchronize()
+    xg, wg, bg = (t.detach().requires_grad_() for t in (x, wl, bl))
+
+    def pair_fwd():
+      return F.silu(F.group_norm(xg, groups, wg, bg, 1e-6))
+
+    def pair_fwd_bwd():
+      return torch.autograd.grad(pair_fwd(), (xg, wg, bg), dy)
+    auto = pair_fwd_bwd()
+    closed = gn_swish_bwd_plain(x, w, b, dy, groups, 1e-6, stats, 'unfused')
+    names = ('dx', 'dweight', 'dbias')
+    vs_auto = {n: rel_err(g, a) for n, g, a in zip(names, got, auto)}
+    auto_vs_closed = {n: rel_err(a, c)
+                      for n, a, c in zip(names, auto, closed)}
+    rtol, atol_frac = GN_BWD_DX_TOL[dtype]
+    want_dx = closed[0].float()
+    dx_excess = (((got[0].float() - want_dx).abs() - rtol * want_dx.abs())
+                 .max() / want_dx.abs().max()).item()
+    sums = {n: rel_err(g, c) for n, g, c in zip(names[1:], got[1:],
+                                               closed[1:])}
+    result.update(design=bwd_design(shape, dtype, groups),
+                  bwd_vs_autograd=vs_auto, autograd_vs_closed=auto_vs_closed,
+                  bwd_dx_excess_over_rtol_frac=dx_excess, bwd_vs_closed=sums)
+
+    def run_fwd():
+      return gn_swish_fwd(x, w, b, groups, 1e-6, False, 'unfused')
+
+    def run_bwd():
+      return gn_swish_bwd(x, w, b, dy, groups, 1e-6, stats, 'unfused')
+    result.update(
+        ms=cuda_ms(run_fwd), back_to_back_ms=back_to_back_ms(run_fwd),
+        pair_ms=cuda_ms(lambda: F.silu(F.group_norm(x, groups, wl, bl,
+                                                    1e-6))),
+        bwd_ms=cuda_ms(run_bwd), bwd_back_to_back_ms=back_to_back_ms(run_bwd),
+        pair_bwd_ms=cuda_ms(pair_fwd_bwd) - cuda_ms(pair_fwd))
+    log('gn_swish_unfused', shape=list(shape), dtype=str(dtype),
+        groups=groups, **result)
+    assert gate['ok'], (shape, dtype, gate)
+    assert not any(v['ok'] for v in faults.values()) or (
+        dtype == torch.float32), (shape, faults)
+    assert max(vs_auto.values()) <= GN_UNFUSED_BWD_RTOL[dtype], (
+        shape, dtype, vs_auto)
+    assert dx_excess <= atol_frac, (shape, dtype, dx_excess)
+    assert max(sums.values()) <= GN_BWD_SUM_RTOL, (shape, dtype, sums)
+    if dtype == torch.bfloat16:
+      kernel_vs_closed = dict(dx=rel_err(got[0], closed[0]), **sums)
+      assert all(kernel_vs_closed[n] <= auto_vs_closed[n] for n in names), (
+          shape, kernel_vs_closed, auto_vs_closed)
+    results['x'.join(map(str, shape)) + f'_{str(dtype)[6:]}'] = result
+  return results
+
+
 def check_mask_batch(dev, cfg, imul_rate):
   """K7: every slot of one launch of the score UNet's masks at the flagship
   shape (67 x (128, 128, 32, 32) bf16) bit-identical to K6 at (seed, site);
@@ -1414,11 +1637,13 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
   Attention blocks: the middle one of the UNet and of the encoder (the VDM
   has none), plus, with `with_attention`, one after each of the UNet's
   2 n_layer + 1 down and up blocks and each of the encoder's down blocks.
-  K8 runs twice in each of the UNet's 2 n_layer + 3 ResNet blocks with
-  `fused_gn_swish`. In a train step K8's backward runs once per K8 site,
-  and a checkpointed block (remat) runs its forward again in the backward:
-  K1 once more per attention block, K8 twice and K6 once more per ResNet
-  block. K6 makes a block's mask in the forward and again in the backward;
+  K8 runs at every GroupNorm -> swish site: twice in each ResNet block
+  (the UNet's 2 n_layer + 3, the encoder's n_layer + 2) and once before
+  each one's output convolution, in the fused arithmetic at the UNet's
+  blocks' sites with `fused_gn_swish`, in the unfused one at the others.
+  In a train step K8's backward runs once per K8 site, and a checkpointed
+  block (remat) runs its forward again in the backward: K1 once more per
+  attention block, K8 twice and K6 once more per ResNet block. K6 makes a block's mask in the forward and again in the backward;
   with `dropout_mask_batch`, one K7 launch makes the UNet's masks instead
   and the encoder keeps K6. K5 runs once a step where g0 is learned (the
   VDM's schedule and MuLAN's `learnable_nnet`) and never where it is
@@ -1436,16 +1661,17 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
                   else 0) if trunk else 0
   learned_g0 = vdm or cfg.gamma_type == 'learnable_nnet'
   counts = dict.fromkeys(kernel_counters(), 0)
-  k8 = 2 * n_unet if cfg.fused_gn_swish else 0
+  k8_unet = 2 * n_unet + 1
+  k8_enc = 2 * n_enc + 1 if trunk else 0
   if path == 'eval':
     counts.update(flash_attention=unet_attn + enc_attn, decoder_logprob=1,
-                  gn_swish=k8)
+                  gn_swish=k8_unet + k8_enc)
     return counts
   if path in ('sample', 'ode_sample_rhs'):
-    counts.update(flash_attention=unet_attn, gn_swish=k8)
+    counts.update(flash_attention=unet_attn, gn_swish=k8_unet)
     return counts
   if path == 'encoder':
-    counts.update(flash_attention=enc_attn)
+    counts.update(flash_attention=enc_attn, gn_swish=k8_enc)
     return counts
   unet_remat = (n_unet if cfg.remat_blocks else
                 (n_unet + 1) // 2 if cfg.remat_alt_blocks else 0)
@@ -1453,8 +1679,7 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
     counts.update(
         flash_attention=unet_attn * (2 if cfg.remat_attn else 1),
         flash_attention_bwd_dkv=unet_attn, flash_attention_bwd_dq=unet_attn,
-        gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0),
-        gn_swish_bwd=k8)
+        gn_swish=k8_unet + 2 * unet_remat, gn_swish_bwd=k8_unet)
     return counts
   assert path == 'train', path
   n_attn = unet_attn + enc_attn
@@ -1468,8 +1693,8 @@ def expected_launches(cfg, path: str, vdm: bool = False) -> dict:
       dropout_mask=drop * ((0 if batched else 2 * n_unet + unet_remat)
                            + 2 * n_enc + enc_remat),
       dropout_mask_batch=int(batched),
-      gn_swish=k8 + (2 * unet_remat if cfg.fused_gn_swish else 0),
-      gn_swish_bwd=k8)
+      gn_swish=k8_unet + k8_enc + 2 * (unet_remat + enc_remat),
+      gn_swish_bwd=k8_unet + k8_enc)
   return counts
 
 
@@ -1627,13 +1852,17 @@ def planted_gn_fault(kind: str):
   name = {'half_groups': 'gn_swish_fwd', 'missing_term': 'gn_swish_bwd'}[kind]
   real = getattr(gn, name)
 
-  def half_groups(x, weight, bias, num_groups, eps=1e-6, stats=False):
+  def half_groups(x, weight, bias, num_groups, eps=1e-6, stats=False,
+                  arithmetic='fused'):
     # The statistics of the right groups, as the backward would reduce them.
-    out = real(x, weight, bias, num_groups // 2, eps)
-    return (out, gn.group_stats(x, num_groups, eps)) if stats else out
+    out = real(x, weight, bias, num_groups // 2, eps, False, arithmetic)
+    return ((out, gn.group_stats(x, num_groups, eps, arithmetic)) if stats
+            else out)
 
-  def missing_term(x, weight, bias, dy, num_groups, eps=1e-6, stats=None):
-    dx, dweight, dbias = real(x, weight, bias, dy, num_groups, eps, stats)
+  def missing_term(x, weight, bias, dy, num_groups, eps=1e-6, stats=None,
+                   arithmetic='fused'):
+    dx, dweight, dbias = real(x, weight, bias, dy, num_groups, eps, stats,
+                              arithmetic)
     xhat, rstd = gn._normalized(x, num_groups, eps)
     w = gn._per_channel(weight, x)
     y = xhat * w + gn._per_channel(bias, x)
@@ -2200,11 +2429,15 @@ def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
   """One RK4 solve of the ODE likelihood (ODE_RK4_STEPS steps, 128 rows)
   through the kernels, through the plain versions and through a float32
   plain twin, on the same dequantization draw and probe, with the gates
-  described at ODE_BPD_NOISE. Then one RHS evaluation: its ms and peak
-  memory, and the score UNet's attention block alone at the input and
-  output cotangent it recorded there: every leaf's gradient and the
-  input's, kernels against plain, to ATTN_ALONE_COS_MIN, which planted
-  faults in K2 and K3 must fail. Returns (the launches of the kernels'
+  described at ODE_RHS_NOISE: the drift's part of the whole bpd, and the
+  drift and the divergence of single RHS evaluations, which K8 planted
+  with half the groups must fail. Then one RHS evaluation: its ms and
+  peak memory, and the score UNet's attention block and a ResNet block
+  alone at the input and output cotangent it recorded there: every
+  leaf's gradient and the input's, kernels against plain, to
+  ATTN_ALONE_COS_MIN (planted faults in K2 and K3 must fail it) and
+  GN_ALONE_COS_MIN (K8's backward planted without its xhat term must
+  fail it). Returns (the launches of the kernels'
   solve, the kernels' model, its RHS and initial state)."""
   from mulan_tpu_torch.evals import nll_ode
   from mulan_tpu_torch.models import build_model
@@ -2240,18 +2473,43 @@ def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
     else:
       (runs[name], stats), secs = timed(lambda: solve(models[name]))
     runs[name]['seconds'] = secs
-    if name == 'f32':
-      del models[name]
   nfe = stats['nfe']
   assert nfe == 4 * ODE_RK4_STEPS and stats['success'], stats
   assert counts == ode_solve_launches(cfg, nfe), counts
 
   def delta(a, b, part='bpd'):
     return abs(runs[a][part] - runs[b][part])
-  noise = delta('plain', 'f32')
-  bpd_tol = BPD_TOL + ODE_BPD_NOISE * noise
 
   rhs = {name: ode_rhs(m, batch, u, probe) for name, m in models.items()}
+  parts = (('drift', slice(0, cfg.n_pixels)), ('divergence', cfg.n_pixels))
+  refs = {t: {name: rhs[name][0](ode.f32(t), rhs[name][1])
+              for name in ('plain', 'f32')} for t in ODE_RHS_TIMES}
+
+  def rhs_errors():
+    """{t: {part: {path: |path - f32| / |f32|}}} of the drift and of the
+    per-row divergence, the kernels' and plain's, at ODE_RHS_TIMES."""
+    func, y0 = rhs['kernels']
+    out = {}
+    for t in ODE_RHS_TIMES:
+      got = dict(refs[t], kernels=func(ode.f32(t), y0))
+      want = got['f32']
+      out[t] = {part: {name: ((got[name][:, s] - want[:, s]).norm()
+                              / want[:, s].norm()).item()
+                       for name in ('kernels', 'plain')}
+                for part, s in parts}
+    return out
+
+  def rhs_ratios(errors):
+    return {t: {part: e['kernels'] / e['plain'] for part, e in by.items()}
+            for t, by in errors.items()}
+
+  def rhs_passes(errors):
+    return all(r <= ODE_RHS_NOISE for by in rhs_ratios(errors).values()
+               for r in by.values())
+  rhs_err = rhs_errors()
+  with planted_gn_fault('half_groups'):
+    rhs_fault = rhs_errors()
+  del models['f32'], rhs['f32']
   t = ode.f32(0.5)
   rhs_ms = {name: cuda_ms(lambda: func(t, y0), n=5)
             for name, (func, y0) in rhs.items()}
@@ -2263,35 +2521,48 @@ def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
   torch.cuda.synchronize()
   peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
 
-  # The block alone, its leaves made to require grad for the check only.
-  block = models['kernels'].score_model.mid_attn_1
-  captured, hooks = capture_io({'unet': block})
+  # The blocks alone, their leaves made to require grad for the check only.
+  unet = models['kernels'].score_model
+  blocks = {'attn': unet.mid_attn_1, 'resnet': unet.mid_block_1}
+  captured, hooks = capture_io(blocks)
   func(t, y0)
   for h in hooks:
     h.remove()
-  block.requires_grad_(True)
-  plain = block_grads(block, *captured['unet'], False)
+  for b in blocks.values():
+    b.requires_grad_(True)
+  plain = {n: block_grads(b, *captured[n], False) for n, b in blocks.items()}
   # The residual passes dy to the input unchanged; the attention branch's
   # share of the input gradient, beside it.
-  dy = captured['unet'][1].flatten().double()
-  branch_ratio = ((plain['input'] - dy).norm() / dy.norm()).item()
+  dy = captured['attn'][1].flatten().double()
+  branch_ratio = ((plain['attn']['input'] - dy).norm() / dy.norm()).item()
 
-  def alone():
-    return leaf_cosines(block_grads(block, *captured['unet'], True), plain)
-  cos = alone()
+  def alone(n):
+    return leaf_cosines(block_grads(blocks[n], *captured[n], True), plain[n])
+  cos = alone('attn')
   faults = {}
   for kernel in ('dk', 'dq'):
     with planted_fault(kernel):
-      faults[kernel] = alone()
-  block.requires_grad_(False)
+      faults[kernel] = alone('attn')
+  gn_cos = alone('resnet')
+  with planted_gn_fault('missing_term'):
+    gn_fault = alone('resnet')
+  for b in blocks.values():
+    b.requires_grad_(False)
 
-  def passes(c):
-    return all(v >= ATTN_ALONE_COS_MIN for v in c.values())
+  def passes(c, tol=ATTN_ALONE_COS_MIN):
+    return all(v >= tol for v in c.values())
   log('ode_nll_kernels_vs_plain', rows=ODE_ROWS, rk4_steps=ODE_RK4_STEPS,
       nfe=nfe, runs=runs, abs_delta=delta('kernels', 'plain'),
-      plain_minus_f32=noise, tol=bpd_tol,
+      plain_minus_f32=delta('plain', 'f32'),
+      kernels_minus_f32=delta('kernels', 'f32'),
       prior_part_abs_delta=delta('kernels', 'plain', 'prior_part'),
-      prior_tol=BPD_TOL, kernels_minus_f32=delta('kernels', 'f32'),
+      prior_tol=BPD_TOL, rhs_times=ODE_RHS_TIMES, rhs_vs_f32=rhs_err,
+      rhs_ratio=rhs_ratios(rhs_err), rhs_tol=ODE_RHS_NOISE,
+      rhs_half_groups_ratio=rhs_ratios(rhs_fault),
+      rhs_half_groups_rejected=not rhs_passes(rhs_fault),
+      resnet_alone_cos_min=min(gn_cos.values()), tol_resnet=GN_ALONE_COS_MIN,
+      resnet_missing_term_cos_min=min(gn_fault.values()),
+      resnet_missing_term_rejected=not passes(gn_fault, GN_ALONE_COS_MIN),
       ms_per_rhs_kernels=rhs_ms['kernels'], ms_per_rhs_plain=rhs_ms['plain'],
       rhs_peak_above_start_gb=peak_gb,
       alone_cos_min=min(cos.values()), tol_alone=ATTN_ALONE_COS_MIN,
@@ -2301,7 +2572,13 @@ def compare_ode_nll(cfg, state, batch, gen, dev, route_totals):
       fault_input_cos={k: c['input'] for k, c in faults.items()},
       branch_to_residual_norm=branch_ratio, launches=counts)
   assert delta('kernels', 'plain', 'prior_part') <= BPD_TOL, runs
-  assert delta('kernels', 'plain') <= bpd_tol, runs
+  assert all(math.isfinite(r['bpd']) for r in runs.values()), runs
+  assert rhs_passes(rhs_err), rhs_err
+  assert not rhs_passes(rhs_fault), ('a planted half_groups K8 fault passed',
+                                     rhs_fault)
+  assert passes(gn_cos, GN_ALONE_COS_MIN), gn_cos
+  assert not passes(gn_fault, GN_ALONE_COS_MIN), (
+      'a planted missing_term K8 fault passed', gn_fault)
   assert passes(cos), cos
   for kernel, c in faults.items():
     assert not passes(c), (f'a planted {kernel} fault passed', c)
@@ -2854,7 +3131,7 @@ def run_imagenet32(dev, gen, sfu_rate, route_totals):
   ex_fused = Experiment(fused_cfg, device=dev, state=state)
   fused_history, paths['in32_fused_train'] = count(
       lambda: ex_fused.train(1))
-  k8_sites = 2 * (2 * cfg.sm_n_layer + 3)
+  k8_sites = 2 * (2 * cfg.sm_n_layer + 3 + cfg.forward_n_layer + 2) + 2
   log('in32_fused_train', bpd=fused_history[0]['bpd'], k8_sites=k8_sites,
       launches=paths['in32_fused_train'])
   assert math.isfinite(fused_history[0]['bpd']), fused_history
@@ -3603,6 +3880,10 @@ def gathered_gn_rank(rank: int, dev, out_dir: str) -> None:
   channels on its slice (see TP_GN_RANKS), forward and backward with the
   kernels, against the plain whole GN-swish (the same inputs on every
   rank, from SEED), and K8's and its backward's launches in that run.
+  Then the unfused site (`GroupNormF32.gn_swish`, K8 in the unfused
+  arithmetic on the gathered channels) against autograd of the whole
+  pair F.silu(F.group_norm(...)): the output's share of equal bits, the
+  gradients' max |kernel - autograd| over max |autograd|, its launches.
   Writes OUT_DIR/gn<R>.json."""
   import torch.distributed as dist
   from mulan_tpu_torch.models.layers import GroupNormF32
@@ -3648,6 +3929,27 @@ def gathered_gn_rank(rank: int, dev, out_dir: str) -> None:
                               tensor_lib.take(ww.grad, tensor, 0)),
       dbias_rel_err=rel_err(norm.bias.grad,
                             tensor_lib.take(bw.grad, tensor, 0)))
+  site = GroupNormF32(c, use_kernels=True, tensor=tensor).to(dev)
+  site.load_state_dict(norm.state_dict())
+  xr = tensor_lib.take(x, tensor).contiguous().requires_grad_()
+  before = tracing.launches()
+  y = site.gn_swish(xr)
+  y.backward(tensor_lib.take(dy, tensor).contiguous())
+  torch.cuda.synchronize()
+  counts, _ = launches_since(before)
+  xw, ww, bw = (t.clone().requires_grad_() for t in (x, w, b))
+  want = F.silu(F.group_norm(xw, site.num_groups, ww.to(x.dtype),
+                             bw.to(x.dtype), 1e-6))
+  want.backward(dy)
+  result.update(
+      unfused_launches=[counts['gn_swish'], counts['gn_swish_bwd']],
+      unfused_equal_share=(y.detach() == tensor_lib.take(
+          want.detach(), tensor)).float().mean().item(),
+      unfused_vs_autograd={n: rel_err(g, tensor_lib.take(a, tensor, dim))
+                           for n, g, a, dim in (
+                               ('dx', xr.grad, xw.grad, 1),
+                               ('dweight', site.weight.grad, ww.grad, 0),
+                               ('dbias', site.bias.grad, bw.grad, 0))})
   log('gathered_gn_swish', rank=rank, rtol=rtol, atol=atol,
       cos_min=GN_ALONE_COS_MIN, sum_rtol=GN_BWD_SUM_RTOL, **result)
   pathlib.Path(out_dir, f'gn{rank}.json').write_text(json.dumps(result))
@@ -3794,6 +4096,10 @@ def run_tensor_parallel(dev, gen, train_cfg, images, route_totals,
     assert r['dx_cos'] >= GN_ALONE_COS_MIN, gn
     assert max(r['dweight_rel_err'], r['dbias_rel_err']) <= (
         GN_BWD_SUM_RTOL), gn
+    assert r['unfused_launches'] == [1, 1], gn
+    assert r['unfused_equal_share'] >= GN_UNFUSED_EQUAL_SHARE, gn
+    assert max(r['unfused_vs_autograd'].values()) <= GN_UNFUSED_BWD_RTOL[
+        torch.bfloat16], gn
 
   # 5. K6, K7 and K8 at the window's shapes, timed.
   window = tp_window_kernels(dev, gen, cfg, imul_rate, sfu_rate)
@@ -4323,6 +4629,8 @@ def main() -> None:
   results['gn_swish'], gn_swish_c256 = check_gn_swish(dev, gen, sfu_rate)
   results['gn_swish_bwd'], gn_bwd_c256 = check_gn_swish_bwd(dev, gen,
                                                            sfu_rate)
+  results['gn_swish_unfused'] = check_gn_swish_unfused(
+      dev, torch.Generator(device=dev).manual_seed(SEED + 8))
   results['dropout_mask_batch'] = check_mask_batch(dev, cfg, imul_rate)
   rank_masks = rank_mask_times(dev, cfg, imul_rate)
   torch.cuda.empty_cache()
@@ -4331,6 +4639,10 @@ def main() -> None:
   # 3. Evaluation: sparse VLB over synthetic eval batches. Every counted
   # run of a main path adds its launches by route to route_totals.
   route_totals = {}
+  # K8 at every GroupNorm -> swish site: two a ResNet block (the UNet's and
+  # the encoder's) and one before each output convolution.
+  k8_unet = 2 * (2 * cfg.sm_n_layer + 3) + 1
+  k8_sites = k8_unet + 2 * (cfg.forward_n_layer + 2) + 1
   state = params.init_params(cfg, torch.Generator().manual_seed(SEED),
                              perturb_zero_init=0.02)
   model = build_model('mulan_velocity', cfg, device=dev, state=state)
@@ -4345,13 +4657,13 @@ def main() -> None:
   log('eval_bpd_sparse', batches=EVAL_BATCHES, batch=EVAL_BATCH, bpd=bpd,
       seconds=secs, launches=eval_counts)
   assert math.isfinite(bpd), bpd
-  # Two attention blocks (encoder, UNet) and one decoder call per batch,
-  # no backward and no dropout.
+  # Two attention blocks (encoder, UNet), one decoder call and K8 at every
+  # GroupNorm -> swish site per batch, no backward and no dropout.
   assert eval_counts == dict(
       flash_attention=2 * EVAL_BATCHES, decoder_logprob=EVAL_BATCHES,
       flash_attention_bwd_dkv=0, flash_attention_bwd_dq=0,
       decoder_logprob_bwd=0, dropout_mask=0, dropout_mask_batch=0,
-      gn_swish=0, gn_swish_bwd=0), eval_counts
+      gn_swish=k8_sites * EVAL_BATCHES, gn_swish_bwd=0), eval_counts
   assert eval_counts == times(expected_launches(cfg, 'eval'), EVAL_BATCHES)
   clock.done(3, 'sparse VLB')
 
@@ -4375,7 +4687,8 @@ def main() -> None:
 
   sample_counts = run_sampler(model)
   assert sample_counts['flash_attention'] == SAMPLE_STEPS, sample_counts
-  assert sum(sample_counts.values()) == SAMPLE_STEPS, sample_counts
+  assert sum(sample_counts.values()) == SAMPLE_STEPS * (1 + k8_unet), (
+      sample_counts)
   clock.done(4, 'sampler')
 
   # 5. The ELBO, kernels against the plain path, on one batch with the same
@@ -4469,7 +4782,8 @@ def main() -> None:
   per_step = dict(flash_attention=2, flash_attention_bwd_dkv=2,
                   flash_attention_bwd_dq=2, decoder_logprob=1,
                   decoder_logprob_bwd=0, dropout_mask=2 * n_sites,
-                  dropout_mask_batch=0, gn_swish=0, gn_swish_bwd=0)
+                  dropout_mask_batch=0, gn_swish=k8_sites,
+                  gn_swish_bwd=k8_sites)
   assert train_counts == {k: TRAIN_STEPS * v for k, v in per_step.items()}, (
       train_counts)
   eval_scalars = ex.run_eval(1)

@@ -63,6 +63,22 @@
 // again for dx, with the same statistics and the same arrival counters.
 // Its blocks arrive once a run, as the ring's do once a block. The wrapper
 // chooses between the two by shape (ops/groupnorm_swish.py:bwd_design).
+//
+// Every kernel has a second arithmetic (the template flag Unfused), for the
+// GroupNorm -> swish sites that the model computes as
+// F.silu(F.group_norm(x, G, w.to(x.dtype), b.to(x.dtype), eps)). It gives
+// the bits PyTorch's CUDA kernels give there: PyTorch reduces each (sample,
+// group) by Welford in float32 (here: the mean, then the squares about it,
+// from the registers) and stores the mean and rsqrt(var + eps) in x's type,
+// eps cast to x's type too; it folds the affine per channel into a = rstd w
+// and b' = b - mean a in float32 from the parameters and statistics in x's
+// type (ComputeFusedParamsCUDAKernel), writes y = a x + b' in x's type, and
+// silu computes y / (1 + expf(-y)) in float32 and rounds once more. So the
+// forward reads the float32 parameters rounded to x's type, writes the
+// rounded statistics for the backward, and applies swish by IEEE division
+// and the accurate expf to the rounded y. The backward recomputes that
+// rounded y for g_y and keeps g_y and every sum in float32, where autograd
+// rounds g_y to x's type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +126,48 @@ __device__ __forceinline__ float swish_grad(float y, float dy) {
   const float s = sigmoid(y);
   return dy * s * fmaf(y, 1.0f - s, 1.0f);
 }
+
+// v rounded to T (to nearest even), as a float.
+template <typename T> __device__ __forceinline__ float round_to(float v);
+
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// A channel's weight or bias as the arithmetic reads it: float32, or
+// (Unfused) rounded to T, as w.to(x.dtype) rounds it.
+template <typename T, bool Unfused>
+__device__ __forceinline__ float param(const float* p, int c) {
+  const float v = __ldg(p + c);
+  return Unfused ? round_to<T>(v) : v;
+}
+
+// The unfused path's swish of a GroupNorm output y: F.silu of y in T.
+template <typename T>
+__device__ __forceinline__ float unfused_swish(float y) {
+  const float r = round_to<T>(y);
+  return r / (1.0f + expf(-r));
+}
+
+// The input of swish at an element x of a channel (xhat = x rstd + shift).
+// Fused: xhat w + b. Unfused: the GroupNorm output PyTorch writes, x a + b'
+// with a = rstd w and b' = b - mean a, rounded to T, as the forward
+// computes it.
+template <typename T, bool Unfused>
+struct PreSwish {
+  float w, b, a, b_folded;
+  __device__ PreSwish(float w_, float b_, float mean, float rstd)
+      : w(w_), b(b_), a(rstd * w_), b_folded(fmaf(-mean, rstd * w_, b_)) {}
+  __device__ __forceinline__ float operator()(float x, float xhat) const {
+    if constexpr (Unfused) return round_to<T>(fmaf(x, a, b_folded));
+    return fmaf(xhat, w, b);
+  }
+};
 
 // N elements of T as one register value: a 16-byte vector (N = 16 /
 // sizeof(T)) or, where H x W is no multiple of that, one element (N = 1).
@@ -234,7 +292,7 @@ struct ChannelWalk {
 // One block per (sample, group): blockIdx.x = sample * groups + group. The
 // run of `len` = C/G * hw elements starts at blockIdx.x * len; N divides hw,
 // so that a vector lies within one channel; len / N <= NV * kThreads.
-template <typename T, int N, int NV>
+template <typename T, int N, int NV, bool Unfused>
 __global__ void __launch_bounds__(kThreads)
 gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
          const float* __restrict__ bias, T* __restrict__ out,
@@ -264,9 +322,29 @@ gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
     }
   }
   block_sum2(s1, s2, scratch);
-  const float mean = s1 / (float)len;
-  const float var = s2 / (float)len - mean * mean;
-  const float rstd = rsqrtf(var + eps);
+  float mean = s1 / (float)len, rstd;
+  if constexpr (Unfused) {
+    // Welford's precision: the squares about the mean, from the registers.
+    float c2 = 0.0f, unused = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if (threadIdx.x + k * kThreads < nvec) {
+        float f[N];
+        P::unpack(raw[k], f);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const float d = f[e] - mean;
+          c2 = fmaf(d, d, c2);
+        }
+      }
+    }
+    block_sum2(c2, unused, scratch);
+    rstd = round_to<T>(rsqrtf(c2 / (float)len + round_to<T>(eps)));
+    mean = round_to<T>(mean);
+  } else {
+    const float var = s2 / (float)len - mean * mean;
+    rstd = rsqrtf(var + eps);
+  }
   if (stats != nullptr && threadIdx.x == 0) {
     stats[2 * blockIdx.x] = mean;
     stats[2 * blockIdx.x + 1] = rstd;
@@ -278,14 +356,14 @@ gn_swish(const T* __restrict__ x, const float* __restrict__ weight,
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       const int c = first_channel + at.channel;
-      const float a = rstd * __ldg(weight + c);
-      const float b = fmaf(-mean, a, __ldg(bias + c));
+      const float a = rstd * param<T, Unfused>(weight, c);
+      const float b = fmaf(-mean, a, param<T, Unfused>(bias, c));
       float f[N];
       P::unpack(raw[k], f);
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const float y = fmaf(f[e], a, b);
-        f[e] = y * sigmoid(y);
+        f[e] = Unfused ? unfused_swish<T>(y) : y * sigmoid(y);
       }
       P::store(out + base + (size_t)i * N, P::pack(f));
     }
@@ -379,7 +457,7 @@ struct BwdParams {
 // shared memory: the ring (kStages x (x run, dy run)), which also holds the
 // per-vector sums at the end. N divides hw, len * sizeof(T) is a multiple
 // of 16, x and dy are 16-byte aligned; len / N <= NV * blockDim.x.
-template <typename T, int N, int NV>
+template <typename T, int N, int NV, bool Unfused>
 __global__ void __launch_bounds__(kRingThreads)
 gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
              T* __restrict__ dx, const BwdParams a) {
@@ -418,8 +496,8 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
   for (int k = 0; k < NV; ++k) {
     const int c = first_channel +
                   min((int)threadIdx.x + k * threads, nvec - 1) / per_channel;
-    wk[k] = __ldg(a.weight + c);
-    bk[k] = __ldg(a.bias + c);
+    wk[k] = param<T, Unfused>(a.weight, c);
+    bk[k] = param<T, Unfused>(a.bias, c);
     acc_g[k] = acc_gx[k] = 0.0f;
   }
   __syncthreads();
@@ -447,11 +525,12 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
         float xf[N], df[N];
         P::unpack(P::load(xs + i * N), xf);
         P::unpack(P::load(ds + i * N), df);
+        const PreSwish<T, Unfused> pre(wk[k], bk[k], mean, rstd);
         float sg = 0.0f, sgx = 0.0f;
 #pragma unroll
         for (int e = 0; e < N; ++e) {
           const float xhat = fmaf(xf[e], rstd, shift);
-          const float g = swish_grad(fmaf(xhat, wk[k], bk[k]), df[e]);
+          const float g = swish_grad(pre(xf[e], xhat), df[e]);
           sg += g;
           sgx = fmaf(g, xhat, sgx);
           wg[k][e] = wk[k] * g;
@@ -531,7 +610,7 @@ gn_swish_bwd(const T* __restrict__ x, const T* __restrict__ dy,
 // (N = 1: a register a value, 32 for x and dy) to 80 registers and spills;
 // a minimum of two blocks an SM lets it take up to 128 (0: no minimum, as
 // ptxas chooses for the vector paths).
-template <typename T, int N, int NV>
+template <typename T, int N, int NV, bool Unfused>
 __global__ void __launch_bounds__(kThreads, N == 1 ? 2 : 0)
 gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
                   T* __restrict__ dx, const BwdParams a) {
@@ -568,7 +647,9 @@ gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       const int c = first_channel + at.channel;
-      const float w = __ldg(a.weight + c), b = __ldg(a.bias + c);
+      const PreSwish<T, Unfused> pre(param<T, Unfused>(a.weight, c),
+                                     param<T, Unfused>(a.bias, c), mean,
+                                     rstd);
       float xf[N], df[N];
       P::unpack(xr[k], xf);
       P::unpack(dyr[k], df);
@@ -576,7 +657,7 @@ gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const float xhat = fmaf(xf[e], rstd, shift);
-        const float g = swish_grad(fmaf(xhat, w, b), df[e]);
+        const float g = swish_grad(pre(xf[e], xhat), df[e]);
         sg += g;
         sgx = fmaf(g, xhat, sgx);
       }
@@ -591,7 +672,7 @@ gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
 
   float sum_wg = 0.0f, sum_wgx = 0.0f;
   for (int ch = 0; ch < a.channels_per_group; ++ch) {
-    const float w = __ldg(a.weight + first_channel + ch);
+    const float w = param<T, Unfused>(a.weight, first_channel + ch);
     sum_wg = fmaf(w, chan[ch], sum_wg);
     sum_wgx = fmaf(w, chan[a.channels_per_group + ch], sum_wgx);
   }
@@ -604,14 +685,16 @@ gn_swish_bwd_regs(const T* __restrict__ x, const T* __restrict__ dy,
     const int i = threadIdx.x + k * kThreads;
     if (i < nvec) {
       const int c = first_channel + at.channel;
-      const float w = __ldg(a.weight + c), b = __ldg(a.bias + c);
+      const PreSwish<T, Unfused> pre(param<T, Unfused>(a.weight, c),
+                                     param<T, Unfused>(a.bias, c), mean,
+                                     rstd);
       float xf[N], df[N];
       P::unpack(xr[k], xf);
       P::unpack(dyr[k], df);
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         const float xhat = fmaf(xf[e], rstd, shift);
-        const float wg = w * swish_grad(fmaf(xhat, w, b), df[e]);
+        const float wg = pre.w * swish_grad(pre(xf[e], xhat), df[e]);
         xf[e] = rstd * (wg - mean_wg - xhat * mean_wgx);
       }
       P::store(dx + base + (size_t)i * N, P::pack(xf));
@@ -645,16 +728,16 @@ bool run_shape(int len, int hw, const void* a, const void* b, const void* c,
   return true;
 }
 
-template <typename T, int N, int NV>
+template <typename T, int N, int NV, bool Unfused>
 int launch_fwd(const void* x, const float* weight, const float* bias,
                void* out, float* stats, int blocks, int groups,
                int per_group, int hw, float eps, cudaStream_t stream) {
-  gn_swish<T, N, NV><<<blocks, kThreads, 0, stream>>>(
+  gn_swish<T, N, NV, Unfused><<<blocks, kThreads, 0, stream>>>(
       (const T*)x, weight, bias, (T*)out, stats, groups, per_group, hw, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Unfused>
 int fwd(const void* x, const float* weight, const float* bias, void* out,
         float* stats, int batch, int channels, int hw, int groups, float eps,
         cudaStream_t stream) {
@@ -666,20 +749,25 @@ int fwd(const void* x, const float* weight, const float* bias, void* out,
     return (int)cudaErrorInvalidValue;
   const int blocks = batch * groups;
   if (!vec)
-    return launch_fwd<T, 1, kMaxVecs>(x, weight, bias, out, stats, blocks,
-                                      groups, per_group, hw, eps, stream);
+    return launch_fwd<T, 1, kMaxVecs, Unfused>(x, weight, bias, out, stats,
+                                               blocks, groups, per_group, hw,
+                                               eps, stream);
   switch (nv) {
-    case 1: return launch_fwd<T, kVec, 1>(x, weight, bias, out, stats, blocks,
-                                          groups, per_group, hw, eps, stream);
-    case 2: return launch_fwd<T, kVec, 2>(x, weight, bias, out, stats, blocks,
-                                          groups, per_group, hw, eps, stream);
-    case 4: return launch_fwd<T, kVec, 4>(x, weight, bias, out, stats, blocks,
-                                          groups, per_group, hw, eps, stream);
-    case 8: return launch_fwd<T, kVec, 8>(x, weight, bias, out, stats, blocks,
-                                          groups, per_group, hw, eps, stream);
-    default: return launch_fwd<T, kVec, 16>(x, weight, bias, out, stats,
-                                            blocks, groups, per_group, hw,
-                                            eps, stream);
+    case 1: return launch_fwd<T, kVec, 1, Unfused>(
+        x, weight, bias, out, stats, blocks, groups, per_group, hw, eps,
+        stream);
+    case 2: return launch_fwd<T, kVec, 2, Unfused>(
+        x, weight, bias, out, stats, blocks, groups, per_group, hw, eps,
+        stream);
+    case 4: return launch_fwd<T, kVec, 4, Unfused>(
+        x, weight, bias, out, stats, blocks, groups, per_group, hw, eps,
+        stream);
+    case 8: return launch_fwd<T, kVec, 8, Unfused>(
+        x, weight, bias, out, stats, blocks, groups, per_group, hw, eps,
+        stream);
+    default: return launch_fwd<T, kVec, 16, Unfused>(
+        x, weight, bias, out, stats, blocks, groups, per_group, hw, eps,
+        stream);
   }
 }
 
@@ -696,7 +784,7 @@ struct BwdCall {
 // tens of them cannot spare: each (device, run length) asks once. The
 // attribute is the kernel's, not a run length's, so it only ever grows, to
 // the most shared memory any run length on the device has asked for.
-template <typename T, int N>
+template <typename T, int N, bool Unfused>
 int ring_blocks(int len, int threads, size_t smem, int* blocks) {
   static std::mutex mu;
   static std::map<std::pair<int, int>, int> known;
@@ -710,7 +798,7 @@ int ring_blocks(int len, int threads, size_t smem, int* blocks) {
     *blocks = it->second;
     return (int)cudaSuccess;
   }
-  const auto kernel = gn_swish_bwd<T, N, kRingVecs>;
+  const auto kernel = gn_swish_bwd<T, N, kRingVecs, Unfused>;
   if (smem > granted[dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -731,42 +819,42 @@ int ring_blocks(int len, int threads, size_t smem, int* blocks) {
 // The ring's blocks: a thread for every kRingVecs vectors of a run, and as
 // many blocks as fit on the SMs at once, in slots of `groups` (every group
 // the same number of blocks), at most one slot a sample.
-template <typename T, int N>
+template <typename T, int N, bool Unfused>
 int launch_bwd(const BwdCall& a) {
   const int len = a.p.channels_per_group * a.p.hw;
   const int threads = ((len / N + kRingVecs - 1) / kRingVecs + 31) / 32 * 32;
   const size_t smem = kStages * 2 * (size_t)len * sizeof(T);
   int blocks = 0;
-  const int err = ring_blocks<T, N>(len, threads, smem, &blocks);
+  const int err = ring_blocks<T, N, Unfused>(len, threads, smem, &blocks);
   if (err != (int)cudaSuccess) return err;
   int slots = blocks / a.p.groups;
   slots = slots < 1 ? 1 : slots > a.p.batch ? a.p.batch : slots;
-  gn_swish_bwd<T, N, kRingVecs><<<slots * a.p.groups, threads, smem,
-                                  a.stream>>>(
+  gn_swish_bwd<T, N, kRingVecs, Unfused><<<slots * a.p.groups, threads, smem,
+                                           a.stream>>>(
       (const T*)a.x, (const T*)a.dy, (T*)a.dx, a.p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int N, int NV>
+template <typename T, int N, int NV, bool Unfused>
 int launch_bwd_regs(const BwdCall& a) {
   const size_t smem = (2 * (size_t)a.p.channels_per_group * a.p.hw / N +
                        2 * (size_t)a.p.channels_per_group) *
                       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gn_swish_bwd_regs<T, N, NV>,
+        gn_swish_bwd_regs<T, N, NV, Unfused>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gn_swish_bwd_regs<T, N, NV><<<a.p.batch * a.p.groups, kThreads, smem,
-                                a.stream>>>((const T*)a.x, (const T*)a.dy,
-                                            (T*)a.dx, a.p);
+  gn_swish_bwd_regs<T, N, NV, Unfused><<<a.p.batch * a.p.groups, kThreads,
+                                         smem, a.stream>>>(
+      (const T*)a.x, (const T*)a.dy, (T*)a.dx, a.p);
   return (int)cudaGetLastError();
 }
 
 // The ring takes 16-byte vectors (hw a multiple of one, x, dy and dx
 // 16-byte aligned) and runs of at most kRingVecs * kRingThreads of them.
-template <typename T>
+template <typename T, bool Unfused>
 int bwd(const BwdCall& a) {
   constexpr int kVec = 16 / sizeof(T);
   bool vec;
@@ -775,10 +863,10 @@ int bwd(const BwdCall& a) {
   if (!run_shape<T>(len, a.p.hw, a.x, a.dy, a.dx, &vec, &nv) || !vec ||
       len / kVec > kRingVecs * kRingThreads)
     return (int)cudaErrorInvalidValue;
-  return launch_bwd<T, kVec>(a);
+  return launch_bwd<T, kVec, Unfused>(a);
 }
 
-template <typename T>
+template <typename T, bool Unfused>
 int bwd_regs(const BwdCall& a) {
   constexpr int kVec = 16 / sizeof(T);
   bool vec;
@@ -786,13 +874,13 @@ int bwd_regs(const BwdCall& a) {
   if (!run_shape<T>(a.p.channels_per_group * a.p.hw, a.p.hw, a.x, a.dy, a.dx,
                     &vec, &nv))
     return (int)cudaErrorInvalidValue;
-  if (!vec) return launch_bwd_regs<T, 1, kMaxVecs>(a);
+  if (!vec) return launch_bwd_regs<T, 1, kMaxVecs, Unfused>(a);
   switch (nv) {
-    case 1: return launch_bwd_regs<T, kVec, 1>(a);
-    case 2: return launch_bwd_regs<T, kVec, 2>(a);
-    case 4: return launch_bwd_regs<T, kVec, 4>(a);
-    case 8: return launch_bwd_regs<T, kVec, 8>(a);
-    default: return launch_bwd_regs<T, kVec, 16>(a);
+    case 1: return launch_bwd_regs<T, kVec, 1, Unfused>(a);
+    case 2: return launch_bwd_regs<T, kVec, 2, Unfused>(a);
+    case 4: return launch_bwd_regs<T, kVec, 4, Unfused>(a);
+    case 8: return launch_bwd_regs<T, kVec, 8, Unfused>(a);
+    default: return launch_bwd_regs<T, kVec, 16, Unfused>(a);
   }
 }
 
@@ -820,40 +908,50 @@ BwdCall bwd_call(const void* x, const void* dy, const void* weight,
 // bias: (channels,) float32; stats: null, or (batch, groups, 2) float32 for
 // each (sample, group)'s (mean, rstd). channels % groups == 0, and a
 // group's run of channels / groups * hw elements at most 16 * 256 vectors
-// of 16 bytes (or elements, where hw is no multiple of a vector).
+// of 16 bytes (or elements, where hw is no multiple of a vector). unfused:
+// 0 for the fused arithmetic, 1 for the unfused path's (the header).
 extern "C" int mulan_gn_swish(const void* x, const void* weight,
                               const void* bias, void* out, void* stats,
                               int batch, int channels, int hw, int groups,
-                              float eps, int is_bf16, void* stream) {
+                              float eps, int is_bf16, int unfused,
+                              void* stream) {
   if (bad_shape(batch, channels, hw, groups))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* w = (const float*)weight;
   const float* b = (const float*)bias;
   float* st = (float*)stats;
-  return is_bf16 ? fwd<__nv_bfloat16>(x, w, b, out, st, batch, channels, hw,
-                                      groups, eps, s)
-                 : fwd<float>(x, w, b, out, st, batch, channels, hw, groups,
-                              eps, s);
+  if (is_bf16)
+    return unfused ? fwd<__nv_bfloat16, true>(x, w, b, out, st, batch,
+                                              channels, hw, groups, eps, s)
+                   : fwd<__nv_bfloat16, false>(x, w, b, out, st, batch,
+                                               channels, hw, groups, eps, s);
+  return unfused ? fwd<float, true>(x, w, b, out, st, batch, channels, hw,
+                                    groups, eps, s)
+                 : fwd<float, false>(x, w, b, out, st, batch, channels, hw,
+                                     groups, eps, s);
 }
 
 // x, dy, dx: (batch, channels, hw) as above; weight, bias, dweight, dbias:
 // (channels,) float32; stats: (batch, groups, 2) as mulan_gn_swish writes
-// them; partial: (2, batch, channels) float32 scratch; counters: (groups,)
-// uint32, zero, and zero again after the kernel. The ring design: runs of
-// at most 2,048 16-byte vectors.
+// them with the same arithmetic; partial: (2, batch, channels) float32
+// scratch; counters: (groups,) uint32, zero, and zero again after the
+// kernel. The ring design: runs of at most 2,048 16-byte vectors.
 extern "C" int mulan_gn_swish_bwd(const void* x, const void* dy,
                                   const void* weight, const void* bias,
                                   const void* stats, void* dx, void* partial,
                                   void* counters, void* dweight, void* dbias,
                                   int batch, int channels, int hw, int groups,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int unfused, void* stream) {
   if (stats == nullptr || bad_shape(batch, channels, hw, groups))
     return (int)cudaErrorInvalidValue;
   const BwdCall a = bwd_call(x, dy, weight, bias, stats, dx, partial,
                              counters, dweight, dbias, batch, channels, hw,
                              groups, stream);
-  return is_bf16 ? bwd<__nv_bfloat16>(a) : bwd<float>(a);
+  if (is_bf16)
+    return unfused ? bwd<__nv_bfloat16, true>(a)
+                   : bwd<__nv_bfloat16, false>(a);
+  return unfused ? bwd<float, true>(a) : bwd<float, false>(a);
 }
 
 // The same arguments; the registers design, for every run mulan_gn_swish
@@ -864,11 +962,15 @@ extern "C" int mulan_gn_swish_bwd_regs(const void* x, const void* dy,
                                        void* partial, void* counters,
                                        void* dweight, void* dbias, int batch,
                                        int channels, int hw, int groups,
-                                       int is_bf16, void* stream) {
+                                       int is_bf16, int unfused,
+                                       void* stream) {
   if (stats == nullptr || bad_shape(batch, channels, hw, groups))
     return (int)cudaErrorInvalidValue;
   const BwdCall a = bwd_call(x, dy, weight, bias, stats, dx, partial,
                              counters, dweight, dbias, batch, channels, hw,
                              groups, stream);
-  return is_bf16 ? bwd_regs<__nv_bfloat16>(a) : bwd_regs<float>(a);
+  if (is_bf16)
+    return unfused ? bwd_regs<__nv_bfloat16, true>(a)
+                   : bwd_regs<__nv_bfloat16, false>(a);
+  return unfused ? bwd_regs<float, true>(a) : bwd_regs<float, false>(a);
 }

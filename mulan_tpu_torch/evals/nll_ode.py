@@ -18,7 +18,7 @@ counterpart of `mulan_tpu/evals/nll_ode.py`.
     by one reverse-mode vector-Jacobian product per RHS evaluation
     (`torch.autograd.grad`). Forward mode would give the same number, but
     the CUDA kernels have no forward-mode rule; reverse mode runs the
-    attention kernels' backward (K2, K3) and, with `fused_gn_swish`, K8's.
+    attention kernels' backward (K2, K3) and K8's at every GN-swish site.
     The drift's weights need no gradient: only x requires grad.
   * The probe is drawn once per solve, or, with `redraw_noise`, afresh at
     each distinct RHS time t, keyed by the float32 bit pattern of t (RK4's

@@ -5,13 +5,14 @@ the `ml_collections` files under `mulan_tpu/configs/`; neither can be imported
 where only PyTorch is installed. The fields are the ones the ported slices
 read, with the JAX package's names and defaults.
 `use_kernels` is the counterpart of `use_pallas`: it routes attention, the
-decoder log-likelihood, the dropout masks and the fused GroupNorm+swish
-through the hand-written CUDA kernels in `ops/`. The other execution-policy
-fields, `remat`, `dropout_mask_batch` and `fused_gn_swish`, take the JAX
-package's values (`mulan_tpu/models/config.py:93-140`), as does
-`gamma_precision` (`schedules.py`, `layers.gamma_matmul`). The JAX fields
-that the port does not have, each with the value the port implies, are
-listed in `tests/test_torch_port.py` (`NOT_PORTED`).
+decoder log-likelihood, the dropout masks and every GroupNorm+swish site
+(fused or not) through the hand-written CUDA kernels in `ops/`. The other
+execution-policy fields, `remat`, `dropout_mask_batch` and
+`fused_gn_swish`, take the JAX package's values
+(`mulan_tpu/models/config.py:93-140`), as does `gamma_precision`
+(`schedules.py`, `layers.gamma_matmul`). The JAX fields that the port does
+not have, each with the value the port implies, are listed in
+`tests/test_torch_port.py` (`NOT_PORTED`).
 """
 
 from __future__ import annotations

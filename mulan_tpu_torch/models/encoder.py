@@ -61,7 +61,7 @@ class UnetTrunk(nn.Module):
     self.mid_block_1 = block()
     self.mid_attn_1 = attn()
     self.mid_block_2 = block()
-    self.GroupNormF32_0 = GroupNormF32(n_embd)
+    self.GroupNormF32_0 = GroupNormF32(n_embd, use_kernels=cfg.use_kernels)
     self.conv_out = Conv2d(n_embd, 1, 3, padding=1)
 
   @staticmethod
@@ -92,7 +92,7 @@ class UnetTrunk(nn.Module):
     h = self.mid_block_1(h, cond, dropout_seed, dropout_row=dropout_row)
     h = self.mid_attn_1(h)
     h = self.mid_block_2(h, cond, dropout_seed, dropout_row=dropout_row)
-    h = self.conv_out(F.silu(self.GroupNormF32_0(h)))
+    h = self.conv_out(self.GroupNormF32_0.gn_swish(h))
     # NHWC flatten, as the JAX trunk does (the same order for one channel).
     return F.silu(h.permute(0, 2, 3, 1).reshape(b, -1).float())
 

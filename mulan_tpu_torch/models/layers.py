@@ -220,6 +220,11 @@ class GroupNormF32(nn.Module):
   `ops/groupnorm_swish.py:gn_swish` instead, the affine in float32 (the K8
   kernel with `use_kernels`, else its plain version), under the same
   parameters (`GroupNormF32_k/GroupNorm_0/{scale,bias}` in flax).
+  `gn_swish(x)` is swish(groupnorm(x)) at every GroupNorm -> swish site:
+  without `fused_swish` it gives F.silu(self(x)), through K8's kernels in
+  the unfused arithmetic where `use_kernels` is set and x is not on the
+  CPU (the same bits in the forward; the wrappers raise on what the
+  kernels do not take).
 
   With a `tensor` group, x is this rank's channels of the C global ones
   (in `segments` equal parts, each this rank's slice of a part: the up
@@ -228,8 +233,8 @@ class GroupNormF32(nn.Module):
   divides 32, 16 for the up blocks' [h, skip]), it normalizes them alone,
   the rank's groups being whole groups of the global tensor. Otherwise it
   gathers the channels and the parameters, normalizes them whole on every
-  rank (through `gn_swish`, K8 with `use_kernels`, when fused) and keeps
-  its own channels.
+  rank (through `gn_swish`, K8 with `use_kernels`, in the fused or the
+  unfused arithmetic) and keeps its own channels.
   """
 
   def __init__(self, channels: int, fused_swish: bool = False,
@@ -249,7 +254,7 @@ class GroupNormF32(nn.Module):
 
   def forward(self, x):
     if self.gathered:
-      return self._gathered(x)
+      return self._gathered(x, 'fused' if self.fused_swish else None)
     if self.fused_swish:
       return gn_ops.gn_swish(x, self.weight, self.bias, self.num_groups, 1e-6,
                              self.use_kernels)
@@ -257,22 +262,40 @@ class GroupNormF32(nn.Module):
                         cast_param(self, 'weight', x.dtype),
                         cast_param(self, 'bias', x.dtype), 1e-6)
 
-  def _gathered(self, x):
-    """The rank's channels of the whole tensor's groupnorm (and swish):
-    every rank normalizes the gathered channels with the gathered
-    parameters. The input's gradient is partial on each rank (the group
-    statistics mix the channels), so its gather sums; the parameters'
-    is the rank's channels' alone, so theirs keeps the slice."""
+  def gn_swish(self, x):
+    """swish(groupnorm(x)): `self(x)` with `fused_swish`; else
+    F.silu(self(x)), which K8's kernels compute in the unfused arithmetic
+    (`gn_swish(..., arithmetic='unfused')`: the same forward bits, the
+    backward's sums in float32) where `use_kernels` is set and x is not
+    on the CPU, gathered or not. Like the attention block, such a site
+    never falls back to the library: the wrappers raise on a device,
+    layout, type or group run the kernels do not take."""
+    if self.fused_swish:
+      return self(x)
+    if not self.use_kernels or x.device.type == 'cpu':
+      return F.silu(self(x))
+    if self.gathered:
+      return self._gathered(x, 'unfused')
+    return gn_ops.gn_swish(x, self.weight, self.bias, self.num_groups, 1e-6,
+                           True, 'unfused')
+
+  def _gathered(self, x, arithmetic):
+    """The rank's channels of the whole tensor's groupnorm (`arithmetic`
+    None) or of its swish in that arithmetic: every rank normalizes the
+    gathered channels with the gathered parameters. The input's gradient
+    is partial on each rank (the group statistics mix the channels), so
+    its gather sums; the parameters' is the rank's channels' alone, so
+    theirs keeps the slice."""
     whole = tensor_lib.gather(x, self.tensor, 1, self.segments)
     weight, bias = (tensor_lib.gather(p, self.tensor, 0, self.segments,
                                       grad='slice')
                     for p in (self.weight, self.bias))
-    if self.fused_swish:
-      y = gn_ops.gn_swish(whole, weight, bias, self.num_groups, 1e-6,
-                          self.use_kernels)
-    else:
+    if arithmetic is None:
       y = F.group_norm(whole, self.num_groups, weight.to(x.dtype),
                        bias.to(x.dtype), 1e-6)
+    else:
+      y = gn_ops.gn_swish(whole, weight, bias, self.num_groups, 1e-6,
+                          self.use_kernels, arithmetic)
     return tensor_lib.take(y, self.tensor, 1, self.segments)
 
 
@@ -292,7 +315,9 @@ class ResnetBlock(nn.Module):
   argument does; the product saves it for the backward.
 
   `fused_gn` computes both GN-swish sites in one pass each
-  (`GroupNormF32(fused_swish=True)`, K8 with `use_kernels`).
+  (`GroupNormF32(fused_swish=True)`, K8 with `use_kernels`); without it
+  the sites run `GroupNormF32.gn_swish` (K8 in the unfused arithmetic
+  with `use_kernels` on the card).
 
   With a `tensor` group (column parallel): x is the rank's channels of the
   input (in `in_segments` parts, `GroupNormF32`'s), the conditioning whole;
@@ -325,9 +350,6 @@ class ResnetBlock(nn.Module):
     self.nin_shortcut = (Conv2d(in_ch, out_local, 1) if in_ch != out_ch
                          else None)
 
-  def _gn_swish(self, norm: GroupNormF32, h):
-    return norm(h) if self.fused_gn else F.silu(norm(h))
-
   def _gather(self, h, segments: int = 1):
     return tensor_lib.gather(h, self.tensor, 1, segments)
 
@@ -337,14 +359,14 @@ class ResnetBlock(nn.Module):
                        dropout_mask, dropout_row)
 
   def _forward(self, x, cond, dropout_seed, dropout_mask, dropout_row):
-    h = self.conv1(self._gather(self._gn_swish(self.GroupNormF32_0, x),
+    h = self.conv1(self._gather(self.GroupNormF32_0.gn_swish(x),
                                 self.in_segments))
     proj = self.cond_proj(cond)
     if cond.dim() == 2:  # (B, D): broadcast over H, W
       h = h + proj[:, :, None, None]
     else:  # (B, H, W, D): a bias per pixel (the 'ldm' UNet)
       h = h + proj.permute(0, 3, 1, 2)
-    h = self._gn_swish(self.GroupNormF32_1, h)
+    h = self.GroupNormF32_1.gn_swish(h)
     if dropout_mask is not None:
       h = h * dropout_mask.to(h.dtype)
     elif dropout_seed is not None and self.pdrop > 0:

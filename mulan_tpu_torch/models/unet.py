@@ -111,7 +111,8 @@ class UNet(nn.Module):
       self.add_module(f'up_block_{i}', block(2 * n_embd))
       if cfg.with_attention:
         self.add_module(f'up_attn_{i}', attn())
-    self.GroupNormF32_0 = GroupNormF32(n_embd, tensor=tensor)
+    self.GroupNormF32_0 = GroupNormF32(n_embd, use_kernels=cfg.use_kernels,
+                                       tensor=tensor)
     self.conv_out = Conv2d(n_embd, c, 3, padding=1)
 
   @staticmethod
@@ -191,7 +192,7 @@ class UNet(nn.Module):
     assert not hs
     if masks is not None:
       assert used == list(range(masks.shape[0])), (used, masks.shape)
-    h = tensor_lib.gather(F.silu(self.GroupNormF32_0(h)), tensor, 1,
+    h = tensor_lib.gather(self.GroupNormF32_0.gn_swish(h), tensor, 1,
                           grad='slice')
     eps_pred = self.conv_out(h)
     return eps_pred.float() + z

@@ -219,14 +219,14 @@ def launchers(lib, entry, inputs):
       stats = group_stats(x, groups, 1e-6)
       if entry == 'mulan_gn_swish':
         outs = (torch.empty_like(x), torch.empty_like(stats))
-        args = (x, w, b, *outs, n, c, hw, groups, 1e-6, 1)
+        args = (x, w, b, *outs, n, c, hw, groups, 1e-6, 1, 0)
       else:  # the backward's designs, with the forward's statistics
         outs = (torch.empty_like(x), torch.empty_like(w),
                 torch.empty_like(b))
         partial = torch.empty((2, n, c), device=x.device)
         counters = torch.zeros(groups, dtype=torch.int32, device=x.device)
         args = (x, dy, w, b, stats, outs[0], partial, counters, outs[1],
-                outs[2], n, c, hw, groups, 1)
+                outs[2], n, c, hw, groups, 1, 0)
       cases.append((case[3:], outs, args))
   elif entry == 'mulan_decoder_logprob_fwd':
     for name in ('per_pixel', 'gamma_min'):

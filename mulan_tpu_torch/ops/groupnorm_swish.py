@@ -6,8 +6,18 @@ kernel `mulan_tpu/ops/groupnorm_swish.py:_kernel` (via `_fused_call` /
 `fused_gn_swish`). The arithmetic is that module's `_gn_swish_reference`:
 float32 statistics per (sample, group), the variance as E[x^2] - mean^2,
 rsqrt(var + eps), the affine with the float32 weight and bias, swish in
-float32 and one cast back to x's type. (The unfused `layers.GroupNormF32`
-applies the affine in x's type instead, as flax does.)
+float32 and one cast back to x's type.
+
+The same kernels run a second arithmetic, 'unfused': the bits of
+F.silu(F.group_norm(x, G, w.to(x.dtype), b.to(x.dtype), eps)) as PyTorch's
+CUDA kernels compute them, for the model's unfused GroupNorm -> swish sites
+(`layers.GroupNormF32.gn_swish`). PyTorch reduces each (sample, group) in
+float32 by Welford and keeps the mean and rsqrt(var + eps) in x's type
+(eps cast to it too); it folds the affine per channel into a = rstd w and
+b' = b - mean a in float32 from the parameters and statistics in x's type
+and writes y = a x + b' in x's type; silu computes y / (1 + exp(-y)) in
+float32 and rounds again. The backward recomputes that rounded y and keeps
+g and every sum in float32 (autograd rounds silu's gradient to x's type).
 
 The backward kernel (the same file) replaces the vjp that JAX's `_bwd`
 (`groupnorm_swish.py:123-131`) takes of that formula, which XLA fuses on the
@@ -28,6 +38,7 @@ from mulan_tpu_torch.ops import _build
 from mulan_tpu_torch.utils import tracing
 
 _DTYPES = (torch.float32, torch.bfloat16)
+ARITHMETICS = ('fused', 'unfused')
 # A kernel's block holds its group's run in registers: at most 16 vectors of
 # 16 bytes (of single elements, where H x W is no multiple of a vector) for
 # each of its 256 threads.
@@ -40,13 +51,26 @@ _RING_RUN_VECTORS = 2 * 1024
 _COUNTERS = {}
 
 
-def group_stats(x, num_groups: int, eps: float):
+def group_stats(x, num_groups: int, eps: float, arithmetic: str = 'fused'):
   """(B, G, 2) float32: each (sample, group)'s mean and rsqrt(var + eps),
-  var = E[x^2] - mean^2, as K8's forward writes them."""
+  as K8's forward writes them. 'fused': var = E[x^2] - mean^2. 'unfused':
+  var the mean of the squares about the mean, and eps, the mean and rstd
+  rounded to x's type, as PyTorch's GroupNorm keeps them."""
+  _check_arithmetic(arithmetic)
   xf = x.float().reshape(x.shape[0], num_groups, -1)
   mean = xf.mean(dim=-1)
-  var = (xf * xf).mean(dim=-1) - mean * mean
-  return torch.stack((mean, torch.rsqrt(var + eps)), dim=-1)
+  if arithmetic == 'fused':
+    var = (xf * xf).mean(dim=-1) - mean * mean
+    return torch.stack((mean, torch.rsqrt(var + eps)), dim=-1)
+  var = (xf - mean[..., None]).square().mean(dim=-1)
+  eps = torch.tensor(eps, dtype=x.dtype).item()
+  return torch.stack((mean, torch.rsqrt(var + eps)), dim=-1).to(
+      x.dtype).float()
+
+
+def _check_arithmetic(arithmetic: str) -> None:
+  if arithmetic not in ARITHMETICS:
+    raise ValueError(f'arithmetic {arithmetic!r}: one of {ARITHMETICS}')
 
 
 def _normalized(x, num_groups: int, eps: float, stats=None):
@@ -68,29 +92,52 @@ def _per_channel(t, x):
   return t.float().reshape((1, x.shape[1]) + (1,) * (x.dim() - 2))
 
 
+def _pre_swish(x, weight, bias, num_groups: int, stats, arithmetic: str):
+  """(y, xhat, rstd, w): swish's input y in float32, x normalized, rstd
+  (`_normalized`'s) and the weight as the arithmetic reads it, per channel.
+  'fused': y = xhat w + b, the float32 weight and bias. 'unfused': the
+  group_norm output, x a + b' with a = rstd w and b' = b - mean a from the
+  weight and bias rounded to x's type, rounded to x's type."""
+  xhat, rstd = _normalized(x, num_groups, 0.0, stats)
+  if arithmetic == 'fused':
+    w = _per_channel(weight, x)
+    return xhat * w + _per_channel(bias, x), xhat, rstd, w
+  w, b = (_per_channel(t.to(x.dtype), x) for t in (weight, bias))
+  per_channel = stats.repeat_interleave(x.shape[1] // num_groups, dim=1)
+  mean, r = (per_channel[..., i].reshape(x.shape[:2] + (1,) * (x.dim() - 2))
+             for i in (0, 1))
+  a = r * w
+  y = (x.float() * a + (b - mean * a)).to(x.dtype).float()
+  return y, xhat, rstd, w
+
+
 def gn_swish_plain(x, weight, bias, num_groups: int, eps: float = 1e-6,
-                   stats: bool = False):
+                   stats: bool = False, arithmetic: str = 'fused'):
   """swish(groupnorm(x)) for NC... x, float32 (C,) weight and bias, in
-  float32 arithmetic; the output has x's type. With `stats`, (output,
-  `group_stats`)."""
-  st = group_stats(x, num_groups, eps)
-  xhat, _ = _normalized(x, num_groups, eps, st)
-  y = xhat * _per_channel(weight, x) + _per_channel(bias, x)
-  out = (y * torch.sigmoid(y)).to(x.dtype)
+  float32 arithmetic ('fused', K8's) or in the unfused path's
+  ('unfused': the module header); the output has x's type. With `stats`,
+  (output, `group_stats`)."""
+  st = group_stats(x, num_groups, eps, arithmetic)
+  y, *_ = _pre_swish(x, weight, bias, num_groups, st, arithmetic)
+  out = (y * torch.sigmoid(y) if arithmetic == 'fused'
+         else y / (1 + torch.exp(-y))).to(x.dtype)
   return (out, st) if stats else out
 
 
 def gn_swish_bwd_plain(x, weight, bias, dy, num_groups: int,
-                       eps: float = 1e-6, stats=None):
+                       eps: float = 1e-6, stats=None,
+                       arithmetic: str = 'fused'):
   """(dx, dweight, dbias) of `gn_swish_plain` for the output cotangent dy,
-  in closed form in float32: with y = xhat w + b and s = sigmoid(y),
+  in closed form in float32: with y swish's input (`_pre_swish`: xhat w + b,
+  or the unfused path's rounded group_norm output) and s = sigmoid(y),
   g = dy s (1 + y (1 - s)), dbias = sum g, dweight = sum g xhat over the
   batch and pixels, and dx = rstd (w g - mean_grp(w g) - xhat mean_grp(w g
   xhat)) with the means over each (sample, group), from the forward's
   `stats` where given. dx has x's type, dweight and dbias are float32."""
-  xhat, rstd = _normalized(x, num_groups, eps, stats)
-  w = _per_channel(weight, x)
-  y = xhat * w + _per_channel(bias, x)
+  if stats is None:
+    stats = group_stats(x, num_groups, eps, arithmetic)
+  y, xhat, rstd, w = _pre_swish(x, weight, bias, num_groups, stats,
+                                arithmetic)
   s = torch.sigmoid(y)
   g = dy.float() * s * (1 + y * (1 - s))
   dims = (0,) + tuple(range(2, x.dim()))
@@ -105,9 +152,8 @@ def gn_swish_bwd_plain(x, weight, bias, dy, num_groups: int,
 
 def _check_args(what, x, num_groups, *params):
   """Raises unless x is a contiguous NCHW float32 or bfloat16 CUDA tensor
-  whose group runs fit a block, with contiguous float32 (C,) params."""
-  if x.device.type != 'cuda':
-    raise ValueError(f'{what}: unsupported device {x.device}')
+  whose group runs fit a block, with contiguous float32 (C,) params. The
+  device is checked last, so that what else it refuses shows anywhere."""
   if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f'{what}: needs a contiguous NCHW float32 or bfloat16 '
                      f'x, got {tuple(x.shape)} {x.dtype}')
@@ -125,20 +171,24 @@ def _check_args(what, x, num_groups, *params):
     raise ValueError(f'{what}: a group of {c // num_groups * h * w} elements '
                      f'exceeds the {per_vector * _MAX_RUN_VECTORS} a block '
                      f'holds')
+  if x.device.type != 'cuda':
+    raise ValueError(f'{what}: unsupported device {x.device}')
 
 
 def gn_swish_fwd(x, weight, bias, num_groups: int, eps: float = 1e-6,
-                 stats: bool = False):
-  """`gn_swish_plain` for CPU tensors; the K8 kernel for CUDA tensors. With
-  `stats`, (output, (B, G, 2) float32 mean and rstd), which the kernel
-  writes beside its output.
+                 stats: bool = False, arithmetic: str = 'fused'):
+  """`gn_swish_plain` for CPU tensors; the K8 kernel for CUDA tensors, in
+  the `arithmetic` given. With `stats`, (output, (B, G, 2) float32 mean and
+  rstd), which the kernel writes beside its output.
 
   The kernel takes a contiguous NCHW float32 or bfloat16 x, contiguous
   float32 (C,) weight and bias, and C divisible by `num_groups`, and raises
   on others and on any other device.
   """
+  _check_arithmetic(arithmetic)
   if x.device.type == 'cpu':
-    return gn_swish_plain(x, weight, bias, num_groups, eps, stats)
+    return gn_swish_plain(x, weight, bias, num_groups, eps, stats,
+                          arithmetic)
   _check_args('gn_swish', x, num_groups, weight, bias)
   b, c, h, w = x.shape
   out = torch.empty_like(x)
@@ -147,9 +197,11 @@ def gn_swish_fwd(x, weight, bias, num_groups: int, eps: float = 1e-6,
   status = _build.load_library().mulan_gn_swish(
       x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
       None if st is None else st.data_ptr(), b, c, h * w, num_groups,
-      float(eps), int(x.dtype == torch.bfloat16), _stream(x))
+      float(eps), int(x.dtype == torch.bfloat16),
+      int(arithmetic == 'unfused'), _stream(x))
   _build.check(status, 'gn_swish')
-  tracing.count('gn_swish', elements=x.numel(), dtype=x.dtype)
+  tracing.count('gn_swish', elements=x.numel(), dtype=x.dtype,
+                arithmetic=arithmetic)
   return (out, st) if stats else out
 
 
@@ -181,15 +233,17 @@ def _counters(device, stream, num_groups: int):
 
 
 def gn_swish_bwd(x, weight, bias, dy, num_groups: int, eps: float = 1e-6,
-                 stats=None):
+                 stats=None, arithmetic: str = 'fused'):
   """`gn_swish_bwd_plain` for CPU tensors; for CUDA tensors K8's backward,
   one launch that also sums dweight and dbias over the batch in a fixed
   order, with dy of x's shape, type and layout and the forward's `stats`
-  ((B, G, 2) float32, which the kernel needs), through the design
-  `bwd_design` picks. Raises on what the kernels do not take and on any
-  other device."""
+  ((B, G, 2) float32, which the kernel needs, written in the same
+  `arithmetic`), through the design `bwd_design` picks. Raises on what the
+  kernels do not take and on any other device."""
+  _check_arithmetic(arithmetic)
   if x.device.type == 'cpu':
-    return gn_swish_bwd_plain(x, weight, bias, dy, num_groups, eps, stats)
+    return gn_swish_bwd_plain(x, weight, bias, dy, num_groups, eps, stats,
+                              arithmetic)
   _check_args('gn_swish_bwd', x, num_groups, weight, bias)
   if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
       or not dy.is_contiguous():
@@ -216,21 +270,22 @@ def gn_swish_bwd(x, weight, bias, dy, num_groups: int, eps: float = 1e-6,
       stats.data_ptr(), dx.data_ptr(), partial.data_ptr(),
       _counters(x.device, stream, num_groups).data_ptr(), dweight.data_ptr(),
       dbias.data_ptr(), b, c, h * w, num_groups,
-      int(x.dtype == torch.bfloat16), stream)
+      int(x.dtype == torch.bfloat16), int(arithmetic == 'unfused'), stream)
   _build.check(status, f'gn_swish_bwd ({design})')
-  tracing.count('gn_swish_bwd', design, elements=x.numel(), dtype=x.dtype)
+  tracing.count('gn_swish_bwd', design, elements=x.numel(), dtype=x.dtype,
+                arithmetic=arithmetic)
   return dx, dweight, dbias
 
 
 class _GnSwish(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, x, weight, bias, num_groups, eps, use_kernel):
+  def forward(ctx, x, weight, bias, num_groups, eps, use_kernel, arithmetic):
     ctx.args = (num_groups, eps)
-    ctx.use_kernel = use_kernel
+    ctx.use_kernel, ctx.arithmetic = use_kernel, arithmetic
     # Looked up at call time, so that a test can substitute either one.
     fwd = gn_swish_fwd if use_kernel else gn_swish_plain
-    out, stats = fwd(x, weight, bias, num_groups, eps, True)
+    out, stats = fwd(x, weight, bias, num_groups, eps, True, arithmetic)
     ctx.save_for_backward(x, weight, bias, stats)
     return out
 
@@ -239,21 +294,23 @@ class _GnSwish(torch.autograd.Function):
     x, weight, bias, stats = ctx.saved_tensors
     bwd = gn_swish_bwd if ctx.use_kernel else gn_swish_bwd_plain
     dx, dweight, dbias = bwd(x, weight, bias, grad.contiguous(), *ctx.args,
-                             stats)
-    return dx, dweight, dbias, None, None, None
+                             stats, ctx.arithmetic)
+    return dx, dweight, dbias, None, None, None, None
 
 
 def gn_swish(x, weight, bias, num_groups: int, eps: float = 1e-6,
-             use_kernel: bool = False) -> torch.Tensor:
-  """swish(groupnorm(x)): with `use_kernel` through `gn_swish_fwd` (K8 for
-  CUDA tensors, the plain version for CPU tensors, an error elsewhere),
-  else through `gn_swish_plain`; the backward likewise through
-  `gn_swish_bwd` or `gn_swish_bwd_plain`, on the saved inputs and the
-  forward's statistics: dx in x's type, dweight and dbias float32. Without
-  autograd (evaluation, sampling) the forward runs alone and writes no
-  statistics."""
+             use_kernel: bool = False,
+             arithmetic: str = 'fused') -> torch.Tensor:
+  """swish(groupnorm(x)) in the `arithmetic` given (`ARITHMETICS`): with
+  `use_kernel` through `gn_swish_fwd` (K8 for CUDA tensors, the plain
+  version for CPU tensors, an error elsewhere), else through
+  `gn_swish_plain`; the backward likewise through `gn_swish_bwd` or
+  `gn_swish_bwd_plain`, on the saved inputs and the forward's statistics:
+  dx in x's type, dweight and dbias float32. Without autograd (evaluation,
+  sampling) the forward runs alone and writes no statistics."""
   if torch.is_grad_enabled() and any(t.requires_grad
                                      for t in (x, weight, bias)):
-    return _GnSwish.apply(x, weight, bias, num_groups, eps, use_kernel)
+    return _GnSwish.apply(x, weight, bias, num_groups, eps, use_kernel,
+                          arithmetic)
   fwd = gn_swish_fwd if use_kernel else gn_swish_plain
-  return fwd(x, weight, bias, num_groups, eps)
+  return fwd(x, weight, bias, num_groups, eps, False, arithmetic)

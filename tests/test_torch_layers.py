@@ -130,3 +130,55 @@ def test_cast_at_use_is_reused_until_the_parameter_changes(module):
                          [torch.zeros_like(p) for p in layer.parameters()],
                          0.5)
     assert torch.equal(layer(x), fresh())
+
+
+def _block_today(block, x, cond):
+  """A ResnetBlock's forward as the unfused sites computed it before they
+  could run K8: F.silu of each GroupNorm (no dropout)."""
+  import torch.nn.functional as F
+  h = block.conv1(F.silu(block.GroupNormF32_0(x)))
+  h = F.silu(block.GroupNormF32_1(h + block.cond_proj(cond)[:, :, None,
+                                                            None]))
+  shortcut = x if block.nin_shortcut is None else block.nin_shortcut(x)
+  return shortcut + block.conv2(h)
+
+
+@pytest.mark.parametrize('use_kernels', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('module', ['GroupNormF32', 'ResnetBlock'])
+def test_gn_swish_sites_keep_their_numbers_on_the_cpu(module, dtype,
+                                                      use_kernels):
+  """On CPU tensors the GroupNorm -> swish sites (`GroupNormF32.gn_swish`,
+  and so `ResnetBlock`) give F.silu(F.group_norm(...)), outputs and
+  gradients bit for bit, with `use_kernels` or without: K8's kernels take
+  only CUDA tensors."""
+  import torch.nn.functional as F
+  gen = torch.Generator().manual_seed(7)
+  if module == 'GroupNormF32':
+    layer = layers.GroupNormF32(48, use_kernels=use_kernels)
+    x = torch.randn((2, 48, 5, 5), generator=gen)
+
+    def today(layer, x):
+      return F.silu(layer(x))
+    inputs = (x,)
+  else:
+    layer = layers.ResnetBlock(32, 64, 24, use_kernels=use_kernels)
+    x = torch.randn((2, 32, 6, 6), generator=gen)
+    inputs = (x, torch.randn((2, 24), generator=gen))
+    today = _block_today
+  with torch.no_grad():
+    for p in layer.parameters():  # every leaf reaches the output
+      p.add_(0.1 * torch.randn(p.shape, generator=gen))
+  run = layer if module == 'ResnetBlock' else layer.gn_swish
+  outs, grads = [], []
+  for fn in (run, lambda *a: today(layer, *a)):
+    args = [t.to(dtype).requires_grad_() for t in inputs]
+    layer.zero_grad()
+    out = fn(*args)
+    out.float().square().sum().backward()
+    outs.append(out)
+    grads.append([a.grad for a in args] + [p.grad.clone()
+                                           for p in layer.parameters()])
+  assert outs[0].dtype == dtype
+  assert torch.equal(outs[0], outs[1])
+  assert all(torch.equal(a, b) for a, b in zip(*grads))

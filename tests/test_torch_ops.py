@@ -141,3 +141,172 @@ def test_logsumexp_window_drops_only_vanishing_terms():
   at_min = (g0 == -13.3) & (np.abs(z) < 1 - 4 * 2 / vocab)
   assert at_min.any()
   assert ((last - first)[at_min] == 8).all()
+
+
+# -- K8 in the unfused arithmetic (the unfused GroupNorm -> swish sites) ------
+
+
+def _gn_inputs(shape, dtype, seed):
+  gen = torch.Generator().manual_seed(seed)
+  x = (2 * torch.randn(shape, generator=gen) + 0.5).to(dtype)
+  dy = torch.randn(shape, generator=gen).to(dtype)
+  w = 1 + 0.1 * torch.randn(shape[1], generator=gen)
+  b = 0.1 * torch.randn(shape[1], generator=gen)
+  return x, dy, w, b
+
+
+# The twin against the pair on the CPU. Float32: nothing is rounded between
+# the steps, only the sums' orders differ. bf16: the CPU's GroupNorm applies
+# its float32 mean and rstd where the card's (and the twin) apply them
+# rounded to bf16, which moves an output by up to ~0.3% of the largest
+# (measured: 0.25-0.33%) beyond its one ulp; autograd rounds silu's
+# gradient to bf16 where the closed form keeps it in float32 (0.4-0.6% of
+# the largest dx, 0.2-0.4% of dweight's and dbias's).
+UNFUSED_FWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7,
+                                                                 2 ** -7)}
+UNFUSED_BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -5}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape, groups', [((2, 64, 8, 8), 32),
+                                           ((3, 48, 5, 7), 16),
+                                           ((4, 128, 16, 16), 32)])
+def test_gn_swish_unfused_plain_matches_the_pair(shape, groups, dtype):
+  """The plain twin of the unfused arithmetic against F.silu(F.group_norm(x,
+  G, w.to(x.dtype), b.to(x.dtype), 1e-6)) and its closed-form backward
+  against autograd of the pair: the output elementwise (rtol, and atol as
+  a share of the largest output), dx, dweight and dbias as max |twin -
+  autograd| over max |autograd| (UNFUSED_*)."""
+  import torch.nn.functional as F
+  from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
+  x, dy, w, b = _gn_inputs(shape, dtype, 5)
+  xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+  want = F.silu(F.group_norm(xg, groups, wg.to(dtype), bg.to(dtype), 1e-6))
+  auto = torch.autograd.grad(want, (xg, wg, bg), dy)
+  out, stats = gn_ops.gn_swish_plain(x, w, b, groups, 1e-6, True, 'unfused')
+  assert out.dtype == dtype and stats.dtype == torch.float32
+  # The statistics are those of the pair's type.
+  assert torch.equal(stats, stats.to(dtype).float())
+  rtol, atol = UNFUSED_FWD_TOL[dtype]
+  want = want.detach().float()
+  np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=rtol,
+                             atol=atol * want.abs().max().item())
+  got = gn_ops.gn_swish_bwd_plain(x, w, b, dy, groups, 1e-6, stats,
+                                  'unfused')
+  assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32]
+  for g, a in zip(got, auto):
+    err = ((g.float() - a.float()).abs().max()
+           / a.float().abs().max()).item()
+    assert err <= UNFUSED_BWD_RTOL[dtype], err
+
+
+@pytest.mark.parametrize('kind', ['fwd', 'ring', 'regs'])
+def test_gn_swish_unfused_reaches_the_kernels_and_the_count(monkeypatch,
+                                                            kind):
+  """On the card the wrappers pass the arithmetic to the C entry point
+  (the flag after is_bf16: 1 for 'unfused', 0 for 'fused') with arguments
+  its ctypes signature takes, and count each launch with the arithmetic in
+  its work (the card stood in for by meta tensors, a recording library and
+  a null stream)."""
+  from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
+  calls = []
+
+  class Library:
+    def __getattr__(self, name):
+      return lambda *args: calls.append((name, args)) or 0
+  monkeypatch.setattr(gn_ops._build, 'load_library', Library)
+  monkeypatch.setattr(gn_ops, '_check_args', lambda *a: None)
+  monkeypatch.setattr(gn_ops, '_stream', lambda t: None)
+  monkeypatch.setattr(gn_ops, '_counters', lambda d, s, g: torch.empty(
+      g, dtype=torch.int32, device='meta'))
+  shape, groups = ((2, 64, 8, 8), 32) if kind != 'regs' else (
+      (2, 64, 5, 7), 32)
+  x = torch.empty(shape, dtype=torch.bfloat16, device='meta')
+  w = torch.empty(shape[1], device='meta')
+  stats = torch.empty((shape[0], groups, 2), device='meta')
+  for arithmetic in gn_ops.ARITHMETICS:
+    calls.clear()
+    with tracing.unit('k8_arithmetic'):
+      if kind == 'fwd':
+        gn_ops.gn_swish_fwd(x, w, w, groups, 1e-6, True, arithmetic)
+      else:
+        gn_ops.gn_swish_bwd(x, w, w, x, groups, 1e-6, stats, arithmetic)
+    (name, args), = calls
+    assert name == {'fwd': 'mulan_gn_swish', 'ring': 'mulan_gn_swish_bwd',
+                    'regs': 'mulan_gn_swish_bwd_regs'}[kind]
+    argtypes = gn_ops._build._SIGNATURES[name]
+    assert len(args) == len(argtypes)
+    for arg, argtype in zip(args, argtypes):
+      argtype.from_param(arg)
+    assert args[-3:-1] == (1, int(arithmetic == 'unfused'))
+    (key, n), = tracing.units('k8_arithmetic')[-1]['counts'].items()
+    assert key[0] == ('gn_swish' if kind == 'fwd' else 'gn_swish_bwd')
+    assert n == 1 and dict(key[2])['arithmetic'] == arithmetic
+  with pytest.raises(ValueError, match='arithmetic'):
+    gn_ops.gn_swish_fwd(x, w, w, groups, 1e-6, False, 'bf16')
+
+
+# (case, what the site runs): K8's wrappers in the unfused arithmetic with
+# `use_kernels` off the CPU, whatever x is (the wrappers refuse on the card
+# what the kernels do not take, and a site never falls back), gathered
+# channels too; the fused arithmetic under `fused_swish`; F.silu of the
+# GroupNorm without `use_kernels` and on the CPU.
+ROUTES = [('takes', 'unfused'), ('fused_swish', 'fused'),
+          ('no_kernels', None), ('channels_last', 'unfused'),
+          ('float16', 'unfused'), ('run_too_long', 'unfused'),
+          ('gathered', 'unfused'), ('cpu', None)]
+
+
+@pytest.mark.parametrize('case, arithmetic', ROUTES)
+def test_gn_swish_sites_take_k8_where_it_takes_x(monkeypatch, case,
+                                                 arithmetic):
+  """`GroupNormF32.gn_swish`'s route, meta tensors standing in for the
+  card's (CPU ones in 'cpu') and K8's wrappers substituted by recorders
+  that return tensors of the shapes the kernels give: with `use_kernels`
+  a site calls the wrappers, forward and backward, in the unfused
+  arithmetic, for layouts, types and group runs the kernels refuse too,
+  where `_check_args` raises for that reason and not only for the device
+  (so the card raises there rather than falling back); the gathered
+  tensor-parallel path calls them on the gathered channels; `use_kernels`
+  off and CPU tensors run F.silu of the GroupNorm, and `fused_swish` the
+  fused arithmetic. The output has x's type in every case."""
+  from mulan_tpu_torch.models.layers import GroupNormF32
+  from mulan_tpu_torch.ops import groupnorm_swish as gn_ops
+  calls = []
+
+  def fwd(x, weight, bias, num_groups, eps, stats, arithmetic):
+    calls.append(('gn_swish_fwd', arithmetic))
+    out = torch.empty_like(x)
+    st = torch.empty((x.shape[0], num_groups, 2), device=x.device)
+    return (out, st) if stats else out
+
+  def bwd(x, weight, bias, dy, num_groups, eps, stats, arithmetic):
+    calls.append(('gn_swish_bwd', arithmetic))
+    return torch.empty_like(x), torch.empty_like(weight), torch.empty_like(
+        bias)
+  monkeypatch.setattr(gn_ops, 'gn_swish_fwd', fwd)
+  monkeypatch.setattr(gn_ops, 'gn_swish_bwd', bwd)
+  channels, size = (32, 256) if case == 'run_too_long' else (64, 8)
+  dtype = torch.float16 if case == 'float16' else torch.bfloat16
+  device = 'cpu' if case == 'cpu' else 'meta'
+  norm = GroupNormF32(channels, fused_swish=case == 'fused_swish',
+                      use_kernels=case != 'no_kernels').to(device)
+  # Without a tensor group the gather hands back x itself.
+  norm.gathered = case == 'gathered'
+  x = torch.empty((2, channels, size, size), dtype=dtype, device=device)
+  if case == 'channels_last':
+    x = x.to(memory_format=torch.channels_last)
+  refusal = ('unsupported device' if case in ('takes', 'gathered')
+             else 'contiguous NCHW' if case in ('channels_last', 'float16')
+             else 'exceeds' if case == 'run_too_long' else None)
+  if refusal is not None:
+    with pytest.raises(ValueError, match=refusal):
+      gn_ops._check_args('gn_swish', x, norm.num_groups, norm.weight,
+                         norm.bias)
+  x.requires_grad_()
+  out = norm.gn_swish(x)
+  out.float().square().sum().backward()
+  assert out.dtype == dtype and x.grad.dtype == dtype
+  want = [] if arithmetic is None else [('gn_swish_fwd', arithmetic),
+                                        ('gn_swish_bwd', arithmetic)]
+  assert calls == want

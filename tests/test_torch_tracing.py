@@ -252,3 +252,42 @@ def test_readers_read_nothing_where_units_or_times_are_missing():
   assert program.roofline_share(record, ('dropout_mask',),
                                 program.K6_CATEGORY, rec) is None
   assert program.k6_roofline({'entry': 'dense_eval'}) is None
+
+
+@pytest.mark.parametrize('entry', ['train', 'dense_eval'])
+def test_k8_roofline_reads_the_counted_groupnorm_swish_work(entry):
+  """`k8_roofline.train` and `.eval` (`benchmark/harness/gn_roofline.py`)
+  on synthetic traced units: the counted K8 launches' bytes (the forward's
+  x and y; in training also the backward's x, dy and dx) at 3.35 TB/s over
+  K8's categories' time, by hand; None where nothing was counted or the
+  categories read no time (the program before K8 ran its unfused sites),
+  and in the other entry's cells."""
+  from benchmark.harness import gn_roofline
+  kind = 'step' if entry == 'train' else 'chunk'
+  elements = 128 * 256 * 32 * 32
+  work = (('arithmetic', 'unfused'), ('dtype', torch.bfloat16),
+          ('elements', elements))
+  counts = {('gn_swish', None, work): 3, ('gn_swish_bwd', 'ring', work): 3,
+            ('flash_attention', 'sm90', K1_WORK): 1}
+  rec = _fake_recorder([_unit(kind, i, True, {}, counts) for i in range(2)])
+  categories = {gn_roofline.FWD_CATEGORY: 1e-3, gn_roofline.BWD_CATEGORY:
+                2e-3}
+  record = {'entry': entry, 'steps_per_call': 2, 'chunks_per_call': 2,
+            'trace': {'calls': 1, 'by_category_s': categories}}
+  fwd = 6 * 2 * elements * 2 / 3.35e12
+  bwd = 6 * 3 * elements * 2 / 3.35e12
+  if entry == 'train':
+    kernels, cats, want = (('gn_swish', 'gn_swish_bwd'), tuple(categories),
+                           100 * (fwd + bwd) / 3e-3)
+  else:
+    kernels, cats, want = (('gn_swish',), (gn_roofline.FWD_CATEGORY,),
+                           100 * fwd / 1e-3)
+  assert gn_roofline.share(record, kernels, cats, rec) == pytest.approx(want)
+  assert fwd == pytest.approx(roofline.gn_swish_bytes(6 * elements)
+                              / 3.35e12)
+  empty = _fake_recorder([_unit(kind, i, True, {}, {}) for i in range(2)])
+  assert gn_roofline.share(record, kernels, cats, empty) is None
+  record['trace']['by_category_s'] = {}
+  assert gn_roofline.share(record, kernels, cats, rec) is None
+  other = {'train': gn_roofline.dense_eval, 'dense_eval': gn_roofline.train}
+  assert other[entry]({'entry': entry}) is None

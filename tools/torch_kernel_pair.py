@@ -44,6 +44,10 @@ def gn_bwd_c_call(torch, chip_smoke, build, dev):
   by the length of its ctypes signature."""
   lib = build.load_library()
   two_launch = len(build._SIGNATURES['mulan_gn_swish_bwd']) == 15
+  # The arithmetic flag (0, K8's own) where the entry points take one.
+  fwd_flag = (0,) if len(build._SIGNATURES['mulan_gn_swish']) == 13 else ()
+  bwd_flag = (0,) if len(build._SIGNATURES['mulan_gn_swish_bwd']) == 17 \
+      else ()
   stream = torch.cuda.current_stream(dev).cuda_stream
   out = {}
   for shape, groups in GN_BWD_CASES:
@@ -64,10 +68,10 @@ def gn_bwd_c_call(torch, chip_smoke, build, dev):
       assert lib.mulan_gn_swish(
           x.data_ptr(), w.data_ptr(), b.data_ptr(),
           torch.empty_like(x).data_ptr(), stats.data_ptr(), n, c, hw, groups,
-          1e-6, 1, stream) == 0
+          1e-6, 1, *fwd_flag, stream) == 0
       counters = torch.zeros(groups, dtype=torch.int32, device=dev)
       tensors = (x, dy, w, b, stats, dx, partial, counters, dw, db)
-      tail = (n, c, hw, groups, 1, stream)
+      tail = (n, c, hw, groups, 1, *bwd_flag, stream)
     args = (*(t.data_ptr() for t in tensors), *tail)
 
     def launch(args=args, entry=lib.mulan_gn_swish_bwd):
